@@ -7,27 +7,56 @@ Phases, none of which may fail:
 
 1. probe — a CUDA device is required (exit 1 without one); prints the
    card's name and power limit as ``nvidia-smi`` reports them;
-2. build — compiles ``csrc/*.cu`` with nvcc for sm_90a (one nvcc per
-   source, started together) and prints the build seconds, ptxas's
-   register report, and the SASS instructions per compression and pipe
-   (``cuobjdump``) that the operation bound is computed from;
-3. kernels — 1,048,576 messages (BASELINE config 4's scale) made from the
-   seed, about a third in each size class (≤128 B, 129–256 B, 257–520 B,
-   the mix of the range witness): each blake2b kernel's digests must equal
-   its plain PyTorch version's on the card bit for bit (tolerance 0: integer
-   hashing) and ``hashlib.blake2b`` on a 4,096-row sample; times each kernel
-   with CUDA events over 20 warm launches, its plain version, and the bound;
-4. main path — ``build_range_world(4096, 16, 4, 0.01)``, then
-   ``generate_event_proofs_for_range`` with ``get_backend("gpu")`` and
-   ``verify_proof_bundle`` with the witness CID recompute on the card: every
-   verdict true, one proof per matching receipt, every kernel's launch
-   count and the match mask's above 0 in this phase; each kernel is held
-   against its plain version on the witness's own blocks; a flipped byte in
-   a witness block of each size class must be rejected.
+2. build — compiles ``csrc/blake2b.cu`` and ``csrc/keccak.cu`` with nvcc
+   for sm_90a (one nvcc per source, started together) and prints the build
+   seconds, ptxas's register report, and the SASS instructions per pipe of
+   one blake2b compression and one keccak permutation (``cuobjdump``) that
+   the operation bounds are computed from;
+3. kernels — each kernel's digests must equal its plain PyTorch version's
+   on the card bit for bit (tolerance 0: integer hashing) and the host
+   golden model (``hashlib.blake2b``, ``core.hashes.keccak256``) on a
+   4,096-row sample; each kernel is timed with CUDA events over 20 warm
+   launches, beside its plain version and its bound:
+   - blake2b: 1,048,576 messages (BASELINE config 4's scale) from the seed,
+     about a third in each size class (≤128 B, 129–256 B, 257–520 B, the
+     mix of the range witness);
+   - keccak: 1,048,576 single-block messages of 0–135 B, and 262,144
+     multi-block messages of 136–543 B (2–4 blocks) with rows whose block
+     count is 0 (digest of zeros) or above the layout's 4 (absorbs 4);
+4. event path — ``build_range_world(4096, 16, 4, 0.01)`` (BASELINE config
+   2), then ``generate_event_proofs_for_range`` with ``get_backend("gpu")``
+   and ``verify_proof_bundle`` with the witness CID recompute on the card:
+   every verdict true, one proof per matching receipt, every blake2b
+   kernel's launch count and the match mask's above 0 in this phase; each
+   kernel is held against its plain version on the witness's own blocks; a
+   flipped byte in a witness block of each size class must be rejected;
+5. storage path — BASELINE config 3: ``build_chain`` with 256 EVM
+   contracts × 256 mapping slots (keys ``keccak(ascii_to_bytes32(
+   f"subnet-{c}") ‖ be32(i))``, hashed on the card and sampled against
+   ``core.hashes.keccak256``; values ``(i % 251).to_bytes(2, "big")``;
+   direct HAMT storage, bit width 5; 50 filler actors), then
+   ``generate_storage_proofs_batch`` (slot keccaks on the card) and
+   ``verify_proof_bundle`` with the CID recompute on the card: 65,536
+   proofs, every verdict true, every value the fixture's, the single-block
+   keccak kernel and all three blake2b kernels launched in this phase;
+   the keccak and blake2b kernels held against their plain versions at this
+   path's shapes; a flipped witness byte of each size class rejected and a
+   changed value given a false verdict;
+6. mixed range — ``build_range_world(64, 16, 4, 0.01)`` with the topdown
+   nonce slot ``MappingSlotSpec(1001, "calib-subnet-1", 0)`` proved at every
+   pair: 64 storage proofs beside the event proofs, every verdict true,
+   every proof's slot the expected keccak digest, a changed value given a
+   false verdict, the range's one slot-hash launch and a blake2b launch for
+   each size class of its witness counted; the keccak and blake2b kernels
+   held against their plain versions at this path's shapes.
 
 Prints, in order before the last line: one line per kernel, one JSON
-object ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit line; and
-as the last line ``{"ok": true, "device": {...}}``.
+object ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit line;
+and as the last line ``{"ok": true, "device": {...}}``. Each path's launch
+counts are set to 0 just before it runs and read just after. A kernel's
+``launches`` is the count on the path of the slice that ported it (the
+event path for blake2b, the storage path for keccak);
+``launches_by_path`` holds its count on each of the three paths.
 """
 
 from __future__ import annotations
@@ -45,20 +74,28 @@ import numpy as np
 import torch
 
 from ipc_proofs_tpu_torch.backend import get_backend
-from ipc_proofs_tpu_torch.backend.gpu import SIZE_CLASSES, size_class
+from ipc_proofs_tpu_torch.backend.gpu import SIZE_CLASSES, keccak_class, size_class
 from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256
-from ipc_proofs_tpu_torch.fixtures import build_range_world
-from ipc_proofs_tpu_torch.ops import blake2b, match
+from ipc_proofs_tpu_torch.core.hashes import keccak256
+from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
+from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
 from ipc_proofs_tpu_torch.ops.build import build_libraries, cuda_tool
 from ipc_proofs_tpu_torch.ops.pack import (
+    RATE_BYTES,
     pack_single_block_blake2b,
+    pack_single_block_keccak,
     pack_two_block_blake2b,
     pad_blake2b,
 )
 from ipc_proofs_tpu_torch.proofs.bundle import ProofBlock, UnifiedProofBundle
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
+from ipc_proofs_tpu_torch.proofs.storage_batch import (
+    MappingSlotSpec,
+    generate_storage_proofs_batch,
+)
 from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, left_pad_32
 from ipc_proofs_tpu_torch.utils.metrics import Metrics
 
 # Peak rates of one H100 SXM at its 700 W limit. Memory: HBM3 at 3.35 TB/s
@@ -85,11 +122,25 @@ KERNELS = (
     # of its kernel instantiation in the source
     ("blake2b256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:337", (-1, 128), "SplitPlanes"),
     ("blake2b256_two_block", "ipc_proofs_tpu/ops/pallas_kernels.py:363", (128, 256), "SplitPlanes"),
-    ("blake2b256_blocks", "ipc_proofs_tpu/ops/blake2b_jax.py:139", (256, 520), "PaddedBlocks"),
+    ("blake2b256_blocks", "ipc_proofs_tpu/ops/blake2b_jax.py:140", (256, 520), "PaddedBlocks"),
 )
+KECCAK_SOURCE = "ipc_proofs_tpu_torch/csrc/keccak.cu"
+# the path whose launch count is a kernel's ``launches`` (its slice's path)
+OWN_PATH = {"blake2b": "event path", "keccak": "storage path"}
+KECCAK_KERNELS = (
+    # name, TPU function it replaces, loader of its kernel instantiation
+    ("keccak256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:304", "SplitPlanes17"),
+    ("keccak256_blocks", "ipc_proofs_tpu/ops/keccak_jax.py:123", "PaddedBlocks34"),
+)
+KECCAK_ROUNDS = 24
+KECCAK_MAX_BLOCKS = 4  # the multi-block case's layout: messages of 136–543 B
 SIGNATURE = "NewTopDownMessage(bytes32,uint256)"
 TOPIC1 = "calib-subnet-1"
 ACTOR_ID = 1001
+# BASELINE config 3 (benchmarks/run_configs.py:104-158), full size
+CONTRACTS = 256
+SLOTS_PER_CONTRACT = 256
+N_FILLER_ACTORS = 50  # build_chain's default
 
 
 def _log(msg: str) -> None:
@@ -123,44 +174,91 @@ def _to(array: np.ndarray, device) -> torch.Tensor:
 _SASS_LINE = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
+def _sass_functions(library, loaders) -> "dict[str, list[tuple[int, str, str]]]":
+    """The SASS of each kernel instantiation in ``library`` (keyed by the
+    loader its mangled name holds): ``(address, opcode, operands)`` rows."""
+    sass = subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass", str(library)],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    functions = {}
+    for function in sass.split("Function : ")[1:]:
+        loader = next(name for name in loaders if name in function.splitlines()[0])
+        functions[loader] = [
+            (int(addr, 16), op, rest) for addr, op, rest in _SASS_LINE.findall(function)
+        ]
+    return functions
+
+
+def _loops(code) -> "list[tuple[int, int]]":
+    """``(target, branch)`` address pairs of the backward branches."""
+    return [
+        (int(target.group(1), 16), addr)
+        for addr, op, rest in code
+        if op == "BRA"
+        and (target := re.search(r"0x([0-9a-f]+)", rest))
+        and int(target.group(1), 16) < addr
+    ]
+
+
+def _per_pipe(ops) -> "dict[str, int]":
+    return {
+        pipe: sum(opcodes is None or op.split(".")[0] in opcodes for op in ops)
+        for pipe, (opcodes, _) in PIPES.items()
+    }
+
+
 def sass_per_compression(library) -> "dict[str, dict[str, int]]":
-    """Instructions per pipe in one compression of each kernel
+    """Instructions per pipe in one compression of each blake2b kernel
     instantiation (keyed by its loader), counted in the SASS of this build:
     the body of the kernel's block loop, from the target of its one backward
     branch to that branch. A body that ptxas unrolled k times holds k times
     the funnel shifts and is divided by k. The per-row code outside the loop
     is left out, so the bound stays a lower one."""
-    sass = subprocess.run(
-        [cuda_tool("cuobjdump"), "-sass", str(library)],
-        capture_output=True, text=True, check=True,
-    ).stdout
     counts = {}
-    for function in sass.split("Function : ")[1:]:
-        loader = next(k[3] for k in KERNELS if k[3] in function.splitlines()[0])
-        code = [(int(addr, 16), op, rest) for addr, op, rest in _SASS_LINE.findall(function)]
-        loops = [
-            (int(target.group(1), 16), addr)
-            for addr, op, rest in code
-            if op == "BRA"
-            and (target := re.search(r"0x([0-9a-f]+)", rest))
-            and int(target.group(1), 16) < addr
-        ]
+    for loader, code in _sass_functions(library, [k[3] for k in KERNELS]).items():
+        loops = _loops(code)
         if len(loops) != 1:
             raise AssertionError(f"{loader}: expected one block loop in the SASS, found {loops}")
         lo, hi = loops[0]
         body = [op for addr, op, _ in code if lo <= addr <= hi]
         unrolled = max(1, round(sum(op.startswith("SHF.L.W") for op in body) / SHF_PER_COMPRESSION))
+        counts[loader] = {pipe: n // unrolled for pipe, n in _per_pipe(body).items()}
+    return counts
+
+
+def sass_per_permutation(library) -> "dict[str, dict[str, int]]":
+    """Instructions per pipe in one absorbed keccak block (one
+    keccak-f[1600] permutation) of each kernel instantiation, counted in the
+    SASS of this build. The kernel has two loops: the round loop inside the
+    block loop. A block costs 24 times the round loop's body (one round; the
+    body loads one round constant from ``c[0x3]``, a body unrolled k times
+    loads k and counts 24 / k times) plus the rest of the block loop's body
+    (the loads and the absorbing xors). The per-row code outside the block
+    loop is left out, so the bound stays a lower one."""
+    counts = {}
+    for loader, code in _sass_functions(library, [k[2] for k in KECCAK_KERNELS]).items():
+        loops = sorted(_loops(code), key=lambda loop: loop[1] - loop[0])
+        if len(loops) != 2 or not loops[1][0] <= loops[0][0] < loops[0][1] <= loops[1][1]:
+            raise AssertionError(f"{loader}: expected a round loop inside a block loop, found {loops}")
+        (r_lo, r_hi), (b_lo, b_hi) = loops
+        rounds = [(op, rest) for addr, op, rest in code if r_lo <= addr <= r_hi]
+        absorb = [op for addr, op, _ in code if b_lo <= addr <= b_hi and not r_lo <= addr <= r_hi]
+        unrolled = sum("c[0x3]" in rest for _, rest in rounds)
+        if unrolled < 1 or KECCAK_ROUNDS % unrolled:
+            raise AssertionError(f"{loader}: {unrolled} round-constant loads in the round loop")
+        per_body = _per_pipe([op for op, _ in rounds])
+        per_block = _per_pipe(absorb)
         counts[loader] = {
-            pipe: sum(opcodes is None or op.split(".")[0] in opcodes for op in body) // unrolled
-            for pipe, (opcodes, _) in PIPES.items()
+            pipe: KECCAK_ROUNDS // unrolled * per_body[pipe] + per_block[pipe] for pipe in PIPES
         }
     return counts
 
 
-def _ops_ms(per_compression: "dict[str, int]", compressions: int) -> float:
-    """The busiest pipe's time for ``compressions`` compressions."""
-    return 1e3 * compressions * max(
-        per_compression[pipe] / (rate * SM_CLOCKS_PER_S) for pipe, (_, rate) in PIPES.items()
+def _ops_ms(per_unit: "dict[str, int]", units: int) -> float:
+    """The busiest pipe's time for ``units`` compressions or permutations."""
+    return 1e3 * units * max(
+        per_unit[pipe] / (rate * SM_CLOCKS_PER_S) for pipe, (_, rate) in PIPES.items()
     )
 
 
@@ -172,14 +270,18 @@ class KernelCase:
     loader: str
     args: tuple
     plain: object
-    messages: list  # a hashlib sample: (row, message bytes)
+    golden: list  # a host golden-model sample: (row, expected digest bytes)
     bytes_moved: int
-    compressions: int
+    units: int  # blake2b compressions or keccak permutations the data needs
+
+
+def _blake2b(message: bytes) -> bytes:
+    return hashlib.blake2b(message, digest_size=32).digest()
 
 
 def _kernel_cases(n_messages: int, seed: int, device) -> "list[KernelCase]":
     """``n_messages`` random messages split into thirds by size class, each
-    third laid out as its kernel takes it."""
+    third laid out as its blake2b kernel takes it."""
     rng = np.random.default_rng(seed)
     cases = []
     sizes = (n_messages // 3, n_messages // 3, n_messages - 2 * (n_messages // 3))
@@ -191,7 +293,7 @@ def _kernel_cases(n_messages: int, seed: int, device) -> "list[KernelCase]":
         raw = rng.integers(0, 256, size=(rows, cap), dtype=np.uint8)
         raw[np.arange(cap)[None, :] >= lengths[:, None]] = 0
         sample = rng.choice(rows, size=min(4096, rows), replace=False)
-        messages = [(int(i), raw[i, : lengths[i]].tobytes()) for i in sample]
+        golden = [(int(i), _blake2b(raw[i, : lengths[i]].tobytes())) for i in sample]
         n_blocks = np.maximum(-(-lengths // 128), 1).astype(np.int32)
         if name == "blake2b256_blocks":
             blocks = raw.reshape(rows, cap // 128, 128).view(np.uint32)
@@ -208,8 +310,62 @@ def _kernel_cases(n_messages: int, seed: int, device) -> "list[KernelCase]":
             plain = getattr(blake2b, name + "_plain")
             bytes_moved = rows * (cap + 4 + 32)
         cases.append(
-            KernelCase(name, loader, args, plain, messages, bytes_moved, int(n_blocks.sum()))
+            KernelCase(name, loader, args, plain, golden, bytes_moved, int(n_blocks.sum()))
         )
+    return cases
+
+
+def _keccak_padded(rng, rows: int, lo: int, hi: int, max_blocks: int):
+    """``rows`` random messages of lo..hi bytes, keccak-padded in place
+    (``0x01`` after the message, ``0x80`` on the last byte of its last rate
+    block) in ``[rows, max_blocks * 136]`` bytes; returns (raw, lengths,
+    block counts)."""
+    cap = max_blocks * RATE_BYTES
+    lengths = rng.integers(lo, hi + 1, size=rows)
+    raw = rng.integers(0, 256, size=(rows, cap), dtype=np.uint8)
+    raw[np.arange(cap)[None, :] >= lengths[:, None]] = 0
+    n_blocks = (lengths // RATE_BYTES + 1).astype(np.int32)
+    every = np.arange(rows)
+    raw[every, lengths] ^= 0x01
+    raw[every, n_blocks * RATE_BYTES - 1] ^= 0x80
+    return raw, lengths, n_blocks
+
+
+def _keccak_cases(n_single: int, n_multi: int, seed: int, device) -> "list[KernelCase]":
+    """``n_single`` messages of 0–135 B for the single-block kernel and
+    ``n_multi`` of 136–543 B for the multi-block one, laid out as each
+    takes them. Two multi-block rows get a block count of 0 (the digest
+    stays zero) and two 4-block rows one above the layout's 4 (they absorb
+    4 blocks, so their digest is still the message's)."""
+    rng = np.random.default_rng(seed + 1)
+    cases = []
+    for (name, _, loader), (rows, lo, hi, max_blocks) in zip(
+        KECCAK_KERNELS,
+        ((n_single, 0, RATE_BYTES - 1, 1), (n_multi, RATE_BYTES, 4 * RATE_BYTES - 1, KECCAK_MAX_BLOCKS)),
+    ):
+        if not keccak_class(lo) == keccak_class(hi) == name:
+            raise AssertionError(f"lengths {lo}..{hi} do not route to {name}")
+        raw, lengths, n_blocks = _keccak_padded(rng, rows, lo, hi, max_blocks)
+        sample = rng.choice(rows, size=min(4096, rows), replace=False)
+        messages = {int(i): raw[i, : lengths[i]].tobytes() for i in sample}
+        if name == "keccak256_blocks":
+            empty = [int(i) for i in sample[:2]]
+            over = [int(i) for i in sample[2:] if n_blocks[i] == max_blocks][:2]
+            n_blocks[empty] = 0
+            n_blocks[over] = max_blocks + 3
+            golden = [(i, bytes(32) if i in empty else keccak256(m)) for i, m in messages.items()]
+            blocks = raw.reshape(rows, max_blocks, RATE_BYTES).view(np.uint32)
+            args = (_to(blocks, device), _to(n_blocks, device))
+            used = int(np.clip(n_blocks, 0, max_blocks).sum())
+            bytes_moved = used * RATE_BYTES + rows * (4 + 32)
+        else:
+            golden = [(i, keccak256(m)) for i, m in messages.items()]
+            words = raw.view(np.uint32)
+            args = (_to(words[:, 0::2], device), _to(words[:, 1::2], device))
+            used = rows
+            bytes_moved = rows * (RATE_BYTES + 32)
+        plain = getattr(keccak, name + "_plain")
+        cases.append(KernelCase(name, loader, args, plain, golden, bytes_moved, used))
     return cases
 
 
@@ -218,11 +374,14 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def kernel_phase(
-    n_messages: int, seed: int, device, per_compression: "dict[str, dict[str, int]]"
+    cases: "list[KernelCase]", module, per_unit: "dict[str, dict[str, int]]"
 ) -> "dict[str, dict]":
+    """Each case's kernel (``module.<name>``) against its plain version on
+    the card and against the host golden sample, then its time, its plain
+    version's and its bound."""
     results = {}
-    for case in _kernel_cases(n_messages, seed, device):
-        kernel = getattr(blake2b, case.name)
+    for case in cases:
+        kernel = getattr(module, case.name)
         out = kernel(*case.args)
         ref = case.plain(*case.args)
         torch.cuda.synchronize()
@@ -230,13 +389,13 @@ def kernel_phase(
         if err != 0:
             raise AssertionError(f"{case.name}: kernel differs from its plain version")
         words = out.cpu().numpy().view(np.uint32)
-        for row, message in case.messages:
-            if words[row].astype("<u4").tobytes() != hashlib.blake2b(message, digest_size=32).digest():
-                raise AssertionError(f"{case.name}: row {row} differs from hashlib")
+        for row, digest in case.golden:
+            if words[row].astype("<u4").tobytes() != digest:
+                raise AssertionError(f"{case.name}: row {row} differs from the host golden model")
         ms = _cuda_ms(lambda: kernel(*case.args), reps=20)
         plain_ms = _cuda_ms(lambda: case.plain(*case.args), reps=3, warmup=1)
         bytes_ms = case.bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = _ops_ms(per_compression[case.loader], case.compressions)
+        ops_ms = _ops_ms(per_unit[case.loader], case.units)
         results[case.name] = {
             "rows": case.args[0].shape[0],
             "max_abs_err": err,
@@ -247,7 +406,7 @@ def kernel_phase(
         }
         _log(
             f"kernel {case.name}: rows={results[case.name]['rows']} equal to plain "
-            f"and to hashlib on {len(case.messages)} rows"
+            f"and to the host golden model on {len(case.golden)} rows"
         )
     return results
 
@@ -260,73 +419,83 @@ def _classes(blocks) -> "dict[str, list[int]]":
     return out
 
 
-def _check_witness_shapes(blocks, device) -> None:
+def _check_witness_shapes(blocks, device) -> "list[str]":
     """Each kernel against its plain version on the witness's own blocks,
-    packed as the backend packs them."""
+    packed as the backend packs them; returns the kernels the witness has
+    blocks for."""
     by_class = {k: [blocks[i].data for i in v] for k, v in _classes(blocks).items()}
-    for name, packer in (
-        ("blake2b256_single_block", pack_single_block_blake2b),
-        ("blake2b256_two_block", pack_two_block_blake2b),
-    ):
-        m_lo, m_hi, lengths, _ = packer(by_class[name])
-        args = (_to(m_lo, device), _to(m_hi, device), _to(lengths, device))
+    present = [name for name, data in by_class.items() if data]
+    for name in present:
+        if name == "blake2b256_blocks":
+            packed, n_blocks, lengths = pad_blake2b(by_class[name])
+            args = (_to(packed, device), _to(n_blocks, device), _to(lengths, device))
+        else:
+            packer = {
+                "blake2b256_single_block": pack_single_block_blake2b,
+                "blake2b256_two_block": pack_two_block_blake2b,
+            }[name]
+            m_lo, m_hi, lengths, _ = packer(by_class[name])
+            args = (_to(m_lo, device), _to(m_hi, device), _to(lengths, device))
         if not torch.equal(getattr(blake2b, name)(*args), getattr(blake2b, name + "_plain")(*args)):
             raise AssertionError(f"{name}: kernel differs from plain at the witness shape")
-    packed, n_blocks, lengths = pad_blake2b(by_class["blake2b256_blocks"])
-    args = (_to(packed, device), _to(n_blocks, device), _to(lengths, device))
-    if not torch.equal(blake2b.blake2b256_blocks(*args), blake2b.blake2b256_blocks_plain(*args)):
-        raise AssertionError("blake2b256_blocks: kernel differs from plain at the witness shape")
+    return present
 
 
-def main_path(n_pairs: int, device) -> dict:
-    t0 = time.perf_counter()
-    store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01)
-    world_s = time.perf_counter() - t0
-    _log(f"world: {n_pairs} pairs, {len(store)} blocks, {n_matching} matching receipts, {world_s:.1f} s")
-    backend = get_backend("gpu")
-    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
-    metrics = Metrics()
+def _check_slot_keccak(preimages, device) -> None:
+    """The single-block keccak kernel against its plain version on a path's
+    own slot preimages, packed as the backend packs them."""
+    lo, hi, _ = pack_single_block_keccak(preimages)
+    args = (_to(lo, device), _to(hi, device))
+    if not torch.equal(keccak.keccak256_single_block(*args), keccak.keccak256_single_block_plain(*args)):
+        raise AssertionError("keccak256_single_block: kernel differs from plain at the path's shape")
 
+
+def _reject_changed_value(bundle) -> None:
+    """A storage proof whose value was changed must get a false verdict."""
+    proof = bundle.storage_proofs[1 % len(bundle.storage_proofs)]
+    value = "0x" + "00" * 31 + ("fe" if proof.value.endswith("ff") else "ff")
+    verdict = verify_proof_bundle(
+        UnifiedProofBundle(
+            storage_proofs=[dataclasses.replace(proof, value=value)],
+            event_proofs=[],
+            blocks=bundle.blocks,
+        ),
+        accept_all,
+        accept_all,
+    ).storage_results
+    if verdict != [False]:
+        raise AssertionError(f"a changed storage value was given the verdict {verdict}")
+
+
+def _reset_counts() -> None:
     blake2b.reset_launch_counts()
+    keccak.reset_launch_counts()
     match.LAUNCHES["event_match_mask"] = 0
-    t0 = time.perf_counter()
-    bundle = generate_event_proofs_for_range(
-        store, pairs, spec, match_backend=backend, metrics=metrics
-    )
-    t1 = time.perf_counter()
-    result = verify_proof_bundle(
-        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
-    )
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = dict(blake2b.LAUNCHES, **match.LAUNCHES)
 
-    if not result.event_results or not all(result.event_results):
-        raise AssertionError("main path: a verdict is false")
-    if len(bundle.event_proofs) != n_matching:
-        raise AssertionError(
-            f"main path: {len(bundle.event_proofs)} proofs for {n_matching} matching receipts"
-        )
-    idle = [name for name, count in launches.items() if count == 0]
+
+def _counts() -> "dict[str, int]":
+    return dict(blake2b.LAUNCHES, **keccak.LAUNCHES, **match.LAUNCHES)
+
+
+def _require_launched(path: str, launches: "dict[str, int]", names) -> None:
+    idle = [name for name in names if launches[name] == 0]
     if idle:
-        raise AssertionError(f"main path did not launch: {idle}")
+        raise AssertionError(f"{path} did not launch: {idle}")
 
-    # stage time of the CID recompute alone (outside the counted window)
-    chain = [b for b in bundle.blocks if b.cid.mh_code == BLAKE2B_256]
-    t3 = time.perf_counter()
-    if not backend.verify_block_cids([b.cid.digest for b in chain], [b.data for b in chain]):
-        raise AssertionError("witness CID recompute failed on an untampered bundle")
-    verify_cids_s = time.perf_counter() - t3
 
-    _check_witness_shapes(bundle.blocks, device)
-    by_class = _classes(bundle.blocks)
-    for positions in by_class.values():
+def _reject_flipped_blocks(bundle, backend) -> None:
+    """A flipped byte in one witness block of each size class must make the
+    CID recompute raise ValueError (the tampered bundle keeps at most one
+    storage proof, so a missed rejection fails fast)."""
+    for name, positions in _classes(bundle.blocks).items():
+        if not positions:
+            raise AssertionError(f"the witness has no block in the class of {name}")
         index = positions[len(positions) // 2]
         block = bundle.blocks[index]
         flipped = bytearray(block.data)
         flipped[len(flipped) // 2] ^= 0x01
         tampered = UnifiedProofBundle(
-            storage_proofs=[],
+            storage_proofs=bundle.storage_proofs[:1],
             event_proofs=bundle.event_proofs,
             blocks=bundle.blocks[:index] + [ProofBlock(block.cid, bytes(flipped))] + bundle.blocks[index + 1 :],
         )
@@ -338,12 +507,58 @@ def main_path(n_pairs: int, device) -> dict:
             continue
         raise AssertionError(f"a flipped byte in a {len(block.data)}-byte block was accepted")
 
+
+def _verify_cids_s(bundle, backend) -> float:
+    """Seconds of the witness CID recompute alone (outside a counted window)."""
+    chain = [b for b in bundle.blocks if b.cid.mh_code == BLAKE2B_256]
+    t0 = time.perf_counter()
+    if not backend.verify_block_cids([b.cid.digest for b in chain], [b.data for b in chain]):
+        raise AssertionError("witness CID recompute failed on an untampered bundle")
+    return time.perf_counter() - t0
+
+
+def event_path(n_pairs: int, device) -> dict:
+    """BASELINE config 2: the 4096-pair event-proof range, generated and
+    verified on the card."""
+    t0 = time.perf_counter()
+    store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01)
+    world_s = time.perf_counter() - t0
+    _log(f"world: {n_pairs} pairs, {len(store)} blocks, {n_matching} matching receipts, {world_s:.1f} s")
+    backend = get_backend("gpu")
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    metrics = Metrics()
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    bundle = generate_event_proofs_for_range(
+        store, pairs, spec, match_backend=backend, metrics=metrics
+    )
+    t1 = time.perf_counter()
+    result = verify_proof_bundle(
+        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+    )
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _counts()
+
+    if not result.event_results or not all(result.event_results):
+        raise AssertionError("event path: a verdict is false")
+    if len(bundle.event_proofs) != n_matching:
+        raise AssertionError(
+            f"event path: {len(bundle.event_proofs)} proofs for {n_matching} matching receipts"
+        )
+    _require_launched("event path", launches, [*SIZE_CLASSES, "event_match_mask"])
+
+    verify_cids_s = _verify_cids_s(bundle, backend)
+    _check_witness_shapes(bundle.blocks, device)
+    _reject_flipped_blocks(bundle, backend)
+
     stages = {k: v * 1e3 for k, v in metrics.stage_s.items()}
     return {
         "pairs": n_pairs,
         "proofs": len(bundle.event_proofs),
         "events": metrics.counters.get("range_events", 0),
-        "witness_blocks": {name: len(v) for name, v in by_class.items()},
+        "witness_blocks": {name: len(v) for name, v in _classes(bundle.blocks).items()},
         "stage_ms": dict(
             stages,
             generate_total=(t1 - t0) * 1e3,
@@ -351,6 +566,134 @@ def main_path(n_pairs: int, device) -> dict:
             verify_cids=verify_cids_s * 1e3,
         ),
         "proofs_per_s": len(bundle.event_proofs) / (t2 - t0),
+        "launches": launches,
+    }
+
+
+def storage_path(n_contracts: int, n_slots: int, seed: int, device) -> dict:
+    """BASELINE config 3: ``n_contracts`` EVM contracts × ``n_slots``
+    mapping slots at one parent/child pair, proved and verified on the card."""
+    backend = get_backend("gpu")
+    t0 = time.perf_counter()
+    preimages = [
+        ascii_to_bytes32(f"subnet-{c}") + i.to_bytes(32, "big")
+        for c in range(n_contracts)
+        for i in range(n_slots)
+    ]
+    keys = backend.keccak256_batch(preimages)
+    rng = np.random.default_rng(seed + 2)
+    for k in rng.choice(len(keys), size=min(4096, len(keys)), replace=False):
+        if keys[k] != keccak256(preimages[k]):
+            raise AssertionError(f"slot key {k} differs from core.hashes.keccak256")
+    contracts = [
+        ContractFixture(
+            actor_id=ACTOR_ID + c,
+            storage={keys[c * n_slots + i]: (i % 251).to_bytes(2, "big") for i in range(n_slots)},
+        )
+        for c in range(n_contracts)
+    ]
+    world = build_chain(contracts, [], n_filler_actors=N_FILLER_ACTORS)
+    world_s = time.perf_counter() - t0
+    _log(
+        f"storage world: {n_contracts} contracts x {n_slots} slots, {len(world.store)} blocks, "
+        f"{world_s:.1f} s (slot keys on the card, 4,096 checked against core.hashes.keccak256)"
+    )
+    specs = [
+        MappingSlotSpec(ACTOR_ID + c, f"subnet-{c}", i)
+        for c in range(n_contracts)
+        for i in range(n_slots)
+    ]
+    metrics = Metrics()
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    bundle = generate_storage_proofs_batch(
+        world.store, world.parent, world.child, specs, hash_backend=backend, metrics=metrics
+    )
+    t1 = time.perf_counter()
+    result = verify_proof_bundle(
+        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+    )
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _counts()
+
+    if len(result.storage_results) != len(specs) or not all(result.storage_results):
+        raise AssertionError("storage path: a verdict is false")
+    expected = [
+        ("0x" + keys[k].hex(), "0x" + left_pad_32((k % n_slots % 251).to_bytes(2, "big")).hex())
+        for k in range(len(specs))
+    ]
+    if [(p.slot, p.value) for p in bundle.storage_proofs] != expected:
+        raise AssertionError("storage path: a proof's slot or value is not the fixture's")
+    _require_launched("storage path", launches, ["keccak256_single_block", *SIZE_CLASSES])
+
+    verify_cids_s = _verify_cids_s(bundle, backend)
+    _check_slot_keccak(preimages, device)
+    _check_witness_shapes(bundle.blocks, device)
+    _reject_flipped_blocks(bundle, backend)
+    _reject_changed_value(bundle)
+
+    stages = {k: v * 1e3 for k, v in metrics.stage_s.items()}
+    return {
+        "contracts": n_contracts,
+        "slots": len(specs),
+        "proofs": len(bundle.storage_proofs),
+        "witness_blocks": {name: len(v) for name, v in _classes(bundle.blocks).items()},
+        "stage_ms": dict(
+            stages,
+            world_build=world_s * 1e3,
+            generate_total=(t1 - t0) * 1e3,
+            verify_total=(t2 - t1) * 1e3,
+            verify_cids=verify_cids_s * 1e3,
+        ),
+        "proofs_per_s": len(bundle.storage_proofs) / (t2 - t0),
+        "launches": launches,
+    }
+
+
+def mixed_range(n_pairs: int, device) -> dict:
+    """The topdown nonce slot proved at every pair of a small event range,
+    the range's slot keccak hashed once on the card. The range world's
+    contract has an empty storage HAMT, so every proof reads value 0 at any
+    slot: the slot itself is checked against the host keccak."""
+    store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01)
+    backend = get_backend("gpu")
+    metrics = Metrics()
+    spec = MappingSlotSpec(ACTOR_ID, TOPIC1, 0)
+    _reset_counts()
+    t0 = time.perf_counter()
+    bundle = generate_event_proofs_for_range(
+        store, pairs, EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID), match_backend=backend,
+        metrics=metrics, storage_specs=[spec],
+    )
+    result = verify_proof_bundle(
+        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    if len(result.storage_results) != n_pairs or len(result.event_results) != n_matching:
+        raise AssertionError(
+            f"mixed range: {len(result.storage_results)} storage and "
+            f"{len(result.event_results)} event verdicts for {n_pairs} pairs, {n_matching} matches"
+        )
+    if not result.all_valid():
+        raise AssertionError("mixed range: a verdict is false")
+    slot = "0x" + keccak256(ascii_to_bytes32(TOPIC1) + (0).to_bytes(32, "big")).hex()
+    if [p.slot for p in bundle.storage_proofs] != [slot] * n_pairs:
+        raise AssertionError("mixed range: a proof's slot is not keccak(key ‖ be32(0))")
+
+    _check_slot_keccak([spec.key32() + spec.slot_index.to_bytes(32, "big")], device)
+    present = _check_witness_shapes(bundle.blocks, device)
+    _require_launched("mixed range", launches, ["keccak256_single_block", "event_match_mask", *present])
+    _reject_changed_value(bundle)
+    return {
+        "pairs": n_pairs,
+        "storage_proofs": len(bundle.storage_proofs),
+        "event_proofs": len(bundle.event_proofs),
+        "stage_ms": {k: v * 1e3 for k, v in metrics.stage_s.items()},
+        "total_ms": seconds * 1e3,
         "launches": launches,
     }
 
@@ -373,7 +716,7 @@ def main(argv=None) -> int:
     _log(f"card: {smi}")
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    built = build_libraries(["blake2b"])
+    built = build_libraries(["blake2b", "keccak"])
     for name, info in built.items():
         _log(f"build {name}: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -382,33 +725,54 @@ def main(argv=None) -> int:
     per_compression = sass_per_compression(built["blake2b"]["path"])
     for loader, counts in per_compression.items():
         _log(f"sass blake2b256_kernel<{loader}>: instructions per compression {counts}")
+    per_permutation = sass_per_permutation(built["keccak"]["path"])
+    for loader, counts in per_permutation.items():
+        _log(f"sass keccak256_kernel<{loader}>: instructions per absorbed block {counts}")
 
-    kernels = kernel_phase(args.messages, args.seed, device, per_compression)
-    path = main_path(args.pairs, device)
+    kernels = kernel_phase(_kernel_cases(args.messages, args.seed, device), blake2b, per_compression)
+    kernels.update(
+        kernel_phase(
+            _keccak_cases(args.messages, args.messages // 4, args.seed, device),
+            keccak,
+            per_permutation,
+        )
+    )
+    paths = {
+        "event path": event_path(args.pairs, device),
+        "storage path": storage_path(CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device),
+        "mixed range": mixed_range(64, device),
+    }
 
     rows = []
-    for name, replaces, _, _ in KERNELS:
+    for name, replaces, source, family in [(k[0], k[1], SOURCE, "blake2b") for k in KERNELS] + [
+        (k[0], k[1], KECCAK_SOURCE, "keccak") for k in KECCAK_KERNELS
+    ]:
         k = kernels[name]
+        per_path = {label: path["launches"][name] for label, path in paths.items()}
         row = {
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": source,
             "replaces": replaces,
-            "launches": path["launches"][name],
+            "launches": per_path[OWN_PATH[family]],
+            "launches_by_path": per_path,
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
-            "library_ms": None,  # no PyTorch call computes blake2b
+            "library_ms": None,  # no PyTorch call computes blake2b or keccak-256
         }
         rows.append(row)
         _log(
             f"{name}: rows={k['rows']} kernel_ms={k['ms']} plain_ms={k['plain_ms']} "
-            f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches={row['launches']}"
+            f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches={per_path}"
         )
-    _log(f"main path: {json.dumps(path)}")
-    _log(f"main path on {smi}: {path['proofs']} proofs, {path['proofs_per_s']} proofs/s")
+    for label, path in paths.items():
+        _log(f"{label}: {json.dumps(path)}")
+    event, storage = paths["event path"], paths["storage path"]
+    _log(f"event path on {smi}: {event['proofs']} proofs, {event['proofs_per_s']} proofs/s")
+    _log(f"storage path on {smi}: {storage['proofs']} proofs, {storage['proofs_per_s']} proofs/s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({

@@ -1,4 +1,5 @@
-"""GPU batch backend: the blake2b-256 CUDA kernels and the match mask.
+"""GPU batch backend: the blake2b-256 and keccak-256 CUDA kernels and the
+match mask.
 
 `blake2b256_batch` splits a batch into three size classes and gives each
 its own kernel — ≤128 B to the single-block kernel, 129–256 B to the
@@ -7,6 +8,12 @@ digests back in input order. (The TPU backend instead picks one kernel by
 the batch's longest message, so any witness with a block over 256 B ran
 wholly on its multi-block scan.) There is no host crossover: on CUDA every
 non-empty class launches its kernel.
+
+`keccak256_batch` splits the same way (`keccak_class`): messages under
+136 B, one rate block, to the single-block kernel; 136 B and above to the
+multi-block kernel. (The TPU backend kept batches under 8 MiB on its host
+C++ hasher, which would put all of BASELINE config 3's 4 MB of slot
+preimages on the host; here every non-empty class launches.)
 """
 
 from __future__ import annotations
@@ -16,19 +23,24 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ipc_proofs_tpu_torch.ops import blake2b, match
+from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
 from ipc_proofs_tpu_torch.ops.pack import (
+    RATE_BYTES,
     digests_to_bytes,
     pack_single_block_blake2b,
+    pack_single_block_keccak,
     pack_two_block_blake2b,
     pad_blake2b,
+    pad_keccak,
 )
 from ipc_proofs_tpu_torch.state.events import StampedEvent
 
-__all__ = ["GpuBackend", "SIZE_CLASSES", "size_class"]
+__all__ = ["GpuBackend", "SIZE_CLASSES", "size_class", "KECCAK_CLASSES", "keccak_class"]
 
 # the blake2b kernel (an `ops.blake2b` function name) of each size class
 SIZE_CLASSES = ("blake2b256_single_block", "blake2b256_two_block", "blake2b256_blocks")
+# the keccak kernel (an `ops.keccak` function name) of each size class
+KECCAK_CLASSES = ("keccak256_single_block", "keccak256_blocks")
 
 
 def size_class(n_bytes: int) -> str:
@@ -36,6 +48,26 @@ def size_class(n_bytes: int) -> str:
     if n_bytes <= 128:
         return "blake2b256_single_block"
     return "blake2b256_two_block" if n_bytes <= 256 else "blake2b256_blocks"
+
+
+def keccak_class(n_bytes: int) -> str:
+    """The kernel `GpuBackend.keccak256_batch` gives an n-byte message."""
+    return "keccak256_single_block" if n_bytes < RATE_BYTES else "keccak256_blocks"
+
+
+def _split(messages: Sequence[bytes], classes: "tuple[str, ...]", route, hashers) -> list[bytes]:
+    """Hash each message with its class's hasher, one call per non-empty
+    class, digests back in input order."""
+    rows: "dict[str, list[int]]" = {name: [] for name in classes}
+    for i, message in enumerate(messages):
+        rows[route(len(message))].append(i)
+    out: "list[bytes | None]" = [None] * len(messages)
+    for name, positions in rows.items():
+        if positions:
+            digests = hashers[name]([messages[i] for i in positions])
+            for i, digest in zip(positions, digests):
+                out[i] = digest
+    return out
 
 
 def _on(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -60,27 +92,29 @@ class GpuBackend:
         self.device = device
 
     def keccak256_batch(self, messages: Sequence[bytes]) -> list[bytes]:
-        raise NotImplementedError(
-            "keccak-256 comes with the storage-proof slice "
-            "(ops/pallas_kernels.py:304, ops/keccak_jax.py keccak256_blocks)"
-        )
+        hashers = {
+            "keccak256_single_block": self._keccak_single_block,
+            "keccak256_blocks": self._keccak_multi_block,
+        }
+        return _split(messages, KECCAK_CLASSES, keccak_class, hashers)
+
+    def _keccak_single_block(self, messages: "list[bytes]") -> list[bytes]:
+        lo, hi, n = pack_single_block_keccak(messages)
+        words = keccak.keccak256_single_block(_on(lo, self.device), _on(hi, self.device))
+        return digests_to_bytes(words[:n].cpu().numpy())
+
+    def _keccak_multi_block(self, messages: "list[bytes]") -> list[bytes]:
+        blocks, n_blocks = pad_keccak(messages)
+        words = keccak.keccak256_blocks(_on(blocks, self.device), _on(n_blocks, self.device))
+        return digests_to_bytes(words.cpu().numpy())
 
     def blake2b256_batch(self, messages: Sequence[bytes]) -> list[bytes]:
-        rows: "dict[str, list[int]]" = {name: [] for name in SIZE_CLASSES}
-        for i, message in enumerate(messages):
-            rows[size_class(len(message))].append(i)
         hashers = {
             "blake2b256_single_block": self._single_block,
             "blake2b256_two_block": self._two_block,
             "blake2b256_blocks": self._multi_block,
         }
-        out: "list[bytes | None]" = [None] * len(messages)
-        for name, positions in rows.items():
-            if positions:
-                digests = hashers[name]([messages[i] for i in positions])
-                for i, digest in zip(positions, digests):
-                    out[i] = digest
-        return out
+        return _split(messages, SIZE_CLASSES, size_class, hashers)
 
     def _single_block(self, messages: "list[bytes]") -> list[bytes]:
         m_lo, m_hi, lengths, n = pack_single_block_blake2b(messages)

@@ -2,7 +2,8 @@
 
 The scalar paths here are the reference implementations the batch kernels
 in :mod:`ipc_proofs_tpu_torch.ops` are tested against. ``keccak256`` feeds
-``hash_event_signature``; its batch kernel comes with the storage slice.
+``hash_event_signature`` and the scalar slot math; its batch kernels are in
+:mod:`ipc_proofs_tpu_torch.ops.keccak`.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 // Replaces three TPU device functions of ipc_proofs_tpu:
 //   ops/pallas_kernels.py:337 blake2b256_single_block_pallas (_blake2b_kernel :251)
 //   ops/pallas_kernels.py:363 blake2b256_two_block_pallas    (_blake2b2_kernel :205)
-//   ops/blake2b_jax.py:139    blake2b256_blocks (XLA lax.scan over blocks)
+//   ops/blake2b_jax.py:140    blake2b256_blocks (XLA lax.scan over blocks)
 //
 // What bounds it on an H100: integer operations. One compression is
 // 12 rounds x 8 G mixes of 64-bit adds, xors and rotations (by 32 a register

@@ -1,4 +1,4 @@
-"""Hash Array Mapped Trie (HAMT) writer — the range fixture's state tree.
+"""Hash Array Mapped Trie (HAMT) over a blockstore, reader and writer.
 
 Wire format:
 - Node = ``[bitfield(bytes), [pointer, ...]]``
@@ -9,19 +9,22 @@ Wire format:
   sorted by key bytes.
 - Key hash: sha256(key), bits consumed MSB-first, ``bit_width`` at a time.
 
-The counterpart of ``ipc_proofs_tpu.ipld.hamt.hamt_build``; the reader
-comes with the storage-proof slice.
+The counterpart of ``ipc_proofs_tpu.ipld.hamt``'s scalar reader (`HAMT`)
+and writer (`hamt_build`). Left out: the reader's ``offer_links`` prefetch
+hook (a no-op against these stores) and the native batched walkers
+``hamt_get_batch`` / ``hamt_get_batch_touched``.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Any
+from typing import Any, Callable, Iterator, Optional
 
 from ipc_proofs_tpu_torch.core.cid import CID
+from ipc_proofs_tpu_torch.core.dagcbor import decode as cbor_decode
 from ipc_proofs_tpu_torch.store.blockstore import Blockstore, put_cbor
 
-__all__ = ["hamt_build", "HAMT_BIT_WIDTH", "MAX_BUCKET"]
+__all__ = ["HAMT", "hamt_build", "HAMT_BIT_WIDTH", "MAX_BUCKET"]
 
 HAMT_BIT_WIDTH = 5  # fvm_shared::HAMT_BIT_WIDTH
 MAX_BUCKET = 3  # fvm_ipld_hamt MAX_ARRAY_WIDTH
@@ -36,10 +39,94 @@ def _hash_bits(key: bytes, depth: int, bit_width: int) -> int:
     return (digest >> shift) & ((1 << bit_width) - 1)
 
 
+def _bitfield_decode(data: bytes) -> int:
+    return int.from_bytes(data, "big")
+
+
 def _bitfield_encode(bits: int) -> bytes:
     if bits == 0:
         return b""
     return bits.to_bytes((bits.bit_length() + 7) // 8, "big")
+
+
+class HAMT:
+    """Reader for a HAMT rooted at a CID.
+
+    A missing node raises KeyError; a malformed node, a bitmap that claims
+    more entries than the pointer list holds, or a bad bucket raises
+    ValueError — the two families every verify caller maps to a verdict."""
+
+    def __init__(self, store: Blockstore, root_cid: CID, bit_width: int = HAMT_BIT_WIDTH):
+        self._store = store
+        self.root_cid = root_cid
+        self.bit_width = bit_width
+        self._root = self._load_node(root_cid)
+
+    @classmethod
+    def load(
+        cls, store: Blockstore, root_cid: CID, bit_width: int = HAMT_BIT_WIDTH
+    ) -> "HAMT":
+        return cls(store, root_cid, bit_width)
+
+    def _load_node(self, cid: CID) -> list:
+        raw = self._store.get(cid)
+        if raw is None:
+            raise KeyError(f"missing HAMT node {cid}")
+        node = cbor_decode(raw)
+        if not (
+            isinstance(node, list)
+            and len(node) == 2
+            and isinstance(node[0], bytes)
+            and isinstance(node[1], list)
+        ):
+            raise ValueError("malformed HAMT node")
+        return node
+
+    def get(self, key: bytes) -> Optional[Any]:
+        """Value for ``key`` or None; walks one root-to-bucket path."""
+        node = self._root
+        depth = 0
+        while True:
+            bitfield = _bitfield_decode(node[0])
+            pointers = node[1]
+            idx = _hash_bits(key, depth, self.bit_width)
+            if not (bitfield >> idx) & 1:
+                return None
+            pos = (bitfield & ((1 << idx) - 1)).bit_count()
+            if pos >= len(pointers):
+                raise ValueError("malformed HAMT node: bitmap exceeds pointers")
+            ptr = pointers[pos]
+            if isinstance(ptr, CID):
+                node = self._load_node(ptr)
+                depth += 1
+                continue
+            if isinstance(ptr, list):
+                for kv in ptr:
+                    if not (isinstance(kv, list) and len(kv) == 2):
+                        raise ValueError("malformed HAMT bucket entry")
+                    if kv[0] == key:
+                        return kv[1]
+                return None
+            raise ValueError(f"malformed HAMT pointer {type(ptr)}")
+
+    def for_each(self, fn: Callable[[bytes, Any], None]) -> None:
+        for key, value in self.items():
+            fn(key, value)
+
+    def items(self) -> Iterator[tuple[bytes, Any]]:
+        yield from self._walk(self._root)
+
+    def _walk(self, node: list) -> Iterator[tuple[bytes, Any]]:
+        for ptr in node[1]:
+            if isinstance(ptr, CID):
+                yield from self._walk(self._load_node(ptr))
+            elif isinstance(ptr, list):
+                for kv in ptr:
+                    if not (isinstance(kv, list) and len(kv) == 2):
+                        raise ValueError("malformed HAMT bucket entry")
+                    yield kv[0], kv[1]
+            else:
+                raise ValueError(f"malformed HAMT pointer {type(ptr)}")
 
 
 def _build_node(

@@ -9,7 +9,7 @@ wrapper                        replaces (TPU device function)             input
 =============================  =========================================  ================================
 `blake2b256_single_block`      ``ops/pallas_kernels.py:337`` (Pallas)     m_lo, m_hi [N,16]; lengths [N,1]
 `blake2b256_two_block`         ``ops/pallas_kernels.py:363`` (Pallas)     m_lo, m_hi [N,32]; lengths [N,1]
-`blake2b256_blocks`            ``ops/blake2b_jax.py:139`` (XLA scan)      blocks [N,B,32]; n_blocks, lengths [N]
+`blake2b256_blocks`            ``ops/blake2b_jax.py:140`` (XLA scan)      blocks [N,B,32]; n_blocks, lengths [N]
 =============================  =========================================  ================================
 
 A wrapper launches its kernel for CUDA tensors (counting the launch in
@@ -26,11 +26,10 @@ logical right shift is an arithmetic one masked to ``64 - n`` bits.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from ipc_proofs_tpu_torch.ops.build import load_library
+from ipc_proofs_tpu_torch.ops.build import check_words, launch, reset_counts, runs_plain
 
 __all__ = [
     "LAUNCHES",
@@ -50,13 +49,10 @@ LAUNCHES = {
     "blake2b256_two_block": 0,
     "blake2b256_blocks": 0,
 }
-_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    with _count_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+    reset_counts(LAUNCHES)
 
 
 # --- plain PyTorch versions (int64 lanes) ----------------------------------
@@ -179,49 +175,18 @@ _ARGTYPES = {
 }
 
 
-def _entry(name: str):
-    fn = getattr(load_library("blake2b"), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name: str, tensor: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if tensor.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32 (u32 bit view), got {tensor.dtype}")
-    if tuple(tensor.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(tensor.shape)}")
-    if tensor.device != device:
-        raise ValueError(f"{name}: tensors on {tensor.device} and {device}")
-    if not tensor.is_contiguous() or tensor.data_ptr() % 16:
-        raise ValueError(f"{name}: tensor must be contiguous and 16-byte aligned")
-
-
 def _launch(name: str, args: list, n: int, device: torch.device) -> torch.Tensor:
-    out = torch.empty((n, 8), dtype=torch.int32, device=device)
-    if n == 0:
-        return out
-    fn = _entry(name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = fn(*args, out.data_ptr(), stream)
-    with _count_lock:
-        LAUNCHES[name] += 1
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    return out
+    return launch("blake2b", name, _ARGTYPES[name], args, n, device, LAUNCHES)
 
 
 def _split_call(name, plain, words, m_lo, m_hi, lengths) -> torch.Tensor:
     n = m_lo.shape[0]
     device = m_lo.device
-    _check(name, m_lo, (n, words), device)
-    _check(name, m_hi, (n, words), device)
-    _check(name, lengths, (n, 1), device)
-    if device.type == "cpu":
+    check_words(name, m_lo, (n, words), device)
+    check_words(name, m_hi, (n, words), device)
+    check_words(name, lengths, (n, 1), device)
+    if runs_plain(name, device):
         return plain(m_lo, m_hi, lengths)
-    if device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {device}")
     args = [m_lo.data_ptr(), m_hi.data_ptr(), lengths.data_ptr(), n]
     return _launch(name, args, n, device)
 
@@ -251,12 +216,10 @@ def blake2b256_blocks(blocks, n_blocks, lengths) -> torch.Tensor:
         raise ValueError(f"{name}: expected blocks [N, B, 32], got {tuple(blocks.shape)}")
     n, n_max = blocks.shape[0], blocks.shape[1]
     device = blocks.device
-    _check(name, blocks, (n, n_max, 32), device)
-    _check(name, n_blocks, (n,), device)
-    _check(name, lengths, (n,), device)
-    if device.type == "cpu":
+    check_words(name, blocks, (n, n_max, 32), device)
+    check_words(name, n_blocks, (n,), device)
+    check_words(name, lengths, (n,), device)
+    if runs_plain(name, device):
         return blake2b256_blocks_plain(blocks, n_blocks, lengths)
-    if device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {device}")
     args = [blocks.data_ptr(), n_blocks.data_ptr(), lengths.data_ptr(), n, n_max]
     return _launch(name, args, n, device)

@@ -3,8 +3,7 @@
 Wire format: JSON with snake_case fields, hex strings 0x-prefixed, CIDs as
 base32 strings, witness block data base64-encoded. A bundle written by
 ``ipc_proofs_tpu`` and one written here are byte-identical for the same
-proofs. Storage claims come with the storage-proof slice: a bundle that
-carries them is refused on parse.
+proofs.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from ipc_proofs_tpu_torch.utils.jsonstrict import strict_fields
 
 __all__ = [
     "ProofBlock",
+    "StorageProof",
     "EventData",
     "EventProof",
     "EventProofBundle",
@@ -60,6 +60,41 @@ class ProofBlock:
             data=_b64_strict(
                 _as_str(_get(obj, "data", "block"), "block data"), "block data"
             ),
+        )
+
+
+@dataclass
+class StorageProof:
+    """Claim: actor ``actor_id`` had ``value`` at storage ``slot`` in the
+    state root committed by child block ``child_block_cid`` at ``child_epoch``."""
+
+    child_epoch: int
+    child_block_cid: str
+    parent_state_root: str
+    actor_id: int
+    actor_state_cid: str
+    storage_root: str
+    slot: str  # 0x-hex 32 bytes
+    value: str  # 0x-hex 32 bytes
+
+    def to_json_obj(self) -> dict:
+        return dict(self.__dict__)
+
+    @classmethod
+    def from_json_obj(cls, obj: dict) -> "StorageProof":
+        obj = _as_map(obj, "storage proof")
+        w = "storage proof"
+        return cls(
+            child_epoch=_as_int(_get(obj, "child_epoch", w), "child_epoch"),
+            child_block_cid=_as_str(_get(obj, "child_block_cid", w), "child_block_cid"),
+            parent_state_root=_as_str(
+                _get(obj, "parent_state_root", w), "parent_state_root"
+            ),
+            actor_id=_as_int(_get(obj, "actor_id", w), "actor_id"),
+            actor_state_cid=_as_str(_get(obj, "actor_state_cid", w), "actor_state_cid"),
+            storage_root=_as_str(_get(obj, "storage_root", w), "storage_root"),
+            slot=_as_str(_get(obj, "slot", w), "slot"),
+            value=_as_str(_get(obj, "value", w), "value"),
         )
 
 
@@ -127,15 +162,13 @@ class EventProofBundle:
 
 @dataclass
 class UnifiedProofBundle:
-    storage_proofs: list  # always empty until the storage-proof slice
+    storage_proofs: list[StorageProof]
     event_proofs: list[EventProof]
     blocks: list[ProofBlock]  # deduplicated, CID-sorted
 
     def to_json_obj(self) -> dict:
-        if self.storage_proofs:
-            raise NotImplementedError("storage proofs come with the storage-proof slice")
         return {
-            "storage_proofs": [],
+            "storage_proofs": [p.to_json_obj() for p in self.storage_proofs],
             "event_proofs": [p.to_json_obj() for p in self.event_proofs],
             "blocks": [b.to_json_obj() for b in self.blocks],
         }
@@ -146,10 +179,11 @@ class UnifiedProofBundle:
     @classmethod
     def from_json_obj(cls, obj: dict) -> "UnifiedProofBundle":
         obj = _as_map(obj, "bundle")
-        if _as_list(_get(obj, "storage_proofs", "bundle"), "storage_proofs"):
-            raise NotImplementedError("storage proofs come with the storage-proof slice")
         return cls(
-            storage_proofs=[],
+            storage_proofs=[
+                StorageProof.from_json_obj(p)
+                for p in _as_list(_get(obj, "storage_proofs", "bundle"), "storage_proofs")
+            ],
             event_proofs=[
                 EventProof.from_json_obj(p)
                 for p in _as_list(_get(obj, "event_proofs", "bundle"), "event_proofs")

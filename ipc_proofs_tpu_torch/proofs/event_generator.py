@@ -18,9 +18,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ipc_proofs_tpu_torch.backend import get_backend
 from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.ipld.amt import AMT
-from ipc_proofs_tpu_torch.proofs.bundle import EventData, EventProof
+from ipc_proofs_tpu_torch.proofs.bundle import EventData, EventProof, EventProofBundle
 from ipc_proofs_tpu_torch.proofs.chain import Tipset
 from ipc_proofs_tpu_torch.proofs.exec_order import decode_txmeta
 from ipc_proofs_tpu_torch.proofs.witness import WitnessCollector
@@ -38,7 +39,9 @@ __all__ = [
     "collect_base_witness_and_exec_order",
     "scan_receipt_events",
     "match_receipt_indices",
+    "mask_receipt_indices",
     "record_matching_receipts",
+    "generate_event_proof",
 ]
 
 
@@ -114,8 +117,8 @@ def match_receipt_indices(
     actor_id_filter: Optional[int],
 ) -> list[int]:
     """PASS 1 predicate leg without a backend: which receipt indices contain
-    ≥1 matching event, short-circuiting per receipt. (With a backend the
-    range driver evaluates every event of the range in one mask call.)"""
+    ≥1 matching event, short-circuiting per receipt. The reference the
+    batched `mask_receipt_indices` is tested against."""
     matching = []
     for i, _, events in scanned:
         for stamped in events:
@@ -126,6 +129,36 @@ def match_receipt_indices(
                 matching.append(i)
                 break
     return matching
+
+
+def mask_receipt_indices(
+    scans: "list[list[tuple[int, Receipt, list[StampedEvent]]]]",
+    matcher: EventMatcher,
+    actor_id_filter: Optional[int],
+    match_backend,
+) -> "list[list[int]]":
+    """PASS 1 predicate leg on a backend: every event of every scan (one
+    scan per tipset pair) in ONE mask call; returns each scan's matching
+    receipt indices."""
+    flat: list[StampedEvent] = []
+    owners: list[tuple[int, int]] = []  # (scan_pos, receipt_pos)
+    for scan_pos, scanned in enumerate(scans):
+        for receipt_pos, (_, _, events) in enumerate(scanned):
+            flat.extend(events)
+            owners.extend([(scan_pos, receipt_pos)] * len(events))
+    mask = (
+        match_backend.event_match_mask(flat, matcher.topic0, matcher.topic1, actor_id_filter)
+        if flat
+        else []
+    )
+    hits: dict[int, set[int]] = {}
+    for k, hit in enumerate(mask):
+        if hit:
+            scan_pos, receipt_pos = owners[k]
+            hits.setdefault(scan_pos, set()).add(receipt_pos)
+    return [
+        [scanned[r][0] for r in sorted(hits.get(p, ()))] for p, scanned in enumerate(scans)
+    ]
 
 
 def record_matching_receipts(
@@ -188,3 +221,33 @@ def record_matching_receipts(
 
     recordings.append(receipts_recorder)
     return proofs, recordings
+
+
+def generate_event_proof(
+    store: Blockstore,
+    parent: Tipset,
+    child: Tipset,
+    event_signature: str,
+    topic_1: str,
+    actor_id_filter: Optional[int] = None,
+    match_backend=None,
+) -> EventProofBundle:
+    """Generate proofs for every event matching (signature, topic_1,
+    emitter) in one parent/child pair. Pass 1's predicate runs as one mask
+    call on ``match_backend``, which defaults to ``get_backend("gpu")``, the
+    card (raises without CUDA; pass ``get_backend("gpu", device="cpu")`` for
+    the plain versions)."""
+    if match_backend is None:
+        match_backend = get_backend("gpu")
+    matcher = EventMatcher(event_signature, topic_1)
+    receipts_root = child.blocks[0].parent_message_receipts
+
+    collector = WitnessCollector(store)
+    exec_order = collect_base_witness_and_exec_order(collector, store, parent, child)
+    scanned = scan_receipt_events(store, receipts_root)
+    [matching_indices] = mask_receipt_indices([scanned], matcher, actor_id_filter, match_backend)
+    proofs, recordings = record_matching_receipts(
+        store, parent, child, exec_order, matching_indices, matcher, actor_id_filter
+    )
+    collector.collect_from_recordings(recordings)
+    return EventProofBundle(proofs=proofs, blocks=collector.materialize())

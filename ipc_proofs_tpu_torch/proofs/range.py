@@ -6,10 +6,15 @@
 - Phase C (host):   per-pair pass-2 recording only for matching receipts;
 - Phase D:          one merged, CID-deduplicated, CID-sorted witness.
 
+Optional ``storage_specs`` (`MappingSlotSpec`s) are proved at every pair:
+their slot digests hash ONCE range-wide on the backend's keccak kernel, then
+`generate_storage_proofs_batch` runs per pair and its blocks merge into the
+one witness.
+
 The counterpart of ``ipc_proofs_tpu.proofs.range.generate_event_proofs_for_range``
-on its pure-Python branches (Python scan, scalar record, pure witness
-materialization) with the mask always on the backend. Storage specs come
-with the storage-proof slice.
+on its pure-Python branches (Python scan, scalar record, per-pair storage
+batches, pure witness materialization) with the mask and the slot hashing
+always on the backend.
 """
 
 from __future__ import annotations
@@ -23,12 +28,17 @@ from ipc_proofs_tpu_torch.proofs.chain import Tipset
 from ipc_proofs_tpu_torch.proofs.event_generator import (
     EventMatcher,
     collect_base_witness_and_exec_order,
+    mask_receipt_indices,
     record_matching_receipts,
     scan_receipt_events,
 )
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
+from ipc_proofs_tpu_torch.proofs.storage_batch import (
+    MappingSlotSpec,
+    generate_storage_proofs_batch,
+    hash_slot_specs,
+)
 from ipc_proofs_tpu_torch.proofs.witness import WitnessCollector
-from ipc_proofs_tpu_torch.state.events import StampedEvent
 from ipc_proofs_tpu_torch.store.blockstore import Blockstore, CachedBlockstore
 from ipc_proofs_tpu_torch.utils.metrics import Metrics
 
@@ -47,17 +57,14 @@ def generate_event_proofs_for_range(
     spec: EventProofSpec,
     match_backend=None,
     metrics: Optional[Metrics] = None,
-    storage_specs=None,
+    storage_specs: "Optional[Sequence[MappingSlotSpec]]" = None,
 ) -> UnifiedProofBundle:
     """Generate event proofs for ``spec`` across a whole range of tipset
-    pairs, with one device mask call for the entire range. ``match_backend``
-    defaults to ``get_backend("gpu")``, the card (raises without CUDA); pass
-    ``get_backend("gpu", device="cpu")`` for the plain versions."""
-    if storage_specs:
-        raise NotImplementedError(
-            "storage specs come with the storage-proof slice (keccak kernel, "
-            "HAMT reader, storage generator)"
-        )
+    pairs, with one device mask call for the entire range, plus the
+    ``storage_specs`` grid proved at every pair (e.g. a subnet's nonce slot
+    tracked across the range). ``match_backend`` runs the mask and the slot
+    keccaks; it defaults to ``get_backend("gpu")``, the card (raises without
+    CUDA); pass ``get_backend("gpu", device="cpu")`` for the plain versions."""
     if match_backend is None:
         match_backend = get_backend("gpu")
     metrics = metrics if metrics is not None else Metrics()
@@ -67,11 +74,40 @@ def generate_event_proofs_for_range(
     with metrics.stage("range_record"):
         event_proofs, blocks = _record_chunk(cached, pairs, matching_per_pair, matcher, spec)
     metrics.count("range_proofs", len(event_proofs))
+    storage_proofs: list = []
+    if storage_specs:
+        with metrics.stage("range_storage"):
+            storage_proofs, storage_blocks = _storage_for_pairs(
+                cached, pairs, storage_specs, match_backend
+            )
+        metrics.count("range_storage_proofs", len(storage_proofs))
+        blocks |= storage_blocks
     return UnifiedProofBundle(
-        storage_proofs=[],
+        storage_proofs=storage_proofs,
         event_proofs=event_proofs,
         blocks=sorted(blocks, key=lambda b: b.cid.to_bytes()),
     )
+
+
+def _storage_for_pairs(
+    cached: Blockstore,
+    pairs: Sequence[TipsetPair],
+    storage_specs: Sequence[MappingSlotSpec],
+    hash_backend,
+) -> "tuple[list, set[ProofBlock]]":
+    """Prove every storage spec at every pair, claims in (pair, spec) order:
+    slot digests hash once for the whole range, then one storage batch per
+    pair. Returns ``(proofs, witness_blocks)``."""
+    slots = hash_slot_specs(storage_specs, hash_backend)
+    proofs = []
+    blocks: set[ProofBlock] = set()
+    for pair in pairs:
+        bundle = generate_storage_proofs_batch(
+            cached, pair.parent, pair.child, storage_specs, precomputed_slots=slots
+        )
+        proofs.extend(bundle.storage_proofs)
+        blocks.update(bundle.blocks)
+    return proofs, blocks
 
 
 def _scan_and_match(
@@ -91,29 +127,10 @@ def _scan_and_match(
         ]
 
     with metrics.stage("range_match"):
-        flat: list[StampedEvent] = []
-        owners: list[tuple[int, int]] = []  # (pair_pos, scan_pos)
-        for pair_pos, scanned in enumerate(scans):
-            for scan_pos, (_, _, events) in enumerate(scanned):
-                flat.extend(events)
-                owners.extend([(pair_pos, scan_pos)] * len(events))
-        mask = (
-            match_backend.event_match_mask(
-                flat, matcher.topic0, matcher.topic1, spec.actor_id_filter
-            )
-            if flat
-            else []
+        metrics.count(
+            "range_events", sum(len(events) for scanned in scans for _, _, events in scanned)
         )
-        metrics.count("range_events", len(flat))
-        hit_receipts: dict[int, set[int]] = {}
-        for k, hit in enumerate(mask):
-            if hit:
-                pair_pos, scan_pos = owners[k]
-                hit_receipts.setdefault(pair_pos, set()).add(scan_pos)
-        return [
-            [scans[p][s][0] for s in sorted(hit_receipts.get(p, ()))]
-            for p in range(len(pairs))
-        ]
+        return mask_receipt_indices(scans, matcher, spec.actor_id_filter, match_backend)
 
 
 def _record_chunk(

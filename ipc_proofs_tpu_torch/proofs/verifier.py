@@ -2,7 +2,9 @@
 
 The counterpart of ``ipc_proofs_tpu.proofs.verifier.verify_proof_bundle``,
 taking the parent-tipset and child-header checks as callables in place of a
-``TrustPolicy`` (whose F3-certificate half waits for a later slice).
+``TrustPolicy`` (whose F3-certificate half waits for a later slice). Storage
+proofs replay with the scalar loop over the shared witness store (the
+reference's batched replay needs its native HAMT walker), then the events.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from ipc_proofs_tpu_torch.proofs.bundle import (
     UnifiedVerificationResult,
 )
 from ipc_proofs_tpu_torch.proofs.event_verifier import verify_event_proof
+from ipc_proofs_tpu_torch.proofs.storage_verifier import verify_storage_proof
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
 from ipc_proofs_tpu_torch.state.events import ActorEvent
 
@@ -45,8 +48,6 @@ def verify_proof_bundle(
     ``get_backend("gpu", device="cpu")`` for the plain versions). Raises
     ValueError on any mismatching block.
     """
-    if bundle.storage_proofs:
-        raise NotImplementedError("storage proofs come with the storage-proof slice")
     if verify_witness_cids:
         _verify_witness_cids(
             bundle.blocks, cid_backend if cid_backend is not None else get_backend("gpu")
@@ -66,6 +67,10 @@ def verify_proof_bundle(
         except Exception:  # fail-soft: a throwing trust check is a rejection — the proof verdict reports invalid, never crashes verify
             return False
 
+    storage_results = [
+        verify_storage_proof(proof, bundle.blocks, child_verifier, store=shared_store)
+        for proof in bundle.storage_proofs
+    ]
     event_bundle = EventProofBundle(proofs=bundle.event_proofs, blocks=bundle.blocks)
     event_results = verify_event_proof(
         event_bundle,
@@ -74,7 +79,7 @@ def verify_proof_bundle(
         check_event=event_filter,
         store=shared_store,
     )
-    return UnifiedVerificationResult(storage_results=[], event_results=event_results)
+    return UnifiedVerificationResult(storage_results=storage_results, event_results=event_results)
 
 
 def _verify_witness_cids(blocks, backend) -> None:

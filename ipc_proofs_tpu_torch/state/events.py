@@ -25,6 +25,7 @@ __all__ = [
     "extract_evm_log",
     "hash_event_signature",
     "ascii_to_bytes32",
+    "left_pad_32",
     "IPLD_RAW",
 ]
 
@@ -58,6 +59,9 @@ class EventEntry:
             raise ValueError("event entry value must be bytes")
         return cls(flags=flags, key=key, codec=codec, value=value)
 
+    def to_tuple(self) -> list:
+        return [self.flags, self.key, self.codec, self.value]
+
 
 @dataclass
 class ActorEvent:
@@ -70,6 +74,9 @@ class ActorEvent:
         if not isinstance(value, list):
             raise ValueError("ActorEvent entries must be an array")
         return cls(entries=[EventEntry.from_tuple(e) for e in value])
+
+    def to_cbor(self) -> list:
+        return [e.to_tuple() for e in self.entries]
 
 
 @dataclass
@@ -89,6 +96,9 @@ class StampedEvent:
         if not isinstance(emitter, int) or isinstance(emitter, bool) or emitter < 0:
             raise ValueError("StampedEvent emitter must be an unsigned int")
         return cls(emitter=emitter, event=ActorEvent.from_cbor(value[1]))
+
+    def to_cbor(self) -> list:
+        return [self.emitter, self.event.to_cbor()]
 
 
 @dataclass
@@ -113,6 +123,9 @@ class Receipt:
             gas_used=value[2],
             events_root=events_root,
         )
+
+    def to_cbor(self) -> list:
+        return [self.exit_code, self.return_data, self.gas_used, self.events_root]
 
 
 @dataclass
@@ -161,3 +174,10 @@ def ascii_to_bytes32(text: str) -> bytes:
     """Right-pad an ASCII string to 32 bytes (subnet-id topics)."""
     raw = text.encode("utf-8")[:32]
     return raw + b"\x00" * (32 - len(raw))
+
+
+def left_pad_32(value: bytes) -> bytes:
+    """Left-pad (or left-truncate) to 32 bytes — EVM storage value form."""
+    if len(value) >= 32:
+        return value[-32:]
+    return b"\x00" * (32 - len(value)) + value

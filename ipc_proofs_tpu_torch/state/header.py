@@ -16,7 +16,7 @@ from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.core.dagcbor import decode as cbor_decode
 from ipc_proofs_tpu_torch.core.dagcbor import encode as cbor_encode
 
-__all__ = ["BlockHeader"]
+__all__ = ["BlockHeader", "extract_parent_state_root"]
 
 
 def _validate_core_fields(fields: list) -> None:
@@ -104,3 +104,8 @@ class BlockHeader:
                 self._parent_base_fee,
             ]
         )
+
+
+def extract_parent_state_root(raw: bytes) -> CID:
+    """Parent state root straight from raw header CBOR."""
+    return BlockHeader.decode(raw).parent_state_root

@@ -120,12 +120,23 @@ class RecordingBlockstore:
 
 class CachedBlockstore:
     """Memoizing wrapper over any blockstore (one pipeline run's cache: it
-    grows for the run and dies with it)."""
+    grows for the run and dies with it). Several wrappers may share one
+    cache dict (`shared_cache` / `with_shared_cache`), as the unified
+    generator's per-spec views do."""
 
-    def __init__(self, inner: Blockstore):
+    def __init__(self, inner: Blockstore, shared_cache: "Optional[dict[CID, bytes]]" = None):
         self._inner = inner
-        self._cache: dict[CID, bytes] = {}  # guarded-by: _lock
+        self._cache: dict[CID, bytes] = (  # guarded-by: _lock
+            shared_cache if shared_cache is not None else {}
+        )
         self._lock = threading.Lock()
+
+    @classmethod
+    def with_shared_cache(cls, inner: Blockstore, cache: "dict[CID, bytes]") -> "CachedBlockstore":
+        return cls(inner, shared_cache=cache)
+
+    def shared_cache(self) -> "dict[CID, bytes]":
+        return self._cache
 
     def get(self, cid: CID) -> Optional[bytes]:
         with self._lock:

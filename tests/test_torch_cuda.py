@@ -13,15 +13,22 @@ import pytest
 import torch
 
 from ipc_proofs_tpu_torch.backend import get_backend
-from ipc_proofs_tpu_torch.fixtures import build_range_world
-from ipc_proofs_tpu_torch.ops import blake2b, match, pack
+from ipc_proofs_tpu_torch.core.hashes import keccak256
+from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
+from ipc_proofs_tpu_torch.ops import blake2b, keccak, match, pack
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
+from ipc_proofs_tpu_torch.proofs.storage_batch import (
+    MappingSlotSpec,
+    generate_storage_proofs_batch,
+)
 from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
 
 pytestmark = pytest.mark.cuda
 
 LENGTHS = [0, 1, 127, 128, 129, 255, 256, 257, 384, 385, 520]
+KECCAK_LENGTHS = [0, 1, 63, 64, 65, 134, 135, 136, 137, 271, 272, 273, 543]
 
 
 @pytest.fixture
@@ -122,3 +129,52 @@ def test_entry_points_default_to_the_card(cuda_device):
     result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
     assert result.all_valid() and len(result.event_results) == n_matching > 0
     assert match.LAUNCHES["event_match_mask"] == 1 and sum(blake2b.LAUNCHES.values()) > 0
+
+
+def _keccak_cases(messages):
+    blo, bhi, _ = pack.pack_single_block_keccak([m for m in messages if len(m) < 136])
+    blocks, n_blocks = pack.pad_keccak(messages)
+    n_blocks[:3] = (0, -1, blocks.shape[1] + 2)  # masked rows: zero state, capped at B
+    return [
+        ("keccak256_single_block", (_t(blo), _t(bhi))),
+        ("keccak256_blocks", (_t(blocks), _t(n_blocks))),
+    ]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_each_keccak_kernel_equals_plain_and_counts_once(cuda_device, seed):
+    rng = np.random.default_rng(seed)
+    messages = _messages(KECCAK_LENGTHS * 4 + rng.integers(0, 600, 500).tolist(), seed=seed)
+    for name, args in _keccak_cases(messages):
+        keccak.reset_launch_counts()
+        out = getattr(keccak, name)(*(a.to(cuda_device) for a in args))
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), getattr(keccak, name + "_plain")(*args))
+        assert keccak.LAUNCHES[name] == 1
+        assert sum(keccak.LAUNCHES.values()) == 1
+
+
+def test_keccak_backend_split_on_card(cuda_device):
+    messages = _messages(KECCAK_LENGTHS * 5, seed=3)
+    keccak.reset_launch_counts()
+    assert get_backend("gpu").keccak256_batch(messages) == [keccak256(m) for m in messages]
+    assert keccak.LAUNCHES == {"keccak256_single_block": 1, "keccak256_blocks": 1}
+
+
+def test_small_storage_path_on_card(cuda_device):
+    storage = {calculate_storage_slot("subnet-0", i): bytes([i + 1]) for i in range(32)}
+    world = build_chain([ContractFixture(1001, storage=storage)], [], n_filler_actors=8)
+    specs = [MappingSlotSpec(1001, "subnet-0", i) for i in range(33)]
+    keccak.reset_launch_counts()
+    blake2b.reset_launch_counts()
+    bundle = generate_storage_proofs_batch(world.store, world.parent, world.child, specs)
+    result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
+    assert result.all_valid() and len(result.storage_results) == 33
+    assert [int(p.value, 16) for p in bundle.storage_proofs] == list(range(1, 33)) + [0]
+    assert keccak.LAUNCHES["keccak256_single_block"] == 1
+    assert sum(blake2b.LAUNCHES.values()) > 0
+    on_cpu = generate_storage_proofs_batch(
+        world.store, world.parent, world.child, specs,
+        hash_backend=get_backend("gpu", device="cpu"),
+    )
+    assert bundle.digest() == on_cpu.digest()

@@ -2,11 +2,13 @@
 
 - No module of ``ipc_proofs_tpu_torch`` and no line of ``chip_smoke.py``
   imports ``jax`` or anything of ``ipc_proofs_tpu`` (an AST walk), and a
-  process that runs the small range path on ``device="cpu"`` ends with
-  neither in ``sys.modules``.
+  process that runs the small range and storage paths on ``device="cpu"``
+  ends with neither in ``sys.modules``.
 - Entry points default to the card: without CUDA, ``GpuBackend()``,
-  ``generate_event_proofs_for_range`` and ``verify_proof_bundle(...,
-  verify_witness_cids=True)`` raise instead of running on the CPU.
+  ``generate_event_proofs_for_range``, ``hash_slot_specs``,
+  ``generate_storage_proofs_batch``, ``generate_proof_bundle`` and
+  ``verify_proof_bundle(..., verify_witness_cids=True)`` raise instead of
+  running on the CPU.
 """
 
 import ast
@@ -22,10 +24,15 @@ import torch
 from ipc_proofs_tpu_torch.backend import get_backend
 from ipc_proofs_tpu_torch.backend.gpu import GpuBackend
 from ipc_proofs_tpu_torch.core.cid import CID, RAW, SHA2_256
-from ipc_proofs_tpu_torch.fixtures import build_range_world
+from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
 from ipc_proofs_tpu_torch.proofs.bundle import ProofBlock
-from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
+from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec, generate_proof_bundle
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
+from ipc_proofs_tpu_torch.proofs.storage_batch import (
+    MappingSlotSpec,
+    generate_storage_proofs_batch,
+    hash_slot_specs,
+)
 from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -51,7 +58,10 @@ def test_port_files_exist():
     rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in rel
     assert "ipc_proofs_tpu_torch/ops/blake2b.py" in rel
-    assert (ROOT / "ipc_proofs_tpu_torch" / "csrc" / "blake2b.cu").is_file()
+    assert "ipc_proofs_tpu_torch/ops/keccak.py" in rel
+    assert "ipc_proofs_tpu_torch/proofs/storage_batch.py" in rel
+    for source in ("blake2b.cu", "keccak.cu"):
+        assert (ROOT / "ipc_proofs_tpu_torch" / "csrc" / source).is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -78,6 +88,22 @@ bundle = generate_event_proofs_for_range(
 result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True,
                              cid_backend=backend)
 assert result.all_valid() and len(result.event_results) == n_matching > 0
+
+from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain
+from ipc_proofs_tpu_torch.proofs.storage_batch import (
+    MappingSlotSpec, generate_storage_proofs_batch,
+)
+from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
+
+storage = {calculate_storage_slot("subnet-0", i): bytes([i + 1]) for i in range(8)}
+world = build_chain([ContractFixture(1001, storage=storage)], [])
+specs = [MappingSlotSpec(1001, "subnet-0", i) for i in range(8)]
+bundle = generate_storage_proofs_batch(
+    world.store, world.parent, world.child, specs, hash_backend=backend
+)
+result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True,
+                             cid_backend=backend)
+assert result.all_valid() and len(result.storage_results) == 8
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu"))
 print("LOADED", bad)
@@ -167,14 +193,29 @@ def test_unsupported_device_raises():
         GpuBackend("meta")
 
 
-def test_keccak_waits_for_the_storage_slice():
-    with pytest.raises(NotImplementedError, match="storage"):
-        get_backend("gpu", device="cpu").keccak256_batch([b"abc"])
+def test_storage_entry_points_default_to_the_card(monkeypatch):
+    world = build_chain([ContractFixture(1001, storage={b"\x01" * 32: b"\x02"})], [])
+    specs = [MappingSlotSpec(1001, "subnet-0", i) for i in range(2)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hash_slot_specs(specs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_storage_proofs_batch(world.store, world.parent, world.child, specs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_proof_bundle(
+            world.store, world.parent, world.child, [], [EventProofSpec("E(uint256)", "subnet-0")]
+        )
+    # slots hashed elsewhere: the batch itself runs no kernel
+    bundle = generate_storage_proofs_batch(
+        world.store, world.parent, world.child, specs, precomputed_slots=[b"\x01" * 32] * 2
+    )
+    assert [p.value[-2:] for p in bundle.storage_proofs] == ["02", "02"]
 
 
 def test_import_builds_nothing():
     code = (
-        "import ipc_proofs_tpu_torch.ops.blake2b, ipc_proofs_tpu_torch.ops.build as b; "
+        "import ipc_proofs_tpu_torch.ops.blake2b, ipc_proofs_tpu_torch.ops.keccak, "
+        "ipc_proofs_tpu_torch.ops.build as b; "
         "print(b._BUILD.exists())"
     )
     before = (ROOT / "ipc_proofs_tpu_torch" / "_build").exists()

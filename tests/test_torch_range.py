@@ -3,8 +3,9 @@
 At ``build_range_world(24, 8, 4, 0.125)`` built by each package: the block
 stores are byte-identical, the port's bundle (``to_json()``/``digest()``)
 equals the reference's from ``generate_event_proofs_for_range(...,
-match_backend=get_backend("cpu"))``, the verdict lists are equal, and a
-tampered witness block is rejected by both.
+match_backend=get_backend("cpu"))`` (also with ``storage_specs``, slots
+proved at every pair), the verdict lists are equal, and a tampered witness
+block is rejected by both.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ from ipc_proofs_tpu.proofs.generator import EventProofSpec as RefSpec  # noqa: E
 from ipc_proofs_tpu.proofs.range import (  # noqa: E402
     generate_event_proofs_for_range as ref_generate,
 )
+from ipc_proofs_tpu.proofs.storage_batch import MappingSlotSpec as RefSlotSpec  # noqa: E402
 from ipc_proofs_tpu.proofs.trust import TrustPolicy  # noqa: E402
 from ipc_proofs_tpu.proofs.verifier import verify_proof_bundle as ref_verify  # noqa: E402
 from ipc_proofs_tpu_torch.backend import get_backend  # noqa: E402
@@ -27,11 +29,13 @@ from ipc_proofs_tpu_torch.fixtures import build_range_world, world_from_blocks  
 from ipc_proofs_tpu_torch.proofs.bundle import ProofBlock, UnifiedProofBundle  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.event_generator import (  # noqa: E402
     EventMatcher,
+    mask_receipt_indices,
     match_receipt_indices,
     scan_receipt_events,
 )
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range  # noqa: E402
+from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle  # noqa: E402
 from ipc_proofs_tpu_torch.utils.metrics import Metrics  # noqa: E402
 
@@ -110,6 +114,26 @@ def test_scalar_match_path_gives_the_same_bundle(port_world):
     assert again.digest() == bundle.digest()
     assert {"range_scan", "range_match", "range_record"} <= metrics.stage_s.keys()
     assert metrics.counters["range_proofs"] == len(bundle.event_proofs)
+    assert metrics.counters["range_events"] == WORLD["n_pairs"] * 8 * 4
+
+
+@pytest.mark.parametrize("actor", [ACTOR, None, 7])
+def test_mask_receipt_indices_equals_scalar_predicate(port_world, actor):
+    """The one-mask-call predicate the range driver and `generate_event_proof`
+    share picks, scan by scan, the receipts the scalar predicate picks, over
+    the whole range at once and over one pair at a time."""
+    store, pairs, _, _ = port_world
+    matcher = EventMatcher(SIG, TOPIC1)
+    backend = get_backend("gpu", device="cpu")
+    scans = [
+        scan_receipt_events(store, pair.child.blocks[0].parent_message_receipts)
+        for pair in pairs
+    ]
+    scalar = [match_receipt_indices(scanned, matcher, actor) for scanned in scans]
+    assert (sum(map(len, scalar)) > 0) == (actor != 7)
+    assert mask_receipt_indices(scans, matcher, actor, backend) == scalar
+    assert [mask_receipt_indices([s], matcher, actor, backend)[0] for s in scans] == scalar
+    assert mask_receipt_indices([[], *scans[:1]], matcher, actor, backend) == [[], scalar[0]]
 
 
 def test_verdicts_equal_reference(ref_world, port_world):
@@ -183,11 +207,57 @@ def test_reference_bundle_json_parses_and_verifies(ref_world):
     assert RefBundle.from_json(bundle.to_json()).digest() == bundle.digest()
 
 
-def test_storage_specs_wait_for_their_slice(port_world):
-    store, pairs, _, _ = port_world
-    with pytest.raises(NotImplementedError, match="storage"):
-        generate_event_proofs_for_range(
-            store, pairs, EventProofSpec(SIG, TOPIC1), storage_specs=[object()]
-        )
-    with pytest.raises(NotImplementedError, match="storage"):
-        UnifiedProofBundle.from_json('{"storage_proofs": [{}], "event_proofs": [], "blocks": []}')
+STORAGE_SPECS = [(ACTOR, TOPIC1, 0), (ACTOR, TOPIC1, 1), (ACTOR, "calib-subnet-2", 0)]
+
+
+@pytest.fixture(scope="module")
+def storage_ranges(ref_world, port_world):
+    """Each package's range bundle with the topdown-nonce slot grid proved at
+    every pair (the use the reference's range docstring describes)."""
+    ref = ref_generate(
+        ref_world[0], ref_world[1], RefSpec(SIG, TOPIC1, ACTOR),
+        match_backend=ref_get_backend("cpu"),
+        storage_specs=[RefSlotSpec(*s) for s in STORAGE_SPECS],
+    )
+    metrics = Metrics()
+    ours = generate_event_proofs_for_range(
+        port_world[0], port_world[1], EventProofSpec(SIG, TOPIC1, ACTOR),
+        match_backend=get_backend("gpu", device="cpu"), metrics=metrics,
+        storage_specs=[MappingSlotSpec(*s) for s in STORAGE_SPECS],
+    )
+    return ours, ref, metrics
+
+
+def test_range_with_storage_specs_equals_reference(port_world, storage_ranges):
+    ours, ref, metrics = storage_ranges
+    n_pairs = len(port_world[1])
+    assert len(ours.storage_proofs) == n_pairs * len(STORAGE_SPECS)
+    assert len(ours.event_proofs) == port_world[2] > 0
+    assert ours.to_json() == ref.to_json()
+    assert metrics.counters["range_storage_proofs"] == len(ours.storage_proofs)
+    assert "range_storage" in metrics.stage_s
+    # the witness is a superset of the event-only range's
+    assert {b.cid for b in port_world[3].blocks} < {b.cid for b in ours.blocks}
+    backend = get_backend("gpu", device="cpu")
+    result = verify_proof_bundle(
+        ours, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+    )
+    ref_result = ref_verify(
+        ref, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=ref_get_backend("cpu")
+    )
+    assert result.all_valid()
+    assert result.storage_results == ref_result.storage_results
+    assert result.event_results == ref_result.event_results
+
+
+def test_storage_bundle_json_round_trips_with_reference(storage_ranges):
+    ours, ref, _ = storage_ranges
+    text = ref.to_json()
+    parsed = UnifiedProofBundle.from_json(text)
+    assert parsed.to_json() == text and parsed.storage_proofs
+    assert RefBundle.from_json(ours.to_json()).digest() == ours.digest()
+    broken = text.replace('"actor_id": %d' % ACTOR, '"actor_id": "%d"' % ACTOR, 1)
+    assert broken != text
+    for parse in (UnifiedProofBundle.from_json, RefBundle.from_json):
+        with pytest.raises((TypeError, ValueError)):
+            parse(broken)
