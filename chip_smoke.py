@@ -2,13 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (``ipc_proofs_tpu_torch``) on one card.
 
     python3 chip_smoke.py [--seed N] [--pairs N] [--messages N]
+                          [--pure-pairs N] [--pure-contracts N]
 
 Phases, none of which may fail:
 
 1. probe — a CUDA device is required (exit 1 without one); prints the
    card's name and power limit as ``nvidia-smi`` reports them;
-2. build — compiles ``csrc/blake2b.cu`` and ``csrc/keccak.cu`` with nvcc
-   for sm_90a (one nvcc per source, started together) and prints the build
+2. build — the host C extensions (``backend/native/*.c``) build with gcc
+   when the package is imported, raising on failure; then it compiles
+   ``csrc/blake2b.cu`` and ``csrc/keccak.cu`` with nvcc for sm_90a (one
+   nvcc per source, started together) and prints the build
    seconds, ptxas's register report, and the SASS instructions per pipe of
    one blake2b compression and one keccak permutation (``cuobjdump``) that
    the operation bounds are computed from;
@@ -25,46 +28,69 @@ Phases, none of which may fail:
      count is 0 (digest of zeros) or above the layout's 4 (absorbs 4);
 4. event path — ``build_range_world(4096, 16, 4, 0.01)`` (BASELINE config
    2), then ``generate_event_proofs_for_range`` with ``get_backend("gpu")``
-   and ``verify_proof_bundle`` with the witness CID recompute on the card:
-   every verdict true, one proof per matching receipt, every blake2b
-   kernel's launch count and the match mask's above 0 in this phase; each
-   kernel is held against its plain version on the witness's own blocks; a
-   flipped byte in a witness block of each size class must be rejected;
+   and ``verify_proof_bundle`` with the witness CID recompute on the card,
+   through the native branches (fused C scan+match, C pass 2, C witness
+   materialization, batched replay whose TxMeta recompute is a second
+   single-block blake2b launch), each of which must run: every verdict
+   true, one proof per matching receipt, every blake2b kernel launched, the
+   TxMeta batch's digests from that launch equal to the plain versions' and
+   hashlib's on the same messages; a
+   second generate with ``IPC_SCAN_FUSED_MATCH=0`` must give the same bundle
+   bytes and launch the fingerprint mask on the card once; each kernel is
+   held against its plain version on the witness's own blocks; a flipped
+   byte in a witness block of each size class must be rejected; a repeat
+   of the path under ``torch.profiler`` gives the card's busy time;
 5. storage path — BASELINE config 3: ``build_chain`` with 256 EVM
    contracts × 256 mapping slots (keys ``keccak(ascii_to_bytes32(
    f"subnet-{c}") ‖ be32(i))``, hashed on the card and sampled against
    ``core.hashes.keccak256``; values ``(i % 251).to_bytes(2, "big")``;
    direct HAMT storage, bit width 5; 50 filler actors), then
-   ``generate_storage_proofs_batch`` (slot keccaks on the card) and
-   ``verify_proof_bundle`` with the CID recompute on the card: 65,536
-   proofs, every verdict true, every value the fixture's, the single-block
-   keccak kernel and all three blake2b kernels launched in this phase;
-   the keccak and blake2b kernels held against their plain versions at this
-   path's shapes; a flipped witness byte of each size class rejected and a
-   changed value given a false verdict;
+   ``generate_event_proofs_for_range`` over the one pair with the 65,536
+   slots as its ``storage_specs`` (slot keccaks on the card,
+   ``generate_storage_proofs_for_pairs``' batched C HAMT walks, which must
+   run, one C witness materialization; the world has no events) and
+   ``verify_proof_bundle`` (the batched storage verifier, which must
+   run) with the CID recompute on the card: 65,536 proofs, every verdict
+   true, every value the fixture's, the single-block keccak kernel and all
+   three blake2b kernels launched in this phase; the keccak and blake2b
+   kernels held against their plain versions at this path's shapes; a
+   flipped witness byte of each size class rejected and a changed value
+   given a false verdict;
 6. mixed range — ``build_range_world(64, 16, 4, 0.01)`` with the topdown
    nonce slot ``MappingSlotSpec(1001, "calib-subnet-1", 0)`` proved at every
-   pair: 64 storage proofs beside the event proofs, every verdict true,
-   every proof's slot the expected keccak digest, a changed value given a
-   false verdict, the range's one slot-hash launch and a blake2b launch for
-   each size class of its witness counted; the keccak and blake2b kernels
-   held against their plain versions at this path's shapes.
+   pair through the native range branches: 64 storage proofs beside the
+   event proofs, every verdict true, every proof's slot the expected keccak
+   digest, a changed value given a false verdict, the range's one slot-hash
+   launch and a blake2b launch for each size class of its witness counted;
+   the keccak and blake2b kernels held against their plain versions at this
+   path's shapes;
+7. pure-Python paths — a child process started with
+   ``IPC_PROOFS_NO_NATIVE=1`` runs the slice 1–2 branches on the card at
+   reduced depth (the event path at 512 pairs; ``generate_storage_proofs_batch``
+   at 16 contracts × 256 slots), each verified on the card with its own
+   launch counts; their bundle digests (sha256 of the canonical JSON) must
+   equal those of the native branches on the same worlds.
 
-Prints, in order before the last line: one line per kernel, one JSON
-object ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit line;
-and as the last line ``{"ok": true, "device": {...}}``. Each path's launch
-counts are set to 0 just before it runs and read just after. A kernel's
-``launches`` is the count on the path of the slice that ported it (the
-event path for blake2b, the storage path for keccak);
-``launches_by_path`` holds its count on each of the three paths.
+Prints per-stage ms of every path with the scanner's thread count and the
+CPUs it may use; then, in order before the last line: one line per kernel,
+one JSON object ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit
+line; and as the last line ``{"ok": true, "device": {...}}``. Each path's
+launch counts are set to 0 just before it runs and read just after. A
+kernel's ``launches`` is the count on the path of the slice that ported it
+(the event path for blake2b, the storage path for keccak);
+``launches_by_path`` holds its count on each path (the unfused event run
+and the two pure-Python paths included).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -75,7 +101,8 @@ import torch
 
 from ipc_proofs_tpu_torch.backend import get_backend
 from ipc_proofs_tpu_torch.backend.gpu import SIZE_CLASSES, keccak_class, size_class
-from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256
+from ipc_proofs_tpu_torch.backend.native import load_scan_ext
+from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256, CID, PurePythonCID
 from ipc_proofs_tpu_torch.core.hashes import keccak256
 from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
@@ -87,13 +114,13 @@ from ipc_proofs_tpu_torch.ops.pack import (
     pack_two_block_blake2b,
     pad_blake2b,
 )
+from ipc_proofs_tpu_torch.proofs import event_verifier as event_verifier_mod
+from ipc_proofs_tpu_torch.proofs import range as range_mod
+from ipc_proofs_tpu_torch.proofs import verifier as verifier_mod
 from ipc_proofs_tpu_torch.proofs.bundle import ProofBlock, UnifiedProofBundle
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
-from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
-from ipc_proofs_tpu_torch.proofs.storage_batch import (
-    MappingSlotSpec,
-    generate_storage_proofs_batch,
-)
+from ipc_proofs_tpu_torch.proofs.range import TipsetPair, generate_event_proofs_for_range
+from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec, generate_storage_proofs_batch
 from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, left_pad_32
 from ipc_proofs_tpu_torch.utils.metrics import Metrics
@@ -470,7 +497,8 @@ def _reject_changed_value(bundle) -> None:
 def _reset_counts() -> None:
     blake2b.reset_launch_counts()
     keccak.reset_launch_counts()
-    match.LAUNCHES["event_match_mask"] = 0
+    for name in match.LAUNCHES:
+        match.LAUNCHES[name] = 0
 
 
 def _counts() -> "dict[str, int]":
@@ -517,74 +545,225 @@ def _verify_cids_s(bundle, backend) -> float:
     return time.perf_counter() - t0
 
 
-def event_path(n_pairs: int, device) -> dict:
-    """BASELINE config 2: the 4096-pair event-proof range, generated and
-    verified on the card."""
-    t0 = time.perf_counter()
-    store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01)
-    world_s = time.perf_counter() - t0
-    _log(f"world: {n_pairs} pairs, {len(store)} blocks, {n_matching} matching receipts, {world_s:.1f} s")
-    backend = get_backend("gpu")
-    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
-    metrics = Metrics()
+# The native branches of the paths: each entry point is wrapped while a path
+# runs, and the path fails unless every one it needs ran and returned its
+# native result (not the pure-Python fallback's None / False).
+NATIVE_ENTRIES = (
+    (range_mod, "_scan_and_match", lambda out: out[1]),
+    (range_mod, "_record_pass2_native", lambda out: out is not None),
+    (range_mod, "generate_storage_proofs_for_pairs", lambda out: out is not None),
+    (event_verifier_mod, "reconstruct_execution_orders_batch", lambda out: out is not None),
+    (event_verifier_mod, "scan_events_flat", lambda out: out is not None),
+    (verifier_mod, "verify_storage_proofs_batch", lambda out: out is not None),
+)
+EVENT_BRANCHES = (
+    "_scan_and_match",
+    "_record_pass2_native",
+    "reconstruct_execution_orders_batch",
+    "scan_events_flat",
+)
 
+
+@contextlib.contextmanager
+def _native_branches(path: str, expected):
+    """Fail ``path`` unless each entry named in ``expected`` ran in the block
+    and every call of it took the native branch."""
+    seen: "dict[str, list[bool]]" = {}
+    originals = []
+
+    def spy(fn, name, ok):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.setdefault(name, []).append(bool(ok(out)))
+            return out
+
+        return wrapper
+
+    for module, name, ok in NATIVE_ENTRIES:
+        originals.append((module, name, getattr(module, name)))
+        setattr(module, name, spy(getattr(module, name), name, ok))
+    try:
+        yield seen
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    missed = [name for name in expected if not seen.get(name) or not all(seen[name])]
+    if missed:
+        raise AssertionError(f"{path}: the native branch did not run for {missed} ({seen})")
+    _log(f"{path}: native branches ran: " + ", ".join(f"{k} x{len(v)}" for k, v in sorted(seen.items())))
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = saved
+
+
+def _host_info() -> str:
+    return f"scan_threads={load_scan_ext().scan_threads()} cpus={len(os.sched_getaffinity(0))}"
+
+
+class _RecordingBackend:
+    """The card's backend, recording each direct ``blake2b256_batch`` call
+    with the digests its kernels returned: the verifier's TxMeta recompute.
+    (The witness recompute goes through ``verify_block_cids``, which the
+    wrapped backend serves itself.)"""
+
+    def __init__(self, backend):
+        self._backend = backend
+        self.batches: "list[tuple[list[bytes], list[bytes]]]" = []
+
+    def __getattr__(self, name):
+        return getattr(self._backend, name)
+
+    def blake2b256_batch(self, messages):
+        digests = self._backend.blake2b256_batch(messages)
+        self.batches.append((list(messages), list(digests)))
+        return digests
+
+
+def _check_txmeta_batch(recording: _RecordingBackend) -> int:
+    """The event path's one TxMeta batch, as the card computed it during the
+    path, against the plain PyTorch versions on the same messages and
+    against the host golden model: on an honest bundle the batch must be
+    clean. Returns its row count."""
+    if len(recording.batches) != 1:
+        raise AssertionError(f"event path: {len(recording.batches)} TxMeta batches, expected 1")
+    [(messages, digests)] = recording.batches
+    if not messages:
+        raise AssertionError("event path: the TxMeta batch is empty")
+    if digests != get_backend("gpu", device="cpu").blake2b256_batch(messages):
+        raise AssertionError("event path: the TxMeta batch differs from the plain versions")
+    if digests != [_blake2b(m) for m in messages]:
+        raise AssertionError("event path: the TxMeta batch differs from hashlib")
+    return len(messages)
+
+
+def _generate_and_verify(generate, backend):
+    """One path's run, counts from 0: ``generate(metrics)`` then the
+    verifier with the CID recompute on the card. The garbage of the world's
+    set-up is collected first, outside the timed window. Returns (bundle,
+    result, metrics, stage ms, launches)."""
+    gc.collect()
+    metrics = Metrics()
     _reset_counts()
     t0 = time.perf_counter()
-    bundle = generate_event_proofs_for_range(
-        store, pairs, spec, match_backend=backend, metrics=metrics
-    )
+    bundle = generate(metrics)
     t1 = time.perf_counter()
     result = verify_proof_bundle(
         bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
     )
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = _counts()
+    stages = {k: v * 1e3 for k, v in metrics.stage_s.items()}
+    stages.update(generate_total=(t1 - t0) * 1e3, verify_total=(t2 - t1) * 1e3)
+    return bundle, result, metrics, stages, _counts()
 
-    if not result.event_results or not all(result.event_results):
+
+def _event_generate(store, pairs, backend):
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    return lambda metrics: generate_event_proofs_for_range(
+        store, pairs, spec, match_backend=backend, metrics=metrics
+    )
+
+
+def _device_busy(generate, backend) -> dict:
+    """A repeat of a path's run (`_generate_and_verify`) under
+    torch.profiler: its stage ms, and the device time of the CUDA kernels
+    it launched (``busy_ms`` None when the profiler saw no CUDA kernel:
+    then not measured)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        _, _, _, stages, _ = _generate_and_verify(generate, backend)
+    busy_us = sum(
+        getattr(e, "self_device_time_total", 0) or 0
+        for e in prof.key_averages()
+        if str(getattr(e, "device_type", "")).endswith("CUDA")
+    )
+    return {"stage_ms": stages, "busy_ms": busy_us / 1e3 if busy_us > 0 else None}
+
+
+def event_path(n_pairs: int, device) -> dict:
+    """BASELINE config 2: the 4096-pair event-proof range through the native
+    branches (fused C scan+match, C pass 2, C witness materialization,
+    batched replay with the TxMeta recompute on the card)."""
+    t0 = time.perf_counter()
+    store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01)
+    world_s = time.perf_counter() - t0
+    _log(f"world: {n_pairs} pairs, {len(store)} blocks, {n_matching} matching receipts, {world_s:.1f} s")
+    backend = get_backend("gpu")
+    recording = _RecordingBackend(backend)
+
+    with _native_branches("event path", EVENT_BRANCHES):
+        bundle, result, metrics, stages, launches = _generate_and_verify(
+            _event_generate(store, pairs, backend), recording
+        )
+    wall_ms = stages["generate_total"] + stages["verify_total"]
+    if len(result.event_results) != n_matching or not all(result.event_results):
         raise AssertionError("event path: a verdict is false")
     if len(bundle.event_proofs) != n_matching:
         raise AssertionError(
             f"event path: {len(bundle.event_proofs)} proofs for {n_matching} matching receipts"
         )
-    _require_launched("event path", launches, [*SIZE_CLASSES, "event_match_mask"])
+    _require_launched("event path", launches, SIZE_CLASSES)
+    # the witness recompute and the batched TxMeta recompute each launch it
+    if launches["blake2b256_single_block"] < 2:
+        raise AssertionError(f"event path: no TxMeta recompute launch ({launches})")
+    txmeta_rows = _check_txmeta_batch(recording)
+    _log(f"event path: TxMeta batch of {txmeta_rows} rows equal to plain and to hashlib")
+
+    # the unfused branch: flat arrays, the fingerprint mask on the card
+    unfused_metrics = Metrics()
+    with _env("IPC_SCAN_FUSED_MATCH", "0"):
+        _reset_counts()
+        t1 = time.perf_counter()
+        unfused = _event_generate(store, pairs, backend)(unfused_metrics)
+        unfused_ms = (time.perf_counter() - t1) * 1e3
+        unfused_launches = _counts()
+    if unfused.to_json() != bundle.to_json():
+        raise AssertionError("event path: the unfused bundle differs from the fused one")
+    if unfused_launches["event_match_mask_fp"] != 1:
+        raise AssertionError(f"event path: unfused mask launches {unfused_launches}")
 
     verify_cids_s = _verify_cids_s(bundle, backend)
     _check_witness_shapes(bundle.blocks, device)
     _reject_flipped_blocks(bundle, backend)
-
-    stages = {k: v * 1e3 for k, v in metrics.stage_s.items()}
+    profiled = _device_busy(_event_generate(store, pairs, backend), backend)
     return {
         "pairs": n_pairs,
         "proofs": len(bundle.event_proofs),
         "events": metrics.counters.get("range_events", 0),
         "witness_blocks": {name: len(v) for name, v in _classes(bundle.blocks).items()},
-        "stage_ms": dict(
-            stages,
-            generate_total=(t1 - t0) * 1e3,
-            verify_total=(t2 - t1) * 1e3,
-            verify_cids=verify_cids_s * 1e3,
-        ),
-        "proofs_per_s": len(bundle.event_proofs) / (t2 - t0),
+        "txmeta_rows": txmeta_rows,
+        "stage_ms": dict(stages, verify_cids=verify_cids_s * 1e3),
+        "unfused": {
+            "generate_total_ms": unfused_ms,
+            "stage_ms": {k: v * 1e3 for k, v in unfused_metrics.stage_s.items()},
+            "launches": unfused_launches,
+        },
+        "proofs_per_s": len(bundle.event_proofs) / wall_ms * 1e3,
+        "profiled_run": profiled,
         "launches": launches,
+        "host": _host_info(),
     }
 
 
-def storage_path(n_contracts: int, n_slots: int, seed: int, device) -> dict:
-    """BASELINE config 3: ``n_contracts`` EVM contracts × ``n_slots``
-    mapping slots at one parent/child pair, proved and verified on the card."""
-    backend = get_backend("gpu")
-    t0 = time.perf_counter()
+def _storage_world(n_contracts: int, n_slots: int, backend):
+    """BASELINE config 3's contracts: slot keys hashed on the card, values
+    ``(i % 251).to_bytes(2, "big")``, direct HAMT storage."""
     preimages = [
         ascii_to_bytes32(f"subnet-{c}") + i.to_bytes(32, "big")
         for c in range(n_contracts)
         for i in range(n_slots)
     ]
     keys = backend.keccak256_batch(preimages)
-    rng = np.random.default_rng(seed + 2)
-    for k in rng.choice(len(keys), size=min(4096, len(keys)), replace=False):
-        if keys[k] != keccak256(preimages[k]):
-            raise AssertionError(f"slot key {k} differs from core.hashes.keccak256")
     contracts = [
         ContractFixture(
             actor_id=ACTOR_ID + c,
@@ -593,38 +772,57 @@ def storage_path(n_contracts: int, n_slots: int, seed: int, device) -> dict:
         for c in range(n_contracts)
     ]
     world = build_chain(contracts, [], n_filler_actors=N_FILLER_ACTORS)
-    world_s = time.perf_counter() - t0
-    _log(
-        f"storage world: {n_contracts} contracts x {n_slots} slots, {len(world.store)} blocks, "
-        f"{world_s:.1f} s (slot keys on the card, 4,096 checked against core.hashes.keccak256)"
-    )
     specs = [
         MappingSlotSpec(ACTOR_ID + c, f"subnet-{c}", i)
         for c in range(n_contracts)
         for i in range(n_slots)
     ]
-    metrics = Metrics()
+    return world, specs, keys, preimages
 
-    _reset_counts()
+
+def _storage_generate(world, specs, backend):
+    """The storage proofs of the world's one pair through the range driver's
+    storage leg: slot keccaks on the card, one batched C walk of the actors
+    tree and one of the storage HAMTs, one C witness materialization. The
+    world has no events, so the range's event scan finds none."""
+    pairs = [TipsetPair(world.parent, world.child)]
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    return lambda metrics: generate_event_proofs_for_range(
+        world.store, pairs, spec, match_backend=backend, metrics=metrics, storage_specs=specs
+    )
+
+
+def storage_path(n_contracts: int, n_slots: int, seed: int, device) -> dict:
+    """BASELINE config 3: ``n_contracts`` EVM contracts × ``n_slots``
+    mapping slots at one parent/child pair, proved through the range
+    driver's storage leg (`generate_storage_proofs_for_pairs`) and verified
+    by the batched storage verifier, the hashing on the card."""
+    backend = get_backend("gpu")
     t0 = time.perf_counter()
-    bundle = generate_storage_proofs_batch(
-        world.store, world.parent, world.child, specs, hash_backend=backend, metrics=metrics
+    world, specs, keys, preimages = _storage_world(n_contracts, n_slots, backend)
+    rng = np.random.default_rng(seed + 2)
+    for k in rng.choice(len(keys), size=min(4096, len(keys)), replace=False):
+        if keys[k] != keccak256(preimages[k]):
+            raise AssertionError(f"slot key {k} differs from core.hashes.keccak256")
+    world_s = time.perf_counter() - t0
+    _log(
+        f"storage world: {n_contracts} contracts x {n_slots} slots, {len(world.store)} blocks, "
+        f"{world_s:.1f} s (slot keys on the card, 4,096 checked against core.hashes.keccak256)"
     )
-    t1 = time.perf_counter()
-    result = verify_proof_bundle(
-        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
-    )
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = _counts()
-
+    with _native_branches(
+        "storage path", ["generate_storage_proofs_for_pairs", "verify_storage_proofs_batch"]
+    ):
+        bundle, result, _, stages, launches = _generate_and_verify(
+            _storage_generate(world, specs, backend), backend
+        )
+    wall_ms = stages["generate_total"] + stages["verify_total"]
     if len(result.storage_results) != len(specs) or not all(result.storage_results):
         raise AssertionError("storage path: a verdict is false")
     expected = [
         ("0x" + keys[k].hex(), "0x" + left_pad_32((k % n_slots % 251).to_bytes(2, "big")).hex())
         for k in range(len(specs))
     ]
-    if [(p.slot, p.value) for p in bundle.storage_proofs] != expected:
+    if bundle.event_proofs or [(p.slot, p.value) for p in bundle.storage_proofs] != expected:
         raise AssertionError("storage path: a proof's slot or value is not the fixture's")
     _require_launched("storage path", launches, ["keccak256_single_block", *SIZE_CLASSES])
 
@@ -633,46 +831,37 @@ def storage_path(n_contracts: int, n_slots: int, seed: int, device) -> dict:
     _check_witness_shapes(bundle.blocks, device)
     _reject_flipped_blocks(bundle, backend)
     _reject_changed_value(bundle)
-
-    stages = {k: v * 1e3 for k, v in metrics.stage_s.items()}
     return {
         "contracts": n_contracts,
         "slots": len(specs),
         "proofs": len(bundle.storage_proofs),
         "witness_blocks": {name: len(v) for name, v in _classes(bundle.blocks).items()},
-        "stage_ms": dict(
-            stages,
-            world_build=world_s * 1e3,
-            generate_total=(t1 - t0) * 1e3,
-            verify_total=(t2 - t1) * 1e3,
-            verify_cids=verify_cids_s * 1e3,
-        ),
-        "proofs_per_s": len(bundle.storage_proofs) / (t2 - t0),
+        "stage_ms": dict(stages, world_build=world_s * 1e3, verify_cids=verify_cids_s * 1e3),
+        "proofs_per_s": len(bundle.storage_proofs) / wall_ms * 1e3,
         "launches": launches,
+        "host": _host_info(),
     }
 
 
 def mixed_range(n_pairs: int, device) -> dict:
-    """The topdown nonce slot proved at every pair of a small event range,
-    the range's slot keccak hashed once on the card. The range world's
-    contract has an empty storage HAMT, so every proof reads value 0 at any
-    slot: the slot itself is checked against the host keccak."""
+    """The topdown nonce slot proved at every pair of a small event range
+    through the native range branches, the range's slot keccak hashed once
+    on the card. The range world's contract has an empty storage HAMT, so
+    every proof reads value 0 at any slot: the slot itself is checked
+    against the host keccak."""
     store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01)
     backend = get_backend("gpu")
-    metrics = Metrics()
     spec = MappingSlotSpec(ACTOR_ID, TOPIC1, 0)
-    _reset_counts()
-    t0 = time.perf_counter()
-    bundle = generate_event_proofs_for_range(
-        store, pairs, EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID), match_backend=backend,
-        metrics=metrics, storage_specs=[spec],
-    )
-    result = verify_proof_bundle(
-        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
-    )
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _counts()
+
+    def generate(metrics):
+        return generate_event_proofs_for_range(
+            store, pairs, EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID), match_backend=backend,
+            metrics=metrics, storage_specs=[spec],
+        )
+
+    branches = [*EVENT_BRANCHES, "generate_storage_proofs_for_pairs", "verify_storage_proofs_batch"]
+    with _native_branches("mixed range", branches):
+        bundle, result, _, stages, launches = _generate_and_verify(generate, backend)
     if len(result.storage_results) != n_pairs or len(result.event_results) != n_matching:
         raise AssertionError(
             f"mixed range: {len(result.storage_results)} storage and "
@@ -686,16 +875,83 @@ def mixed_range(n_pairs: int, device) -> dict:
 
     _check_slot_keccak([spec.key32() + spec.slot_index.to_bytes(32, "big")], device)
     present = _check_witness_shapes(bundle.blocks, device)
-    _require_launched("mixed range", launches, ["keccak256_single_block", "event_match_mask", *present])
+    _require_launched("mixed range", launches, ["keccak256_single_block", *present])
     _reject_changed_value(bundle)
     return {
         "pairs": n_pairs,
         "storage_proofs": len(bundle.storage_proofs),
         "event_proofs": len(bundle.event_proofs),
-        "stage_ms": {k: v * 1e3 for k, v in metrics.stage_s.items()},
-        "total_ms": seconds * 1e3,
+        "stage_ms": stages,
         "launches": launches,
     }
+
+
+def pure_python_paths(n_pairs: int, n_contracts: int, n_slots: int) -> dict:
+    """Run in a process started with ``IPC_PROOFS_NO_NATIVE=1``: the
+    slice 1–2 pure-Python branches on the card (Python scan with the flat
+    mask on the card, scalar pass 2, `generate_storage_proofs_batch`, scalar
+    replays), each path's bundle digest, stages and launches."""
+    if load_scan_ext() is not None or CID is not PurePythonCID:
+        raise AssertionError("the pure-Python paths need IPC_PROOFS_NO_NATIVE=1")
+    backend = get_backend("gpu")
+    store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01)
+    bundle, result, _, stages, launches = _generate_and_verify(
+        _event_generate(store, pairs, backend), backend
+    )
+    if len(result.event_results) != n_matching or not all(result.event_results):
+        raise AssertionError("pure event path: a verdict is false")
+    _require_launched("pure event path", launches, ["event_match_mask", *SIZE_CLASSES])
+    out = {"event": {"digest": bundle.digest(), "proofs": len(bundle.event_proofs),
+                     "stage_ms": stages, "launches": launches}}
+
+    world, specs, _, _ = _storage_world(n_contracts, n_slots, backend)
+    bundle, result, _, stages, launches = _generate_and_verify(
+        lambda metrics: generate_storage_proofs_batch(
+            world.store, world.parent, world.child, specs, hash_backend=backend, metrics=metrics
+        ),
+        backend,
+    )
+    if len(result.storage_results) != len(specs) or not all(result.storage_results):
+        raise AssertionError("pure storage path: a verdict is false")
+    _require_launched("pure storage path", launches, ["keccak256_single_block", *SIZE_CLASSES])
+    out["storage"] = {"digest": bundle.digest(), "proofs": len(bundle.storage_proofs),
+                      "stage_ms": stages, "launches": launches}
+    return out
+
+
+def pure_python_phase(n_pairs: int, n_contracts: int, n_slots: int) -> dict:
+    """The pure-Python paths in a child process (the universe is chosen once
+    per process), held against the native branches on the same worlds: the
+    bundle digests must be equal."""
+    cmd = [
+        sys.executable, __file__, "--pure-python-paths",
+        "--pairs", str(n_pairs), "--contracts", str(n_contracts), "--slots", str(n_slots),
+    ]
+    env = dict(os.environ, IPC_PROOFS_NO_NATIVE="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"pure-Python paths failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    pure = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    backend = get_backend("gpu")
+    store, pairs, _ = build_range_world(n_pairs, 16, 4, 0.01)
+    native_event = _event_generate(store, pairs, backend)(Metrics()).digest()
+    world, specs, _, _ = _storage_world(n_contracts, n_slots, backend)
+    native_storage = _storage_generate(world, specs, backend)(Metrics()).digest()
+    if pure["event"]["digest"] != native_event:
+        raise AssertionError(f"{n_pairs}-pair event bundle: pure-Python and native digests differ")
+    if pure["storage"]["digest"] != native_storage:
+        raise AssertionError(
+            f"{n_contracts}x{n_slots} storage bundle: pure-Python and native digests differ"
+        )
+    _log(
+        f"pure-Python paths (child process, {child_s:.1f} s): {n_pairs}-pair event bundle "
+        f"sha256 {native_event} and {n_contracts}x{n_slots} storage bundle sha256 "
+        f"{native_storage} equal the native branches'"
+    )
+    return pure
 
 
 def main(argv=None) -> int:
@@ -703,11 +959,20 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--pairs", type=int, default=4096)
     parser.add_argument("--messages", type=int, default=1 << 20)
+    parser.add_argument("--pure-pairs", type=int, default=512)
+    parser.add_argument("--pure-contracts", type=int, default=16)
+    # the child process of the pure-Python phase
+    parser.add_argument("--pure-python-paths", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--contracts", type=int, default=CONTRACTS, help=argparse.SUPPRESS)
+    parser.add_argument("--slots", type=int, default=SLOTS_PER_CONTRACT, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 1
+    if args.pure_python_paths:
+        print(json.dumps(pure_python_paths(args.pairs, args.contracts, args.slots)))
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -715,6 +980,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     _log(f"card: {smi}")
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    _log(f"host: {_host_info()} (native scanner built from {load_scan_ext().__file__})")
 
     built = build_libraries(["blake2b", "keccak"])
     for name, info in built.items():
@@ -742,13 +1008,18 @@ def main(argv=None) -> int:
         "storage path": storage_path(CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device),
         "mixed range": mixed_range(64, device),
     }
+    pure = pure_python_phase(args.pure_pairs, args.pure_contracts, SLOTS_PER_CONTRACT)
+    launch_counts = {label: path["launches"] for label, path in paths.items()}
+    launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
+    launch_counts["event path, pure Python"] = pure["event"]["launches"]
+    launch_counts["storage path, pure Python"] = pure["storage"]["launches"]
 
     rows = []
     for name, replaces, source, family in [(k[0], k[1], SOURCE, "blake2b") for k in KERNELS] + [
         (k[0], k[1], KECCAK_SOURCE, "keccak") for k in KECCAK_KERNELS
     ]:
         k = kernels[name]
-        per_path = {label: path["launches"][name] for label, path in paths.items()}
+        per_path = {label: counts[name] for label, counts in launch_counts.items()}
         row = {
             "name": name,
             "route": "cuda",
@@ -770,9 +1041,16 @@ def main(argv=None) -> int:
         )
     for label, path in paths.items():
         _log(f"{label}: {json.dumps(path)}")
+    _log(f"pure-Python paths: {json.dumps(pure)}")
     event, storage = paths["event path"], paths["storage path"]
-    _log(f"event path on {smi}: {event['proofs']} proofs, {event['proofs_per_s']} proofs/s")
-    _log(f"storage path on {smi}: {storage['proofs']} proofs, {storage['proofs_per_s']} proofs/s")
+    _log(
+        f"event path on {smi}: {event['proofs']} proofs, {event['proofs_per_s']} proofs/s, "
+        f"{event['host']}"
+    )
+    _log(
+        f"storage path on {smi}: {storage['proofs']} proofs, {storage['proofs_per_s']} proofs/s, "
+        f"{storage['host']}"
+    )
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({

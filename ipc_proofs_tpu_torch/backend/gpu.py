@@ -1,5 +1,5 @@
 """GPU batch backend: the blake2b-256 and keccak-256 CUDA kernels and the
-match mask.
+match masks.
 
 `blake2b256_batch` splits a batch into three size classes and gives each
 its own kernel — ≤128 B to the single-block kernel, 129–256 B to the
@@ -14,6 +14,11 @@ non-empty class launches its kernel.
 multi-block kernel. (The TPU backend kept batches under 8 MiB on its host
 C++ hasher, which would put all of BASELINE config 3's 4 MB of slot
 preimages on the host; here every non-empty class launches.)
+
+`event_match_mask_fp` is the counterpart of the TPU backend's fingerprint
+mask: its presence (with ``mesh`` None) is what makes the range driver take
+the fused C scan+match, as the reference does; the unfused branch
+(``IPC_SCAN_FUSED_MATCH=0``) runs this mask on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ipc_proofs_tpu_torch.ops.pack import (
     pad_blake2b,
     pad_keccak,
 )
+from ipc_proofs_tpu_torch.proofs.scan_native import topic_fingerprint
 from ipc_proofs_tpu_torch.state.events import StampedEvent
 
 __all__ = ["GpuBackend", "SIZE_CLASSES", "size_class", "KECCAK_CLASSES", "keccak_class"]
@@ -167,6 +173,25 @@ class GpuBackend:
         """Mask over pre-flattened arrays (exact length, no padding)."""
         return match.event_match_mask_flat(
             topics, n_topics, emitters, valid, topic0, topic1, actor_id_filter, self.device
+        )
+
+    def event_match_mask_fp(
+        self,
+        fp: np.ndarray,
+        n_topics: np.ndarray,
+        emitters: np.ndarray,
+        valid: np.ndarray,
+        topic0: bytes,
+        topic1: bytes,
+        actor_id_filter: Optional[int],
+    ) -> np.ndarray:
+        """Fingerprint mask over the scanner's flat arrays: one u64 per
+        event crosses to the device instead of 64 topic bytes. Same
+        predicate as `event_match_mask_flat` up to a 2^-64 fingerprint
+        collision, which pass 2 (the exact matcher) filters out."""
+        return match.event_match_mask_fp(
+            fp, n_topics, emitters, valid, topic_fingerprint(topic0, topic1),
+            actor_id_filter, self.device,
         )
 
     def any_event_matches(

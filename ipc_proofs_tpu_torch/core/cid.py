@@ -1,9 +1,11 @@
 """CIDv1 with dag-cbor/raw codecs and blake2b-256/sha2-256 multihashes.
 
 Filecoin chain CIDs are CIDv1 / dag-cbor / blake2b-256; strings are
-multibase base32-lower ("b" prefix), e.g. ``bafy2bza...``. The pure-Python
-counterpart of ``ipc_proofs_tpu.core.cid`` (its native binding is not
-ported).
+multibase base32-lower ("b" prefix), e.g. ``bafy2bza...``. The counterpart
+of ``ipc_proofs_tpu.core.cid``: the dataclass below is the correctness
+reference (``PurePythonCID``), and at import ``CID`` is rebound to the
+native type of the port's ``ipc_torch_dagcbor_ext`` (same interface and
+acceptance, C-slot construction), except under ``IPC_PROOFS_NO_NATIVE=1``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import hashlib
 from dataclasses import dataclass
 from functools import total_ordering
 
+from ipc_proofs_tpu_torch.core import _cid_native
 from ipc_proofs_tpu_torch.core.hashes import blake2b_256, keccak256
 from ipc_proofs_tpu_torch.core.varint import decode_uvarint_min, encode_uvarint
 
@@ -33,6 +36,10 @@ __all__ = [
     "SHA2_256",
     "KECCAK_256",
     "IDENTITY",
+    "CID_TYPES",
+    "PurePythonCID",
+    "cids_from_strings",
+    "cid_strings",
 ]
 
 # RFC 4648 base32 via Python's C-level big-int parser/formatter: ~5x faster
@@ -83,6 +90,24 @@ def _b32_decode_lower(text: str) -> bytes:
     if value & ((1 << (nbits - nbytes * 8)) - 1):
         raise ValueError(f"non-zero trailing bits in base32 {text!r}")
     return (value >> (nbits - nbytes * 8)).to_bytes(nbytes, "big")
+
+
+def cids_from_strings(texts) -> "list[CID]":
+    """Parse many CID strings in one C call (`CID.from_string` semantics,
+    including every rejection); scalar in the pure-Python universe."""
+    ext = _cid_native.load()
+    if ext is not None:
+        return ext.cids_from_strs(list(texts))
+    return [CID.from_string(t) for t in texts]
+
+
+def cid_strings(cids) -> "list[str]":
+    """Render many CIDs as multibase strings in one C call (`CID.__str__`
+    semantics); scalar in the pure-Python universe."""
+    ext = _cid_native.load()
+    if ext is not None:
+        return ext.cid_strs([c.to_bytes() for c in cids])
+    return [str(c) for c in cids]
 
 
 @total_ordering
@@ -223,3 +248,24 @@ class CID:
             cached = hash(self.digest)
             object.__setattr__(self, "_hash", cached)  # frozen-safe memo
         return cached
+
+
+# --- native CID binding ----------------------------------------------------
+# The port's dagcbor extension ships a C-slot CID type with this exact
+# interface (constructor, classmethods, comparison and hash, the same strict
+# canonical acceptance at the bytes and string boundaries). The dataclass
+# above stays the reference (``PurePythonCID``); when the extension loads,
+# ``CID`` IS the native type, so every constructor in the package gets
+# C-slot construction. The binding goes through core._cid_native, not the
+# backend package, so no module imported on the way captures the
+# pure-Python class.
+
+PurePythonCID = CID
+
+_native = _cid_native.load()  # None only under IPC_PROOFS_NO_NATIVE=1
+if _native is not None:
+    CID = _native.CID  # type: ignore[misc]
+
+# every type that IS a CID in this process: boundaries that accept
+# caller-held CIDs (dagcbor.encode) recognise either implementation
+CID_TYPES: "tuple[type, ...]" = (CID, PurePythonCID) if CID is not PurePythonCID else (CID,)

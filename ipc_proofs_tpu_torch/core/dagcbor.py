@@ -9,19 +9,23 @@ Canonical rules (RFC 8949 core deterministic encoding as profiled by DAG-CBOR):
 
 Python value mapping: int, bytes, str, bool, None, list/tuple, dict,
 :class:`~ipc_proofs_tpu_torch.core.cid.CID`, float (f64, decode-tolerant).
-The counterpart of ``ipc_proofs_tpu.core.dagcbor``'s pure encoder and
-decoder; its native decoder is not ported.
+The counterpart of ``ipc_proofs_tpu.core.dagcbor``: `decode` runs the
+port's C decoder (``ipc_torch_dagcbor_ext``) and `decode_py`, the
+pure-Python one, is its correctness reference and the decoder of the
+``IPC_PROOFS_NO_NATIVE=1`` universe.
 """
 
 from __future__ import annotations
 
 import math
 import struct
+from contextlib import contextmanager
 from typing import Any
 
-from ipc_proofs_tpu_torch.core.cid import CID
+from ipc_proofs_tpu_torch.core import _cid_native
+from ipc_proofs_tpu_torch.core.cid import CID, CID_TYPES
 
-__all__ = ["encode", "decode"]
+__all__ = ["encode", "decode", "decode_py", "force_python_decoder"]
 
 _MAJOR_UINT = 0
 _MAJOR_NEGINT = 1
@@ -56,7 +60,7 @@ def _encode_item(obj: Any, out: bytearray) -> None:
         out.append(0xF5)
     elif obj is False:
         out.append(0xF4)
-    elif isinstance(obj, CID):
+    elif isinstance(obj, CID_TYPES):  # either CID implementation
         out += _encode_head(_MAJOR_TAG, _CID_TAG)
         inner = b"\x00" + obj.to_bytes()
         out += _encode_head(_MAJOR_BYTES, len(inner))
@@ -183,9 +187,41 @@ def _decode_item(data: bytes, pos: int, depth: int = 0) -> tuple[Any, int]:
     raise ValueError(f"unsupported CBOR simple value {value}")
 
 
-def decode(data: bytes) -> Any:
-    """Decode exactly one DAG-CBOR item; trailing bytes are an error."""
+def decode_py(data: bytes) -> Any:
+    """The pure-Python decoder (correctness reference for the C extension)."""
     obj, pos = _decode_item(bytes(data), 0)
     if pos != len(data):
         raise ValueError(f"trailing bytes after CBOR item ({len(data) - pos} bytes)")
     return obj
+
+
+_native: "object | None | bool" = False  # False = not resolved yet; None = pure-Python universe
+
+
+def _resolve_native():
+    global _native
+    _native = _cid_native.load()
+    return _native
+
+
+def decode(data: bytes) -> Any:
+    """Decode exactly one DAG-CBOR item; trailing bytes are an error. Runs
+    the C extension (bulk witness and receipt decode are host hot loops)."""
+    native = _native if _native is not False else _resolve_native()
+    if native is not None:
+        return native.decode(bytes(data))
+    return decode_py(data)
+
+
+@contextmanager
+def force_python_decoder():
+    """Route :func:`decode` through the pure-Python decoder for the
+    duration, so a measurement of the scalar architecture means what it
+    says."""
+    global _native
+    saved = _native
+    _native = None
+    try:
+        yield
+    finally:
+        _native = saved

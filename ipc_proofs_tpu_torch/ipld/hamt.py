@@ -9,10 +9,10 @@ Wire format:
   sorted by key bytes.
 - Key hash: sha256(key), bits consumed MSB-first, ``bit_width`` at a time.
 
-The counterpart of ``ipc_proofs_tpu.ipld.hamt``'s scalar reader (`HAMT`)
-and writer (`hamt_build`). Left out: the reader's ``offer_links`` prefetch
-hook (a no-op against these stores) and the native batched walkers
-``hamt_get_batch`` / ``hamt_get_batch_touched``.
+The counterpart of ``ipc_proofs_tpu.ipld.hamt``: the scalar reader
+(`HAMT`), the writer (`hamt_build`) and the batched C walkers
+`hamt_get_batch` / `hamt_get_batch_touched`. Left out: the reader's
+``offer_links`` prefetch hook (a no-op against these stores).
 """
 
 from __future__ import annotations
@@ -24,7 +24,14 @@ from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.core.dagcbor import decode as cbor_decode
 from ipc_proofs_tpu_torch.store.blockstore import Blockstore, put_cbor
 
-__all__ = ["HAMT", "hamt_build", "HAMT_BIT_WIDTH", "MAX_BUCKET"]
+__all__ = [
+    "HAMT",
+    "hamt_build",
+    "hamt_get_batch",
+    "hamt_get_batch_touched",
+    "HAMT_BIT_WIDTH",
+    "MAX_BUCKET",
+]
 
 HAMT_BIT_WIDTH = 5  # fvm_shared::HAMT_BIT_WIDTH
 MAX_BUCKET = 3  # fvm_ipld_hamt MAX_ARRAY_WIDTH
@@ -47,6 +54,101 @@ def _bitfield_encode(bits: int) -> bytes:
     if bits == 0:
         return b""
     return bits.to_bytes((bits.bit_length() + 7) // 8, "big")
+
+
+def hamt_get_batch(
+    store: Blockstore,
+    roots: "list[CID]",
+    owners: "list[int]",
+    keys: "list[bytes]",
+    bit_width: int = HAMT_BIT_WIDTH,
+    skip_missing: bool = False,
+    validate_blocks: bool = False,
+) -> "Optional[list[Optional[Any]]]":
+    """Batched ``HAMT.get``: ONE C call walks a root→bucket path per
+    (owner root, key) — the storage-side analog of the native receipts
+    scanner, sized for BASELINE config 3 (65k slots × 256 contract roots)
+    and the range driver's storage legs. ``owners[i]`` selects the root for
+    ``keys[i]``. Returns decoded values (None for absent keys), or None
+    overall in the pure-Python universe (callers loop scalar).
+    Missing node blocks raise KeyError, malformed nodes ValueError — the
+    scalar reader's behavior; ``skip_missing=True`` instead treats a
+    missing node as an absent key (the batch verifiers' tolerant mode,
+    mirroring the scalar caller's caught-KeyError → unverified). Value
+    decoding is the shared DAG-CBOR path. ``validate_blocks`` full-validates
+    every fetched node block (verify-side callers — adversarial witness
+    bytes in positions the targeted walk skips must fail like the scalar
+    reader's full decode)."""
+    from ipc_proofs_tpu_torch.backend.native import load_scan_ext
+    from ipc_proofs_tpu_torch.proofs.scan_native import (
+        _raw_view,
+        _snap_kw,
+        split_pooled,
+    )
+
+    ext = load_scan_ext()
+    if ext is None:
+        return None
+    raw, fallback = _raw_view(store)
+    out = ext.hamt_lookup_batch(
+        raw,
+        [c.to_bytes() for c in roots],
+        owners,
+        keys,
+        bit_width=bit_width,
+        fallback=fallback,
+        skip_missing=skip_missing,
+        validate_blocks=validate_blocks,
+        **_snap_kw(store, raw, len(keys)),
+    )
+    found = out["found"]
+    spans = split_pooled(out["val_pool"], out["val_off"], out["val_len"])
+    return [
+        cbor_decode(spans[i]) if found[i] else None for i in range(len(keys))
+    ]
+
+
+def hamt_get_batch_touched(
+    store: Blockstore,
+    roots: "list[CID]",
+    owners: "list[int]",
+    keys: "list[bytes]",
+    bit_width: int = HAMT_BIT_WIDTH,
+) -> "Optional[tuple[list[Optional[Any]], list[list[bytes]]]]":
+    """:func:`hamt_get_batch` with per-item witness recording: also returns,
+    per (root, key), the raw CID bytes of every node the walk fetched —
+    the generation-side analog of walking under a RecordingBlockstore.
+    Returns None in the pure-Python universe."""
+    import numpy as np
+
+    from ipc_proofs_tpu_torch.backend.native import load_scan_ext
+    from ipc_proofs_tpu_torch.proofs.scan_native import (
+        _raw_view,
+        _snap_kw,
+        split_pooled,
+    )
+
+    ext = load_scan_ext()
+    if ext is None:
+        return None
+    raw, fallback = _raw_view(store)
+    out = ext.hamt_lookup_batch(
+        raw,
+        [c.to_bytes() for c in roots],
+        owners,
+        keys,
+        bit_width=bit_width,
+        fallback=fallback,
+        want_touched=True,
+        **_snap_kw(store, raw, len(keys)),
+    )
+    found = out["found"]
+    spans = split_pooled(out["val_pool"], out["val_off"], out["val_len"])
+    values = [cbor_decode(spans[i]) if found[i] else None for i in range(len(keys))]
+    titems = split_pooled(out["touch_pool"], out["touch_off"], out["touch_len"])
+    goff = np.frombuffer(out["touch_goff"], "<i4")
+    touched = [titems[goff[i] : goff[i + 1]] for i in range(len(keys))]
+    return values, touched
 
 
 class HAMT:

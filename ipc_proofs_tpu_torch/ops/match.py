@@ -1,10 +1,14 @@
-"""Event predicate mask over flat event arrays.
+"""Event predicate masks over flat event arrays.
 
-The counterpart of ``ipc_proofs_tpu.ops.match_jax.event_match_mask_jit``
-and ``backend/tpu.py``'s ``flatten_events``. The JAX package leaves this
-elementwise compare to XLA outside any Pallas kernel; here it is a few
-PyTorch tensor ops on the given device. The emitter filter stays on the
-host in numpy, as in the reference: actor IDs are u64.
+The counterparts of ``ipc_proofs_tpu.ops.match_jax.event_match_mask_jit``
+(full topic words), the single-device branch of its
+``event_match_mask_fp_jit`` (one u64 topic fingerprint per event) and
+``backend/tpu.py``'s ``flatten_events``. The JAX package leaves these
+elementwise compares to XLA outside any Pallas kernel; here they are a few
+PyTorch tensor ops on the given device. The ``n_topics >= 2`` (fingerprint
+mask) and emitter predicates fold into ``valid`` on the host in numpy, as
+in the reference: actor IDs are u64. There is no host crossover: on CUDA
+every non-empty mask runs on the card.
 """
 
 from __future__ import annotations
@@ -17,10 +21,16 @@ import torch
 
 from ipc_proofs_tpu_torch.state.events import StampedEvent, extract_evm_log
 
-__all__ = ["LAUNCHES", "flatten_events", "event_match_mask_flat", "event_match_mask"]
+__all__ = [
+    "LAUNCHES",
+    "flatten_events",
+    "event_match_mask_flat",
+    "event_match_mask_fp",
+    "event_match_mask",
+]
 
 # mask evaluations that ran on a CUDA device since the last reset
-LAUNCHES = {"event_match_mask": 0}
+LAUNCHES = {"event_match_mask": 0, "event_match_mask_fp": 0}
 _count_lock = threading.Lock()
 
 
@@ -82,6 +92,35 @@ def event_match_mask_flat(
     if device.type == "cuda":
         with _count_lock:
             LAUNCHES["event_match_mask"] += 1
+    return mask.cpu().numpy()
+
+
+def event_match_mask_fp(
+    fp: np.ndarray,
+    n_topics: np.ndarray,
+    emitters: np.ndarray,
+    valid: np.ndarray,
+    target_fp: int,
+    actor_id_filter: Optional[int],
+    device: "torch.device | str",
+) -> np.ndarray:
+    """Boolean [N] mask: event fingerprint equals ``target_fp`` (a u64,
+    `proofs.scan_native.topic_fingerprint` of the two topics), the event is
+    valid, has at least two topics and passes the actor filter. The u64s
+    cross to the device as int64 bit patterns, whose equality is the u64's
+    (CPU PyTorch has no uint64 compare)."""
+    device = torch.device(device)
+    valid = np.asarray(valid, dtype=bool) & (np.asarray(n_topics) >= 2)
+    if actor_id_filter is not None:
+        valid = valid & (np.asarray(emitters) == actor_id_filter)
+    if fp.shape[0] == 0:
+        return np.zeros(0, dtype=bool)
+    f = torch.from_numpy(np.array(fp, dtype="<u8").view(np.int64)).to(device)
+    target = int.from_bytes(int(target_fp).to_bytes(8, "little"), "little", signed=True)
+    mask = torch.from_numpy(valid).to(device) & (f == target)
+    if device.type == "cuda":
+        with _count_lock:
+            LAUNCHES["event_match_mask_fp"] += 1
     return mask.cpu().numpy()
 
 

@@ -3,8 +3,10 @@
 The counterpart of ``ipc_proofs_tpu.proofs.verifier.verify_proof_bundle``,
 taking the parent-tipset and child-header checks as callables in place of a
 ``TrustPolicy`` (whose F3-certificate half waits for a later slice). Storage
-proofs replay with the scalar loop over the shared witness store (the
-reference's batched replay needs its native HAMT walker), then the events.
+proofs replay through the batched verifier (one C walk of the actors tree
+for the bundle; the scalar loop in the pure-Python universe), then the
+events through the batched event verifier, whose TxMeta CID recompute runs
+on the card.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ from ipc_proofs_tpu_torch.proofs.bundle import (
     UnifiedVerificationResult,
 )
 from ipc_proofs_tpu_torch.proofs.event_verifier import verify_event_proof
-from ipc_proofs_tpu_torch.proofs.storage_verifier import verify_storage_proof
+from ipc_proofs_tpu_torch.proofs.storage_verifier import (
+    verify_storage_proof,
+    verify_storage_proofs_batch,
+)
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
 from ipc_proofs_tpu_torch.state.events import ActorEvent
 
@@ -46,7 +51,9 @@ def verify_proof_bundle(
     blake2b-256 blocks as ONE batch on ``cid_backend``, which defaults to
     ``get_backend("gpu")``, the card (raises without CUDA; pass
     ``get_backend("gpu", device="cpu")`` for the plain versions). Raises
-    ValueError on any mismatching block.
+    ValueError on any mismatching block. The event replay's TxMeta CID
+    recompute runs on ``cid_backend`` too, with the same default, whether
+    or not ``verify_witness_cids`` is set.
     """
     if verify_witness_cids:
         _verify_witness_cids(
@@ -67,10 +74,16 @@ def verify_proof_bundle(
         except Exception:  # fail-soft: a throwing trust check is a rejection — the proof verdict reports invalid, never crashes verify
             return False
 
-    storage_results = [
-        verify_storage_proof(proof, bundle.blocks, child_verifier, store=shared_store)
-        for proof in bundle.storage_proofs
-    ]
+    storage_results = None
+    if bundle.storage_proofs:
+        storage_results = verify_storage_proofs_batch(
+            shared_store, bundle.storage_proofs, child_verifier
+        )
+    if storage_results is None:
+        storage_results = [
+            verify_storage_proof(proof, bundle.blocks, child_verifier, store=shared_store)
+            for proof in bundle.storage_proofs
+        ]
     event_bundle = EventProofBundle(proofs=bundle.event_proofs, blocks=bundle.blocks)
     event_results = verify_event_proof(
         event_bundle,
@@ -78,6 +91,7 @@ def verify_proof_bundle(
         child_verifier,
         check_event=event_filter,
         store=shared_store,
+        hash_backend=cid_backend,
     )
     return UnifiedVerificationResult(storage_results=storage_results, event_results=event_results)
 

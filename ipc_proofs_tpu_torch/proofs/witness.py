@@ -36,6 +36,10 @@ class WitnessCollector:
         for recorder in recorders:
             self.collect_from_recording(recorder)
 
+    def needed_cids(self) -> set[CID]:
+        """The CIDs collected so far (a copy)."""
+        return set(self._needed)
+
     def materialize(self) -> list[ProofBlock]:
         """Fetch every needed CID's bytes, CID-sorted."""
         blocks = []

@@ -3,20 +3,22 @@
 Verification reads fields 5 (parents), 7 (height), 8 (parent_state_root),
 9 (parent_message_receipts) and 10 (messages). The builder emits a full
 16-field tuple so fixture headers round-trip through the same decoder the
-proof engines use. The counterpart of ``ipc_proofs_tpu.state.header``'s
-pure decode path.
+proof engines use. The counterpart of ``ipc_proofs_tpu.state.header``:
+`decode_header_lite` runs the C ``decode_header_lite`` of the port's
+dagcbor extension, with `BlockHeader.decode`'s exact acceptance.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, NamedTuple
 
+from ipc_proofs_tpu_torch.core import _cid_native
 from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.core.dagcbor import decode as cbor_decode
 from ipc_proofs_tpu_torch.core.dagcbor import encode as cbor_encode
 
-__all__ = ["BlockHeader", "extract_parent_state_root"]
+__all__ = ["BlockHeader", "LiteHeader", "decode_header_lite", "extract_parent_state_root"]
 
 
 def _validate_core_fields(fields: list) -> None:
@@ -34,6 +36,32 @@ def _validate_core_fields(fields: list) -> None:
     ):
         if not isinstance(fields[idx], CID):
             raise ValueError(f"header field {name} must be a CID")
+
+
+class LiteHeader(NamedTuple):
+    """The five header fields verification reads, and nothing else (the
+    batch verifiers decode two headers per proof group). Shares attribute
+    names with :class:`BlockHeader`, so the verifiers and the batched
+    exec-order walker accept either."""
+
+    parents: "list[CID]"
+    height: int
+    parent_state_root: CID
+    parent_message_receipts: CID
+    messages: CID
+
+
+def decode_header_lite(raw: bytes) -> LiteHeader:
+    """Verification-only header decode with :meth:`BlockHeader.decode`'s
+    exact acceptance. The C ``decode_header_lite`` walks the full grammar in
+    validating-skip mode (strict UTF-8, map keys, tag-42 CID bytes), folds
+    in the core-field type checks and returns just the five fields; the
+    pure-Python universe decodes the whole header."""
+    ext = _cid_native.load()
+    if ext is not None:
+        return LiteHeader._make(ext.decode_header_lite(raw))
+    h = BlockHeader.decode(raw)
+    return LiteHeader(h.parents, h.height, h.parent_state_root, h.parent_message_receipts, h.messages)
 
 
 @dataclass

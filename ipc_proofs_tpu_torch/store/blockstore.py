@@ -1,10 +1,12 @@
 """Blockstore protocol and the memory / recording / cached implementations.
 
-The counterpart of ``ipc_proofs_tpu.store.blockstore`` without its native
-scan-snapshot machinery and its size-capped serving cache:
+The counterpart of ``ipc_proofs_tpu.store.blockstore`` without its
+size-capped serving cache and the fetch plane's hooks:
 
 - `MemoryBlockstore` — the isolated store for offline verification;
-  ``put_keyed`` optionally recomputes the CID.
+  ``put_keyed`` optionally recomputes the CID. It also keeps a map keyed by
+  raw CID bytes, which the native walkers probe from C, and a mutation
+  counter that invalidates their cached probe table (`proofs.scan_native`).
 - `RecordingBlockstore` — the witness mechanism: records every CID fetched
   through it.
 - `CachedBlockstore` — memoizing wrapper; lock-protected so it may be
@@ -57,7 +59,15 @@ class MemoryBlockstore:
 
     def __init__(self, verify_cids: bool = False):
         self._blocks: dict[CID, bytes] = {}
+        self._raw: dict[bytes, bytes] = {}  # cid.to_bytes() -> data
         self._verify = verify_cids
+        # bumped on EVERY write (same-CID overwrites included, which leave
+        # len() unchanged): the native scan snapshot invalidates on it, so an
+        # overwrite with other bytes is never served stale from a probe table
+        self._mutations = 0
+        # serializes THIS store's snapshot builds (independent stores never
+        # wait on each other's O(|store|) build)
+        self._snapshot_lock = threading.Lock()
 
     def get(self, cid: CID) -> Optional[bytes]:
         return self._blocks.get(cid)
@@ -67,7 +77,10 @@ class MemoryBlockstore:
             recomputed = CID.hash_of(data, codec=cid.codec, mh_code=cid.mh_code)
             if recomputed != cid:
                 raise ValueError(f"block bytes do not hash to claimed CID {cid}")
-        self._blocks[cid] = bytes(data)
+        data = bytes(data)
+        self._blocks[cid] = data
+        self._raw[cid.to_bytes()] = data
+        self._mutations += 1
 
     def has(self, cid: CID) -> bool:
         return cid in self._blocks
@@ -81,14 +94,44 @@ class MemoryBlockstore:
     def put_many_trusted(self, blocks: "Iterable") -> None:
         """Bulk load of ``ProofBlock``-shaped items (``.cid``/``.data``)
         WITHOUT per-block CID verification — the witness loader's path when
-        verification happens elsewhere (or is explicitly skipped)."""
-        cid_map = self._blocks
-        for block in blocks:
-            data = block.data
-            if isinstance(data, int):
-                # bytes(int) would mean "n zero bytes" — a malformed block
-                raise TypeError("block data must be bytes-like, not int")
-            cid_map[block.cid] = bytes(data)
+        verification happens elsewhere (or is explicitly skipped). One C
+        pass (``bulk_load_blocks``) fills both maps; the pure-Python
+        universe loops."""
+        from ipc_proofs_tpu_torch.backend.native import load_scan_ext
+
+        # bump AFTER the inserts (finally: even a partial load invalidates):
+        # a pre-bump would let a concurrently built snapshot cache the new
+        # version over the pre-insert map
+        try:
+            ext = load_scan_ext()
+            if ext is not None:
+                ext.bulk_load_blocks(blocks, self._blocks, self._raw)
+                return
+            cid_map, raw_map = self._blocks, self._raw
+            for block in blocks:
+                data = block.data
+                if isinstance(data, int):
+                    # bytes(int) would mean "n zero bytes" — a malformed
+                    # block, which the C path's PyBytes_FromObject rejects
+                    raise TypeError("block data must be bytes-like, not int")
+                data = bytes(data)
+                cid_map[block.cid] = data
+                raw_map[block.cid.to_bytes()] = data
+        finally:
+            self._mutations += 1
+
+    def raw_map(self) -> "dict[bytes, bytes]":
+        """Live view keyed by raw CID bytes. Counts as a WRITE for snapshot
+        purposes: a caller may mutate the returned dict (tests model
+        corruption that way), which the mutation counter cannot see.
+        Internal readers use `_raw_readonly()`."""
+        self._mutations += 1
+        return self._raw
+
+    def _raw_readonly(self) -> "dict[bytes, bytes]":
+        """`raw_map()` for readers that promise not to mutate it; does not
+        invalidate the cached scan snapshot."""
+        return self._raw
 
 
 class RecordingBlockstore:

@@ -7,12 +7,17 @@ integer hashing) and count exactly its own launches.
 """
 
 import hashlib
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from ipc_proofs_tpu_torch.backend import get_backend
+from ipc_proofs_tpu_torch.backend.native import load_scan_ext
 from ipc_proofs_tpu_torch.core.hashes import keccak256
 from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match, pack
@@ -26,6 +31,7 @@ from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
 from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
 
 pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parent.parent
 
 LENGTHS = [0, 1, 127, 128, 129, 255, 256, 257, 384, 385, 520]
 KECCAK_LENGTHS = [0, 1, 63, 64, 65, 134, 135, 136, 137, 271, 272, 273, 543]
@@ -102,33 +108,76 @@ def test_match_mask_on_card_equals_cpu(cuda_device):
     assert match.LAUNCHES["event_match_mask"] == 2
 
 
-def test_small_range_path_on_card(cuda_device):
+def _reset_match_counts():
+    for name in match.LAUNCHES:
+        match.LAUNCHES[name] = 0
+
+
+def test_small_range_path_on_card(cuda_device, monkeypatch):
+    """The fused C scan+match launches no mask; the unfused branch runs the
+    fingerprint mask on the card once and gives the same bundle."""
     store, pairs, n_matching = build_range_world(16, 8, 4, 0.125)
     spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
     blake2b.reset_launch_counts()
-    match.LAUNCHES["event_match_mask"] = 0
+    _reset_match_counts()
     backend = get_backend("gpu")
     bundle = generate_event_proofs_for_range(store, pairs, spec, match_backend=backend)
     result = verify_proof_bundle(
         bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
     )
     assert result.all_valid() and len(result.event_results) == n_matching > 0
-    assert all(blake2b.LAUNCHES.values()) and match.LAUNCHES["event_match_mask"] == 1
+    assert all(blake2b.LAUNCHES.values()) and not any(match.LAUNCHES.values())
+    monkeypatch.setenv("IPC_SCAN_FUSED_MATCH", "0")
+    unfused = generate_event_proofs_for_range(store, pairs, spec, match_backend=backend)
+    assert match.LAUNCHES == {"event_match_mask": 0, "event_match_mask_fp": 1}
     on_cpu = generate_event_proofs_for_range(
         store, pairs, spec, match_backend=get_backend("gpu", device="cpu")
     )
-    assert bundle.digest() == on_cpu.digest()
+    assert bundle.digest() == unfused.digest() == on_cpu.digest()
 
 
 def test_entry_points_default_to_the_card(cuda_device):
     store, pairs, n_matching = build_range_world(8, 8, 4, 0.125)
     spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
     blake2b.reset_launch_counts()
-    match.LAUNCHES["event_match_mask"] = 0
     bundle = generate_event_proofs_for_range(store, pairs, spec)
     result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
     assert result.all_valid() and len(result.event_results) == n_matching > 0
-    assert match.LAUNCHES["event_match_mask"] == 1 and sum(blake2b.LAUNCHES.values()) > 0
+    # the witness recompute and the replay's TxMeta recompute, both on the card
+    assert blake2b.LAUNCHES["blake2b256_single_block"] == 2
+
+
+_PURE_64 = """
+from ipc_proofs_tpu_torch.backend import get_backend
+from ipc_proofs_tpu_torch.backend.native import load_scan_ext
+from ipc_proofs_tpu_torch.fixtures import build_range_world
+from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
+from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
+
+assert load_scan_ext() is None
+store, pairs, _ = build_range_world(64, 16, 4, 0.01)
+spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
+print(generate_event_proofs_for_range(store, pairs, spec).to_json())
+"""
+
+
+def test_native_event_path_on_card_equals_pure_python(cuda_device):
+    """64 pairs through the native branches on the card, held byte for byte
+    against the pure-Python universe's bundle (a child process with
+    ``IPC_PROOFS_NO_NATIVE=1``, also on the card)."""
+    assert load_scan_ext() is not None
+    store, pairs, n_matching = build_range_world(64, 16, 4, 0.01)
+    spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
+    bundle = generate_event_proofs_for_range(store, pairs, spec)
+    result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
+    assert result.all_valid() and len(result.event_results) == n_matching > 0
+    env = dict(os.environ, PYTHONPATH=str(ROOT), IPC_PROOFS_NO_NATIVE="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _PURE_64], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == bundle.to_json()
 
 
 def _keccak_cases(messages):

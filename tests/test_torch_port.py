@@ -3,12 +3,14 @@
 - No module of ``ipc_proofs_tpu_torch`` and no line of ``chip_smoke.py``
   imports ``jax`` or anything of ``ipc_proofs_tpu`` (an AST walk), and a
   process that runs the small range and storage paths on ``device="cpu"``
-  ends with neither in ``sys.modules``.
+  through the native branches ends with neither in ``sys.modules`` and no
+  shared library of ``ipc_proofs_tpu/`` mapped.
 - Entry points default to the card: without CUDA, ``GpuBackend()``,
   ``generate_event_proofs_for_range``, ``hash_slot_specs``,
-  ``generate_storage_proofs_batch``, ``generate_proof_bundle`` and
-  ``verify_proof_bundle(..., verify_witness_cids=True)`` raise instead of
-  running on the CPU.
+  ``generate_storage_proofs_batch``, ``generate_proof_bundle``,
+  ``verify_proof_bundle(..., verify_witness_cids=True)`` and the batched
+  event replay's TxMeta recompute raise instead of running on the CPU; the
+  scalar replay of the ``IPC_PROOFS_NO_NATIVE=1`` universe runs no kernel.
 """
 
 import ast
@@ -62,6 +64,8 @@ def test_port_files_exist():
     assert "ipc_proofs_tpu_torch/proofs/storage_batch.py" in rel
     for source in ("blake2b.cu", "keccak.cu"):
         assert (ROOT / "ipc_proofs_tpu_torch" / "csrc" / source).is_file()
+    for source in ("dagcbor_ext.c", "scan_ext.c"):
+        assert (ROOT / "ipc_proofs_tpu_torch" / "backend" / "native" / source).is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -73,11 +77,29 @@ def test_no_jax_or_reference_imports(path):
 _RUN_SMALL_PATH = """
 import sys
 from ipc_proofs_tpu_torch.backend import get_backend
+from ipc_proofs_tpu_torch.backend.native import load_scan_ext
 from ipc_proofs_tpu_torch.fixtures import build_range_world
+from ipc_proofs_tpu_torch.proofs import range as range_mod
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
 from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
 import chip_smoke  # the smoke script's imports too
+
+assert load_scan_ext() is not None
+native_ok = []
+scan_and_match = range_mod._scan_and_match
+def spy(*args, **kwargs):
+    out = scan_and_match(*args, **kwargs)
+    native_ok.append(out[1])
+    return out
+range_mod._scan_and_match = spy
+storage_native = []
+for_pairs = range_mod.generate_storage_proofs_for_pairs
+def storage_spy(*args, **kwargs):
+    out = for_pairs(*args, **kwargs)
+    storage_native.append(out is not None)
+    return out
+range_mod.generate_storage_proofs_for_pairs = storage_spy
 
 store, pairs, n_matching = build_range_world(8, 8, 4, 0.125)
 backend = get_backend("gpu", device="cpu")
@@ -85,28 +107,36 @@ bundle = generate_event_proofs_for_range(
     store, pairs, EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
     match_backend=backend,
 )
+assert native_ok == [True], native_ok
 result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True,
                              cid_backend=backend)
 assert result.all_valid() and len(result.event_results) == n_matching > 0
 
 from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain
-from ipc_proofs_tpu_torch.proofs.storage_batch import (
-    MappingSlotSpec, generate_storage_proofs_batch,
-)
+from ipc_proofs_tpu_torch.proofs.range import TipsetPair
+from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec
 from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
 
 storage = {calculate_storage_slot("subnet-0", i): bytes([i + 1]) for i in range(8)}
 world = build_chain([ContractFixture(1001, storage=storage)], [])
 specs = [MappingSlotSpec(1001, "subnet-0", i) for i in range(8)]
-bundle = generate_storage_proofs_batch(
-    world.store, world.parent, world.child, specs, hash_backend=backend
+bundle = generate_event_proofs_for_range(
+    world.store, [TipsetPair(world.parent, world.child)],
+    EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
+    match_backend=backend, storage_specs=specs,
 )
+assert storage_native == [True], storage_native
 result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True,
                              cid_backend=backend)
-assert result.all_valid() and len(result.storage_results) == 8
+assert result.all_valid() and len(result.storage_results) == 8 and not bundle.event_proofs
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu"))
 print("LOADED", bad)
+with open("/proc/self/maps") as fh:
+    libs = sorted({line.split()[-1] for line in fh if line.rstrip().endswith(".so")})
+print("LIBS", [lib for lib in libs if "/ipc_proofs_tpu/" in lib])
+print("PORT", [lib.rsplit("/", 1)[-1].split("-")[0] for lib in libs
+               if "/ipc_proofs_tpu_torch/_build/" in lib])
 """
 
 
@@ -119,6 +149,8 @@ def test_small_range_path_loads_no_jax_or_reference():
     )
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
+    assert "LIBS []" in proc.stdout, proc.stdout
+    assert "PORT ['ipc_torch_dagcbor_ext', 'ipc_torch_scan_ext']" in proc.stdout, proc.stdout
 
 
 def test_gpu_backend_defaults_to_the_card(monkeypatch):
@@ -144,15 +176,53 @@ def small_range():
     return store, pairs, bundle
 
 
+_SCALAR_REPLAY = """
+import torch
+from ipc_proofs_tpu_torch.backend import get_backend
+from ipc_proofs_tpu_torch.backend.native import load_scan_ext
+from ipc_proofs_tpu_torch.fixtures import build_range_world
+from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
+from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
+from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+
+assert load_scan_ext() is None
+store, pairs, _ = build_range_world(4, 4, 2, 0.5)
+bundle = generate_event_proofs_for_range(
+    store, pairs, EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
+    match_backend=get_backend("gpu", device="cpu"),
+)
+torch.cuda.is_available = lambda: False
+result = verify_proof_bundle(bundle, accept_all, accept_all)
+assert result.event_results and result.all_valid()
+print("SCALAR REPLAY OK", len(result.event_results))
+"""
+
+
 def test_entry_points_default_to_the_card(monkeypatch, small_range):
     store, pairs, bundle = small_range
+    backend = get_backend("gpu", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_event_proofs_for_range(store, pairs, SPEC)
     with pytest.raises(RuntimeError, match="CUDA"):
         verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
-    # the replay alone runs no kernel
-    assert verify_proof_bundle(bundle, accept_all, accept_all).all_valid()
+    # the batched replay's TxMeta recompute needs the card ...
+    with pytest.raises(RuntimeError, match="CUDA"):
+        verify_proof_bundle(bundle, accept_all, accept_all)
+    # ... and runs on the backend it is given
+    assert verify_proof_bundle(bundle, accept_all, accept_all, cid_backend=backend).all_valid()
+    # no proof reaches the TxMeta recompute: nothing needs the card
+    assert not any(
+        verify_proof_bundle(bundle, lambda e, c: False, accept_all).event_results
+    )
+    # the scalar replay of the pure-Python universe runs no kernel
+    env = dict(os.environ, PYTHONPATH=str(ROOT), IPC_PROOFS_NO_NATIVE="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCALAR_REPLAY],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "SCALAR REPLAY OK" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("tamper", [False, True])

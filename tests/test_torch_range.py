@@ -145,7 +145,7 @@ def test_verdicts_equal_reference(ref_world, port_world):
     ours = verify_proof_bundle(
         port_world[3], accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
     )
-    replay_only = verify_proof_bundle(port_world[3], accept_all, accept_all)
+    replay_only = verify_proof_bundle(port_world[3], accept_all, accept_all, cid_backend=backend)
     assert ours.event_results == replay_only.event_results == ref.event_results
     assert ours.all_valid() and len(ours.event_results) == port_world[2]
 
@@ -157,10 +157,15 @@ def test_rejecting_trust_callables_match_reference(ref_world, port_world):
     def broken(epoch, cid):
         raise RuntimeError("trust check unavailable")
 
+    backend = get_backend("gpu", device="cpu")
     ref = ref_verify(ref_world[3], TrustPolicy.accept_all()).event_results
-    ours = verify_proof_bundle(port_world[3], reject_parent, accept_all).event_results
+    ours = verify_proof_bundle(
+        port_world[3], reject_parent, accept_all, cid_backend=backend
+    ).event_results
     assert ours == [r and p.parent_epoch % 4 != 0 for r, p in zip(ref, port_world[3].event_proofs)]
-    assert not any(verify_proof_bundle(port_world[3], accept_all, broken).event_results)
+    assert not any(
+        verify_proof_bundle(port_world[3], accept_all, broken, cid_backend=backend).event_results
+    )
 
 
 @pytest.mark.parametrize("which", ["small", "mid", "large"])
@@ -202,7 +207,9 @@ def test_reference_bundle_json_parses_and_verifies(ref_world):
     text = ref_world[3].to_json()
     bundle = UnifiedProofBundle.from_json(text)
     assert bundle.to_json() == text
-    assert verify_proof_bundle(bundle, accept_all, accept_all).all_valid()
+    assert verify_proof_bundle(
+        bundle, accept_all, accept_all, cid_backend=get_backend("gpu", device="cpu")
+    ).all_valid()
     # and the other way: the port's JSON is a valid reference bundle
     assert RefBundle.from_json(bundle.to_json()).digest() == bundle.digest()
 
