@@ -40,7 +40,28 @@ Phases, none of which may fail:
    held against its plain version on the witness's own blocks; a flipped
    byte in a witness block of each size class must be rejected; a repeat
    of the path under ``torch.profiler`` gives the card's busy time;
-5. storage path — BASELINE config 3: ``build_chain`` with 256 EVM
+5. overlapped event path — the same world through
+   ``generate_and_verify_range_overlapped`` (scan ∥ record ∥ merge ∥ verify
+   in one bounded-queue executor) with the thread budget
+   ``resolve_thread_budget()`` gives on this host (``scan_workers ×
+   native_scan_threads`` must not exceed its total) and ``chunk_size =
+   max(1, min(1024, pairs // max(4, 2 * scan_workers)))``, each chunk
+   verified by `_staged_verify` (the witness CID recompute on the card,
+   then the batched replay with the card's TxMeta recompute): the merged
+   bundle's bytes must equal ``generate_event_proofs_for_range_chunked``
+   at the same chunk size, every per-chunk verdict must be true and their
+   concatenation equal whole-bundle verification, neither the single-core
+   fallback nor a scan retry may have run, each blake2b class of the
+   witness must have launched; the run's backend records every kernel
+   call its worker threads make (each chunk's witness batch and TxMeta
+   batch), and each recorded result must equal the plain versions (on
+   the CPU) and hashlib on the same inputs, and each kernel its plain
+   version at every verified chunk bundle's shapes; a repeat under
+   ``torch.profiler`` gives the card's busy time; then the same run with
+   ``IPC_SCAN_FUSED_MATCH=0`` must pass the same checks, give the same
+   bytes and launch the fingerprint mask (its coalescing counted), each
+   recorded mask equal to the plain mask on the same arrays;
+6. storage path — BASELINE config 3: ``build_chain`` with 256 EVM
    contracts × 256 mapping slots (keys ``keccak(ascii_to_bytes32(
    f"subnet-{c}") ‖ be32(i))``, hashed on the card and sampled against
    ``core.hashes.keccak256``; values ``(i % 251).to_bytes(2, "big")``;
@@ -56,7 +77,7 @@ Phases, none of which may fail:
    kernels held against their plain versions at this path's shapes; a
    flipped witness byte of each size class rejected and a changed value
    given a false verdict;
-6. mixed range — ``build_range_world(64, 16, 4, 0.01)`` with the topdown
+7. mixed range — ``build_range_world(64, 16, 4, 0.01)`` with the topdown
    nonce slot ``MappingSlotSpec(1001, "calib-subnet-1", 0)`` proved at every
    pair through the native range branches: 64 storage proofs beside the
    event proofs, every verdict true, every proof's slot the expected keccak
@@ -64,7 +85,17 @@ Phases, none of which may fail:
    launch and a blake2b launch for each size class of its witness counted;
    the keccak and blake2b kernels held against their plain versions at this
    path's shapes;
-7. pure-Python paths — a child process started with
+8. resumable mixed range — the same world and slot through
+   ``generate_event_proofs_for_range_pipelined`` with a checkpoint
+   directory and a job journal (temporary directories): every storage
+   verdict true; a second run resumes every chunk from the journal
+   (``range_chunks_resumed`` equals the chunk count), gives the same bytes,
+   and launches no blake2b kernel and no mask (only the up-front slot
+   keccak that the storage leg needs: the pipelined driver journals event
+   chunks, not storage items); both runs' slot keccak batches and the
+   verification's blake2b batches, as the kernels computed them, must
+   equal the plain versions and the host golden models;
+9. pure-Python paths — a child process started with
    ``IPC_PROOFS_NO_NATIVE=1`` runs the slice 1–2 branches on the card at
    reduced depth (the event path at 512 pairs; ``generate_storage_proofs_batch``
    at 16 contracts × 256 slots), each verified on the card with its own
@@ -78,8 +109,9 @@ line; and as the last line ``{"ok": true, "device": {...}}``. Each path's
 launch counts are set to 0 just before it runs and read just after. A
 kernel's ``launches`` is the count on the path of the slice that ported it
 (the event path for blake2b, the storage path for keccak);
-``launches_by_path`` holds its count on each path (the unfused event run
-and the two pure-Python paths included).
+``launches_by_path`` holds its count on each path (the unfused event run,
+the overlapped runs, the resumable range's two runs and the two
+pure-Python paths included).
 """
 
 from __future__ import annotations
@@ -94,6 +126,8 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -117,13 +151,22 @@ from ipc_proofs_tpu_torch.ops.pack import (
 from ipc_proofs_tpu_torch.proofs import event_verifier as event_verifier_mod
 from ipc_proofs_tpu_torch.proofs import range as range_mod
 from ipc_proofs_tpu_torch.proofs import verifier as verifier_mod
-from ipc_proofs_tpu_torch.proofs.bundle import ProofBlock, UnifiedProofBundle
+from ipc_proofs_tpu_torch.proofs.bundle import EventProofBundle, ProofBlock, UnifiedProofBundle
+from ipc_proofs_tpu_torch.proofs.event_verifier import verify_event_proof
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
-from ipc_proofs_tpu_torch.proofs.range import TipsetPair, generate_event_proofs_for_range
+from ipc_proofs_tpu_torch.proofs.range import (
+    TipsetPair,
+    generate_and_verify_range_overlapped,
+    generate_event_proofs_for_range,
+    generate_event_proofs_for_range_chunked,
+    generate_event_proofs_for_range_pipelined,
+)
 from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec, generate_storage_proofs_batch
 from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, left_pad_32
 from ipc_proofs_tpu_torch.utils.metrics import Metrics
+from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 
 # Peak rates of one H100 SXM at its 700 W limit. Memory: HBM3 at 3.35 TB/s
 # (NVIDIA data sheet). Integer: the CUDA C++ Programming Guide's
@@ -611,22 +654,77 @@ def _host_info() -> str:
 
 
 class _RecordingBackend:
-    """The card's backend, recording each direct ``blake2b256_batch`` call
-    with the digests its kernels returned: the verifier's TxMeta recompute.
-    (The witness recompute goes through ``verify_block_cids``, which the
-    wrapped backend serves itself.)"""
+    """The card's backend, recording every kernel call a path makes with
+    what the kernels returned, from any number of host threads: each
+    direct ``blake2b256_batch`` call (the verifier's TxMeta recompute) in
+    ``batches``, each ``verify_block_cids`` batch (the witness recompute)
+    in ``cid_batches``, each ``keccak256_batch`` call and each fingerprint
+    mask with its inputs. `_check_recorded` holds them against the plain
+    versions afterwards."""
 
     def __init__(self, backend):
         self._backend = backend
+        self._lock = threading.Lock()
         self.batches: "list[tuple[list[bytes], list[bytes]]]" = []
+        self.cid_batches: "list[tuple[list[bytes], list[bytes]]]" = []
+        self.keccak_batches: "list[tuple[list[bytes], list[bytes]]]" = []
+        self.masks: "list[tuple[tuple, np.ndarray]]" = []
 
     def __getattr__(self, name):
         return getattr(self._backend, name)
 
+    def _record(self, into: list, entry) -> None:
+        with self._lock:
+            into.append(entry)
+
     def blake2b256_batch(self, messages):
         digests = self._backend.blake2b256_batch(messages)
-        self.batches.append((list(messages), list(digests)))
+        self._record(self.batches, (list(messages), list(digests)))
         return digests
+
+    def verify_block_cids(self, cids_digests, blocks):
+        digests = self._backend.blake2b256_batch(blocks)
+        self._record(self.cid_batches, (list(blocks), list(digests)))
+        return len(digests) == len(cids_digests) and all(d == e for d, e in zip(digests, cids_digests))
+
+    def keccak256_batch(self, messages):
+        digests = self._backend.keccak256_batch(messages)
+        self._record(self.keccak_batches, (list(messages), list(digests)))
+        return digests
+
+    def event_match_mask_fp(self, *args):
+        mask = self._backend.event_match_mask_fp(*args)
+        self._record(self.masks, (args, np.array(mask, copy=True)))
+        return mask
+
+
+def _check_recorded(label: str, recording: _RecordingBackend, plain_cache: dict) -> dict:
+    """Every kernel result a path's run recorded, at the shapes the path
+    gave the kernels, against the plain PyTorch versions on the same inputs
+    (on the CPU, tolerance 0) and the host golden models (hashlib,
+    ``core.hashes.keccak256``); each fingerprint mask against the plain
+    mask on the same arrays. ``plain_cache`` keeps plain digests across
+    runs of one world. Returns the batch and row counts it checked."""
+    cpu = get_backend("gpu", device="cpu")
+    checked = {}
+    for kind, batches, plain, golden in (
+        ("blake2b", recording.batches + recording.cid_batches, cpu.blake2b256_batch, _blake2b),
+        ("keccak", recording.keccak_batches, cpu.keccak256_batch, keccak256),
+    ):
+        cache = plain_cache.setdefault(kind, {})
+        todo = list({m for messages, _ in batches for m in messages if m not in cache})
+        cache.update(zip(todo, plain(todo)))
+        for messages, digests in batches:
+            if digests != [cache[m] for m in messages]:
+                raise AssertionError(f"{label}: a {kind} batch differs from the plain versions")
+            if digests != [golden(m) for m in messages]:
+                raise AssertionError(f"{label}: a {kind} batch differs from the host golden model")
+        checked[kind] = {"batches": len(batches), "rows": sum(len(m) for m, _ in batches)}
+    for args, mask in recording.masks:
+        if not np.array_equal(mask, cpu.event_match_mask_fp(*args)):
+            raise AssertionError(f"{label}: a fingerprint mask differs from the plain mask")
+    checked["event_match_mask_fp"] = {"calls": len(recording.masks), "rows": sum(len(a[0]) for a, _ in recording.masks)}
+    return checked
 
 
 def _check_txmeta_batch(recording: _RecordingBackend) -> int:
@@ -674,30 +772,46 @@ def _event_generate(store, pairs, backend):
     )
 
 
-def _device_busy(generate, backend) -> dict:
-    """A repeat of a path's run (`_generate_and_verify`) under
-    torch.profiler: its stage ms, and the device time of the CUDA kernels
-    it launched (``busy_ms`` None when the profiler saw no CUDA kernel:
+def _profiled(run):
+    """``run()`` under torch.profiler: its result, and the device ms of the
+    CUDA kernels it launched (None when the profiler saw no CUDA kernel:
     then not measured)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        _, _, _, stages, _ = _generate_and_verify(generate, backend)
+        out = run()
     busy_us = sum(
         getattr(e, "self_device_time_total", 0) or 0
         for e in prof.key_averages()
         if str(getattr(e, "device_type", "")).endswith("CUDA")
     )
-    return {"stage_ms": stages, "busy_ms": busy_us / 1e3 if busy_us > 0 else None}
+    return out, (busy_us / 1e3 if busy_us > 0 else None)
 
 
-def event_path(n_pairs: int, device) -> dict:
-    """BASELINE config 2: the 4096-pair event-proof range through the native
-    branches (fused C scan+match, C pass 2, C witness materialization,
-    batched replay with the TxMeta recompute on the card)."""
+def _device_busy(generate, backend) -> dict:
+    """A repeat of a path's run (`_generate_and_verify`) under
+    torch.profiler: its stage ms and the card's busy ms."""
+    (_, _, _, stages, _), busy_ms = _profiled(lambda: _generate_and_verify(generate, backend))
+    return {"stage_ms": stages, "busy_ms": busy_ms}
+
+
+def event_world(n_pairs: int):
+    """BASELINE config 2's world: ``build_range_world(n_pairs, 16, 4, 0.01)``."""
     t0 = time.perf_counter()
     store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01)
-    world_s = time.perf_counter() - t0
-    _log(f"world: {n_pairs} pairs, {len(store)} blocks, {n_matching} matching receipts, {world_s:.1f} s")
+    _log(
+        f"world: {n_pairs} pairs, {len(store)} blocks, {n_matching} matching receipts, "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
+    return store, pairs, n_matching
+
+
+def event_path(world, device) -> dict:
+    """BASELINE config 2: the 4096-pair event-proof range (``world``, from
+    `event_world`) through the native branches (fused C scan+match, C pass
+    2, C witness materialization, batched replay with the TxMeta recompute
+    on the card)."""
+    store, pairs, n_matching = world
+    n_pairs = len(pairs)
     backend = get_backend("gpu")
     recording = _RecordingBackend(backend)
 
@@ -751,6 +865,183 @@ def event_path(n_pairs: int, device) -> dict:
         "proofs_per_s": len(bundle.event_proofs) / wall_ms * 1e3,
         "profiled_run": profiled,
         "launches": launches,
+        "host": _host_info(),
+    }
+
+
+def _staged_verify(backend, seen: "list | None" = None):
+    """The counterpart of the JAX package's ``bench.py`` ``_staged_verify``
+    as a ``verify_chunk`` closure: the witness CID recompute on the card
+    (``verify_block_cids`` over the chunk's blake2b blocks), then the
+    batched replay with the card's TxMeta recompute; returns (verdicts,
+    stage seconds). Each chunk bundle it verifies is appended to ``seen``
+    (list appends are atomic across the verify workers)."""
+
+    def verify_chunk(bundle):
+        if seen is not None:
+            seen.append(bundle)
+        stages = {}
+        t0 = time.perf_counter()
+        chain = [b for b in bundle.blocks if b.cid.mh_code == BLAKE2B_256]
+        if chain and not backend.verify_block_cids([b.cid.digest for b in chain], [b.data for b in chain]):
+            raise ValueError("witness CID mismatch")
+        stages["verify_cids"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = load_witness_store(bundle.blocks, verify_cids=False)
+        stages["load_witness"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = verify_event_proof(
+            EventProofBundle(proofs=bundle.event_proofs, blocks=bundle.blocks),
+            accept_all, accept_all, store=store, hash_backend=backend,
+        )
+        stages["verify_replay"] = time.perf_counter() - t0
+        return results, stages
+
+    return verify_chunk
+
+
+OVERLAP_STAGES = ("range_scan", "range_match", "range_record", "range_merge", "range_verify")
+
+
+def _overlapped_run(store, pairs, spec, chunk_size, budget, backend, seen=None):
+    """One run of the overlapped driver, counts from 0: (merged bundle,
+    per-chunk (verdicts, stage s), metrics, wall ms, launches); the chunk
+    bundles it verified go to ``seen``."""
+    gc.collect()
+    metrics = Metrics()
+    _reset_counts()
+    t0 = time.perf_counter()
+    merged, chunk_out = generate_and_verify_range_overlapped(
+        store, pairs, spec, chunk_size=chunk_size, verify_chunk=_staged_verify(backend, seen),
+        match_backend=backend, metrics=metrics, threads=budget.total,
+        scan_threads=budget.scan_workers, record_workers=budget.record_workers,
+        verify_workers=budget.verify_workers,
+    )
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return merged, chunk_out, metrics, wall_ms, _counts()
+
+
+def _check_overlapped(label, merged, chunk_out, metrics, expected_json, whole, recording, seen, device, plain_cache):
+    """A run of the overlapped driver: its bytes, its verdicts, no fallback
+    and no retried scan, and every kernel result it recorded held against
+    the plain versions; then each kernel is held against its plain version
+    at each verified chunk bundle's shapes. Returns what was checked."""
+    if merged.to_json() != expected_json:
+        raise AssertionError(f"{label}: the merged bundle differs from the chunked driver's")
+    flat = [v for verdicts, _ in chunk_out for v in verdicts]
+    if not all(flat) or flat != whole:
+        raise AssertionError(f"{label}: per-chunk verdicts differ from whole-bundle verification")
+    for counter in ("range_pipeline_serial_fallback", "range_scan_retries"):
+        if metrics.counter_value(counter):
+            raise AssertionError(f"{label}: {counter} = {metrics.counter_value(counter)} on the card host")
+    with_chain = sum(any(b.cid.mh_code == BLAKE2B_256 for b in bundle.blocks) for bundle in seen)
+    if len(seen) != len(chunk_out) or len(recording.cid_batches) != with_chain:
+        raise AssertionError(
+            f"{label}: {len(seen)} chunks verified, {len(recording.cid_batches)} witness "
+            f"batches recorded, for {len(chunk_out)} chunks ({with_chain} with blake2b blocks)"
+        )
+    checked = _check_recorded(label, recording, plain_cache)
+    for bundle in seen:
+        _check_witness_shapes(bundle.blocks, device)
+    _log(f"{label}: kernel results equal to plain at the path's shapes: {checked}")
+    return checked
+
+
+def overlapped_path(world, device, serial_proofs_per_s: float) -> dict:
+    """The event path's world through the generate ∥ verify driver, the
+    thread budget of this host, then its unfused rerun."""
+    store, pairs, n_matching = world
+    backend = get_backend("gpu")
+    budget = resolve_thread_budget()
+    if budget.scan_workers * budget.native_scan_threads > budget.total:
+        raise AssertionError(f"thread budget oversubscribes: {budget}")
+    chunk_size = max(1, min(1024, len(pairs) // max(4, 2 * budget.scan_workers)))
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    # what the overlapped run must reproduce (launches outside any counted window)
+    chunk_bundles: list = []
+    chunked = generate_event_proofs_for_range_chunked(
+        store, pairs, spec, chunk_size=chunk_size, match_backend=backend, on_chunk=chunk_bundles.append
+    )
+    expected_json = chunked.to_json()
+    whole = verify_proof_bundle(chunked, accept_all, accept_all, cid_backend=backend).event_results
+    if len(whole) != n_matching or not all(whole):
+        raise AssertionError("overlapped event path: whole-bundle verification failed")
+    # the same chunk verifications one after another, nothing else running:
+    # what a chunk's verify costs without the other stages' threads
+    alone_ms: dict = {}
+    verify_chunk = _staged_verify(backend)
+    for bundle in chunk_bundles:
+        for name, seconds in verify_chunk(bundle)[1].items():
+            alone_ms[name] = alone_ms.get(name, 0.0) + seconds * 1e3
+
+    plain_cache: dict = {}
+    recording, seen = _RecordingBackend(backend), []
+    with _native_branches("overlapped event path", EVENT_BRANCHES):
+        merged, chunk_out, metrics, wall_ms, launches = _overlapped_run(
+            store, pairs, spec, chunk_size, budget, recording, seen
+        )
+    present = [name for name, v in _classes(merged.blocks).items() if v]
+    _require_launched("overlapped event path", launches, present)
+    checked = _check_overlapped(
+        "overlapped event path", merged, chunk_out, metrics, expected_json, whole, recording, seen,
+        device, plain_cache,
+    )
+    snap = metrics.snapshot()
+    verify_stage_ms: dict = {}
+    for _, stages in chunk_out:
+        for name, seconds in stages.items():
+            verify_stage_ms[name] = verify_stage_ms.get(name, 0.0) + seconds * 1e3
+
+    (_, _, profiled_metrics, profiled_wall_ms, _), busy_ms = _profiled(
+        lambda: _overlapped_run(store, pairs, spec, chunk_size, budget, backend)
+    )
+
+    u_recording, u_seen = _RecordingBackend(backend), []
+    with _env("IPC_SCAN_FUSED_MATCH", "0"):
+        u_merged, u_out, u_metrics, u_wall_ms, u_launches = _overlapped_run(
+            store, pairs, spec, chunk_size, budget, u_recording, u_seen
+        )
+    if u_launches["event_match_mask_fp"] < 1:
+        raise AssertionError(f"overlapped unfused rerun: no fingerprint mask launch ({u_launches})")
+    u_checked = _check_overlapped(
+        "overlapped unfused rerun", u_merged, u_out, u_metrics, expected_json, whole, u_recording,
+        u_seen, device, plain_cache,
+    )
+    if u_checked["event_match_mask_fp"]["calls"] != u_launches["event_match_mask_fp"]:
+        raise AssertionError(f"overlapped unfused rerun: masks recorded {u_checked}, launched {u_launches}")
+    return {
+        "pairs": len(pairs),
+        "proofs": len(merged.event_proofs),
+        "chunk_size": chunk_size,
+        "chunks": len(chunk_out),
+        "budget": dataclasses.asdict(budget),
+        "wall_ms": wall_ms,
+        "proofs_per_s": len(merged.event_proofs) / wall_ms * 1e3,
+        "serial_proofs_per_s": serial_proofs_per_s,
+        "overlap_efficiency": snap.get("overlap_efficiency"),
+        "stage_busy_ms": {k: v["total_s"] * 1e3 for k, v in snap["timers"].items()},
+        "stage_wall_ms": {k: v["wall_s"] * 1e3 for k, v in snap["timers"].items()},
+        "verify_chunk_ms": verify_stage_ms,
+        "verify_chunks_alone_ms": alone_ms,
+        "launches": launches,
+        "checked": checked,
+        "profiled_run": {
+            "wall_ms": profiled_wall_ms,
+            "busy_ms": busy_ms,
+            "overlap_efficiency": profiled_metrics.overlap_efficiency(),
+        },
+        "unfused": {
+            "wall_ms": u_wall_ms,
+            "proofs_per_s": len(u_merged.event_proofs) / u_wall_ms * 1e3,
+            "overlap_efficiency": u_metrics.overlap_efficiency(),
+            "stage_busy_ms": {k: v * 1e3 for k, v in u_metrics.stage_s.items()},
+            "counters": {
+                k: u_metrics.counter_value(k) for k in ("range_match_coalesced", "range_scan_retries")
+            },
+            "launches": u_launches,
+            "checked": u_checked,
+        },
         "host": _host_info(),
     }
 
@@ -886,6 +1177,61 @@ def mixed_range(n_pairs: int, device) -> dict:
     }
 
 
+def resumable_mixed_range(n_pairs: int, chunk_size: int, device) -> dict:
+    """The mixed range through the pipelined driver with a checkpoint
+    directory and a job journal; a second run resumes every chunk."""
+    store, pairs, _ = build_range_world(n_pairs, 16, 4, 0.01)
+    backend = _RecordingBackend(get_backend("gpu"))
+    specs = [MappingSlotSpec(ACTOR_ID, TOPIC1, 0)]
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    n_chunks = -(-n_pairs // chunk_size)
+    runs = []
+    with tempfile.TemporaryDirectory() as checkpoint_dir, tempfile.TemporaryDirectory() as job_dir:
+        for _ in range(2):
+            metrics = Metrics()
+            _reset_counts()
+            t0 = time.perf_counter()
+            bundle = generate_event_proofs_for_range_pipelined(
+                store, pairs, spec, chunk_size=chunk_size, match_backend=backend, metrics=metrics,
+                storage_specs=specs, checkpoint_dir=checkpoint_dir, job_dir=job_dir,
+            )
+            torch.cuda.synchronize()
+            runs.append((bundle, metrics, (time.perf_counter() - t0) * 1e3, _counts()))
+    (first, m1, ms1, l1), (second, m2, ms2, l2) = runs
+    if second.to_json() != first.to_json():
+        raise AssertionError("resumable mixed range: the resumed bundle differs")
+    if m1.counter_value("range_chunks_generated") != n_chunks or m2.counter_value("range_chunks_resumed") != n_chunks:
+        raise AssertionError(f"resumable mixed range: counters {m1.counters} / {m2.counters}")
+    if m2.counter_value("range_chunks_generated") or m1.counter_value("range_pipeline_serial_fallback"):
+        raise AssertionError(f"resumable mixed range: counters {m1.counters} / {m2.counters}")
+    # the resumed run's only launch is the up-front slot keccak of the
+    # storage leg, which the pipelined driver re-proves (it journals event
+    # chunks only, as the reference does)
+    if {k: v for k, v in l2.items() if v} != {"keccak256_single_block": 1}:
+        raise AssertionError(f"resumable mixed range: the resumed run launched {l2}")
+    result = verify_proof_bundle(first, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend)
+    if len(result.storage_results) != n_pairs or not result.all_valid():
+        raise AssertionError("resumable mixed range: a verdict is false")
+    # the slot keccak of both runs (one batch each), and the verification's
+    # blake2b batches, as the kernels computed them, against the plain versions
+    _check_slot_keccak([s.key32() + s.slot_index.to_bytes(32, "big") for s in specs], device)
+    checked = _check_recorded("resumable mixed range", backend, {})
+    if checked["keccak"]["batches"] != 2:
+        raise AssertionError(f"resumable mixed range: {checked['keccak']} slot keccak batches, expected 2")
+    return {
+        "pairs": n_pairs,
+        "chunks": n_chunks,
+        "checked": checked,
+        "storage_proofs": len(first.storage_proofs),
+        "event_proofs": len(first.event_proofs),
+        "first_ms": ms1,
+        "resumed_ms": ms2,
+        "counters": {"first": m1.counters, "resumed": m2.counters},
+        "launches": l1,
+        "resumed_launches": l2,
+    }
+
+
 def pure_python_paths(n_pairs: int, n_contracts: int, n_slots: int) -> dict:
     """Run in a process started with ``IPC_PROOFS_NO_NATIVE=1``: the
     slice 1–2 pure-Python branches on the card (Python scan with the flat
@@ -1003,14 +1349,18 @@ def main(argv=None) -> int:
             per_permutation,
         )
     )
-    paths = {
-        "event path": event_path(args.pairs, device),
-        "storage path": storage_path(CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device),
-        "mixed range": mixed_range(64, device),
-    }
+    world = event_world(args.pairs)
+    paths = {"event path": event_path(world, device)}
+    paths["overlapped event path"] = overlapped_path(world, device, paths["event path"]["proofs_per_s"])
+    del world
+    paths["storage path"] = storage_path(CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device)
+    paths["mixed range"] = mixed_range(64, device)
+    paths["resumable mixed range"] = resumable_mixed_range(64, 16, device)
     pure = pure_python_phase(args.pure_pairs, args.pure_contracts, SLOTS_PER_CONTRACT)
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
+    launch_counts["overlapped event path, unfused"] = paths["overlapped event path"]["unfused"]["launches"]
+    launch_counts["resumable mixed range, resumed"] = paths["resumable mixed range"]["resumed_launches"]
     launch_counts["event path, pure Python"] = pure["event"]["launches"]
     launch_counts["storage path, pure Python"] = pure["storage"]["launches"]
 
@@ -1046,6 +1396,38 @@ def main(argv=None) -> int:
     _log(
         f"event path on {smi}: {event['proofs']} proofs, {event['proofs_per_s']} proofs/s, "
         f"{event['host']}"
+    )
+    overlapped = paths["overlapped event path"]
+    budget = overlapped["budget"]
+    _log(
+        f"overlapped event path on {smi}: {overlapped['proofs']} proofs in {overlapped['chunks']} chunks "
+        f"of {overlapped['chunk_size']} pairs, wall {overlapped['wall_ms']} ms, "
+        f"{overlapped['proofs_per_s']} proofs/s (serial {overlapped['serial_proofs_per_s']} proofs/s), "
+        f"overlap_efficiency {overlapped['overlap_efficiency']}"
+    )
+    _log(
+        "overlapped stage busy ms: "
+        + ", ".join(f"{k} {overlapped['stage_busy_ms'].get(k)}" for k in OVERLAP_STAGES)
+    )
+    _log(
+        f"thread budget: total {budget['total']} ({budget['source']}), scan {budget['scan_workers']}, "
+        f"record {budget['record_workers']}, verify {budget['verify_workers']}, "
+        f"native {budget['native_scan_threads']} (scan x native = "
+        f"{budget['scan_workers'] * budget['native_scan_threads']} <= {budget['total']})"
+    )
+    _log(
+        f"overlapped verify_chunk ms summed over chunks: {overlapped['verify_chunk_ms']}; "
+        f"the same chunks verified alone, one after another: {overlapped['verify_chunks_alone_ms']}"
+    )
+    _log(f"overlapped launches: {overlapped['launches']}")
+    _log(
+        f"overlapped profiled repeat: busy {overlapped['profiled_run']['busy_ms']} ms of "
+        f"{overlapped['profiled_run']['wall_ms']} ms wall"
+    )
+    _log(
+        f"overlapped unfused rerun: {overlapped['unfused']['proofs_per_s']} proofs/s, "
+        f"counters {overlapped['unfused']['counters']}, "
+        f"fingerprint mask launches {overlapped['unfused']['launches']['event_match_mask_fp']}"
     )
     _log(
         f"storage path on {smi}: {storage['proofs']} proofs, {storage['proofs_per_s']} proofs/s, "

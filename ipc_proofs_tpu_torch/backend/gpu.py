@@ -19,6 +19,12 @@ preimages on the host; here every non-empty class launches.)
 mask: its presence (with ``mesh`` None) is what makes the range driver take
 the fused C scan+match, as the reference does; the unfused branch
 (``IPC_SCAN_FUSED_MATCH=0``) runs this mask on the card.
+
+A backend holds nothing but its device, so one instance serves several
+host threads at once (the pipelined driver's workers): every call packs
+into its own arrays and tensors, launches on its thread's current stream
+(`ops.build.launch`) and copies its digests back before it returns. `warm`
+builds the kernels before such threads start.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
+from ipc_proofs_tpu_torch.ops.build import load_libraries
 from ipc_proofs_tpu_torch.ops.pack import (
     RATE_BYTES,
     digests_to_bytes,
@@ -96,6 +103,13 @@ class GpuBackend:
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
         self.device = device
+
+    def warm(self) -> None:
+        """Build (nvcc) and load the blake2b and keccak kernels now, both
+        sources at once, so no later caller compiles; nothing to do for the
+        plain versions on the CPU."""
+        if self.device.type == "cuda":
+            load_libraries(["blake2b", "keccak"])
 
     def keccak256_batch(self, messages: Sequence[bytes]) -> list[bytes]:
         hashers = {

@@ -1679,17 +1679,26 @@ static PyObject *py_scan_events_batch(PyObject *self, PyObject *args,
   (void)self;
   PyObject *blocks, *roots, *fallback = Py_None;
   PyObject *match_fp_obj = Py_None, *match_actor_obj = Py_None;
-  PyObject *snap_obj = Py_None;
+  PyObject *snap_obj = Py_None, *threads_obj = Py_None;
   int skip_missing = 0, want_payload = 0, validate_blocks = 0;
   static char *kwlist[] = {"blocks", "roots", "fallback", "skip_missing",
                            "want_payload", "match_fp", "match_actor",
-                           "validate_blocks", "snapshot", NULL};
-  if (!PyArg_ParseTupleAndKeywords(args, kwargs, "O!O|OppOOpO", kwlist,
+                           "validate_blocks", "snapshot", "threads", NULL};
+  if (!PyArg_ParseTupleAndKeywords(args, kwargs, "O!O|OppOOpOO", kwlist,
                                    &PyDict_Type, &blocks, &roots, &fallback,
                                    &skip_missing, &want_payload,
                                    &match_fp_obj, &match_actor_obj,
-                                   &validate_blocks, &snap_obj))
+                                   &validate_blocks, &snap_obj, &threads_obj))
     return NULL;
+  /* threads=None keeps the env/core default; an explicit count is the
+   * caller's share of a process-wide budget (utils/threads.py) so that
+   * N scan workers x per-call fan-out stops oversubscribing the host */
+  int threads_override = 0;
+  if (threads_obj != Py_None) {
+    long v = PyLong_AsLong(threads_obj);
+    if (v == -1 && PyErr_Occurred()) return NULL;
+    threads_override = v < 1 ? 1 : (v > 64 ? 64 : (int)v);
+  }
   const CMap *snap_map = NULL;
   int snap_complete = 0;
   if (snapshot_resolve(snap_obj, blocks, &snap_map, &snap_complete) < 0)
@@ -1764,7 +1773,7 @@ static PyObject *py_scan_events_batch(PyObject *self, PyObject *args,
    * PyDict probe per block fetch); the cmap probe is a plain memcmp hash
    * table, ~25% faster end-to-end on a single core before any
    * parallelism. */
-  int threads = scan_threads_default();
+  int threads = threads_override ? threads_override : scan_threads_default();
   /* cmap_build is O(|dict|); without parallelism it only pays when the
    * scan touches a meaningful fraction of the store (a range scan touches
    * ~25 blocks per root), so the SINGLE-THREAD arm keeps the per-probe
@@ -3255,9 +3264,9 @@ static PyMethodDef methods[] = {
     {"scan_events_batch", (PyCFunction)(void (*)(void))py_scan_events_batch,
      METH_VARARGS | METH_KEYWORDS,
      "scan_events_batch(blocks_dict, roots, fallback=None, skip_missing=False,"
-     " want_payload=False) -> dict of flat array buffers over "
-     "every event of every receipt of every root, fanned out over "
-     "scan_threads() pthreads."},
+     " want_payload=False, threads=None) -> dict of flat array buffers over "
+     "every event of every receipt of every root. threads caps this call's "
+     "pthread fan-out (None = IPC_SCAN_THREADS / core default)."},
     {"collect_exec_orders",
      (PyCFunction)(void (*)(void))py_collect_exec_orders,
      METH_VARARGS | METH_KEYWORDS,
@@ -3312,7 +3321,10 @@ PyMODINIT_FUNC PyInit_ipc_torch_scan_ext(void) {
   if (!m) return NULL;
   if (PyType_Ready(&Snapshot_Type) < 0 ||
       PyModule_AddObjectRef(m, "BlockSnapshot",
-                            (PyObject *)&Snapshot_Type) < 0) {
+                            (PyObject *)&Snapshot_Type) < 0 ||
+      /* advertises the threads= kwarg of scan_events_batch, as the
+       * reference's extension does (the port's callers always pass it) */
+      PyModule_AddIntConstant(m, "SCAN_BATCH_THREADS_KW", 1) < 0) {
     Py_DECREF(m);
     return NULL;
   }

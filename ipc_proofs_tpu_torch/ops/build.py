@@ -12,6 +12,13 @@ tensor runs the plain version, a CUDA tensor launches the kernel, any
 other device raises) and `launch`, which calls a kernel's C entry on
 PyTorch's current stream and counts it in the wrapper module's
 ``LAUNCHES``.
+
+Several host threads may launch at once (the pipelined range driver's
+verify workers and its coalescer's leader): libraries load under a lock,
+each C entry is bound once (its ctypes signature set under the same lock,
+never per call), every launch goes to the calling thread's current stream
+and allocates its own output, and counts update under a lock.
+`load_libraries` builds several sources at once, before such threads start.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ __all__ = [
     "check_words",
     "cuda_tool",
     "launch",
+    "load_libraries",
     "load_library",
     "reset_counts",
     "runs_plain",
@@ -50,6 +58,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: "dict[str, ctypes.CDLL]" = {}  # guarded-by: _lock
+_entries: "dict[tuple[str, str], object]" = {}  # guarded-by: _lock; bound C entries
 _count_lock = threading.Lock()  # guards every wrapper module's LAUNCHES
 
 
@@ -105,14 +114,34 @@ def build_libraries(names) -> "dict[str, dict]":
     return results
 
 
+def load_libraries(names) -> "list[ctypes.CDLL]":
+    """The loaded ``csrc/<name>.cu`` libraries, those not built yet built
+    first, all at once."""
+    with _lock:
+        missing = [name for name in names if name not in _loaded]
+        if missing:
+            for name, info in build_libraries(missing).items():
+                _loaded[name] = ctypes.CDLL(str(info["path"]))
+        return [_loaded[name] for name in names]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``csrc/<name>.cu`` library, built first if needed."""
+    return load_libraries([name])[0]
+
+
+def _entry(library: str, name: str, argtypes: list):
+    """The C entry ``name`` of ``csrc/<library>.cu`` with its signature set,
+    bound once per process."""
+    lib = load_library(library)
     with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            path = build_libraries([name])[name]["path"]
-            lib = _loaded[name] = ctypes.CDLL(str(path))
-        return lib
+        fn = _entries.get((library, name))
+        if fn is None:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _entries[(library, name)] = fn
+        return fn
 
 
 def check_words(name: str, tensor: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -158,9 +187,7 @@ def launch(
     out = torch.empty((n, 8), dtype=torch.int32, device=device)
     if n == 0:
         return out
-    fn = getattr(load_library(library), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = _entry(library, name, argtypes)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(*args, out.data_ptr(), stream)

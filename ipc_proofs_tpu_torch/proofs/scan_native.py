@@ -346,6 +346,7 @@ def scan_match_hits(
     topic0: bytes,
     topic1: bytes,
     actor_id_filter: "Optional[int]",
+    threads: "Optional[int]" = None,
 ) -> "Optional[tuple[int, np.ndarray, np.ndarray]]":
     """Fused Phase A+B: ONE C walk scans every receipts AMT AND evaluates
     the fp match predicate per event in-register, returning
@@ -359,6 +360,8 @@ def scan_match_hits(
     Hits are emitted in walk order — (pair, exec, event) ascending — so
     duplicate (pair, exec) rows from multiple matching events in one
     receipt are adjacent. Returns None when the extension is unavailable.
+    ``threads`` caps the call's pthread fan-out (the caller's share of the
+    process thread budget, `utils.threads`); None keeps the default.
     """
     from ipc_proofs_tpu_torch.backend.native import load_scan_ext
 
@@ -373,6 +376,7 @@ def scan_match_hits(
         match_fp=topic_fingerprint(topic0, topic1),
         match_actor=actor_id_filter,
         **_snap_kw(store, raw, len(receipts_roots)),
+        threads=threads,
     )
     return (
         out["n_events"],
@@ -387,6 +391,7 @@ def scan_events_flat(
     skip_missing: bool = False,
     want_payload: bool = False,
     validate_blocks: bool = False,
+    threads: "Optional[int]" = None,
 ) -> Optional[ScanBatch]:
     """Scan every receipts AMT in ``receipts_roots``; None in the
     pure-Python universe (callers use the Python scan path).
@@ -399,7 +404,8 @@ def scan_events_flat(
     block as one trailing-free DAG-CBOR item — REQUIRED when the store
     holds adversarial witness bytes (the batch verifier), so garbage in
     positions the targeted walk skips cannot scan clean where the scalar
-    replay's full decode rejects it.
+    replay's full decode rejects it. ``threads`` caps the pthread fan-out
+    as in `scan_match_hits`.
     """
     from ipc_proofs_tpu_torch.backend.native import load_scan_ext
 
@@ -415,6 +421,7 @@ def scan_events_flat(
         want_payload=want_payload,
         validate_blocks=validate_blocks,
         **_snap_kw(store, raw, len(receipts_roots)),
+        threads=threads,
     )
     n = out["n_events"]
     return ScanBatch(

@@ -10,6 +10,7 @@ import hashlib
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -17,12 +18,17 @@ import pytest
 import torch
 
 from ipc_proofs_tpu_torch.backend import get_backend
+from ipc_proofs_tpu_torch.backend.gpu import GpuBackend
 from ipc_proofs_tpu_torch.backend.native import load_scan_ext
 from ipc_proofs_tpu_torch.core.hashes import keccak256
 from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match, pack
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
-from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
+from ipc_proofs_tpu_torch.proofs.range import (
+    generate_and_verify_range_overlapped,
+    generate_event_proofs_for_range,
+    generate_event_proofs_for_range_chunked,
+)
 from ipc_proofs_tpu_torch.proofs.storage_batch import (
     MappingSlotSpec,
     generate_storage_proofs_batch,
@@ -227,3 +233,57 @@ def test_small_storage_path_on_card(cuda_device):
         hash_backend=get_backend("gpu", device="cpu"),
     )
     assert bundle.digest() == on_cpu.digest()
+
+
+class _RecordingBackend(GpuBackend):
+    """The card's backend, recording every blake2b batch with the digests
+    its kernels returned (thread-safe: verify workers call it at once)."""
+
+    def __init__(self):
+        super().__init__("cuda")
+        self._lock = threading.Lock()
+        self.batches: list = []
+
+    def blake2b256_batch(self, messages):
+        digests = super().blake2b256_batch(messages)
+        with self._lock:
+            self.batches.append((list(messages), digests))
+        return digests
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_overlapped_driver_on_card_with_verify_workers(cuda_device, monkeypatch, fused):
+    """The overlapped driver on the card: 4 verify workers give the bytes
+    and verdicts 1 worker gives (and the plain versions on the CPU give),
+    and every blake2b batch its kernels computed equals the plain versions
+    on the same messages."""
+    if not fused:
+        monkeypatch.setenv("IPC_SCAN_FUSED_MATCH", "0")
+    store, pairs, n_matching = build_range_world(48, 8, 4, 0.125)
+    spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
+    plain = get_backend("gpu", device="cpu")
+    expected = generate_event_proofs_for_range_chunked(
+        store, pairs, spec, chunk_size=8, match_backend=plain
+    ).to_json()
+    runs = []
+    for verify_workers in (1, 4):
+        backend = _RecordingBackend()
+        blake2b.reset_launch_counts()
+        _reset_match_counts()
+        merged, verdicts = generate_and_verify_range_overlapped(
+            store, pairs, spec, chunk_size=8, match_backend=backend, scan_threads=4,
+            verify_workers=verify_workers, force_pipeline=True,
+            verify_chunk=lambda b, backend=backend: verify_proof_bundle(
+                b, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+            ).event_results,
+        )
+        torch.cuda.synchronize()
+        assert merged.to_json() == expected
+        assert len(verdicts) == 6 and all(all(v) for v in verdicts)
+        assert sum(map(len, verdicts)) == n_matching > 0
+        for messages, digests in backend.batches:
+            assert digests == plain.blake2b256_batch(messages)
+        assert all(blake2b.LAUNCHES.values())
+        assert (match.LAUNCHES["event_match_mask_fp"] > 0) == (not fused)
+        runs.append((merged.to_json(), verdicts))
+    assert runs[0] == runs[1]

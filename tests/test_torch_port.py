@@ -1,12 +1,15 @@
 """Boundaries of the PyTorch port: what it may import, where it runs.
 
-- No module of ``ipc_proofs_tpu_torch`` and no line of ``chip_smoke.py``
+- No module of ``ipc_proofs_tpu_torch`` (``parallel/``, ``jobs/``,
+  ``utils/`` and ``store/rpc.py`` included) and no line of ``chip_smoke.py``
   imports ``jax`` or anything of ``ipc_proofs_tpu`` (an AST walk), and a
-  process that runs the small range and storage paths on ``device="cpu"``
-  through the native branches ends with neither in ``sys.modules`` and no
-  shared library of ``ipc_proofs_tpu/`` mapped.
+  process that imports every module of the port and runs the small range
+  and storage paths and one journaled run of the overlapped driver on
+  ``device="cpu"`` through the native branches ends with neither in
+  ``sys.modules`` and no shared library of ``ipc_proofs_tpu/`` mapped.
 - Entry points default to the card: without CUDA, ``GpuBackend()``,
-  ``generate_event_proofs_for_range``, ``hash_slot_specs``,
+  ``generate_event_proofs_for_range``, its chunked, pipelined and
+  overlapped drivers, ``hash_slot_specs``,
   ``generate_storage_proofs_batch``, ``generate_proof_bundle``,
   ``verify_proof_bundle(..., verify_witness_cids=True)`` and the batched
   event replay's TxMeta recompute raise instead of running on the CPU; the
@@ -29,7 +32,12 @@ from ipc_proofs_tpu_torch.core.cid import CID, RAW, SHA2_256
 from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
 from ipc_proofs_tpu_torch.proofs.bundle import ProofBlock
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec, generate_proof_bundle
-from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
+from ipc_proofs_tpu_torch.proofs.range import (
+    generate_and_verify_range_overlapped,
+    generate_event_proofs_for_range,
+    generate_event_proofs_for_range_chunked,
+    generate_event_proofs_for_range_pipelined,
+)
 from ipc_proofs_tpu_torch.proofs.storage_batch import (
     MappingSlotSpec,
     generate_storage_proofs_batch,
@@ -66,6 +74,11 @@ def test_port_files_exist():
         assert (ROOT / "ipc_proofs_tpu_torch" / "csrc" / source).is_file()
     for source in ("dagcbor_ext.c", "scan_ext.c"):
         assert (ROOT / "ipc_proofs_tpu_torch" / "backend" / "native" / source).is_file()
+    for module in (
+        "parallel/pipeline.py", "jobs/journal.py", "jobs/job.py", "utils/threads.py",
+        "utils/deadline.py", "utils/log.py", "utils/lockdep.py", "store/rpc.py",
+    ):
+        assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -111,6 +124,7 @@ assert native_ok == [True], native_ok
 result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True,
                              cid_backend=backend)
 assert result.all_valid() and len(result.event_results) == n_matching > 0
+event_bundle = bundle
 
 from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain
 from ipc_proofs_tpu_torch.proofs.range import TipsetPair
@@ -129,6 +143,22 @@ assert storage_native == [True], storage_native
 result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True,
                              cid_backend=backend)
 assert result.all_valid() and len(result.storage_results) == 8 and not bundle.event_proofs
+
+import pkgutil, importlib, tempfile
+import ipc_proofs_tpu_torch
+for info in pkgutil.walk_packages(ipc_proofs_tpu_torch.__path__, "ipc_proofs_tpu_torch."):
+    importlib.import_module(info.name)
+from ipc_proofs_tpu_torch.proofs.range import generate_and_verify_range_overlapped
+with tempfile.TemporaryDirectory() as job_dir:
+    merged, verdicts = generate_and_verify_range_overlapped(
+        store, pairs, EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
+        chunk_size=3, match_backend=backend, scan_threads=2, force_pipeline=True, job_dir=job_dir,
+        verify_chunk=lambda b: verify_proof_bundle(
+            b, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+        ).event_results,
+    )
+assert merged.to_json() == event_bundle.to_json()
+assert [v for chunk in verdicts for v in chunk] == [True] * n_matching
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu"))
 print("LOADED", bad)
@@ -151,6 +181,25 @@ def test_small_range_path_loads_no_jax_or_reference():
     assert "LOADED []" in proc.stdout, proc.stdout
     assert "LIBS []" in proc.stdout, proc.stdout
     assert "PORT ['ipc_torch_dagcbor_ext', 'ipc_torch_scan_ext']" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("driver", ["chunked", "pipelined", "overlapped"])
+def test_range_drivers_default_to_the_card(monkeypatch, small_range, driver):
+    """Without a backend the chunked, pipelined and overlapped drivers take
+    the card, so without CUDA they raise instead of running on the CPU."""
+    store, pairs, _ = small_range
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {
+        "chunked": lambda: generate_event_proofs_for_range_chunked(store, pairs, SPEC, chunk_size=2),
+        "pipelined": lambda: generate_event_proofs_for_range_pipelined(
+            store, pairs, SPEC, chunk_size=2, force_pipeline=True
+        ),
+        "overlapped": lambda: generate_and_verify_range_overlapped(
+            store, pairs, SPEC, chunk_size=2, verify_chunk=lambda b: None, force_pipeline=True
+        ),
+    }[driver]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
 
 
 def test_gpu_backend_defaults_to_the_card(monkeypatch):
