@@ -100,46 +100,106 @@ Phases, none of which may fail:
    reduced depth (the event path at 512 pairs; ``generate_storage_proofs_batch``
    at 16 contracts × 256 slots), each verified on the card with its own
    launch counts; their bundle digests (sha256 of the canonical JSON) must
-   equal those of the native branches on the same worlds.
+   equal those of the native branches on the same worlds;
+10. cold read — the event path's world read cold: the hermetic Lotus node
+   (``LocalLotusSession``) → ``LotusClient`` → ``FetchPlane`` (speculate
+   depth 1, every wave verified on the card) → ``TieredBlockstore`` over a ``SegmentStore``
+   in a temporary directory, through ``generate_event_proofs_for_range_pipelined``
+   at the host's thread budget with ``IPC_VERIFY_MIN_BYTES=0``: the bytes
+   of the in-memory path; every landed wave of two or more blocks verified
+   on the card and every single-block wave on the scalar lane (the
+   ``verify.*`` counters equal the waves' split); all three blake2b kernels
+   and the flat event mask launched (the tier has no raw map, so the scan
+   is the Python walk, as in the reference); every recorded kernel call
+   equal to the plain versions and hashlib; no retry of any kind; a
+   profiled repeat in a fresh directory gives the card's busy ms, and a
+   third run at the default crossover (every wave on the host lane) what
+   the forced lane costs;
+11. warm restart — the cold run's disk reopened with the sweep at open
+   (``verify_scan``) on the card at the default crossover: one verify call
+   per segment over every block, no eviction, its kernel calls held against
+   plain and hashlib; then the same generate through a fresh plane at
+   speculate depth 0 and tier: the same bytes and not one RPC call or want;
+   then again at depth 1: the same bytes, no demand want, and the RPC calls
+   of the speculation that fetches links the cold run's plane dropped at
+   its queue cap and no walk reads (the reference plane fetches the same);
+12. lying disk — 64 frames of that disk, at seeded indices, rewritten with a
+   changed block byte and a valid CRC: the sweep at open evicts exactly
+   those, and a read of each through the tier refetches it (one RPC call
+   each) and repairs the disk;
+13. lying node — 8 runs at 256 pairs over ``FaultySession`` with seeded
+   bit-flip plans (16 lies each): each run gives the in-memory bytes or a
+   typed error (``IntegrityError``, ``RpcError``), every lie is counted
+   (``rpc.integrity_failures`` + ``fetch.speculative_integrity_drops``), some
+   speculative lie is dropped and some run completes (scan retries are the
+   expected cost here), and a verifying reopen of each run's disk evicts
+   nothing;
+14. mixed-multihash sweep — one segment of 65,536 blake2b, 65,536 keccak
+   (0–520 B, so both keccak kernels run), 16,384 sha2-256, 4,096 identity
+   and 1,024 unknown-code blocks from the seed, 1 % with a flipped bit,
+   swept at open on the card: each block kept exactly when
+   ``verify_block_bytes`` (run in worker processes: the host keccak is pure
+   Python; the keccak CIDs come from the card, so a wrong kernel fails
+   here too) accepts it, the flips the only evictions, both keccak and all
+   three blake2b kernels launched, the two kernel calls equal to plain and
+   the host;
+15. autotune — ``autotune_crossover(quick=False)`` on the card, its record
+   written as ``verify_autotune_cuda.json``; last, since the tuned crossover
+   applies to every later verify call of the process.
 
 Prints per-stage ms of every path with the scanner's thread count and the
 CPUs it may use; then, in order before the last line: one line per kernel,
 one JSON object ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit
 line; and as the last line ``{"ok": true, "device": {...}}``. Each path's
 launch counts are set to 0 just before it runs and read just after. A
-kernel's ``launches`` is the count on the path of the slice that ported it
-(the event path for blake2b, the storage path for keccak);
-``launches_by_path`` holds its count on each path (the unfused event run,
-the overlapped runs, the resumable range's two runs and the two
-pure-Python paths included).
+kernel's ``launches`` is the count on the first path that runs it (the
+event path for blake2b, the storage path for the single-block keccak, the
+mixed-multihash sweep for the multi-block keccak); ``launches_by_path``
+holds its count on each path (the unfused event run, the overlapped runs,
+the resumable range's two runs, the two pure-Python paths and the cold
+read path's phases included).
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import hashlib
 import json
+import multiprocessing
 import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
 
 from ipc_proofs_tpu_torch.backend import get_backend
-from ipc_proofs_tpu_torch.backend.gpu import SIZE_CLASSES, keccak_class, size_class
+from ipc_proofs_tpu_torch.backend.gpu import KECCAK_CLASSES, SIZE_CLASSES, keccak_class, size_class
 from ipc_proofs_tpu_torch.backend.native import load_scan_ext
-from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256, CID, PurePythonCID
+from ipc_proofs_tpu_torch.core.cid import (
+    BLAKE2B_256,
+    CID,
+    DAG_CBOR,
+    IDENTITY,
+    KECCAK_256,
+    SHA2_256,
+    PurePythonCID,
+)
 from ipc_proofs_tpu_torch.core.hashes import keccak256
 from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
+from ipc_proofs_tpu_torch.jobs.journal import FRAME_HEADER
 from ipc_proofs_tpu_torch.ops.build import build_libraries, cuda_tool
 from ipc_proofs_tpu_torch.ops.pack import (
     RATE_BYTES,
@@ -162,9 +222,16 @@ from ipc_proofs_tpu_torch.proofs.range import (
     generate_event_proofs_for_range_pipelined,
 )
 from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec, generate_storage_proofs_batch
+from ipc_proofs_tpu_torch.ops.verify import autotune_crossover, load_autotune
 from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, left_pad_32
+from ipc_proofs_tpu_torch.store import fetchplane as fetchplane_mod
+from ipc_proofs_tpu_torch.store.faults import FaultPlan, FaultySession, LocalLotusSession
+from ipc_proofs_tpu_torch.store.fetchplane import FetchPlane, PlaneBlockstore
+from ipc_proofs_tpu_torch.store.rpc import IntegrityError, LotusClient, RpcError, verify_block_bytes
+from ipc_proofs_tpu_torch.storex import SEGMENT_MAGIC, SegmentStore, TieredBlockstore
+from ipc_proofs_tpu_torch.storex import segments as segments_mod
 from ipc_proofs_tpu_torch.utils.metrics import Metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 
@@ -196,7 +263,14 @@ KERNELS = (
 )
 KECCAK_SOURCE = "ipc_proofs_tpu_torch/csrc/keccak.cu"
 # the path whose launch count is a kernel's ``launches`` (its slice's path)
-OWN_PATH = {"blake2b": "event path", "keccak": "storage path"}
+# the path whose launches a kernel's row reports: the first path that runs it
+OWN_PATH = {
+    "blake2b256_single_block": "event path",
+    "blake2b256_two_block": "event path",
+    "blake2b256_blocks": "event path",
+    "keccak256_single_block": "storage path",
+    "keccak256_blocks": "mixed-multihash sweep",
+}
 KECCAK_KERNELS = (
     # name, TPU function it replaces, loader of its kernel instantiation
     ("keccak256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:304", "SplitPlanes17"),
@@ -669,6 +743,7 @@ class _RecordingBackend:
         self.cid_batches: "list[tuple[list[bytes], list[bytes]]]" = []
         self.keccak_batches: "list[tuple[list[bytes], list[bytes]]]" = []
         self.masks: "list[tuple[tuple, np.ndarray]]" = []
+        self.event_masks: "list[tuple[tuple, list]]" = []
 
     def __getattr__(self, name):
         return getattr(self._backend, name)
@@ -695,6 +770,11 @@ class _RecordingBackend:
     def event_match_mask_fp(self, *args):
         mask = self._backend.event_match_mask_fp(*args)
         self._record(self.masks, (args, np.array(mask, copy=True)))
+        return mask
+
+    def event_match_mask(self, events, *args):
+        mask = self._backend.event_match_mask(events, *args)
+        self._record(self.event_masks, ((list(events), *args), list(mask)))
         return mask
 
 
@@ -724,6 +804,12 @@ def _check_recorded(label: str, recording: _RecordingBackend, plain_cache: dict)
         if not np.array_equal(mask, cpu.event_match_mask_fp(*args)):
             raise AssertionError(f"{label}: a fingerprint mask differs from the plain mask")
     checked["event_match_mask_fp"] = {"calls": len(recording.masks), "rows": sum(len(a[0]) for a, _ in recording.masks)}
+    for args, mask in recording.event_masks:
+        if mask != cpu.event_match_mask(*args):
+            raise AssertionError(f"{label}: a flat event mask differs from the plain mask")
+    checked["event_match_mask"] = {
+        "calls": len(recording.event_masks), "rows": sum(len(a[0]) for a, _ in recording.event_masks)
+    }
     return checked
 
 
@@ -1300,6 +1386,518 @@ def pure_python_phase(n_pairs: int, n_contracts: int, n_slots: int) -> dict:
     return pure
 
 
+# --------------------------------------------------------------------------
+# slice 5: the cold read path
+# --------------------------------------------------------------------------
+
+COLD_PREFIXES = ("rpc.", "fetch.", "verify.", "storex.")
+LYING_NODE_PAIRS = 256
+LYING_NODE_RUNS = 8
+FORGED_FRAMES = 64
+# the mixed-multihash sweep: (multihash code, blocks, longest block)
+UNKNOWN_CODE = 0x15
+MIXED_FAMILIES = (
+    (BLAKE2B_256, 65_536, 520),
+    (KECCAK_256, 65_536, 520),
+    (SHA2_256, 16_384, 520),
+    (IDENTITY, 4_096, 64),
+    (UNKNOWN_CODE, 1_024, 520),
+)
+
+
+def _spec() -> EventProofSpec:
+    return EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+
+
+def _cold_counters(metrics: Metrics) -> dict:
+    return {k: v for k, v in sorted(metrics.counters.items()) if k.startswith(COLD_PREFIXES)}
+
+
+@contextlib.contextmanager
+def _verify_calls(module):
+    """Record every `verify_blocks_batch` call ``module`` (the fetch plane
+    or the segment store) makes, from any thread: (blocks, wall ms)."""
+    calls: list = []
+    original = module.verify_blocks_batch
+
+    def spy(cids, blocks, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = original(cids, blocks, *args, **kwargs)
+        calls.append((len(blocks), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    module.verify_blocks_batch = spy
+    try:
+        yield calls
+    finally:
+        module.verify_blocks_batch = original
+
+
+def _no_retries(label: str, metrics: Metrics) -> None:
+    for counter in ("range_scan_retries", "range_pipeline_serial_fallback", "rpc.retries",
+                    "rpc.integrity_failures", "fetch.speculative_integrity_drops"):
+        if metrics.counter_value(counter):
+            raise AssertionError(f"{label}: {counter} = {metrics.counter_value(counter)}")
+
+
+def _cold_run(store, pairs, store_dir, backend, budget, chunk_size, session=None, scan_retries=2,
+              metrics=None, speculate_depth=1):
+    """One pipelined run over the cold read stack, counts from 0: hermetic
+    Lotus node → `LotusClient` → `FetchPlane` (every landed wave verified on
+    ``backend``) → `TieredBlockstore` over a `SegmentStore` in ``store_dir``
+    (batch verify on ``backend``). Returns (bundle, metrics, wall ms,
+    launches)."""
+    gc.collect()
+    metrics = Metrics() if metrics is None else metrics
+    client = LotusClient("http://lotus.local", session=session or LocalLotusSession(store), metrics=metrics)
+    plane = FetchPlane(
+        client, speculate_depth=speculate_depth, backend=backend, metrics=metrics
+    )
+    disk = SegmentStore(store_dir, backend=backend, metrics=metrics)
+    tier = TieredBlockstore(PlaneBlockstore(plane), disk, metrics=metrics)
+    plane.set_local(tier)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        bundle = generate_event_proofs_for_range_pipelined(
+            tier, pairs, _spec(), chunk_size=chunk_size, match_backend=backend, metrics=metrics,
+            threads=budget.total, scan_threads=budget.scan_workers, record_workers=budget.record_workers,
+            scan_retries=scan_retries,
+        )
+        torch.cuda.synchronize()
+    finally:
+        plane.close()
+        disk.close()
+    return bundle, metrics, (time.perf_counter() - t0) * 1e3, _counts()
+
+
+def cold_read_path(world, device, root: str) -> dict:
+    """BASELINE config 2 read cold through the hermetic node, the fetch
+    plane and the disk tier by the pipelined driver at the host's thread
+    budget, every landed wave of two or more blocks verified on the card
+    (``IPC_VERIFY_MIN_BYTES=0``): the in-memory path's bytes, the lane
+    split, every recorded kernel call held against the plain versions."""
+    store, pairs, n_matching = world
+    backend = get_backend("gpu")
+    budget = resolve_thread_budget()
+    chunk_size = max(1, min(1024, len(pairs) // max(4, 2 * budget.scan_workers)))
+    expected = generate_event_proofs_for_range(store, pairs, _spec(), match_backend=backend).to_json()
+    recording = _RecordingBackend(backend)
+    with _env("IPC_VERIFY_MIN_BYTES", "0"), _verify_calls(fetchplane_mod) as waves:
+        bundle, metrics, wall_ms, launches = _cold_run(
+            store, pairs, os.path.join(root, "cold"), recording, budget, chunk_size
+        )
+    if bundle.to_json() != expected:
+        raise AssertionError("cold read: the bundle differs from the in-memory event path's")
+    _no_retries("cold read", metrics)
+    # the tier has no raw map, so the scan is the Python walk and the
+    # predicate the flat mask on the card (as in the reference)
+    _require_launched("cold read", launches, [*SIZE_CLASSES, "event_match_mask"])
+    single = sum(n for n, _ in waves if n == 1)
+    multi = [n for n, _ in waves if n >= 2]
+    lanes = {
+        "verify.batch_calls": len(waves),
+        "verify.scalar_blocks": single,
+        "verify.device_calls": len(multi),
+        "verify.device_blocks": sum(multi),
+    }
+    got = {k: metrics.counter_value(k) for k in lanes}
+    if got != lanes:
+        raise AssertionError(f"cold read: lane split {got}, waves say {lanes}")
+    checked = _check_recorded("cold read", recording, {})
+    if checked["blake2b"]["batches"] != len(multi):
+        raise AssertionError(f"cold read: {checked['blake2b']} recorded for {len(multi)} device waves")
+    _log(f"cold read: every device wave equal to plain and to hashlib: {checked}")
+
+    with _env("IPC_VERIFY_MIN_BYTES", "0"):
+        (again, p_metrics, p_wall_ms, _), busy_ms = _profiled(
+            lambda: _cold_run(store, pairs, os.path.join(root, "cold-profiled"), backend, budget, chunk_size)
+        )
+    shutil.rmtree(os.path.join(root, "cold-profiled"))
+    if again.to_json() != expected:
+        raise AssertionError("cold read (profiled repeat): the bundle differs")
+    # the same run at the default crossover, what the lane's routing costs:
+    # waves of at most 64 blocks stay below 256 KiB, so all take the host lane
+    with _verify_calls(fetchplane_mod) as d_waves:
+        default, d_metrics, d_wall_ms, d_launches = _cold_run(
+            store, pairs, os.path.join(root, "cold-default"), backend, budget, chunk_size
+        )
+    shutil.rmtree(os.path.join(root, "cold-default"))
+    if default.to_json() != expected:
+        raise AssertionError("cold read (default crossover): the bundle differs")
+    _no_retries("cold read (default crossover)", d_metrics)
+    return {
+        "pairs": len(pairs),
+        "proofs": len(bundle.event_proofs),
+        "chunk_size": chunk_size,
+        "budget": dataclasses.asdict(budget),
+        "wall_ms": wall_ms,
+        "proofs_per_s": len(bundle.event_proofs) / wall_ms * 1e3,
+        "stage_busy_ms": {k: v * 1e3 for k, v in metrics.stage_s.items()},
+        "counters": _cold_counters(metrics),
+        "waves": {"total": len(waves), "single_block": single, "multi_block": len(multi),
+                  "largest": max(multi, default=0),
+                  "verify_ms": sum(ms for _, ms in waves)},
+        "checked": checked,
+        "launches": launches,
+        "profiled_run": {"wall_ms": p_wall_ms, "busy_ms": busy_ms,
+                         "proofs_per_s": len(again.event_proofs) / p_wall_ms * 1e3},
+        "default_crossover": {
+            "wall_ms": d_wall_ms,
+            "proofs_per_s": len(default.event_proofs) / d_wall_ms * 1e3,
+            "verify_ms": sum(ms for _, ms in d_waves),
+            "counters": {k: v for k, v in _cold_counters(d_metrics).items() if k.startswith("verify.")},
+            "launches": d_launches,
+        },
+        "host": _host_info(),
+    }
+
+
+def _open_swept(store_dir: str, backend, metrics: Metrics):
+    """Open a segment store with the sweep at open on ``backend`` at the
+    default crossover: (store, open ms, sweep calls)."""
+    with _verify_calls(segments_mod) as calls:
+        _reset_counts()
+        t0 = time.perf_counter()
+        disk = SegmentStore(store_dir, verify_scan=True, backend=backend, metrics=metrics)
+        torch.cuda.synchronize()
+        open_ms = (time.perf_counter() - t0) * 1e3
+    return disk, open_ms, calls
+
+
+def warm_restart(world, root: str) -> dict:
+    """Reopen the cold run's disk with the sweep at open on the card, then
+    generate again through a fresh plane and tier: the same bytes and no
+    RPC call without speculation; at the cold run's depth 1 the same bytes,
+    and the speculative fetches that reach the node counted."""
+    store, pairs, _ = world
+    backend = get_backend("gpu")
+    recording = _RecordingBackend(backend)
+    store_dir = os.path.join(root, "cold")
+    seg_bytes = sum(os.path.getsize(os.path.join(store_dir, n)) for n in os.listdir(store_dir) if n.endswith(".blk"))
+    metrics = Metrics()
+    disk, open_ms, calls = _open_swept(store_dir, recording, metrics)
+    sweep_launches = _counts()
+    n_blocks = len(disk)
+    if metrics.counter_value("storex.integrity_evictions"):
+        raise AssertionError(f"warm restart: the sweep evicted {metrics.counters}")
+    n_segments = len([n for n in os.listdir(store_dir) if n.endswith(".blk")])
+    if (len(calls) != n_segments or sum(n for n, _ in calls) != n_blocks
+            or metrics.counter_value("verify.device_blocks") != n_blocks):
+        raise AssertionError(f"warm restart: sweep calls {calls} for {n_blocks} blocks ({metrics.counters})")
+    _require_launched("warm restart sweep", sweep_launches, SIZE_CLASSES)
+    checked = _check_recorded("warm restart sweep", recording, {})
+    swept = [len(m) for messages, _ in recording.batches for m in messages]
+    disk.close()
+
+    budget = resolve_thread_budget()
+    chunk_size = max(1, min(1024, len(pairs) // max(4, 2 * budget.scan_workers)))
+    expected = generate_event_proofs_for_range(store, pairs, _spec(), match_backend=backend).to_json()
+    # speculation off: no want may reach the node
+    bundle, g_metrics, wall_ms, launches = _cold_run(
+        store, pairs, store_dir, backend, budget, chunk_size, speculate_depth=0
+    )
+    if bundle.to_json() != expected:
+        raise AssertionError("warm restart: the bundle differs from the in-memory event path's")
+    if g_metrics.counter_value("rpc.calls") or g_metrics.counter_value("fetch.wants"):
+        raise AssertionError(f"warm restart: the warm run reached the node: {_cold_counters(g_metrics)}")
+    _no_retries("warm restart", g_metrics)
+    # the cold run's depth 1: walkers offer links that the cold plane dropped
+    # at its queue cap and no walk reads, and the plane fetches them, as the
+    # reference's does (tests/test_torch_fetchplane.py::TestWarmRestartSpeculation);
+    # every demand is still served from the disk
+    spec_bundle, s_metrics, s_wall_ms, _ = _cold_run(store, pairs, store_dir, backend, budget, chunk_size)
+    if spec_bundle.to_json() != expected:
+        raise AssertionError("warm restart (depth 1): the bundle differs from the in-memory event path's")
+    if s_metrics.counter_value("fetch.wants") != s_metrics.counter_value("fetch.speculative_wants"):
+        raise AssertionError(f"warm restart (depth 1): a demand reached the node: {_cold_counters(s_metrics)}")
+    _no_retries("warm restart (depth 1)", s_metrics)
+    return {
+        "blocks": n_blocks,
+        "block_bytes": sum(swept),
+        "segment_bytes": seg_bytes,
+        "segments": n_segments,
+        "by_class": {name: sum(size_class(n) == name for n in swept) for name in SIZE_CLASSES},
+        "open_ms": open_ms,
+        "sweep_verify_ms": sum(ms for _, ms in calls),
+        "sweep_blocks_per_s": n_blocks / sum(ms for _, ms in calls) * 1e3,
+        "sweep_launches": sweep_launches,
+        "checked": checked,
+        "generate_wall_ms": wall_ms,
+        "generate_proofs_per_s": len(bundle.event_proofs) / wall_ms * 1e3,
+        "generate_counters": _cold_counters(g_metrics),
+        "launches": launches,
+        "speculating": {
+            "wall_ms": s_wall_ms,
+            "proofs_per_s": len(spec_bundle.event_proofs) / s_wall_ms * 1e3,
+            "rpc_calls": s_metrics.counter_value("rpc.calls"),
+            "counters": _cold_counters(s_metrics),
+        },
+    }
+
+
+def _frames(store_dir: str) -> "list[tuple[str, int, int, bytes]]":
+    """(segment path, offset, frame length, raw CID) of every frame."""
+    out = []
+    for name in sorted(os.listdir(store_dir)):
+        if not name.endswith(".blk"):
+            continue
+        path = os.path.join(store_dir, name)
+        with open(path, "rb") as fh:
+            data = fh.read()
+        off = 0
+        while off < len(data):
+            _, length, _ = FRAME_HEADER.unpack_from(data, off)
+            payload = data[off + FRAME_HEADER.size : off + FRAME_HEADER.size + length]
+            (cid_len,) = struct.unpack_from("<H", payload, 0)
+            out.append((path, off, FRAME_HEADER.size + length, payload[2 : 2 + cid_len]))
+            off += FRAME_HEADER.size + length
+    return out
+
+
+def _forge(path: str, off: int, frame_len: int) -> None:
+    """Change a frame's last block byte and write a valid CRC over it: the
+    CRC passes, only the multihash can tell."""
+    with open(path, "r+b") as fh:
+        fh.seek(off)
+        payload = bytearray(fh.read(frame_len)[FRAME_HEADER.size :])
+        payload[-1] ^= 0xFF
+        fh.seek(off)
+        fh.write(FRAME_HEADER.pack(SEGMENT_MAGIC, len(payload), zlib.crc32(bytes(payload))) + bytes(payload))
+
+
+def lying_disk(world, root: str, seed: int) -> dict:
+    """Forge frames of the cold run's disk at seeded indices: the sweep at
+    open evicts exactly that set, and reads through the tier refetch and
+    repair each one."""
+    store, _, _ = world
+    backend = get_backend("gpu")
+    store_dir = os.path.join(root, "cold")
+    frames = _frames(store_dir)
+    rng = np.random.default_rng(seed + 5)
+    picked = sorted(int(i) for i in rng.choice(len(frames), size=FORGED_FRAMES, replace=False))
+    for i in picked:
+        _forge(*frames[i][:3])
+    forged = {frames[i][3] for i in picked}
+    recording = _RecordingBackend(backend)
+    metrics = Metrics()
+    disk, open_ms, _ = _open_swept(store_dir, recording, metrics)
+    sweep_launches = _counts()
+    try:
+        evicted = {raw for _, _, _, raw in frames if not disk.contains(CID.from_bytes(raw))}
+        if evicted != forged or metrics.counter_value("storex.integrity_evictions") != len(forged):
+            raise AssertionError(
+                f"lying disk: the sweep evicted {len(evicted)} frames, {len(evicted & forged)} of the "
+                f"{len(forged)} forged ({metrics.counters})"
+            )
+        _require_launched("lying disk sweep", sweep_launches, SIZE_CLASSES)
+        checked = _check_recorded("lying disk sweep", recording, {})
+        client = LotusClient("http://lotus.local", session=LocalLotusSession(store), metrics=metrics)
+        plane = FetchPlane(client, speculate_depth=0, backend=backend, metrics=metrics)
+        tier = TieredBlockstore(PlaneBlockstore(plane), disk, metrics=metrics)
+        plane.set_local(tier)
+        before = metrics.counter_value("rpc.calls")
+        try:
+            for raw in sorted(forged):
+                cid = CID.from_bytes(raw)
+                if tier.get(cid) != store.get(cid) or disk.get(cid) != store.get(cid):
+                    raise AssertionError(f"lying disk: {cid} was not repaired")
+        finally:
+            plane.close()
+        refetched = metrics.counter_value("rpc.calls") - before
+        if refetched != len(forged):
+            raise AssertionError(f"lying disk: {refetched} RPC calls to repair {len(forged)} frames")
+    finally:
+        disk.close()
+    return {"frames": len(frames), "forged": len(forged), "evicted": len(evicted), "open_ms": open_ms,
+            "refetched": refetched, "launches": sweep_launches, "checked": checked,
+            "counters": _cold_counters(metrics)}
+
+
+def lying_node(n_pairs: int, root: str, seed: int) -> dict:
+    """A node that flips bits (`FaultySession` over the hermetic node,
+    seeded bit-flip plans): each run gives the in-memory path's bytes or a
+    typed error, speculative lies are dropped before use, and no forged
+    block reaches the disk (a verifying reopen evicts nothing)."""
+    store, pairs, _ = build_range_world(n_pairs, 16, 4, 0.01)
+    backend = get_backend("gpu")
+    budget = resolve_thread_budget()
+    chunk_size = max(1, n_pairs // 8)
+    expected = generate_event_proofs_for_range(store, pairs, _spec(), match_backend=backend).to_json()
+    runs = []
+    launches: dict = {}
+    for run in range(LYING_NODE_RUNS):
+        # one endpoint and no failover: each lie in a demand wave costs the
+        # chunk a scan retry, so the retries cover every lie of the plan
+        plan = FaultPlan(seed * 100 + run, fault_rate=0.1, kinds=("bitflip",), max_faults=16)
+        session = FaultySession(LocalLotusSession(store), plan, sleep=lambda s: None)
+        store_dir = os.path.join(root, f"lying-node-{run}")
+        metrics = Metrics()
+        with _env("IPC_VERIFY_MIN_BYTES", "0"):
+            try:
+                bundle, _, _, run_launches = _cold_run(
+                    store, pairs, store_dir, backend, budget, chunk_size, session=session, scan_retries=16,
+                    metrics=metrics,
+                )
+                outcome = "identical" if bundle.to_json() == expected else "DIFFERENT"
+                caught = metrics.counter_value("rpc.integrity_failures") + metrics.counter_value(
+                    "fetch.speculative_integrity_drops"
+                )
+                if caught != plan.snapshot()["by_kind"].get("bitflip", 0):
+                    raise AssertionError(f"lying node run {run}: {caught} lies caught of {plan.snapshot()}")
+            except (IntegrityError, RpcError) as exc:  # a typed refusal is an accepted outcome
+                outcome, run_launches = type(exc).__name__, _counts()
+        if outcome == "DIFFERENT":
+            raise AssertionError(f"lying node run {run}: a completed run gave other bytes")
+        for k, v in run_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        reopen = Metrics()
+        disk, _, _ = _open_swept(store_dir, backend, reopen)
+        disk.close()
+        if reopen.counter_value("storex.integrity_evictions"):
+            raise AssertionError(f"lying node run {run}: a forged block reached the disk ({reopen.counters})")
+        runs.append({
+            "outcome": outcome,
+            "flips": plan.snapshot()["by_kind"].get("bitflip", 0),
+            "counters": _cold_counters(metrics),
+            "scan_retries": metrics.counter_value("range_scan_retries"),
+        })
+        shutil.rmtree(store_dir)
+    drops = sum(r["counters"].get("fetch.speculative_integrity_drops", 0) for r in runs)
+    if not drops or not any(r["outcome"] == "identical" for r in runs):
+        raise AssertionError(f"lying node: no speculative drop or no completed run: {runs}")
+    return {"pairs": n_pairs, "runs": runs, "speculative_integrity_drops": drops, "launches": launches}
+
+
+def _host_verdict(item: "tuple[bytes, bytes]") -> "tuple[bool, bytes | None]":
+    """`verify_block_bytes` of one (raw CID, block), and the host golden
+    digest of a keccak block; run in worker processes (the host keccak is
+    pure Python)."""
+    raw, data = item
+    cid = CID.from_bytes(raw)
+    digest = keccak256(data) if cid.mh_code == KECCAK_256 else None
+    return verify_block_bytes(cid, data), digest
+
+
+def _mixed_blocks(seed: int):
+    """The sweep's blocks from the seed: (raw CIDs, stored bytes, flipped
+    indices). The keccak CIDs are hashed on the card (outside any counted
+    window): a wrong kernel gives wrong CIDs, which the host verdicts then
+    reject block by block."""
+    rng = np.random.default_rng(seed + 6)
+    blocks, codes = [], []
+    for code, count, longest in MIXED_FAMILIES:
+        lengths = rng.integers(1, longest + 1, size=count)
+        lengths[0] = 0  # one empty block per family
+        seen: set = set()
+        for n in lengths:
+            data = rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
+            while data in seen:  # short blocks repeat: one CID, one block
+                data = rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
+            seen.add(data)
+            blocks.append(data)
+            codes.append(code)
+    keccak_rows = [i for i, c in enumerate(codes) if c == KECCAK_256]
+    keccak_digests = get_backend("gpu").keccak256_batch([blocks[i] for i in keccak_rows])
+    digests = dict(zip(keccak_rows, keccak_digests))
+    raws = []
+    for i, (code, data) in enumerate(zip(codes, blocks)):
+        if code == KECCAK_256:
+            cid = CID(1, DAG_CBOR, KECCAK_256, digests[i])
+        elif code == UNKNOWN_CODE:
+            cid = CID(1, DAG_CBOR, UNKNOWN_CODE, hashlib.sha256(b"unknown %d" % i).digest())
+        else:
+            cid = CID.hash_of(data, mh_code=code)
+        raws.append(cid.to_bytes())
+    nonempty = [i for i, data in enumerate(blocks) if data]
+    flipped = sorted(int(i) for i in rng.choice(nonempty, size=len(blocks) // 100, replace=False))
+    for i in flipped:
+        data = bytearray(blocks[i])
+        data[int(rng.integers(len(data)))] ^= 1 << int(rng.integers(8))
+        blocks[i] = bytes(data)
+    return raws, blocks, flipped
+
+
+def mixed_sweep(root: str, seed: int) -> dict:
+    """One segment's worth of blocks of every multihash family, 1 % of them
+    with a flipped bit, swept at open on the card: each verdict equal to
+    `verify_block_bytes`, the flips the only evictions, both keccak and all
+    three blake2b kernels launched."""
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    workers = len(os.sched_getaffinity(0))
+    raws, blocks, flipped = _mixed_blocks(seed)
+    with concurrent.futures.ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+        host = list(pool.map(_host_verdict, list(zip(raws, blocks)), chunksize=1024))
+    store_dir = os.path.join(root, "mixed")
+    with SegmentStore(store_dir) as disk:
+        for raw, data in zip(raws, blocks):
+            disk.put(CID.from_bytes(raw), data)
+        if len(disk) != len(raws) or disk.stats()["segments"] != 1:
+            raise AssertionError(f"mixed sweep: {disk.stats()} for {len(raws)} blocks")
+    build_s = time.perf_counter() - t0
+    expected = [ok for ok, _ in host]
+    golden_keccak = {data: digest for data, (_, digest) in zip(blocks, host) if digest is not None}
+
+    recording = _RecordingBackend(get_backend("gpu"))
+    metrics = Metrics()
+    disk, open_ms, calls = _open_swept(store_dir, recording, metrics)
+    launches = _counts()
+    try:
+        kept = [disk.contains(CID.from_bytes(raw)) for raw in raws]
+    finally:
+        disk.close()
+    if kept != expected:
+        first = next(i for i, (a, b) in enumerate(zip(kept, expected)) if a != b)
+        raise AssertionError(f"mixed sweep: block {first}'s verdict differs from verify_block_bytes")
+    evicted = [i for i, ok in enumerate(kept) if not ok]
+    if not set(evicted) <= set(flipped) or metrics.counter_value("storex.integrity_evictions") != len(evicted):
+        raise AssertionError(f"mixed sweep: evictions outside the flipped blocks ({metrics.counters})")
+    unknown_flips = sum(CID.from_bytes(raws[i]).mh_code == UNKNOWN_CODE for i in flipped)
+    if len(evicted) != len(flipped) - unknown_flips:
+        raise AssertionError(f"mixed sweep: {len(evicted)} evictions for {len(flipped)} flips")
+    _require_launched("mixed sweep", launches, [*SIZE_CLASSES, *KECCAK_CLASSES])
+    cpu = get_backend("gpu", device="cpu")
+    for kind, batches, plain, golden in (
+        ("blake2b", recording.batches, cpu.blake2b256_batch, _blake2b),
+        ("keccak", recording.keccak_batches, cpu.keccak256_batch, golden_keccak.__getitem__),
+    ):
+        if len(batches) != 1:
+            raise AssertionError(f"mixed sweep: {len(batches)} {kind} calls, expected 1")
+        [(messages, digests)] = batches
+        if digests != plain(messages) or digests != [golden(m) for m in messages]:
+            raise AssertionError(f"mixed sweep: the {kind} call differs from plain or the host")
+    return {
+        "blocks": len(raws),
+        "bytes": sum(len(b) for b in blocks),
+        "families": {hex(code): count for code, count, _ in MIXED_FAMILIES},
+        "flipped": len(flipped),
+        "flipped_unknown_code": unknown_flips,
+        "evicted": len(evicted),
+        "build_s": build_s,
+        "open_ms": open_ms,
+        "sweep_verify_ms": calls[0][1],
+        "counters": _cold_counters(metrics),
+        "launches": launches,
+    }
+
+
+def autotune_phase(root: str) -> dict:
+    """`autotune_crossover` on the card, its record under the port's own
+    file name."""
+    store_dir = os.path.join(root, "autotune")
+    _reset_counts()
+    record = autotune_crossover(store_dir, quick=False, force=True)
+    launches = _counts()
+    names = sorted(os.listdir(store_dir))
+    if names != ["verify_autotune_cuda.json"]:
+        raise AssertionError(f"autotune: files {names}")
+    if load_autotune(store_dir) != record["min_bytes"] or len(record["samples"]) != 4:
+        raise AssertionError(f"autotune: record {record}")
+    _require_launched("autotune", launches, SIZE_CLASSES[2:])
+    return {"record": record, "launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1349,33 +1947,50 @@ def main(argv=None) -> int:
             per_permutation,
         )
     )
+    paths: dict = {}
+
+    def run(label, fn, *fn_args):
+        t0 = time.perf_counter()
+        paths[label] = fn(*fn_args)
+        _log(f"{label} ({time.perf_counter() - t0:.1f} s): {json.dumps(paths[label])}")
+
     world = event_world(args.pairs)
-    paths = {"event path": event_path(world, device)}
-    paths["overlapped event path"] = overlapped_path(world, device, paths["event path"]["proofs_per_s"])
-    del world
-    paths["storage path"] = storage_path(CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device)
-    paths["mixed range"] = mixed_range(64, device)
-    paths["resumable mixed range"] = resumable_mixed_range(64, 16, device)
-    pure = pure_python_phase(args.pure_pairs, args.pure_contracts, SLOTS_PER_CONTRACT)
+    run("event path", event_path, world, device)
+    run("overlapped event path", overlapped_path, world, device, paths["event path"]["proofs_per_s"])
+    with tempfile.TemporaryDirectory() as root:
+        run("cold read", cold_read_path, world, device, root)
+        run("warm restart", warm_restart, world, root)
+        run("lying disk", lying_disk, world, root, args.seed)
+        del world
+        run("storage path", storage_path, CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device)
+        run("mixed range", mixed_range, 64, device)
+        run("resumable mixed range", resumable_mixed_range, 64, 16, device)
+        pure = pure_python_phase(args.pure_pairs, args.pure_contracts, SLOTS_PER_CONTRACT)
+        run("lying node", lying_node, LYING_NODE_PAIRS, root, args.seed)
+        run("mixed-multihash sweep", mixed_sweep, root, args.seed)
+        # last: the tuned crossover applies to every later verify call
+        run("autotune", autotune_phase, root)
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
     launch_counts["overlapped event path, unfused"] = paths["overlapped event path"]["unfused"]["launches"]
     launch_counts["resumable mixed range, resumed"] = paths["resumable mixed range"]["resumed_launches"]
     launch_counts["event path, pure Python"] = pure["event"]["launches"]
     launch_counts["storage path, pure Python"] = pure["storage"]["launches"]
+    launch_counts["warm restart, sweep"] = paths["warm restart"]["sweep_launches"]
+    launch_counts["cold read, default crossover"] = paths["cold read"]["default_crossover"]["launches"]
 
     rows = []
-    for name, replaces, source, family in [(k[0], k[1], SOURCE, "blake2b") for k in KERNELS] + [
-        (k[0], k[1], KECCAK_SOURCE, "keccak") for k in KECCAK_KERNELS
+    for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
+        (k[0], k[1], KECCAK_SOURCE) for k in KECCAK_KERNELS
     ]:
         k = kernels[name]
-        per_path = {label: counts[name] for label, counts in launch_counts.items()}
+        per_path = {label: counts.get(name, 0) for label, counts in launch_counts.items()}
         row = {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": per_path[OWN_PATH[family]],
+            "launches": per_path[OWN_PATH[name]],
             "launches_by_path": per_path,
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
@@ -1389,8 +2004,6 @@ def main(argv=None) -> int:
             f"{name}: rows={k['rows']} kernel_ms={k['ms']} plain_ms={k['plain_ms']} "
             f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches={per_path}"
         )
-    for label, path in paths.items():
-        _log(f"{label}: {json.dumps(path)}")
     _log(f"pure-Python paths: {json.dumps(pure)}")
     event, storage = paths["event path"], paths["storage path"]
     _log(
@@ -1433,6 +2046,29 @@ def main(argv=None) -> int:
         f"storage path on {smi}: {storage['proofs']} proofs, {storage['proofs_per_s']} proofs/s, "
         f"{storage['host']}"
     )
+    cold, warm = paths["cold read"], paths["warm restart"]
+    _log(
+        f"cold read on {smi}: {cold['proofs']} proofs over {cold['pairs']} pairs, wall {cold['wall_ms']} ms, "
+        f"{cold['proofs_per_s']} proofs/s (in-memory serial {event['proofs_per_s']}); waves "
+        f"{cold['waves']}; profiled repeat busy {cold['profiled_run']['busy_ms']} ms of "
+        f"{cold['profiled_run']['wall_ms']} ms; at the default crossover "
+        f"{cold['default_crossover']['proofs_per_s']} proofs/s"
+    )
+    _log(f"cold read counters: {json.dumps(cold['counters'])}")
+    _log(
+        f"warm restart on {smi}: sweep of {warm['blocks']} blocks ({warm['block_bytes']} bytes, "
+        f"{warm['by_class']}) in {warm['sweep_verify_ms']} ms verify / {warm['open_ms']} ms open, "
+        f"{warm['sweep_blocks_per_s']} blocks/s; warm generate {warm['generate_proofs_per_s']} proofs/s, "
+        f"rpc.calls 0; at speculate depth 1 {warm['speculating']['proofs_per_s']} proofs/s, "
+        f"rpc.calls {warm['speculating']['rpc_calls']}, "
+        f"fetch.speculative_wants {warm['speculating']['counters'].get('fetch.speculative_wants', 0)}"
+    )
+    mixed = paths["mixed-multihash sweep"]
+    _log(
+        f"mixed-multihash sweep on {smi}: {mixed['blocks']} blocks, {mixed['flipped']} flipped, "
+        f"{mixed['evicted']} evicted, verify {mixed['sweep_verify_ms']} ms, launches {mixed['launches']}"
+    )
+    _log(f"autotune on {smi}: {json.dumps(paths['autotune']['record'])}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({

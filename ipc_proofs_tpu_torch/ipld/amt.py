@@ -46,6 +46,16 @@ def _bmap_make(bits: list[int], bit_width: int) -> bytes:
     return bytes(out)
 
 
+def _offer_node_links(store, node: list) -> None:
+    """Offer an AMT node's child links to ``store.offer_links``, where the
+    store (or a wrapper's inner store) has one."""
+    offer = getattr(store, "offer_links", None)
+    if offer is not None and isinstance(node[1], list):
+        links = [p for p in node[1] if isinstance(p, CID)]
+        if links:
+            offer(links)
+
+
 class AMT:
     """Reader for an AMT rooted at a CID; version auto-detected from the root.
 
@@ -114,6 +124,9 @@ class AMT:
         # verify paths map to verdicts
         if not (isinstance(node, list) and len(node) == 3):
             raise ValueError("malformed AMT node")
+        # the root node is INLINE in the root block (it never passes
+        # through _load_node): expose its links to the fetch plane here
+        _offer_node_links(store, node)
         return cls(store, root_cid, bit_width, height, count, node, version)
 
     # -- node access --------------------------------------------------------
@@ -125,6 +138,9 @@ class AMT:
         node = cbor_decode(raw)
         if not (isinstance(node, list) and len(node) == 3):
             raise ValueError("malformed AMT node")
+        # fetch plane: an interior node's child links become speculative
+        # wants the moment it decodes (no-op without a plane below)
+        _offer_node_links(self._store, node)
         return node
 
     def _node_parts(self, node: list) -> tuple[bytes, list, list]:

@@ -11,8 +11,9 @@ Wire format:
 
 The counterpart of ``ipc_proofs_tpu.ipld.hamt``: the scalar reader
 (`HAMT`), the writer (`hamt_build`) and the batched C walkers
-`hamt_get_batch` / `hamt_get_batch_touched`. Left out: the reader's
-``offer_links`` prefetch hook (a no-op against these stores).
+`hamt_get_batch` / `hamt_get_batch_touched`. The reader offers each
+decoded node's child links to ``store.offer_links`` (the fetch plane's
+speculation hook), a no-op against stores without a plane below.
 """
 
 from __future__ import annotations
@@ -182,6 +183,13 @@ class HAMT:
             and isinstance(node[1], list)
         ):
             raise ValueError("malformed HAMT node")
+        # fetch plane: the moment an interior node decodes, its child links
+        # become speculative wants
+        offer = getattr(self._store, "offer_links", None)
+        if offer is not None:
+            links = [p for p in node[1] if isinstance(p, CID)]
+            if links:
+                offer(links)
         return node
 
     def get(self, key: bytes) -> Optional[Any]:

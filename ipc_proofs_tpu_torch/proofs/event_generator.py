@@ -22,7 +22,7 @@ from ipc_proofs_tpu_torch.backend import get_backend
 from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.ipld.amt import AMT
 from ipc_proofs_tpu_torch.proofs.bundle import EventData, EventProof, EventProofBundle
-from ipc_proofs_tpu_torch.proofs.chain import Tipset
+from ipc_proofs_tpu_torch.proofs.chain import Tipset, receipt_from_api_json
 from ipc_proofs_tpu_torch.proofs.exec_order import decode_txmeta
 from ipc_proofs_tpu_torch.proofs.witness import WitnessCollector
 from ipc_proofs_tpu_torch.state.events import (
@@ -38,6 +38,7 @@ __all__ = [
     "EventMatcher",
     "collect_base_witness_and_exec_order",
     "scan_receipt_events",
+    "scan_receipts_from_api",
     "match_receipt_indices",
     "mask_receipt_indices",
     "record_matching_receipts",
@@ -103,6 +104,29 @@ def scan_receipt_events(
     receipts_amt = AMT.load(store, receipts_root, expected_version=0)
     for i, receipt_cbor in receipts_amt.items():
         receipt = Receipt.from_cbor(receipt_cbor)
+        if receipt.events_root is None:
+            continue
+        events_amt = AMT.load(store, receipt.events_root, expected_version=3)
+        events = [StampedEvent.from_cbor(v) for _, v in events_amt.items()]
+        scanned.append((i, receipt, events))
+    return scanned
+
+
+def scan_receipts_from_api(
+    store: Blockstore, client, child: Tipset
+) -> list[tuple[int, Receipt, list[StampedEvent]]]:
+    """PASS 1 decode leg via the `Filecoin.ChainGetParentReceipts` JSON API:
+    the receipt list arrives in execution order as JSON, so pass 1 never
+    walks the receipts AMT. Events AMTs are still read from ``store``, and
+    pass 2 still walks the receipts AMT (the witness must hold it)."""
+    api_receipts = client.chain_get_parent_receipts(child.cids[0])
+    if api_receipts is None:
+        # null result = the node does not know the block; the AMT path
+        # raises in the same situation, so no empty bundle is emitted
+        raise KeyError(f"ChainGetParentReceipts returned null for {child.cids[0]}")
+    scanned = []
+    for i, obj in enumerate(api_receipts):
+        receipt = receipt_from_api_json(obj)
         if receipt.events_root is None:
             continue
         events_amt = AMT.load(store, receipt.events_root, expected_version=3)
@@ -231,12 +255,17 @@ def generate_event_proof(
     topic_1: str,
     actor_id_filter: Optional[int] = None,
     match_backend=None,
+    receipts_client=None,
 ) -> EventProofBundle:
     """Generate proofs for every event matching (signature, topic_1,
     emitter) in one parent/child pair. Pass 1's predicate runs as one mask
     call on ``match_backend``, which defaults to ``get_backend("gpu")``, the
     card (raises without CUDA; pass ``get_backend("gpu", device="cpu")`` for
-    the plain versions)."""
+    the plain versions).
+
+    ``receipts_client``: optional `LotusClient`; when given, pass 1
+    enumerates receipts via `Filecoin.ChainGetParentReceipts` instead of
+    walking the receipts AMT (`scan_receipts_from_api`)."""
     if match_backend is None:
         match_backend = get_backend("gpu")
     matcher = EventMatcher(event_signature, topic_1)
@@ -244,7 +273,10 @@ def generate_event_proof(
 
     collector = WitnessCollector(store)
     exec_order = collect_base_witness_and_exec_order(collector, store, parent, child)
-    scanned = scan_receipt_events(store, receipts_root)
+    if receipts_client is not None:
+        scanned = scan_receipts_from_api(store, receipts_client, child)
+    else:
+        scanned = scan_receipt_events(store, receipts_root)
     [matching_indices] = mask_receipt_indices([scanned], matcher, actor_id_filter, match_backend)
     proofs, recordings = record_matching_receipts(
         store, parent, child, exec_order, matching_indices, matcher, actor_id_filter

@@ -539,9 +539,9 @@ def _record_pass2_native(
 
 def _offer_chunk_spine(store, chunk) -> None:
     """Offer a chunk's tipset header CIDs to a fetch plane as speculative
-    wants before its scan needs them. A no-op against stores without a
-    plane underneath, which is every store of the port until its fetch
-    plane lands (ROADMAP Queue 1 item 7)."""
+    wants before its scan needs them: the plane batch-fetches the headers
+    and chases their links while earlier chunks still record. A no-op
+    against stores without a plane underneath."""
     offer = getattr(store, "offer_links", None)
     if offer is None:
         return

@@ -1,7 +1,6 @@
 """Blockstore protocol and the memory / recording / cached implementations.
 
-The counterpart of ``ipc_proofs_tpu.store.blockstore`` without its
-size-capped serving cache and the fetch plane's hooks:
+The counterpart of ``ipc_proofs_tpu.store.blockstore``:
 
 - `MemoryBlockstore` — the isolated store for offline verification;
   ``put_keyed`` optionally recomputes the CID. It also keeps a map keyed by
@@ -11,21 +10,31 @@ size-capped serving cache and the fetch plane's hooks:
   through it.
 - `CachedBlockstore` — memoizing wrapper; lock-protected so it may be
   shared across threads.
+- `BlockCache` — size-capped, TTL-evicting LRU block cache, the memory
+  tier of `storex.TieredBlockstore` and a local tier of the fetch plane.
+
+The recording and cached wrappers forward ``offer_links`` (the walkers'
+speculation hook) to the store below, so a fetch plane underneath sees
+the links however many wrappers sit between it and the walker.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from collections import OrderedDict
 from typing import Iterable, Optional, Protocol, runtime_checkable
 
 from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.core.dagcbor import encode
+from ipc_proofs_tpu_torch.utils.lockdep import named_lock
 
 __all__ = [
     "Blockstore",
     "MemoryBlockstore",
     "RecordingBlockstore",
     "CachedBlockstore",
+    "BlockCache",
     "put_cbor",
 ]
 
@@ -154,6 +163,14 @@ class RecordingBlockstore:
     def has(self, cid: CID) -> bool:
         return self._inner.has(cid)
 
+    def offer_links(self, links) -> None:
+        """Forward walker speculation to the fetch plane below, if any.
+        Not recorded: offered links are hints, only blocks a walk actually
+        `get`s belong in a witness."""
+        offer = getattr(self._inner, "offer_links", None)
+        if offer is not None:
+            offer(links)
+
     def take_seen(self) -> set[CID]:
         """Drain and return the set of recorded CIDs."""
         with self._lock:
@@ -202,3 +219,88 @@ class CachedBlockstore:
             if cid in self._cache:
                 return True
         return self._inner.has(cid)
+
+    def offer_links(self, links) -> None:
+        """Forward walker speculation to the fetch plane below, if any."""
+        offer = getattr(self._inner, "offer_links", None)
+        if offer is not None:
+            offer(links)
+
+
+class BlockCache:
+    """Size-capped, TTL-evicting LRU block cache for long-lived processes.
+
+    - ``max_bytes``: total cached block bytes; least-recently-used entries
+      evict first (content-addressed data never goes stale, so eviction is
+      a memory policy, never a correctness one);
+    - ``ttl_s``: optional per-entry time-to-live; older entries read as
+      misses and are dropped.
+
+    Thread-safe; duck-compatible with the dict operations the tiers perform
+    (get/put/contains/len).
+    """
+
+    def __init__(
+        self,
+        max_bytes: int = 256 * 1024 * 1024,
+        ttl_s: Optional[float] = None,
+        clock=time.monotonic,
+    ):
+        if max_bytes <= 0:
+            raise ValueError("max_bytes must be positive")
+        self._lock = named_lock("BlockCache._lock")
+        self._entries: "OrderedDict[CID, tuple[bytes, float]]" = OrderedDict()  # guarded-by: _lock
+        self._max_bytes = max_bytes
+        self._ttl_s = ttl_s
+        self._clock = clock
+        self._bytes = 0  # guarded-by: _lock
+        self.evictions = 0  # guarded-by: _lock
+        self.expirations = 0  # guarded-by: _lock
+
+    def get(self, cid: CID) -> Optional[bytes]:
+        now = self._clock()
+        with self._lock:
+            entry = self._entries.get(cid)
+            if entry is None:
+                return None
+            data, stored_at = entry
+            if self._ttl_s is not None and now - stored_at > self._ttl_s:
+                del self._entries[cid]
+                self._bytes -= len(data)
+                self.expirations += 1
+                return None
+            self._entries.move_to_end(cid)
+            return data
+
+    def put(self, cid: CID, data: bytes) -> None:
+        data = bytes(data)
+        if len(data) > self._max_bytes:
+            return  # a block larger than the whole budget is never cached
+        with self._lock:
+            old = self._entries.pop(cid, None)
+            if old is not None:
+                self._bytes -= len(old[0])
+            self._entries[cid] = (data, self._clock())
+            self._bytes += len(data)
+            while self._bytes > self._max_bytes:
+                _, (evicted, _) = self._entries.popitem(last=False)
+                self._bytes -= len(evicted)
+                self.evictions += 1
+
+    def __contains__(self, cid: CID) -> bool:
+        return self.get(cid) is not None  # TTL-respecting membership
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "entries": len(self._entries),
+                "bytes": self._bytes,
+                "max_bytes": self._max_bytes,
+                "ttl_s": self._ttl_s,
+                "evictions": self.evictions,
+                "expirations": self.expirations,
+            }

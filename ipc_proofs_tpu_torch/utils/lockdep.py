@@ -3,12 +3,13 @@
 The counterpart of ``ipc_proofs_tpu.utils.lockdep``, so that one knob
 covers the port's locks too: run any workload with ``IPC_LOCKDEP=1`` and
 every lock the port constructs through the ``named_lock`` / ``named_rlock`` /
-``named_condition`` factories feeds per-thread acquisition stacks into
-one process-wide order graph.  The first *observed* inversion — thread 1
-witnessed ``A < B``, thread 2 now tries ``B`` then ``A`` — raises
-:class:`LockOrderError` at the acquisition site of the second lock,
-BEFORE the process can actually deadlock. (The reference's ``flock``
-wrappers wait for the port's file-locking planes.)
+``named_condition`` factories (plus the ``flock_frame`` file-lock
+wrapper) feeds per-thread acquisition stacks into one process-wide order
+graph.  The first *observed* inversion — thread 1 witnessed ``A < B``,
+thread 2 now tries ``B`` then ``A`` — raises :class:`LockOrderError` at
+the acquisition site of the second lock, BEFORE the process can actually
+deadlock; the same witness catches cross-process ``flock`` ordering
+against in-process locks, which no thread-only detector can see.
 
 Knobs (all read at import; tests drive :func:`enable` directly):
 
@@ -22,8 +23,8 @@ Knobs (all read at import; tests drive :func:`enable` directly):
   budget (CI boxes stall arbitrarily; the budget is a profiling tool,
   not a default gate).
 
-Lock names are ``ClassName.attr`` / ``modbase.var``, the ids the
-reference's static checker derives.
+Lock names are ``ClassName.attr`` / ``modbase.var`` / ``flock:<name>``,
+the ids the reference's static checker derives.
 
 Violation kinds: ``inversion`` (raises in strict mode only),
 ``hold`` (raises in strict mode only), and ``reentry`` — a
@@ -43,7 +44,13 @@ import sys
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
+
+try:
+    import fcntl
+except ImportError:  # pragma: no cover - non-POSIX: flock degrades to a plain open file
+    fcntl = None
 
 from ipc_proofs_tpu_torch.utils.log import get_logger
 
@@ -52,6 +59,7 @@ __all__ = [
     "enable",
     "disable",
     "enabled",
+    "flock_frame",
     "named_condition",
     "named_lock",
     "named_rlock",
@@ -426,6 +434,40 @@ def named_condition(name: str):
     if _state is None:
         return threading.Condition()
     return _TrackedCondition(name)
+
+
+@contextmanager
+def flock_frame(path: str, name: str, exclusive: bool = True, blocking: bool = True):
+    """Open ``path`` and hold an ``fcntl.flock`` on it for the block.
+
+    The flock joins the SAME order graph as the thread locks under the id
+    ``flock:<name>``: a thread lock taken around a file lock in one process
+    and the opposite nesting in another is a cross-process deadlock no
+    thread-local detector can witness.  Raises ``OSError`` when
+    ``blocking=False`` and the lock is busy.  On platforms without
+    ``fcntl`` the file is opened unlocked.
+    """
+    fh = open(path, "ab")
+    lname = f"flock:{name}"
+    acquired = False
+    try:
+        if fcntl is not None:
+            op = fcntl.LOCK_EX if exclusive else fcntl.LOCK_SH
+            if not blocking:
+                op |= fcntl.LOCK_NB
+            state = _state
+            if state is not None:
+                state.before_acquire(lname, reentrant=False, will_block=blocking)
+            fcntl.flock(fh.fileno(), op)
+            acquired = True
+            if state is not None:
+                state.after_acquire(lname, add_edges=blocking)
+        yield fh
+    finally:
+        state = _state
+        if acquired and state is not None:
+            state.note_release(lname)
+        fh.close()  # closing the fd releases the flock
 
 
 # read the env exactly once, at import: construction sites call the

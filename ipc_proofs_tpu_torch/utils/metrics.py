@@ -1,11 +1,16 @@
-"""Stage timers, counters and gauges for the range drivers.
+"""Stage timers, counters and gauges for the range drivers and the cold
+read path.
 
 The counterpart of ``ipc_proofs_tpu.utils.metrics.Metrics`` (its stage
-timers, counters, gauges and snapshot; not its histograms or the trace
-span each stage opens there, which waits for the port's ``obs/``). The
-same ``stage()`` / ``count()`` calls and names (``range_scan``,
-``range_match``, ``range_record``, ``range_merge``, ``range_verify``), so a
-caller reads both packages alike. Times are host wall-clock seconds.
+timers, counters, gauges, snapshot and process-global `get_metrics`; not
+its histograms or the trace span each stage opens there, which waits for
+the port's ``obs/``). The same ``stage()`` / ``count()`` calls and names
+(``range_scan``, ``range_match``, ``range_record``, ``range_merge``,
+``range_verify``; the ``rpc.*``, ``fetch.*``, ``storex.*`` and
+``verify.*`` counters of the cold read path, each a name the reference
+declares in its vocabularies, as ``tests/test_torch_rpc.py`` checks), so a
+caller reads both packages alike.
+Times are host wall-clock seconds.
 
 Each stage keeps its busy seconds (``total_s``: the sum over every entry,
 so 8 workers × 1 s is 8 s) and its wall seconds (``wall_s``: the union of
@@ -23,7 +28,11 @@ from dataclasses import dataclass
 
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
 
-__all__ = ["Metrics", "StageTimer"]
+__all__ = [
+    "Metrics",
+    "StageTimer",
+    "get_metrics",
+]
 
 
 @dataclass
@@ -142,3 +151,12 @@ class Metrics:
             if self.gauges:
                 out["gauges"] = dict(self.gauges)
             return out
+
+
+_global = Metrics()
+
+
+def get_metrics() -> Metrics:
+    """The process-global `Metrics` that the RPC client, the fetch plane and
+    the blockstores count into when no instance is passed."""
+    return _global

@@ -287,3 +287,62 @@ def test_overlapped_driver_on_card_with_verify_workers(cuda_device, monkeypatch,
         assert (match.LAUNCHES["event_match_mask_fp"] > 0) == (not fused)
         runs.append((merged.to_json(), verdicts))
     assert runs[0] == runs[1]
+
+
+def test_verify_lane_on_card_equals_hashlib(cuda_device, monkeypatch, tmp_path):
+    """`verify_blocks_batch` on the card (device lane forced): every family
+    and size, flipped variants included, against the host verdicts of
+    hashlib / `core.hashes.keccak256`; one call per multihash family and
+    every blake2b and keccak kernel launched. Then the cold read stack over
+    the hermetic node gives the in-memory bundle."""
+    from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256, CID, DAG_CBOR, IDENTITY, KECCAK_256, SHA2_256
+    from ipc_proofs_tpu_torch.ops.verify import verify_blocks_batch
+    from ipc_proofs_tpu_torch.store import FetchPlane, LocalLotusSession, LotusClient, PlaneBlockstore
+    from ipc_proofs_tpu_torch.store.rpc import verify_block_bytes
+    from ipc_proofs_tpu_torch.storex import SegmentStore, TieredBlockstore
+    from ipc_proofs_tpu_torch.utils.metrics import Metrics
+
+    monkeypatch.setenv("IPC_VERIFY_MIN_BYTES", "0")
+    cids, blocks = [], []
+    for code in (BLAKE2B_256, SHA2_256, KECCAK_256, IDENTITY, 0x15):
+        for data in _messages(LENGTHS + KECCAK_LENGTHS, seed=code & 0xFF):
+            if code == KECCAK_256:
+                cid = CID(1, DAG_CBOR, KECCAK_256, keccak256(data))
+            elif code == 0x15:
+                cid = CID(1, DAG_CBOR, 0x15, b"\x00" * 32)
+            else:
+                cid = CID.hash_of(data, mh_code=code)
+            cids.append(cid)
+            blocks.append(data)
+            if data:
+                cids.append(cid)
+                blocks.append(bytes([data[0] ^ 1]) + data[1:])
+    backend = get_backend("gpu")
+    blake2b.reset_launch_counts()
+    keccak.reset_launch_counts()
+    m = Metrics()
+    got = verify_blocks_batch(cids, blocks, metrics=m, backend=backend)
+    torch.cuda.synchronize()
+    assert got == [verify_block_bytes(c, b) for c, b in zip(cids, blocks)]
+    assert m.counter_value("verify.device_calls") == 2
+    assert all(blake2b.LAUNCHES[name] == 1 for name in blake2b.LAUNCHES)
+    assert all(keccak.LAUNCHES[name] == 1 for name in keccak.LAUNCHES)
+
+    store, pairs, _ = build_range_world(16, 8, 4, 0.125)
+    spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
+    want = generate_event_proofs_for_range(store, pairs, spec, match_backend=backend).to_json()
+    metrics = Metrics()
+    plane = FetchPlane(LotusClient("http://node", session=LocalLotusSession(store), metrics=metrics),
+                       backend=backend, metrics=metrics)
+    disk = SegmentStore(str(tmp_path), backend=backend, metrics=metrics)
+    tier = TieredBlockstore(PlaneBlockstore(plane), disk, metrics=metrics)
+    plane.set_local(tier)
+    try:
+        got_bundle = generate_event_proofs_for_range_chunked(
+            tier, pairs, spec, chunk_size=4, match_backend=backend, metrics=metrics
+        )
+    finally:
+        plane.close()
+        disk.close()
+    assert got_bundle.to_json() == want
+    assert metrics.counter_value("verify.device_blocks") > 0

@@ -1,18 +1,23 @@
 """Boundaries of the PyTorch port: what it may import, where it runs.
 
 - No module of ``ipc_proofs_tpu_torch`` (``parallel/``, ``jobs/``,
-  ``utils/`` and ``store/rpc.py`` included) and no line of ``chip_smoke.py``
-  imports ``jax`` or anything of ``ipc_proofs_tpu`` (an AST walk), and a
-  process that imports every module of the port and runs the small range
-  and storage paths and one journaled run of the overlapped driver on
-  ``device="cpu"`` through the native branches ends with neither in
-  ``sys.modules`` and no shared library of ``ipc_proofs_tpu/`` mapped.
+  ``utils/``, ``ops/verify.py``, ``store/`` and ``storex/`` included) and no
+  line of ``chip_smoke.py`` imports ``jax`` or anything of
+  ``ipc_proofs_tpu`` (an AST walk), and a process that imports every module
+  of the port and runs the small range and storage paths, one journaled
+  run of the overlapped driver and one cold read (hermetic Lotus node →
+  client → fetch plane → tier over a segment store, the landed waves and
+  the disk sweep verified on the backend) on ``device="cpu"`` through the
+  native branches ends with neither (nor ``requests``) in ``sys.modules``
+  and no shared library of ``ipc_proofs_tpu/`` mapped.
 - Entry points default to the card: without CUDA, ``GpuBackend()``,
   ``generate_event_proofs_for_range``, its chunked, pipelined and
   overlapped drivers, ``hash_slot_specs``,
   ``generate_storage_proofs_batch``, ``generate_proof_bundle``,
-  ``verify_proof_bundle(..., verify_witness_cids=True)`` and the batched
-  event replay's TxMeta recompute raise instead of running on the CPU; the
+  ``verify_proof_bundle(..., verify_witness_cids=True)``, the batched
+  event replay's TxMeta recompute, ``verify_blocks_batch``,
+  ``autotune_crossover`` and the verifying fetch plane and segment store
+  raise instead of running on the CPU; the
   scalar replay of the ``IPC_PROOFS_NO_NATIVE=1`` universe runs no kernel.
 """
 
@@ -77,6 +82,8 @@ def test_port_files_exist():
     for module in (
         "parallel/pipeline.py", "jobs/journal.py", "jobs/job.py", "utils/threads.py",
         "utils/deadline.py", "utils/log.py", "utils/lockdep.py", "store/rpc.py",
+        "ops/verify.py", "store/faults.py", "store/testing.py", "store/fetchplane.py",
+        "storex/segments.py", "storex/tiered.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
@@ -148,7 +155,10 @@ import pkgutil, importlib, tempfile
 import ipc_proofs_tpu_torch
 for info in pkgutil.walk_packages(ipc_proofs_tpu_torch.__path__, "ipc_proofs_tpu_torch."):
     importlib.import_module(info.name)
-from ipc_proofs_tpu_torch.proofs.range import generate_and_verify_range_overlapped
+from ipc_proofs_tpu_torch.proofs.range import (
+    generate_and_verify_range_overlapped,
+    generate_event_proofs_for_range_pipelined,
+)
 with tempfile.TemporaryDirectory() as job_dir:
     merged, verdicts = generate_and_verify_range_overlapped(
         store, pairs, EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
@@ -159,8 +169,33 @@ with tempfile.TemporaryDirectory() as job_dir:
     )
 assert merged.to_json() == event_bundle.to_json()
 assert [v for chunk in verdicts for v in chunk] == [True] * n_matching
+
+import os
+os.environ["IPC_VERIFY_MIN_BYTES"] = "0"
+from ipc_proofs_tpu_torch.store import FetchPlane, LocalLotusSession, LotusClient, PlaneBlockstore
+from ipc_proofs_tpu_torch.storex import SegmentStore, TieredBlockstore
+from ipc_proofs_tpu_torch.utils.metrics import Metrics
+with tempfile.TemporaryDirectory() as store_dir:
+    for sweep in (False, True):
+        metrics = Metrics()
+        plane = FetchPlane(LotusClient("http://node", session=LocalLotusSession(store), metrics=metrics),
+                           backend=backend, metrics=metrics)
+        disk = SegmentStore(store_dir, verify_scan=sweep, backend=backend, metrics=metrics)
+        tier = TieredBlockstore(PlaneBlockstore(plane), disk, metrics=metrics)
+        plane.set_local(tier)
+        try:
+            cold = generate_event_proofs_for_range_pipelined(
+                tier, pairs, EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
+                chunk_size=3, match_backend=backend, force_pipeline=True,
+            )
+        finally:
+            plane.close()
+            disk.close()
+        assert cold.to_json() == event_bundle.to_json()
+        assert metrics.counter_value("verify.device_blocks") > 0
+        assert (metrics.counter_value("rpc.calls") == 0) == sweep
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu", "requests"))
 print("LOADED", bad)
 with open("/proc/self/maps") as fh:
     libs = sorted({line.split()[-1] for line in fh if line.rstrip().endswith(".so")})
@@ -343,3 +378,23 @@ def test_import_builds_nothing():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == str(before)
+
+
+def test_cold_read_path_defaults_to_the_card(monkeypatch, tmp_path):
+    """The verify lane, its autotuner, the fetch plane and the segment
+    store take the card when no backend is given: none of them falls back
+    to hashlib for want of CUDA."""
+    from ipc_proofs_tpu_torch.ops.verify import autotune_crossover, verify_blocks_batch
+    from ipc_proofs_tpu_torch.store import FetchPlane, LocalLotusSession, LotusClient, MemoryBlockstore
+    from ipc_proofs_tpu_torch.storex import SegmentStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    client = LotusClient("http://node", session=LocalLotusSession(MemoryBlockstore()))
+    for call in (
+        lambda: verify_blocks_batch([CID.hash_of(b"a")], [b"a"]),
+        lambda: autotune_crossover(),
+        lambda: FetchPlane(client),
+        lambda: SegmentStore(str(tmp_path)),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
