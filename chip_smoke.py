@@ -101,7 +101,8 @@ Phases, none of which may fail:
    at 16 contracts × 256 slots), each verified on the card with its own
    launch counts; their bundle digests (sha256 of the canonical JSON) must
    equal those of the native branches on the same worlds;
-10. cold read — the event path's world read cold: the hermetic Lotus node
+10. cold read — the event path's world, cut to its first 2,048 pairs
+   (``COLD_PAIRS``), read cold: the hermetic Lotus node
    (``LocalLotusSession``) → ``LotusClient`` → ``FetchPlane`` (speculate
    depth 1, every wave verified on the card) → ``TieredBlockstore`` over a ``SegmentStore``
    in a temporary directory, through ``generate_event_proofs_for_range_pipelined``
@@ -143,7 +144,31 @@ Phases, none of which may fail:
    here too) accepts it, the flips the only evictions, both keccak and all
    three blake2b kernels launched, the two kernel calls equal to plain and
    the host;
-15. autotune — ``autotune_crossover(quick=False)`` on the card, its record
+15. CLI — ``ipc_proofs_tpu_torch.cli.main`` as a user runs it, over
+   ``build_range_world(4096, 16, 4, 0.01, chained=True)`` (the event
+   path's world on 4,097 consecutive heights) served by the hermetic node
+   (every height's tipset, the contract's f410 address and its ID), each
+   run's metrics and launch counts from 0, each recorded kernel call held
+   against the plain versions and hashlib:
+   - ``range`` with ``--contract --storage-slot --chunk-size 512
+     --checkpoint-dir --backend gpu`` at the default pipeline depth 2,
+     every landed wave of two or more blocks verified on the card
+     (``IPC_VERIFY_MIN_BYTES=0``): the bytes of
+     ``generate_event_proofs_for_range_chunked`` in memory for the same
+     pairs and specs, the three blake2b kernels, the single-block keccak
+     and the flat event mask launched; a second run resumes every chunk
+     with the same bytes and no ``Filecoin.ChainReadObj``;
+   - ``verify --check-cids`` on that bundle: exit 0 with blake2b launched;
+     with ``--f3-cert`` (a certificate over the 4,097 tipsets signed by a
+     seeded power table of 4 participants with the port's ``crypto/bls.py``)
+     exit 0; a certificate over other epochs exit 1; a flipped witness
+     block raises in the CID recompute;
+   - ``cert --power-table --verify-signatures`` over 4 consecutive
+     certificates of 64 tipsets: every one validates; a forged signature
+     fails; ``--emit-cbor`` writes CBOR that validates again;
+   - ``generate`` (one pair: the slot keccak launched), ``vectors``
+     (capture, then ``check_vectors``) and ``demo``, each exit 0;
+16. autotune — ``autotune_crossover(quick=False)`` on the card, its record
    written as ``verify_autotune_cuda.json``; last, since the tuned crossover
    applies to every later verify call of the process.
 
@@ -156,18 +181,20 @@ kernel's ``launches`` is the count on the first path that runs it (the
 event path for blake2b, the storage path for the single-block keccak, the
 mixed-multihash sweep for the multi-block keccak); ``launches_by_path``
 holds its count on each path (the unfused event run, the overlapped runs,
-the resumable range's two runs, the two pure-Python paths and the cold
-read path's phases included).
+the resumable range's two runs, the two pure-Python paths, the cold
+read path's phases and the CLI's runs included).
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import multiprocessing
 import os
@@ -184,6 +211,8 @@ import zlib
 import numpy as np
 import torch
 
+from ipc_proofs_tpu_torch import backend as backend_mod
+from ipc_proofs_tpu_torch import cli
 from ipc_proofs_tpu_torch.backend import get_backend
 from ipc_proofs_tpu_torch.backend.gpu import KECCAK_CLASSES, SIZE_CLASSES, keccak_class, size_class
 from ipc_proofs_tpu_torch.backend.native import load_scan_ext
@@ -197,7 +226,15 @@ from ipc_proofs_tpu_torch.core.cid import (
     PurePythonCID,
 )
 from ipc_proofs_tpu_torch.core.hashes import keccak256
-from ipc_proofs_tpu_torch.fixtures import ContractFixture, build_chain, build_range_world
+from ipc_proofs_tpu_torch.fixtures import (
+    ContractFixture,
+    build_chain,
+    build_range_world,
+    certificate_json_obj,
+    finality_certificates,
+    power_table_json,
+    seeded_power_table,
+)
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
 from ipc_proofs_tpu_torch.jobs.journal import FRAME_HEADER
 from ipc_proofs_tpu_torch.ops.build import build_libraries, cuda_tool
@@ -223,16 +260,21 @@ from ipc_proofs_tpu_torch.proofs.range import (
 )
 from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec, generate_storage_proofs_batch
 from ipc_proofs_tpu_torch.ops.verify import autotune_crossover, load_autotune
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
+from ipc_proofs_tpu_torch.proofs.vectors import check_vectors, load_vectors
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
+from ipc_proofs_tpu_torch.state.address import Address
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, left_pad_32
+from ipc_proofs_tpu_torch.store import rpc as rpc_mod
 from ipc_proofs_tpu_torch.store import fetchplane as fetchplane_mod
 from ipc_proofs_tpu_torch.store.faults import FaultPlan, FaultySession, LocalLotusSession
+from ipc_proofs_tpu_torch.store.blockstore import MemoryBlockstore
 from ipc_proofs_tpu_torch.store.fetchplane import FetchPlane, PlaneBlockstore
 from ipc_proofs_tpu_torch.store.rpc import IntegrityError, LotusClient, RpcError, verify_block_bytes
 from ipc_proofs_tpu_torch.storex import SEGMENT_MAGIC, SegmentStore, TieredBlockstore
 from ipc_proofs_tpu_torch.storex import segments as segments_mod
-from ipc_proofs_tpu_torch.utils.metrics import Metrics
+from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 
 # Peak rates of one H100 SXM at its 700 W limit. Memory: HBM3 at 3.35 TB/s
@@ -604,8 +646,7 @@ def _reject_changed_value(bundle) -> None:
             event_proofs=[],
             blocks=bundle.blocks,
         ),
-        accept_all,
-        accept_all,
+        TrustPolicy.accept_all(),
     ).storage_results
     if verdict != [False]:
         raise AssertionError(f"a changed storage value was given the verdict {verdict}")
@@ -646,7 +687,7 @@ def _reject_flipped_blocks(bundle, backend) -> None:
         )
         try:
             verify_proof_bundle(
-                tampered, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+                tampered, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
             )
         except ValueError:
             continue
@@ -842,7 +883,7 @@ def _generate_and_verify(generate, backend):
     bundle = generate(metrics)
     t1 = time.perf_counter()
     result = verify_proof_bundle(
-        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+        bundle, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
     )
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -963,6 +1004,8 @@ def _staged_verify(backend, seen: "list | None" = None):
     stage seconds). Each chunk bundle it verifies is appended to ``seen``
     (list appends are atomic across the verify workers)."""
 
+    accept = TrustPolicy.accept_all()
+
     def verify_chunk(bundle):
         if seen is not None:
             seen.append(bundle)
@@ -978,7 +1021,8 @@ def _staged_verify(backend, seen: "list | None" = None):
         t0 = time.perf_counter()
         results = verify_event_proof(
             EventProofBundle(proofs=bundle.event_proofs, blocks=bundle.blocks),
-            accept_all, accept_all, store=store, hash_backend=backend,
+            accept.verify_parent_tipset, accept.verify_child_header,
+            store=store, hash_backend=backend,
         )
         stages["verify_replay"] = time.perf_counter() - t0
         return results, stages
@@ -1050,7 +1094,7 @@ def overlapped_path(world, device, serial_proofs_per_s: float) -> dict:
         store, pairs, spec, chunk_size=chunk_size, match_backend=backend, on_chunk=chunk_bundles.append
     )
     expected_json = chunked.to_json()
-    whole = verify_proof_bundle(chunked, accept_all, accept_all, cid_backend=backend).event_results
+    whole = verify_proof_bundle(chunked, TrustPolicy.accept_all(), cid_backend=backend).event_results
     if len(whole) != n_matching or not all(whole):
         raise AssertionError("overlapped event path: whole-bundle verification failed")
     # the same chunk verifications one after another, nothing else running:
@@ -1295,7 +1339,7 @@ def resumable_mixed_range(n_pairs: int, chunk_size: int, device) -> dict:
     # chunks only, as the reference does)
     if {k: v for k, v in l2.items() if v} != {"keccak256_single_block": 1}:
         raise AssertionError(f"resumable mixed range: the resumed run launched {l2}")
-    result = verify_proof_bundle(first, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend)
+    result = verify_proof_bundle(first, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend)
     if len(result.storage_results) != n_pairs or not result.all_valid():
         raise AssertionError("resumable mixed range: a verdict is false")
     # the slot keccak of both runs (one batch each), and the verification's
@@ -1391,6 +1435,10 @@ def pure_python_phase(n_pairs: int, n_contracts: int, n_slots: int) -> dict:
 # --------------------------------------------------------------------------
 
 COLD_PREFIXES = ("rpc.", "fetch.", "verify.", "storex.")
+# the cold read, warm restart and lying disk run the event world's first
+# 2048 pairs (cut in depth to keep the script's time; the CLI's range reads
+# a 4096-pair chain cold)
+COLD_PAIRS = 2048
 LYING_NODE_PAIRS = 256
 LYING_NODE_RUNS = 8
 FORGED_FRAMES = 64
@@ -1413,17 +1461,30 @@ def _cold_counters(metrics: Metrics) -> dict:
     return {k: v for k, v in sorted(metrics.counters.items()) if k.startswith(COLD_PREFIXES)}
 
 
+class _Calls(list):
+    """(blocks, wall ms) per call, and ``classes``: the number of blake2b
+    size classes of each call's blocks (the kernel dispatches a call of
+    two or more blocks makes on the device lane)."""
+
+    def __init__(self):
+        super().__init__()
+        self.classes: "list[int]" = []
+
+
 @contextlib.contextmanager
 def _verify_calls(module):
     """Record every `verify_blocks_batch` call ``module`` (the fetch plane
     or the segment store) makes, from any thread: (blocks, wall ms)."""
-    calls: list = []
+    calls = _Calls()
     original = module.verify_blocks_batch
 
     def spy(cids, blocks, *args, **kwargs):
         t0 = time.perf_counter()
         out = original(cids, blocks, *args, **kwargs)
+        # one append per list under the GIL; the pair may interleave
+        # between threads, so only the sums of ``classes`` are read
         calls.append((len(blocks), (time.perf_counter() - t0) * 1e3))
+        calls.classes.append(len({size_class(len(b)) for b in blocks}) if len(blocks) >= 2 else 0)
         return out
 
     module.verify_blocks_batch = spy
@@ -1498,7 +1559,7 @@ def cold_read_path(world, device, root: str) -> dict:
     lanes = {
         "verify.batch_calls": len(waves),
         "verify.scalar_blocks": single,
-        "verify.device_calls": len(multi),
+        "verify.device_calls": sum(waves.classes),
         "verify.device_blocks": sum(multi),
     }
     got = {k: metrics.counter_value(k) for k in lanes}
@@ -1882,6 +1943,309 @@ def mixed_sweep(root: str, seed: int) -> dict:
     }
 
 
+CLI_ENDPOINT = "http://lotus.local/rpc/v1"
+CLI_SUBNET = "calib-subnet-1"
+CLI_ETH = "0x" + "52" * 20  # resolves through its delegated f410 address
+CLI_CHUNK = 512
+CLI_SIGNERS = 4  # the seeded F3 power table's size
+CLI_CERTS = 4  # certificates in the `cert` chain
+CLI_CERT_SPAN = 64  # new tipsets each of them finalizes
+
+
+def _tipset_json(tipset) -> dict:
+    """A tipset as `Filecoin.ChainGetTipSetByHeight` answers it."""
+    return {
+        "Cids": [{"/": str(c)} for c in tipset.cids],
+        "Blocks": [
+            {
+                "Parents": [{"/": str(p)} for p in h.parents],
+                "Height": h.height,
+                "ParentStateRoot": {"/": str(h.parent_state_root)},
+                "ParentMessageReceipts": {"/": str(h.parent_message_receipts)},
+                "Messages": {"/": str(h.messages)},
+                "Timestamp": h.timestamp,
+            }
+            for h in tipset.blocks
+        ],
+        "Height": tipset.height,
+    }
+
+
+class _NodeSession(LocalLotusSession):
+    """The hermetic node serving a chain: every height's tipset, the
+    contract's delegated address and its ID; each answered method counted
+    (the fetch plane's dispatchers post from two threads)."""
+
+    def __init__(self, store, tipsets):
+        by_height = {ts.height: ts for ts in tipsets}
+        super().__init__(store, {
+            "Filecoin.ChainGetTipSetByHeight": lambda params: _tipset_json(by_height[params[0]]),
+            "Filecoin.EthAddressToFilecoinAddress": str(Address.from_eth_address(CLI_ETH)),
+            "Filecoin.StateLookupID": f"f0{ACTOR_ID}",
+        })
+        self._count_lock = threading.Lock()
+        self.methods: "dict[str, int]" = {}
+
+    def _answer(self, req: dict) -> dict:
+        with self._count_lock:
+            self.methods[req.get("method")] = self.methods.get(req.get("method"), 0) + 1
+        return super()._answer(req)
+
+
+@contextlib.contextmanager
+def _cli_node(session, recording):
+    """The CLI as a user runs it, with two seams: its `LotusClient` posts to
+    the hermetic node, and its card backend (``--backend gpu``) is
+    ``recording``, which records every kernel call for `_check_recorded`."""
+    real_client, real_backend = rpc_mod.LotusClient, backend_mod.get_backend
+
+    def get_backend_(name="gpu", device=None):
+        return recording if device is None else real_backend(name, device=device)
+
+    rpc_mod.LotusClient = lambda endpoint, **kw: real_client(endpoint, session=session, metrics=kw.get("metrics"))
+    backend_mod.get_backend = get_backend_
+    try:
+        yield
+    finally:
+        rpc_mod.LotusClient, backend_mod.get_backend = real_client, real_backend
+
+
+def _cli(label: str, argv, want_rc: int = 0):
+    """``ipc_proofs_tpu_torch.cli.main(argv)`` with the process metrics and
+    the launch counts from 0: (stdout, wall ms, launches, metrics
+    snapshot). Fails unless the exit code is ``want_rc``."""
+    get_metrics().reset()
+    _reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if rc != want_rc:
+        raise AssertionError(f"{label}: exit {rc}, expected {want_rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue(), wall_ms, _counts(), get_metrics().snapshot()
+
+
+def cli_world(n_pairs: int):
+    """The event path's world chained into one chain (``build_range_world(
+    n_pairs, 16, 4, 0.01, chained=True)``): ``n_pairs + 1`` consecutive
+    heights, so the CLI's ``range`` forms exactly ``n_pairs`` pairs."""
+    t0 = time.perf_counter()
+    store, pairs, n_matching = build_range_world(n_pairs, 16, 4, 0.01, chained=True)
+    tipsets = [pairs[0].parent] + [pair.child for pair in pairs]
+    _log(f"cli world: {n_pairs} pairs, {len(tipsets)} heights, {len(store)} blocks, "
+         f"{time.perf_counter() - t0:.1f} s")
+    return store, pairs, tipsets, n_matching
+
+
+def cli_range(world, root: str) -> dict:
+    """``range`` over the whole chain through the hermetic node (fetch plane
+    at speculate depth 1, every landed wave of two or more blocks verified
+    on the card: ``IPC_VERIFY_MIN_BYTES=0``), with the topdown nonce slot
+    at every pair, chunks of 512 in a checkpoint directory and the default
+    pipeline depth 2: the bytes of `generate_event_proofs_for_range_chunked`
+    in memory for the same pairs and specs, the slot keccak, the flat event
+    mask and the blake2b kernels launched, every recorded kernel call equal
+    to the plain versions; a second run resumes from the checkpoints with
+    the same bytes and no ``Filecoin.ChainReadObj``."""
+    store, pairs, tipsets, n_matching = world
+    backend = get_backend("gpu")
+    slot = MappingSlotSpec(ACTOR_ID, CLI_SUBNET, 0)
+    expected = generate_event_proofs_for_range_chunked(
+        store, pairs, EventProofSpec(SIGNATURE, CLI_SUBNET, ACTOR_ID), chunk_size=CLI_CHUNK,
+        match_backend=backend, storage_specs=[slot],
+    ).to_json()
+    argv = [
+        "range", "--endpoint", CLI_ENDPOINT,
+        "--from-height", str(tipsets[0].height), "--to-height", str(tipsets[-2].height),
+        "--contract", CLI_ETH, "--event-sig", SIGNATURE, "--topic1", CLI_SUBNET,
+        "--storage-slot", CLI_SUBNET, "--chunk-size", str(CLI_CHUNK),
+        "--checkpoint-dir", os.path.join(root, "cli-checkpoints"), "--backend", "gpu", "--metrics",
+    ]
+    runs = []
+    for run in ("first", "resumed"):
+        session = _NodeSession(store, tipsets)
+        recording = _RecordingBackend(backend)
+        path = os.path.join(root, f"cli-range-{run}.json")
+        gc.collect()
+        with _cli_node(session, recording), _env("IPC_VERIFY_MIN_BYTES", "0"):
+            _, wall_ms, launches, snap = _cli(f"cli range ({run})", argv + ["-o", path])
+        with open(path) as fh:
+            if fh.read() != expected:
+                raise AssertionError(f"cli range ({run}): the bundle differs from the in-memory chunked driver's")
+        runs.append((session, recording, wall_ms, launches, snap))
+    (session, recording, wall_ms, launches, snap), (r_session, _, r_wall_ms, r_launches, r_snap) = runs
+    _require_launched("cli range", launches, [*SIZE_CLASSES, "keccak256_single_block", "event_match_mask"])
+    checked = _check_recorded("cli range", recording, {})
+    reads = r_session.methods.get("Filecoin.ChainReadObj", 0)
+    if reads or r_snap["counters"].get("range_chunks_resumed") != -(-len(pairs) // CLI_CHUNK):
+        raise AssertionError(f"cli range (resumed): {reads} ChainReadObj, counters {r_snap['counters']}")
+    n_proofs = len(json.loads(expected)["event_proofs"])
+    if n_proofs != n_matching:
+        raise AssertionError(f"cli range: {n_proofs} event proofs for {n_matching} matching receipts")
+    timers = snap["timers"]
+    return {
+        "pairs": len(pairs),
+        "proofs": n_proofs,
+        "storage_proofs": len(pairs),
+        "wall_ms": wall_ms,
+        "proofs_per_s": n_proofs / wall_ms * 1e3,
+        "fetch_tipsets_ms": timers["fetch_tipsets"]["total_s"] * 1e3,
+        "stage_busy_ms": {k: v["total_s"] * 1e3 for k, v in timers.items()},
+        "rpc_calls": snap["counters"].get("rpc.calls", 0),
+        "node_methods": session.methods,
+        "counters": {k: v for k, v in snap["counters"].items() if k.startswith(COLD_PREFIXES)},
+        "checked": checked,
+        "launches": launches,
+        "resumed": {"wall_ms": r_wall_ms, "chain_read_obj": reads, "rpc_calls": r_snap["counters"].get("rpc.calls", 0),
+                    "launches": r_launches},
+        "bundle": os.path.join(root, "cli-range-first.json"),
+    }
+
+
+def _write_json(path: str, obj) -> str:
+    with open(path, "w") as fh:
+        json.dump(obj, fh)
+    return path
+
+
+def cli_verify(world, bundle_path: str, root: str, seed: int) -> dict:
+    """``verify --check-cids`` on the range's bundle, on the card: exit 0
+    with blake2b launched (the witness recompute and the TxMeta batch, held
+    against the plain versions); with ``--f3-cert`` a certificate whose EC
+    chain is the range's chain, signed by a power table from ``--seed``:
+    exit 0; a certificate over other epochs: exit 1; a copy with one
+    witness block flipped: the CID recompute raises."""
+    _, _, tipsets, _ = world
+    backend = get_backend("gpu")
+    t0 = time.perf_counter()
+    sks, table = seeded_power_table(CLI_SIGNERS, seed)
+    (covering,) = finality_certificates(tipsets, sks, table, per_cert=len(tipsets))
+    shifted = [dataclasses.replace(ts, height=ts.height + len(tipsets)) for ts in tipsets]
+    (elsewhere,) = finality_certificates(shifted, sks, table, per_cert=len(shifted))
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    cert_path = _write_json(os.path.join(root, "cli-cert-covering.json"), certificate_json_obj(covering))
+    other_path = _write_json(os.path.join(root, "cli-cert-elsewhere.json"), certificate_json_obj(elsewhere))
+    with open(bundle_path) as fh:
+        bundle = json.load(fh)
+    block = bundle["blocks"][len(bundle["blocks"]) // 2]
+    data = bytearray(base64.b64decode(block["data"]))
+    data[len(data) // 2] ^= 0x01
+    block["data"] = base64.b64encode(bytes(data)).decode()
+    flipped_path = _write_json(os.path.join(root, "cli-flipped.json"), bundle)
+
+    out = {"power_table_rows": len(table), "cert_setup_ms": setup_ms, "ec_chain": len(tipsets)}
+    session = _NodeSession(MemoryBlockstore(), [])
+    for label, extra, want in (
+        ("plain", [], 0),
+        ("f3", ["--f3-cert", cert_path], 0),
+        ("other epochs", ["--f3-cert", other_path], 1),
+    ):
+        recording = _RecordingBackend(backend)
+        with _cli_node(session, recording):
+            stdout, ms, launches, _ = _cli(
+                f"cli verify ({label})", ["verify", bundle_path, "--check-cids", "--backend", "gpu", *extra], want
+            )
+        verdict = json.loads(stdout.strip().splitlines()[-1])
+        if verdict["all_valid"] != (want == 0):
+            raise AssertionError(f"cli verify ({label}): {verdict['all_valid']}")
+        _require_launched(f"cli verify ({label})", launches, SIZE_CLASSES)
+        checked = _check_recorded(f"cli verify ({label})", recording, {})
+        out[label] = {"wall_ms": ms, "verify_s": verdict["verify_seconds"], "launches": launches,
+                      "checked": checked, "false": sum(not v for v in verdict["event_results"] + verdict["storage_results"])}
+    with _cli_node(session, _RecordingBackend(backend)):
+        try:
+            _cli("cli verify (flipped)", ["verify", flipped_path, "--check-cids", "--backend", "gpu"], 1)
+        except ValueError as exc:
+            if "CID" not in str(exc):
+                raise
+            out["flipped"] = str(exc)
+        else:
+            raise AssertionError("cli verify (flipped): a flipped witness block was accepted")
+    out["launches"] = out["plain"]["launches"]
+    return out
+
+
+def cli_cert(world, root: str, seed: int) -> dict:
+    """``cert --power-table --verify-signatures`` over a chain of
+    synthetic certificates (each finalizing the next 64 tipsets, all
+    signers, one hash-to-G2 for each: the aggregate signature is the
+    signature of the secret keys' sum): every certificate validates; a
+    copy of the last with a forged signature fails; ``--emit-cbor`` writes
+    certexchange CBOR that validates again."""
+    _, _, tipsets, _ = world
+    sks, table = seeded_power_table(CLI_SIGNERS, seed)
+    span = min(CLI_CERT_SPAN, (len(tipsets) - 1) // CLI_CERTS)
+    certs = finality_certificates(tipsets[: CLI_CERTS * span + 1], sks, table, per_cert=span)
+    if len(certs) != CLI_CERTS:
+        raise AssertionError(f"cli cert: {len(certs)} certificates, expected {CLI_CERTS}")
+    paths = [_write_json(os.path.join(root, f"cli-cert-{c.instance}.json"), certificate_json_obj(c)) for c in certs]
+    table_path = _write_json(os.path.join(root, "cli-power-table.json"), power_table_json(table))
+    forged = certificate_json_obj(certs[-1])
+    forged["Signature"] = certificate_json_obj(certs[0])["Signature"]
+    forged_path = _write_json(os.path.join(root, "cli-cert-forged.json"), forged)
+    cbor_path = os.path.join(root, "cli-cert-0.cbor")
+
+    stdout, ms, launches, _ = _cli("cli cert", ["cert", *paths, "--power-table", table_path, "--verify-signatures"])
+    result = json.loads(stdout)
+    if result["status"] != "ok" or not result["signatures_verified"] or result["certificates"] != len(certs):
+        raise AssertionError(f"cli cert: {result}")
+    stdout, forged_ms, _, _ = _cli(
+        "cli cert (forged)", ["cert", *paths[:-1], forged_path, "--power-table", table_path, "--verify-signatures"], 1
+    )
+    if "signature is invalid" not in json.loads(stdout)["error"]:
+        raise AssertionError(f"cli cert (forged): {stdout}")
+    _cli("cli cert (emit)", ["cert", paths[0], "--emit-cbor", cbor_path])
+    stdout, cbor_ms, _, _ = _cli("cli cert (cbor)", ["cert", cbor_path, "--power-table", table_path, "--verify-signatures"])
+    if json.loads(stdout)["status"] != "ok":
+        raise AssertionError(f"cli cert (cbor): {stdout}")
+    return {
+        "certificates": len(certs), "power_table_rows": len(table), "tipsets_each": span,
+        "wall_ms": ms, "ms_per_certificate": ms / len(certs), "forged_wall_ms": forged_ms,
+        "cbor_wall_ms": cbor_ms, "cbor_bytes": os.path.getsize(cbor_path), "launches": launches,
+    }
+
+
+def cli_rest(world, root: str) -> dict:
+    """``generate`` (one pair: the topdown nonce slot and the event proofs,
+    the slot keccak on the card), ``vectors`` (capture against the hermetic
+    node, then ``check_vectors`` on the file) and ``demo``, each exiting 0
+    on the card."""
+    store, pairs, tipsets, _ = world
+    backend = get_backend("gpu")
+    out = {}
+    height = next(p.parent.height for p in pairs if p.parent.height % 100 == 0)
+    bundle_path = os.path.join(root, "cli-generate.json")
+    session = _NodeSession(store, tipsets)
+    recording = _RecordingBackend(backend)
+    with _cli_node(session, recording):
+        _, ms, launches, _ = _cli("cli generate", [
+            "generate", "--endpoint", CLI_ENDPOINT, "--height", str(height), "--contract", CLI_ETH,
+            "--slot-subnet", CLI_SUBNET, "--event-sig", SIGNATURE, "--topic1", CLI_SUBNET,
+            "--backend", "gpu", "-o", bundle_path,
+        ])
+        with open(bundle_path) as fh:
+            bundle = UnifiedProofBundle.from_json(fh.read())
+        if len(bundle.storage_proofs) != 1 or not bundle.event_proofs:
+            raise AssertionError(f"cli generate: {len(bundle.storage_proofs)} storage, {len(bundle.event_proofs)} event proofs")
+        _require_launched("cli generate", launches, ["keccak256_single_block"])
+        out["generate"] = {"height": height, "wall_ms": ms, "event_proofs": len(bundle.event_proofs),
+                           "launches": launches, "checked": _check_recorded("cli generate", recording, {})}
+        vectors_path = os.path.join(root, "cli-vectors.json")
+        _, ms, _, _ = _cli("cli vectors", ["vectors", "--endpoint", CLI_ENDPOINT, "--height", str(height),
+                                           "-o", vectors_path])
+        out["vectors"] = {"wall_ms": ms, "checked": check_vectors(load_vectors(vectors_path))}
+    recording = _RecordingBackend(backend)
+    with _cli_node(session, recording):
+        stdout, ms, launches, _ = _cli("cli demo", ["demo"])
+    if "All valid: True" not in stdout:
+        raise AssertionError(f"cli demo: {stdout}")
+    _require_launched("cli demo", launches, ["blake2b256_single_block", "keccak256_single_block"])
+    out["demo"] = {"wall_ms": ms, "launches": launches, "checked": _check_recorded("cli demo", recording, {})}
+    return out
+
+
 def autotune_phase(root: str) -> dict:
     """`autotune_crossover` on the card, its record under the port's own
     file name."""
@@ -1958,18 +2322,26 @@ def main(argv=None) -> int:
     run("event path", event_path, world, device)
     run("overlapped event path", overlapped_path, world, device, paths["event path"]["proofs_per_s"])
     with tempfile.TemporaryDirectory() as root:
-        run("cold read", cold_read_path, world, device, root)
-        run("warm restart", warm_restart, world, root)
-        run("lying disk", lying_disk, world, root, args.seed)
-        del world
+        cold_world = (world[0], world[1][:COLD_PAIRS], None)
+        run("cold read", cold_read_path, cold_world, device, root)
+        run("warm restart", warm_restart, cold_world, root)
+        run("lying disk", lying_disk, cold_world, root, args.seed)
+        del world, cold_world
         run("storage path", storage_path, CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device)
         run("mixed range", mixed_range, 64, device)
         run("resumable mixed range", resumable_mixed_range, 64, 16, device)
         pure = pure_python_phase(args.pure_pairs, args.pure_contracts, SLOTS_PER_CONTRACT)
         run("lying node", lying_node, LYING_NODE_PAIRS, root, args.seed)
         run("mixed-multihash sweep", mixed_sweep, root, args.seed)
+        chain = cli_world(args.pairs)
+        run("cli range", cli_range, chain, root)
+        run("cli verify", cli_verify, chain, paths["cli range"]["bundle"], root, args.seed)
+        run("cli cert", cli_cert, chain, root, args.seed)
+        run("cli generate, vectors, demo", cli_rest, chain, root)
+        del chain
         # last: the tuned crossover applies to every later verify call
         run("autotune", autotune_phase, root)
+    cli_paths = paths.pop("cli generate, vectors, demo")
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
     launch_counts["overlapped event path, unfused"] = paths["overlapped event path"]["unfused"]["launches"]
@@ -1978,6 +2350,10 @@ def main(argv=None) -> int:
     launch_counts["storage path, pure Python"] = pure["storage"]["launches"]
     launch_counts["warm restart, sweep"] = paths["warm restart"]["sweep_launches"]
     launch_counts["cold read, default crossover"] = paths["cold read"]["default_crossover"]["launches"]
+    launch_counts["cli range, resumed"] = paths["cli range"]["resumed"]["launches"]
+    launch_counts["cli verify, f3 cert"] = paths["cli verify"]["f3"]["launches"]
+    launch_counts["cli generate"] = cli_paths["generate"]["launches"]
+    launch_counts["cli demo"] = cli_paths["demo"]["launches"]
 
     rows = []
     for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
@@ -2067,6 +2443,23 @@ def main(argv=None) -> int:
     _log(
         f"mixed-multihash sweep on {smi}: {mixed['blocks']} blocks, {mixed['flipped']} flipped, "
         f"{mixed['evicted']} evicted, verify {mixed['sweep_verify_ms']} ms, launches {mixed['launches']}"
+    )
+    c_range, c_verify, c_cert = paths["cli range"], paths["cli verify"], paths["cli cert"]
+    _log(
+        f"cli range on {smi}: {c_range['proofs']} event + {c_range['storage_proofs']} storage proofs over "
+        f"{c_range['pairs']} pairs, wall {c_range['wall_ms']} ms, {c_range['proofs_per_s']} proofs/s, "
+        f"tipset fetch {c_range['fetch_tipsets_ms']} ms, rpc.calls {c_range['rpc_calls']}, stage ms "
+        f"{json.dumps(c_range['stage_busy_ms'])}; resumed in {c_range['resumed']['wall_ms']} ms with "
+        f"{c_range['resumed']['chain_read_obj']} ChainReadObj"
+    )
+    _log(
+        f"cli verify on {smi}: plain {c_verify['plain']['wall_ms']} ms, --f3-cert {c_verify['f3']['wall_ms']} ms "
+        f"(power table of {c_verify['power_table_rows']}, EC chain of {c_verify['ec_chain']}), other epochs "
+        f"{c_verify['other epochs']['wall_ms']} ms (exit 1)"
+    )
+    _log(
+        f"cli cert on {smi}: {c_cert['certificates']} certificates, {c_cert['power_table_rows']} signers, "
+        f"{c_cert['ms_per_certificate']} ms per certificate"
     )
     _log(f"autotune on {smi}: {json.dumps(paths['autotune']['record'])}")
     print(json.dumps({"kernels": rows}))

@@ -1774,6 +1774,10 @@ static PyObject *py_scan_events_batch(PyObject *self, PyObject *args,
    * table, ~25% faster end-to-end on a single core before any
    * parallelism. */
   int threads = threads_override ? threads_override : scan_threads_default();
+  const char *no_snap = getenv("IPC_SCAN_NO_SNAPSHOT"); /* test/debug knob:
+      force the Python-dict sequential walk to keep a true differential
+      reference for the snapshot path (disables provided snapshots too) */
+  if (no_snap && no_snap[0] == '1') snap_map = NULL;
   /* cmap_build is O(|dict|); without parallelism it only pays when the
    * scan touches a meaningful fraction of the store (a range scan touches
    * ~25 blocks per root), so the SINGLE-THREAD arm keeps the per-probe

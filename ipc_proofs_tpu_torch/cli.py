@@ -1,0 +1,707 @@
+"""Command-line interface: generate / verify / range / vectors / cert / demo.
+
+The counterpart of ``ipc_proofs_tpu.cli`` for the PyTorch/CUDA port, with
+the reference's flags and exit codes:
+
+    python -m ipc_proofs_tpu_torch.cli generate --endpoint URL --height H \
+        --contract 0x... --slot-subnet calib-subnet-1 --slot-index 0 \
+        --event-sig "NewTopDownMessage(bytes32,uint256)" \
+        --topic1 calib-subnet-1 -o bundle.json
+    python -m ipc_proofs_tpu_torch.cli verify bundle.json [--f3-cert cert.json] \
+        [--event-sig ... --topic1 ...] [--check-cids]
+    python -m ipc_proofs_tpu_torch.cli range --endpoint URL --from-height A \
+        --to-height B --event-sig ... --topic1 ... [--storage-slot KEY]
+    python -m ipc_proofs_tpu_torch.cli vectors --endpoint URL --height H
+    python -m ipc_proofs_tpu_torch.cli cert cert.json [--power-table t.json \
+        --verify-signatures] [--emit-cbor out.cbor]
+    python -m ipc_proofs_tpu_torch.cli demo      # hermetic synthetic-chain run
+
+``--backend`` picks where the kernels run: ``gpu`` (the default, the card:
+the event mask, the slot keccaks, the witness CID and TxMeta recomputes;
+without CUDA the command fails with the backend's error and never drops to
+the host), ``cpu`` (the kernels' plain PyTorch versions on the host) or
+``none`` (the host too: the port has no separate scalar predicate, so it
+runs the plain versions as ``cpu`` does). ``verify`` and ``demo`` take the
+flag as well, because the port's verifier recomputes CIDs on the backend.
+
+Not ported yet: the ``backfill``, ``serve`` and ``cluster`` subcommands,
+the endpoint pool (``--endpoints``, ``--hedge-ms``,
+``--breaker-threshold``), ``--mesh-devices`` and the span tracing
+(``--trace-out`` and the OTLP exports). ``--batch-verify`` has no
+counterpart: every fetch-plane wave and disk read of the port goes through
+the verify lane.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+from ipc_proofs_tpu_torch.utils.log import get_logger
+
+log = get_logger(__name__)
+
+BACKENDS = ("gpu", "cpu", "none")
+
+
+def _backend(name: str):
+    """The `GpuBackend` ``--backend`` names: the card, or the plain versions
+    on the host for ``cpu`` and ``none``. Without CUDA, ``gpu`` exits
+    non-zero with the backend's error."""
+    from ipc_proofs_tpu_torch.backend import get_backend
+
+    if name != "gpu":
+        return get_backend("gpu", device="cpu")
+    try:
+        return get_backend("gpu")
+    except RuntimeError as exc:
+        raise SystemExit(f"--backend gpu: {exc}") from exc
+
+
+def _make_rpc_client(args, metrics=None):
+    """One `LotusClient` on ``--endpoint``."""
+    from ipc_proofs_tpu_torch.store.rpc import LotusClient
+
+    if not args.endpoint:
+        raise ValueError("no RPC endpoint configured")
+    return LotusClient(
+        args.endpoint, bearer_token=args.token, timeout_s=args.timeout, metrics=metrics
+    )
+
+
+def _cmd_generate(args) -> int:
+    from ipc_proofs_tpu_torch.proofs.address import resolve_eth_address_to_actor_id
+    from ipc_proofs_tpu_torch.proofs.chain import Tipset
+    from ipc_proofs_tpu_torch.proofs.generator import (
+        EventProofSpec,
+        StorageProofSpec,
+        generate_proof_bundle,
+    )
+    from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec, hash_slot_specs
+    from ipc_proofs_tpu_torch.store.rpc import RpcBlockstore
+    from ipc_proofs_tpu_torch.utils.metrics import get_metrics
+
+    backend = _backend(args.backend)
+    metrics = get_metrics()
+    client = _make_rpc_client(args, metrics=metrics)
+
+    with metrics.stage("fetch_tipsets"):
+        parent = Tipset.fetch(client, args.height)
+        child = Tipset.fetch(client, args.height + 1)
+    log.info("parent tipset @%d: %d blocks", parent.height, len(parent.cids))
+
+    with metrics.stage("resolve_address"):
+        actor_id = (
+            args.actor_id
+            if args.actor_id is not None
+            else resolve_eth_address_to_actor_id(client, args.contract)
+        )
+    log.info("actor id: %d", actor_id)
+
+    storage_specs = []
+    if args.slot_subnet is not None:
+        # the mapping slot: keccak(bytes32(subnet) ‖ be32(index)) on the backend
+        (slot,) = hash_slot_specs(
+            [MappingSlotSpec(actor_id=actor_id, key=args.slot_subnet, slot_index=args.slot_index)],
+            backend,
+        )
+        storage_specs.append(StorageProofSpec(actor_id=actor_id, slot=slot))
+    event_specs = []
+    if args.event_sig:
+        event_specs.append(
+            EventProofSpec(
+                event_signature=args.event_sig,
+                topic_1=args.topic1,
+                actor_id_filter=None if args.no_actor_filter else actor_id,
+            )
+        )
+
+    store = RpcBlockstore(client, metrics=metrics)
+    with metrics.stage("generate"):
+        bundle = generate_proof_bundle(
+            store, parent, child, storage_specs, event_specs, match_backend=backend,
+            receipts_client=client if args.receipts_api else None,
+        )
+
+    output = args.output or "bundle.json"
+    with open(output, "w") as fh:
+        fh.write(bundle.to_json(indent=2))
+    log.info(
+        "bundle: %d storage + %d event proofs, %d witness blocks (%d bytes) → %s",
+        len(bundle.storage_proofs), len(bundle.event_proofs),
+        len(bundle.blocks), bundle.witness_bytes(), output,
+    )
+    if args.metrics:
+        print(metrics.to_json(), file=sys.stderr)
+    return 0
+
+
+def _cmd_verify(args) -> int:
+    from ipc_proofs_tpu_torch.proofs.bundle import UnifiedProofBundle
+    from ipc_proofs_tpu_torch.proofs.cert import FinalityCertificate
+    from ipc_proofs_tpu_torch.proofs.event_verifier import create_event_filter
+    from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
+    from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
+
+    backend = _backend(args.backend)
+    with open(args.bundle) as fh:
+        bundle = UnifiedProofBundle.from_json(fh.read())
+
+    if args.f3_cert:
+        with open(args.f3_cert) as fh:
+            cert = FinalityCertificate.from_json_obj(json.load(fh))
+        policy = TrustPolicy.with_f3_certificate(cert)
+    else:
+        log.warning("no F3 certificate — accept-all trust (testing only)")
+        policy = TrustPolicy.accept_all()
+
+    event_filter = (
+        create_event_filter(args.event_sig, args.topic1) if args.event_sig else None
+    )
+
+    start = time.perf_counter()
+    result = verify_proof_bundle(
+        bundle, policy, event_filter=event_filter, verify_witness_cids=args.check_cids,
+        cid_backend=backend,
+    )
+    elapsed = time.perf_counter() - start
+
+    print(
+        json.dumps(
+            {
+                "storage_results": result.storage_results,
+                "event_results": result.event_results,
+                "all_valid": result.all_valid(),
+                "verify_seconds": round(elapsed, 4),
+            }
+        )
+    )
+    return 0 if result.all_valid() else 1
+
+
+def _cmd_range(args) -> int:
+    """Event proofs across a whole epoch range, chunked + resumable."""
+    import functools
+    import os
+
+    from ipc_proofs_tpu_torch.proofs.address import resolve_eth_address_to_actor_id
+    from ipc_proofs_tpu_torch.proofs.chain import Tipset
+    from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
+    from ipc_proofs_tpu_torch.proofs.range import (
+        TipsetPair,
+        generate_event_proofs_for_range_chunked,
+        generate_event_proofs_for_range_pipelined,
+    )
+    from ipc_proofs_tpu_torch.store.rpc import RpcBlockstore
+    from ipc_proofs_tpu_torch.utils.metrics import get_metrics
+    from ipc_proofs_tpu_torch.utils.profiling import maybe_profile
+    from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
+
+    if args.storage_slot and not args.contract:
+        # validate before any network work: the tipset fetch below can be
+        # tens of thousands of RPC calls
+        log.error("--storage-slot requires --contract")
+        return 2
+    if args.resume:
+        # --resume asserts that a journaled job already exists; a typo'd
+        # --job-dir must fail loudly, not silently start from scratch
+        from ipc_proofs_tpu_torch.jobs import JOBS_MANIFEST_NAME
+
+        if not args.job_dir:
+            log.error("--resume requires --job-dir")
+            return 2
+        if not os.path.exists(os.path.join(args.job_dir, JOBS_MANIFEST_NAME)):
+            log.error("--resume: no job manifest in %s (nothing to resume)", args.job_dir)
+            return 2
+
+    backend = _backend(args.backend)
+    metrics = get_metrics()
+    client = _make_rpc_client(args, metrics=metrics)
+
+    actor_id = None
+    if args.contract:
+        actor_id = resolve_eth_address_to_actor_id(client, args.contract)
+        log.info("actor id: %d", actor_id)
+
+    with metrics.stage("fetch_tipsets"):
+        tipsets = [Tipset.fetch(client, h) for h in range(args.from_height, args.to_height + 2)]
+    pairs = [
+        TipsetPair(parent=tipsets[i], child=tipsets[i + 1]) for i in range(len(tipsets) - 1)
+    ]
+    log.info("range: %d tipset pairs", len(pairs))
+
+    spec = EventProofSpec(
+        event_signature=args.event_sig, topic_1=args.topic1, actor_id_filter=actor_id
+    )
+    storage_specs = None
+    if args.storage_slot:
+        from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec
+
+        storage_specs = [
+            MappingSlotSpec(actor_id=actor_id, key=key, slot_index=args.slot_index)
+            for key in args.storage_slot
+        ]
+
+    generate_fn = None
+    if args.pipeline_depth > 0:
+        # the stage-overlapped engine per checkpoint chunk: each outer chunk
+        # splits into sub-chunks so scan workers overlap recording, while
+        # checkpoints (and resume) stay at --chunk-size granularity and hold
+        # the storage proofs too
+        budget = resolve_thread_budget(threads=args.threads, scan_threads=args.scan_threads)
+        generate_fn = functools.partial(
+            generate_event_proofs_for_range_pipelined,
+            chunk_size=max(1, args.chunk_size // max(2, budget.total)),
+            scan_threads=args.scan_threads,
+            threads=args.threads,
+            pipeline_depth=args.pipeline_depth,
+        )
+
+    plane = None
+    if args.batch_rpc:
+        from ipc_proofs_tpu_torch.store.fetchplane import FetchPlane, PlaneBlockstore
+
+        plane = FetchPlane(
+            client, speculate_depth=args.speculate_depth, metrics=metrics, backend=backend
+        )
+        store = PlaneBlockstore(plane)
+        log.info("fetch plane: batched RPC, speculate_depth=%s", args.speculate_depth)
+    else:
+        store = RpcBlockstore(client, metrics=metrics)
+    disk = None
+    if args.store_dir:
+        from ipc_proofs_tpu_torch.storex import SegmentStore, TieredBlockstore
+
+        disk = SegmentStore(
+            args.store_dir,
+            cap_bytes=args.store_cap_bytes,
+            segment_max_bytes=args.store_segment_max_bytes,
+            metrics=metrics,
+            backend=backend,
+        )
+        store = TieredBlockstore(store, disk, metrics=metrics)
+        if plane is not None:
+            # tier short-circuit: wants already on disk never reach the node
+            plane.set_local(store)
+        log.info("disk tier: %s (%s)", args.store_dir, disk.stats())
+
+    try:
+        with maybe_profile(args.profile):
+            bundle = generate_event_proofs_for_range_chunked(
+                store,
+                pairs,
+                spec,
+                chunk_size=args.chunk_size,
+                checkpoint_dir=args.checkpoint_dir,
+                match_backend=backend,
+                metrics=metrics,
+                storage_specs=storage_specs,
+                scan_workers=args.scan_workers,
+                generate_fn=generate_fn,
+                job_dir=args.job_dir,
+            )
+    finally:
+        if plane is not None:
+            plane.close()
+            log.info("fetch plane: %s", plane.stats())
+        if disk is not None:
+            disk.close()
+    output = args.output or "range_bundle.json"
+    with open(output, "w") as fh:
+        fh.write(bundle.to_json())
+    log.info(
+        "range bundle: %d event + %d storage proofs, %d witness blocks → %s",
+        len(bundle.event_proofs), len(bundle.storage_proofs), len(bundle.blocks), output,
+    )
+    if args.metrics:
+        print(metrics.to_json(), file=sys.stderr)
+    return 0
+
+
+def _cmd_vectors(args) -> int:
+    """Capture live-chain byte-compat vectors (headers, TxMeta,
+    receipts-AMT root) into a fixtures JSON the test suite consumes."""
+    from ipc_proofs_tpu_torch.proofs.vectors import capture_vectors, check_vectors, write_vectors
+
+    client = _make_rpc_client(args)
+    doc = capture_vectors(client, args.height)
+    n = check_vectors(doc)  # never write vectors we cannot re-verify
+    output = args.output or "vectors.json"
+    write_vectors(doc, output)
+    log.info("captured %d vectors at height %d → %s", n, args.height, output)
+    log.info("re-run the byte-compat suite with IPC_VECTORS_FILE=%s", output)
+    return 0
+
+
+def _cmd_cert(args) -> int:
+    """Inspect / validate F3 finality certificates (JSON or go-f3 CBOR)."""
+    from ipc_proofs_tpu_torch.proofs.cert import (
+        FinalityCertificate,
+        FinalityCertificateChain,
+        PowerTableEntry,
+    )
+    from ipc_proofs_tpu_torch.proofs.cert_cbor import (
+        certificate_from_cbor,
+        certificate_to_cbor,
+    )
+
+    def load_cert(path: str) -> FinalityCertificate:
+        with open(path, "rb") as fh:
+            raw = fh.read()
+        # JSON certificates are Forest-style objects; anything that does
+        # not parse as JSON is treated as certexchange CBOR
+        try:
+            obj = json.loads(raw)
+        except ValueError:
+            return certificate_from_cbor(raw)
+        return FinalityCertificate.from_json_obj(obj)
+
+    certs = [load_cert(p) for p in args.certificates]
+    chain = FinalityCertificateChain(certificates=certs)
+
+    table = None
+    if args.power_table:
+        with open(args.power_table) as fh:
+            rows = json.load(fh)
+        if not isinstance(rows, list):
+            raise SystemExit("power table JSON must be a list of rows")
+        table = [
+            PowerTableEntry(
+                participant_id=int(r["ParticipantID"]),
+                power=int(r["Power"]),
+                signing_key=str(r["SigningKey"]),
+                pop=str(r.get("Pop", "")),
+            )
+            for r in rows
+        ]
+
+    if args.verify_signatures and table is None:
+        raise SystemExit("--verify-signatures requires --power-table")
+
+    if args.emit_cbor:
+        if len(certs) != 1:
+            raise SystemExit("--emit-cbor takes exactly one certificate")
+        with open(args.emit_cbor, "wb") as fh:
+            fh.write(certificate_to_cbor(certs[0]))
+        log.info("wrote certexchange CBOR → %s", args.emit_cbor)
+
+    status = "ok"
+    error = None
+    final_table_size = None
+    try:
+        final = chain.validate(
+            initial_power_table=table,
+            verify_signatures=args.verify_signatures,
+            verify_table_cids=table is not None,
+            network=args.network,
+        )
+        final_table_size = len(final) if final is not None else None
+    except ValueError as exc:
+        status, error = "invalid", str(exc)
+
+    print(
+        json.dumps(
+            {
+                "certificates": len(certs),
+                "instances": [c.instance for c in certs],
+                "epochs": [
+                    [c.ec_chain[0].epoch, c.ec_chain[-1].epoch] if c.ec_chain else None
+                    for c in certs
+                ],
+                "signatures_verified": bool(args.verify_signatures) and status == "ok",
+                "final_power_table_rows": final_table_size,
+                "status": status,
+                "error": error,
+            }
+        )
+    )
+    return 0 if status == "ok" else 1
+
+
+def _cmd_demo(args) -> int:
+    """The reference `main.rs` flow, hermetic: synthesize a chain, generate
+    one storage + one event proof, verify offline, print results."""
+    from ipc_proofs_tpu_torch.fixtures import ContractFixture, EventFixture, build_chain
+    from ipc_proofs_tpu_torch.proofs.event_verifier import create_event_filter
+    from ipc_proofs_tpu_torch.proofs.generator import (
+        EventProofSpec,
+        StorageProofSpec,
+        generate_proof_bundle,
+    )
+    from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec, hash_slot_specs
+    from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
+    from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
+    from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
+
+    backend = _backend(args.backend)
+    sig = "NewTopDownMessage(bytes32,uint256)"
+    subnet = "calib-subnet-1"
+    actor = 1001
+
+    world = build_chain(
+        [
+            ContractFixture(
+                actor_id=actor, storage={calculate_storage_slot(subnet, 0): (15).to_bytes(1, "big")}
+            )
+        ],
+        [
+            [EventFixture(emitter=actor, signature=sig, topic1=subnet, data=b"\x0f".rjust(32, b"\x00"))],
+            [],
+            [EventFixture(emitter=actor, signature=sig, topic1=subnet, data=b"\x10".rjust(32, b"\x00"))],
+        ],
+        parent_height=2_992_953,
+    )
+    # the fixture's slot is the world's setup; the proof's slot hashes on
+    # the backend
+    (slot,) = hash_slot_specs([MappingSlotSpec(actor_id=actor, key=subnet, slot_index=0)], backend)
+    bundle = generate_proof_bundle(
+        world.store,
+        world.parent,
+        world.child,
+        [StorageProofSpec(actor_id=actor, slot=slot)],
+        [EventProofSpec(event_signature=sig, topic_1=subnet, actor_id_filter=actor)],
+        match_backend=backend,
+    )
+    print("Unified Proof Bundle generated:")
+    print(f"  Storage proofs: {len(bundle.storage_proofs)}")
+    print(f"  Event proofs: {len(bundle.event_proofs)}")
+    print(f"  Total witness blocks: {len(bundle.blocks)}")
+
+    result = verify_proof_bundle(
+        bundle,
+        TrustPolicy.accept_all(),
+        event_filter=create_event_filter(sig, subnet),
+        verify_witness_cids=True,
+        cid_backend=backend,
+    )
+    print("Verification Results:")
+    print(f"  Storage proofs valid: {result.storage_results}")
+    print(f"  Event proofs valid: {result.event_results}")
+    print(f"  All valid: {result.all_valid()}")
+    return 0 if result.all_valid() else 1
+
+
+def speculate_depth_arg(value):
+    # "auto" → adaptive backoff (FetchPlane lowers the depth when the
+    # speculation waste ratio spikes); anything else must parse as int
+    if value == "auto":
+        return value
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'auto', got {value!r}"
+        )
+
+
+def _add_backend_flag(p) -> None:
+    p.add_argument(
+        "--backend", default="gpu", choices=BACKENDS,
+        help="where the kernels run: gpu (the card, default; fails without "
+        "CUDA), cpu or none (the plain PyTorch versions on the host)",
+    )
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="ipc-proofs-tpu-torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    def add_store_flags(p):
+        p.add_argument(
+            "--store-dir", default=None, metavar="DIR",
+            help="disk tier for fetched blocks: content-addressed "
+            "append-only segment files under DIR, CRC-framed and "
+            "multihash-verified on every read, LRU-evicted at "
+            "--store-cap-bytes. Survives restarts — a re-run over the same "
+            "heights refetches nothing",
+        )
+        p.add_argument(
+            "--store-cap-bytes", type=int, default=1 << 30,
+            help="byte cap on the disk tier (whole cold segments are "
+            "evicted; default 1 GiB)",
+        )
+        p.add_argument(
+            "--store-segment-max-bytes", type=int, default=64 << 20,
+            help="roll the active segment at this size (default 64 MiB)",
+        )
+
+    def add_fetch_plane_flags(p):
+        p.add_argument(
+            "--batch-rpc", action=argparse.BooleanOptionalAction, default=True,
+            help="async fetch plane: ship block wants as JSON-RPC batch "
+            "arrays (one round-trip per wave) and let HAMT/AMT walkers "
+            "prefetch child links speculatively; endpoints that reject "
+            "batch framing fall back to sequential calls automatically. "
+            "--no-batch-rpc restores the one-call-per-block path",
+        )
+        p.add_argument(
+            "--speculate-depth", type=speculate_depth_arg, default=1,
+            metavar="N|auto",
+            help="how many link levels the fetch plane chases below a "
+            "decoded HAMT/AMT interior node (0 = batch demand fetches "
+            "only, no speculation; default 1). 'auto' starts at 2 and "
+            "backs off one level whenever a 64-fetch speculation window "
+            "wastes more than 60%% of what it fetched",
+        )
+
+    gen = sub.add_parser("generate", help="generate a proof bundle from a live chain")
+    gen.add_argument("--endpoint", required=True, help="Lotus JSON-RPC endpoint URL")
+    gen.add_argument("--token", default=None, help="bearer token")
+    gen.add_argument("--timeout", type=float, default=250.0)
+    gen.add_argument("--height", type=int, required=True, help="parent epoch H (child is H+1)")
+    gen.add_argument("--contract", help="EVM contract address 0x…")
+    gen.add_argument("--actor-id", type=int, default=None, help="skip address resolution")
+    gen.add_argument("--slot-subnet", default=None, help="subnet id for mapping-slot proof")
+    gen.add_argument("--slot-index", type=int, default=0)
+    gen.add_argument("--event-sig", default=None, help='e.g. "NewTopDownMessage(bytes32,uint256)"')
+    gen.add_argument("--topic1", default=None)
+    gen.add_argument("--no-actor-filter", action="store_true")
+    _add_backend_flag(gen)
+    gen.add_argument(
+        "--receipts-api",
+        action="store_true",
+        help="enumerate pass-1 receipts via Filecoin.ChainGetParentReceipts "
+        "(the reference's pathway) instead of walking the receipts AMT; "
+        "needed for nodes that serve receipts only through the JSON API",
+    )
+    gen.add_argument("-o", "--output", default=None)
+    gen.add_argument("--metrics", action="store_true")
+    gen.set_defaults(fn=_cmd_generate)
+
+    ver = sub.add_parser("verify", help="verify a saved bundle offline")
+    ver.add_argument("bundle")
+    ver.add_argument("--f3-cert", default=None, help="F3 finality certificate JSON")
+    ver.add_argument("--event-sig", default=None)
+    ver.add_argument("--topic1", default=None)
+    ver.add_argument("--check-cids", action="store_true", help="recompute every witness CID")
+    _add_backend_flag(ver)
+    ver.set_defaults(fn=_cmd_verify)
+
+    rng = sub.add_parser(
+        "range", help="event (+ storage) proofs over an epoch range (chunked, resumable)"
+    )
+    rng.add_argument("--endpoint", required=True)
+    rng.add_argument("--token", default=None)
+    rng.add_argument("--timeout", type=float, default=250.0)
+    rng.add_argument("--from-height", type=int, required=True)
+    rng.add_argument("--to-height", type=int, required=True)
+    rng.add_argument("--contract", default=None)
+    rng.add_argument("--event-sig", required=True)
+    rng.add_argument("--topic1", required=True)
+    rng.add_argument(
+        "--storage-slot",
+        action="append",
+        default=None,
+        metavar="KEY",
+        help="also prove this mapping key's slot (of --contract) at every "
+        "pair; repeatable — both proof kinds share the bundle witness",
+    )
+    rng.add_argument("--slot-index", type=int, default=0)
+    rng.add_argument(
+        "--scan-workers", type=int, default=8,
+        help="thread-pool width for the Python scan over the RPC store "
+        "with --pipeline-depth 0 (overlapping block fetches hides network "
+        "latency)",
+    )
+    rng.add_argument("--chunk-size", type=int, default=64)
+    rng.add_argument(
+        "--threads", type=int, default=None,
+        help="ONE thread budget for the whole range engine: partitioned "
+        "over scan/record/verify stage workers and the native scanner's "
+        "per-call fan-out so the process never oversubscribes "
+        "(flag > IPC_THREADS env > --scan-threads > IPC_SCAN_THREADS > "
+        "CPU affinity)",
+    )
+    rng.add_argument(
+        "--scan-threads", type=int, default=None,
+        help="legacy: pin the scan+match stage worker count (also sets "
+        "the whole budget when --threads/IPC_THREADS are absent)",
+    )
+    rng.add_argument(
+        "--pipeline-depth", type=int, default=2,
+        help="chunks buffered between pipeline stages (bounded queues); "
+        "0 disables the stage-overlapped engine",
+    )
+    add_store_flags(rng)
+    add_fetch_plane_flags(rng)
+    rng.add_argument("--checkpoint-dir", default=None)
+    rng.add_argument(
+        "--job-dir", default=None, metavar="DIR",
+        help="write-ahead journal for crash-safe resume: every completed "
+        "chunk is fsync'd to DIR/journal.bin; re-running with the same "
+        "flags skips committed chunks (SIGKILL-safe — torn tail records "
+        "are discarded)",
+    )
+    rng.add_argument(
+        "--resume", action="store_true",
+        help="require an existing job manifest in --job-dir (fail instead "
+        "of silently starting a fresh job)",
+    )
+    _add_backend_flag(rng)
+    rng.add_argument("-o", "--output", default=None)
+    rng.add_argument("--metrics", action="store_true")
+    rng.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="trace generation with torch.profiler into DIR/trace.json "
+        "(Chrome trace format; open at ui.perfetto.dev)",
+    )
+    rng.set_defaults(fn=_cmd_range)
+
+    vec = sub.add_parser(
+        "vectors", help="capture live-chain byte-compat vectors to a fixtures JSON"
+    )
+    vec.add_argument("--endpoint", required=True)
+    vec.add_argument("--token", default=None)
+    vec.add_argument("--timeout", type=float, default=250.0)
+    vec.add_argument("--height", type=int, required=True)
+    vec.add_argument("-o", "--output", default=None)
+    vec.set_defaults(fn=_cmd_vectors)
+
+    cert = sub.add_parser(
+        "cert",
+        help="inspect/validate F3 finality certificates (Forest JSON or "
+        "go-f3 certexchange CBOR; chain continuity, delta replay, table "
+        "commitments, optional BLS verification)",
+    )
+    cert.add_argument("certificates", nargs="+", help="certificate files (JSON or CBOR)")
+    cert.add_argument(
+        "--power-table",
+        default=None,
+        help="initial power table JSON [{ParticipantID, Power, SigningKey, Pop?}, …] "
+        "for the first certificate's instance (enables delta replay + commitments)",
+    )
+    cert.add_argument(
+        "--verify-signatures",
+        action="store_true",
+        help="verify each certificate's aggregate BLS signature and >2/3 quorum "
+        "(requires --power-table)",
+    )
+    cert.add_argument(
+        "--network",
+        default=None,
+        help='gpbft network name in the signing payload (default "filecoin")',
+    )
+    cert.add_argument(
+        "--emit-cbor",
+        default=None,
+        metavar="PATH",
+        help="re-encode the (single) certificate in go-f3 certexchange CBOR",
+    )
+    cert.set_defaults(fn=_cmd_cert)
+
+    demo = sub.add_parser("demo", help="hermetic end-to-end demo on a synthetic chain")
+    _add_backend_flag(demo)
+    demo.set_defaults(fn=_cmd_demo)
+
+    args = parser.parse_args(argv)
+    if getattr(args, "event_sig", None) and not getattr(args, "topic1", None):
+        parser.error("--event-sig requires --topic1")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,7 +11,9 @@ With the package's own AMT/HAMT/header writers, byte-identical to
   one state tree.
 
 `world_from_blocks` loads a world built elsewhere (as plain bytes) into this
-package's types.
+package's types. `seeded_power_table` and `finality_certificates` sign
+synthetic F3 certificates over a world's tipsets (with `certificate_json_obj`
+and `power_table_json`, the Forest JSON the CLI reads).
 """
 
 from __future__ import annotations
@@ -45,6 +47,10 @@ __all__ = [
     "build_chain",
     "build_range_world",
     "world_from_blocks",
+    "seeded_power_table",
+    "finality_certificates",
+    "certificate_json_obj",
+    "power_table_json",
 ]
 
 
@@ -303,12 +309,20 @@ def build_range_world(
     actor_id: int = 1001,
     base_height: int = 1000,
     store: Optional[MemoryBlockstore] = None,
+    chained: bool = False,
 ):
     """A benchmark-scale range of parent→child pairs sharing one state tree.
 
     The state tree is written once; each pair gets only its own messages,
     receipts, events AMTs, and headers. Event payloads embed (pair, receipt,
     event) indices so blocks are unique across the range.
+
+    By default pair p sits at heights ``base_height + 2p`` (parent) and
+    ``+ 1`` (child), its own two tipsets, as in the reference. ``chained``
+    makes the pairs one chain of ``n_pairs + 1`` tipsets at consecutive
+    heights instead: pair p's child is pair p+1's parent, carrying pair p's
+    receipts and pair p+1's messages, so a client that pairs consecutive
+    heights (the CLI's ``range``) sees exactly ``n_pairs`` pairs.
 
     A fraction ``match_rate`` of receipts (evenly spread) contain exactly one
     event matching ``(signature, topic1, actor_id)``; all other events are
@@ -341,6 +355,7 @@ def build_range_world(
     every = max(int(round(1.0 / match_rate)), 1) if match_rate > 0 else 0
     n_matching = 0
     pairs = []
+    links = []  # chained: (receipts root, TxMeta) per pair
     for p in range(n_pairs):
         receipts = []
         msg_cids = []
@@ -364,6 +379,9 @@ def build_range_world(
         receipts_root = amt_build_v0(bs, receipts)
         bls_root = amt_build_v0(bs, {i: c for i, c in enumerate(msg_cids)})
         txmeta = put_cbor(bs, [bls_root, empty_amt])
+        if chained:
+            links.append((receipts_root, txmeta))
+            continue
 
         height = base_height + 2 * p
         parent_header = BlockHeader(
@@ -388,4 +406,128 @@ def build_range_world(
                 child=Tipset(cids=[child_cid], blocks=[child_header], height=height + 1),
             )
         )
+    if chained:
+        pairs = _chain_tipsets(bs, links, grandparent_cids, state_root_cid, old_receipts,
+                               child_txmeta, base_height)
     return bs, pairs, n_matching
+
+
+def _chain_tipsets(bs, links, grandparent_cids, state_root_cid, old_receipts, last_txmeta,
+                   base_height: int) -> "list[TipsetPair]":
+    """One single-block tipset per height: tipset k carries pair k-1's
+    receipts and pair k's messages (the last one an empty TxMeta)."""
+    tipsets = []
+    parents = grandparent_cids
+    for k in range(len(links) + 1):
+        height = base_height + k
+        header = BlockHeader(
+            parents=parents, height=height, parent_state_root=state_root_cid,
+            parent_message_receipts=links[k - 1][0] if k else old_receipts,
+            messages=links[k][1] if k < len(links) else last_txmeta,
+            timestamp=1_700_000_000 + height * 30, miner="f01000",
+        )
+        raw = header.encode()
+        cid = CID.hash_of(raw)
+        bs.put_keyed(cid, raw)
+        tipsets.append(Tipset(cids=[cid], blocks=[header], height=height))
+        parents = [cid]
+    return [TipsetPair(parent=a, child=b) for a, b in zip(tipsets, tipsets[1:])]
+
+
+def seeded_power_table(n: int, seed: int):
+    """``n`` F3 participants drawn from ``seed``: ``(secret_keys, table)``,
+    each `PowerTableEntry` with power 1–100, its base64 G1 key and its
+    proof of possession (one hash-to-G2 each)."""
+    import base64
+    import random
+
+    from ipc_proofs_tpu_torch.crypto import bls
+    from ipc_proofs_tpu_torch.proofs.cert import PowerTableEntry
+
+    rng = random.Random(seed)
+    sks = [rng.randrange(1, bls.CURVE_ORDER) for _ in range(n)]
+    table = [
+        PowerTableEntry(
+            participant_id=i,
+            power=rng.randint(1, 100),
+            signing_key=base64.b64encode(bls.g1_compress(bls.sk_to_pk(sk))).decode(),
+            pop=base64.b64encode(bls.g2_compress(bls.pop_prove(sk))).decode(),
+        )
+        for i, sk in enumerate(sks)
+    ]
+    return sks, table
+
+
+def finality_certificates(tipsets, secret_keys, table, per_cert: int):
+    """Consecutive certificates finalizing ``tipsets`` (height order),
+    ``per_cert`` new tipsets each; every certificate's EC chain starts at
+    the previous one's head. All of ``table`` signs, and the aggregate
+    signature is the signature of the secret keys' sum (the same G2 point
+    as the sum of the signers' signatures, for one hash-to-G2 a
+    certificate). No power-table deltas: every commitment is ``table``'s
+    CID."""
+    from ipc_proofs_tpu_torch.crypto import bls
+    from ipc_proofs_tpu_torch.crypto.rleplus import encode_rleplus
+    from ipc_proofs_tpu_torch.proofs.cert import (
+        ECTipSet,
+        FinalityCertificate,
+        SupplementalData,
+        power_table_cid,
+    )
+
+    table_cid = str(power_table_cid(table))
+    chain = [ECTipSet(key=[str(c) for c in ts.cids], epoch=ts.height, power_table=table_cid)
+             for ts in tipsets]
+    aggregate_sk = sum(secret_keys) % bls.CURVE_ORDER
+    certs = []
+    for k, start in enumerate(range(0, max(len(chain) - 1, 1), per_cert)):
+        cert = FinalityCertificate(
+            instance=k,
+            ec_chain=chain[start : start + per_cert + 1],
+            supplemental_data=SupplementalData(power_table=table_cid),
+            signers=encode_rleplus(list(range(len(table)))),
+        )
+        cert.signature = bls.g2_compress(bls.sign(aggregate_sk, cert.signing_payload()))
+        certs.append(cert)
+    return certs
+
+
+def certificate_json_obj(cert) -> dict:
+    """A `FinalityCertificate` as the Forest JSON object the CLI reads."""
+    import base64
+
+    def b64(raw: bytes) -> str:
+        return base64.b64encode(bytes(raw)).decode()
+
+    return {
+        "GPBFTInstance": cert.instance,
+        "ECChain": [
+            {
+                "Key": [{"/": c} for c in ts.key],
+                "Epoch": ts.epoch,
+                "PowerTable": {"/": ts.power_table},
+                "Commitments": b64(ts.commitments),
+            }
+            for ts in cert.ec_chain
+        ],
+        "SupplementalData": {
+            "Commitments": b64(cert.supplemental_data.commitments),
+            "PowerTable": {"/": cert.supplemental_data.power_table},
+        },
+        "Signers": list(cert.signers) if isinstance(cert.signers, list) else b64(cert.signers),
+        "Signature": b64(cert.signature),
+        "PowerTableDelta": [
+            {"ParticipantID": d.participant_id, "PowerDelta": d.power_delta,
+             "SigningKey": d.signing_key, "Pop": d.pop}
+            for d in cert.power_table_delta
+        ],
+    }
+
+
+def power_table_json(table) -> list:
+    """A power table as the rows ``cert --power-table`` reads."""
+    return [
+        {"ParticipantID": e.participant_id, "Power": e.power, "SigningKey": e.signing_key,
+         "Pop": e.pop}
+        for e in table
+    ]

@@ -18,13 +18,13 @@ Blocks are DAG-CBOR / blake2b-256, like everything on the Filecoin chain.
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional
 
 from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.core.dagcbor import decode as cbor_decode
 from ipc_proofs_tpu_torch.store.blockstore import Blockstore, put_cbor
 
-__all__ = ["AMT", "amt_build", "amt_build_v0"]
+__all__ = ["AMT", "amt_build", "amt_build_v0", "amt_count"]
 
 _V0_BIT_WIDTH = 3
 _MAX_HEIGHT = 64
@@ -59,7 +59,7 @@ def _offer_node_links(store, node: list) -> None:
 class AMT:
     """Reader for an AMT rooted at a CID; version auto-detected from the root.
 
-    ``get`` and ordered ``items`` mirror `fvm_ipld_amt`'s API surface the
+    ``get`` and ordered ``for_each`` mirror `fvm_ipld_amt`'s API surface the
     proof engines rely on. All node fetches go through the supplied
     blockstore, so wrapping it in a `RecordingBlockstore` records the touched
     path exactly like the reference's witness mechanism.
@@ -190,6 +190,11 @@ class AMT:
             return None
         return values[(bits & ((1 << slot) - 1)).bit_count()]
 
+    def for_each(self, fn: Callable[[int, Any], None]) -> None:
+        """Call ``fn(index, value)`` for every element in ascending order."""
+        for index, value in self.items():
+            fn(index, value)
+
     def items(self) -> Iterator[tuple[int, Any]]:
         yield from self._walk(self._root_node, self.height, 0)
 
@@ -284,3 +289,7 @@ def amt_build(
 def amt_build_v0(store: Blockstore, values: "dict[int, Any] | list[Any]") -> CID:
     """Legacy AMT (message-CID lists, receipts arrays)."""
     return amt_build(store, values, version=0)
+
+
+def amt_count(values: dict[int, Any]) -> int:
+    return len(values)

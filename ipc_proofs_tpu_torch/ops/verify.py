@@ -5,7 +5,9 @@ The counterpart of ``ipc_proofs_tpu.ops.verify_jax``. Every cold read path
 re-hashes blocks before anything observes them (`store.rpc.verify_block_bytes`).
 `verify_blocks_batch` takes one chunk's worth of blocks (a fetch-plane
 landed wave, a segment-store multi-read, the disk sweep at open) and hashes
-each multihash family in ONE backend call: blake2b-256 through
+each multihash family in ONE backend call (``verify.device_calls`` counts
+the kernel dispatches of that call, one per size class, the reference's
+unit): blake2b-256 through
 `GpuBackend.blake2b256_batch` (which splits by size class over the three
 blake2b kernels) and keccak-256 through `GpuBackend.keccak256_batch` (the
 single-block or the multi-block kernel by `keccak_class`). The reference
@@ -137,12 +139,19 @@ def verify_blocks_batch(
     for code, idxs in device_idx.items():
         if not idxs:
             continue
-        hasher = backend.blake2b256_batch if code == BLAKE2B_256 else backend.keccak256_batch
+        from ipc_proofs_tpu_torch.backend.gpu import keccak_class, size_class
+
+        if code == BLAKE2B_256:
+            hasher, route = backend.blake2b256_batch, size_class
+        else:
+            hasher, route = backend.keccak256_batch, keccak_class
         digests = hasher([blocks[i] for i in idxs])
         for i, digest in zip(idxs, digests):
             verdicts[i] = digest == cids[i].digest
         if metrics is not None:
-            metrics.count("verify.device_calls")
+            # one per kernel dispatch, as the reference counts: the backend
+            # launches one kernel per non-empty size class of the family
+            metrics.count("verify.device_calls", len({route(len(blocks[i])) for i in idxs}))
             metrics.count("verify.device_blocks", len(idxs))
 
     for i in scalar_idx:

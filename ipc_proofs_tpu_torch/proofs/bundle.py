@@ -176,6 +176,9 @@ class UnifiedProofBundle:
     def to_json(self, indent: int | None = None) -> str:
         return json.dumps(self.to_json_obj(), indent=indent)
 
+    def witness_bytes(self) -> int:
+        return sum(len(b.data) for b in self.blocks)
+
     @classmethod
     def from_json_obj(cls, obj: dict) -> "UnifiedProofBundle":
         obj = _as_map(obj, "bundle")

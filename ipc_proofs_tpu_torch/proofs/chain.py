@@ -71,3 +71,8 @@ class Tipset:
             for header in obj["Blocks"]
         ]
         return cls(cids=cids, blocks=blocks, height=obj["Height"])
+
+    @classmethod
+    def fetch(cls, client, height: int) -> "Tipset":
+        """Fetch by height over RPC (`Filecoin.ChainGetTipSetByHeight`)."""
+        return cls.from_api_json(client.request("Filecoin.ChainGetTipSetByHeight", [height, None]))

@@ -30,12 +30,32 @@ from ipc_proofs_tpu_torch.state.events import (
     ActorEvent,
     Receipt,
     StampedEvent,
+    ascii_to_bytes32,
     extract_evm_log,
+    hash_event_signature,
 )
 from ipc_proofs_tpu_torch.state.header import BlockHeader, LiteHeader, decode_header_lite
 from ipc_proofs_tpu_torch.store.blockstore import MemoryBlockstore
 
-__all__ = ["verify_event_proof"]
+__all__ = ["create_event_filter", "verify_event_proof"]
+
+
+def create_event_filter(event_sig: str, subnet_id: str) -> Callable[[ActorEvent], bool]:
+    """Semantic predicate: an EVM log whose topic0 is ``event_sig``'s hash
+    and whose topic1 is ``subnet_id`` as bytes32."""
+    topic0 = hash_event_signature(event_sig)
+    topic1 = ascii_to_bytes32(subnet_id)
+
+    def predicate(event: ActorEvent) -> bool:
+        log = extract_evm_log(event)
+        return (
+            log is not None
+            and len(log.topics) >= 2
+            and log.topics[0] == topic0
+            and log.topics[1] == topic1
+        )
+
+    return predicate
 
 
 def verify_event_proof(

@@ -3,8 +3,7 @@
 `generate_proof_bundle`: N storage specs + M event specs for one
 parent/child pair over one shared block cache; witness blocks deduplicated
 across all proofs and CID-sorted. The counterpart of
-``ipc_proofs_tpu.proofs.generator`` without its ``receipts_client`` (RPC)
-pathway.
+``ipc_proofs_tpu.proofs.generator``.
 """
 
 from __future__ import annotations
@@ -45,12 +44,15 @@ def generate_proof_bundle(
     storage_specs: "list[StorageProofSpec]",
     event_specs: "list[EventProofSpec]",
     match_backend=None,
+    receipts_client=None,
 ) -> UnifiedProofBundle:
     """Generate all requested proofs; witness deduplicated across proofs.
 
     Every generator reads through its own `CachedBlockstore` view of one
     shared cache. ``match_backend`` (the event predicate's mask) defaults to
-    the card, as in `generate_event_proof`."""
+    the card, as in `generate_event_proof`. ``receipts_client`` (a
+    `LotusClient`) enumerates pass-1 receipts through
+    `Filecoin.ChainGetParentReceipts` instead of the receipts AMT."""
     shared = CachedBlockstore(store).shared_cache()
 
     storage_proofs = []
@@ -75,6 +77,7 @@ def generate_proof_bundle(
             event_spec.topic_1,
             event_spec.actor_id_filter,
             match_backend=match_backend,
+            receipts_client=receipts_client,
         )
         event_proofs.extend(bundle.proofs)
         all_blocks.update(bundle.blocks)

@@ -22,9 +22,10 @@ batched HAMT walker, and its blocks merge into the one witness.
 
 Three more drivers split a range into chunks:
 
-- `generate_event_proofs_for_range_chunked` runs the serial driver chunk by
-  chunk, resumable from per-chunk checkpoint files and a write-ahead job
-  journal (`jobs`);
+- `generate_event_proofs_for_range_chunked` runs the serial driver (or a
+  ``generate_fn``: the CLI passes the pipelined one) chunk by chunk,
+  resumable from per-chunk checkpoint files and a write-ahead job journal
+  (`jobs`);
 - `generate_event_proofs_for_range_pipelined` runs scan+match → record →
   merge → optional verify on the bounded-queue stage executor
   (`parallel.pipeline`), several workers a stage, under one shared thread
@@ -49,6 +50,7 @@ import hashlib
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -121,6 +123,7 @@ def generate_event_proofs_for_range(
     match_backend=None,
     metrics: Optional[Metrics] = None,
     storage_specs: "Optional[Sequence[MappingSlotSpec]]" = None,
+    scan_workers: int = 0,
 ) -> UnifiedProofBundle:
     """Generate event proofs for ``spec`` across a whole range of tipset
     pairs, with one predicate evaluation for the entire range, plus the
@@ -128,14 +131,18 @@ def generate_event_proofs_for_range(
     tracked across the range). ``match_backend`` runs the unfused mask and
     the slot keccaks; it defaults to ``get_backend("gpu")``, the card
     (raises without CUDA); pass ``get_backend("gpu", device="cpu")`` for the
-    plain versions."""
+    plain versions.
+
+    ``scan_workers > 0`` runs the Python scan (a store without a raw map:
+    RPC, the fetch plane, the disk tier) over a thread pool, so block
+    fetches of different pairs overlap."""
     if match_backend is None:
         match_backend = get_backend("gpu")
     metrics = metrics if metrics is not None else Metrics()
     matcher = EventMatcher(spec.event_signature, spec.topic_1)
     cached = CachedBlockstore(store)
     matching_per_pair, native_ok = _scan_and_match(
-        cached, pairs, spec, matcher, match_backend, metrics
+        cached, pairs, spec, matcher, match_backend, metrics, scan_workers=scan_workers
     )
     with metrics.stage("range_record"):
         event_proofs, witness_bytes, fallback_blocks = _record_chunk(
@@ -199,6 +206,7 @@ def _scan_and_match(
     metrics: Metrics,
     match_call=None,
     native_threads: "int | None" = None,
+    scan_workers: int = 0,
 ) -> "tuple[list[list[int]], bool]":
     """Phases A+B: scan every pair's receipts/events, run the match
     predicate; return (matching receipt indices per pair, whether the
@@ -244,7 +252,11 @@ def _scan_and_match(
         if native:
             scan_batch = scan_events_flat(cached, roots, threads=native_threads)
         if scan_batch is None:
-            scans = [scan_receipt_events(cached, root) for root in roots]
+            if scan_workers > 0:
+                with ThreadPoolExecutor(max_workers=scan_workers) as pool:
+                    scans = list(pool.map(lambda r: scan_receipt_events(cached, r), roots))
+            else:
+                scans = [scan_receipt_events(cached, root) for root in roots]
 
     # Phase B: one batched predicate over all events in the range.
     with metrics.stage("range_match"):
@@ -620,6 +632,8 @@ def generate_event_proofs_for_range_chunked(
     match_backend=None,
     metrics: Optional[Metrics] = None,
     storage_specs=None,
+    scan_workers: int = 0,
+    generate_fn=None,
     on_chunk=None,
     job_dir: "str | None" = None,
 ) -> UnifiedProofBundle:
@@ -631,8 +645,13 @@ def generate_event_proofs_for_range_chunked(
     chunks. ``storage_specs`` prove at every pair of every chunk and ride
     the same checkpoints.
 
-    ``on_chunk(bundle)`` is called with every chunk bundle as it becomes
-    available (generated OR resumed).
+    ``generate_fn`` overrides the per-chunk generator (the signature of
+    `generate_event_proofs_for_range` without ``scan_workers``; the CLI
+    passes the pipelined driver, whose chunk bundles carry their storage
+    proofs here, as the checkpoints are written by this driver).
+    ``scan_workers`` goes to the default generator. ``on_chunk(bundle)`` is
+    called with every chunk bundle as it becomes available (generated OR
+    resumed).
 
     ``job_dir`` adds write-ahead journaling (`jobs`): each completed chunk
     commits one fsync'd journal record, and a re-run with the same job dir
@@ -683,10 +702,16 @@ def generate_event_proofs_for_range_chunked(
             else:
                 _offer_chunk_spine(store, chunk)
                 _offer_chunk_spine(store, pairs[start + chunk_size : start + 2 * chunk_size])
-                bundle = generate_event_proofs_for_range(
-                    store, chunk, spec, match_backend=match_backend, metrics=metrics,
-                    storage_specs=storage_specs,
-                )
+                if generate_fn is not None:
+                    bundle = generate_fn(
+                        store, chunk, spec, match_backend=match_backend, metrics=metrics,
+                        storage_specs=storage_specs,
+                    )
+                else:
+                    bundle = generate_event_proofs_for_range(
+                        store, chunk, spec, match_backend=match_backend, metrics=metrics,
+                        storage_specs=storage_specs, scan_workers=scan_workers,
+                    )
                 if path is not None:
                     _write_checkpoint(path, bundle)
                 if job is not None:

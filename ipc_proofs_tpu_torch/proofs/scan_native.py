@@ -19,6 +19,7 @@ paths.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -205,9 +206,12 @@ def _snapshot_of(store: Blockstore, raw: dict, work: "Optional[int]" = None):
     BUILD: a fresh cached table is always returned (free), but a tiny walk
     over a huge un-snapshotted store keeps the legacy path rather than
     paying an O(|store|) build — mirroring the C side's snapshot_pays.
-    Returns None (the transient path) in the pure-Python universe or when
-    the store is not memory-backed.
+    Returns None (the transient path) in the pure-Python universe, when
+    the store is not memory-backed, or with IPC_SCAN_NO_SNAPSHOT=1 (the C
+    scanner then also ignores provided snapshots: the differential knob).
     """
+    if os.environ.get("IPC_SCAN_NO_SNAPSHOT") == "1":
+        return None
     owner = store
     while isinstance(owner, CachedBlockstore):
         owner = owner._inner

@@ -1,12 +1,11 @@
-"""Unified proof verification against trust callables.
+"""Unified proof verification under a trust policy.
 
-The counterpart of ``ipc_proofs_tpu.proofs.verifier.verify_proof_bundle``,
-taking the parent-tipset and child-header checks as callables in place of a
-``TrustPolicy`` (whose F3-certificate half waits for a later slice). Storage
-proofs replay through the batched verifier (one C walk of the actors tree
-for the bundle; the scalar loop in the pure-Python universe), then the
-events through the batched event verifier, whose TxMeta CID recompute runs
-on the card.
+The counterpart of ``ipc_proofs_tpu.proofs.verifier.verify_proof_bundle``:
+the `TrustPolicy` becomes two fail-soft closures; storage proofs replay
+through the batched verifier (one C walk of the actors tree for the
+bundle; the scalar loop in the pure-Python universe), then the events
+through the batched event verifier, whose TxMeta CID recompute runs on the
+card.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from ipc_proofs_tpu_torch.backend import get_backend
-from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256, CID
+from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256
 from ipc_proofs_tpu_torch.proofs.bundle import (
     EventProofBundle,
     UnifiedProofBundle,
@@ -25,27 +24,21 @@ from ipc_proofs_tpu_torch.proofs.storage_verifier import (
     verify_storage_proof,
     verify_storage_proofs_batch,
 )
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
 from ipc_proofs_tpu_torch.state.events import ActorEvent
 
-__all__ = ["verify_proof_bundle", "accept_all"]
-
-
-def accept_all(epoch: int, cids) -> bool:
-    """Trust callable that accepts every anchor (offline replay of a bundle
-    whose anchors are checked elsewhere)."""
-    return True
+__all__ = ["verify_proof_bundle"]
 
 
 def verify_proof_bundle(
     bundle: UnifiedProofBundle,
-    verify_parent_tipset: Callable[[int, list[CID]], bool],
-    verify_child_header: Callable[[int, CID], bool],
+    trust_policy: TrustPolicy,
     event_filter: Optional[Callable[[ActorEvent], bool]] = None,
     verify_witness_cids: bool = False,
     cid_backend=None,
 ) -> UnifiedVerificationResult:
-    """Verify all proofs in ``bundle`` against the two trust callables.
+    """Verify all proofs in ``bundle`` under ``trust_policy``.
 
     ``verify_witness_cids`` recomputes every witness block's CID: the
     blake2b-256 blocks as ONE batch on ``cid_backend``, which defaults to
@@ -64,14 +57,14 @@ def verify_proof_bundle(
 
     def child_verifier(epoch, cid):
         try:
-            return verify_child_header(epoch, cid)
-        except Exception:  # fail-soft: a throwing trust check is a rejection — the proof verdict reports invalid, never crashes verify
+            return trust_policy.verify_child_header(epoch, cid)
+        except Exception:  # fail-soft: a throwing trust policy is a rejection — the proof verdict reports invalid, never crashes verify
             return False
 
     def parent_verifier(epoch, cids):
         try:
-            return verify_parent_tipset(epoch, cids)
-        except Exception:  # fail-soft: a throwing trust check is a rejection — the proof verdict reports invalid, never crashes verify
+            return trust_policy.verify_parent_tipset(epoch, cids)
+        except Exception:  # fail-soft: a throwing trust policy is a rejection — the proof verdict reports invalid, never crashes verify
             return False
 
     storage_results = None

@@ -91,6 +91,26 @@ class BlockHeader:
         fields = cbor_decode(raw)
         if not (isinstance(fields, list) and len(fields) == 16):
             raise ValueError(f"block header must be a 16-tuple, got {type(fields)}")
+        return cls._from_fields(fields)
+
+    @classmethod
+    def decode_lite(cls, raw: bytes) -> "BlockHeader":
+        """Verification-only decode: identical acceptance to :meth:`decode`
+        (the C ``decode_header`` walks the full grammar in validating-skip
+        mode, including strict UTF-8, map-key and tag-42 CID byte checks),
+        but the opaque fields (ticket, election proof, beacon entries,
+        signatures, …) come back as ``None``. The returned header must NOT
+        be re-encoded: ``encode()`` raises. The pure-Python universe runs
+        the full decode."""
+        ext = _cid_native.load()
+        if ext is None:
+            return cls.decode(raw)
+        header = cls._from_fields(ext.decode_header(raw))
+        header._lite = True  # encode() raises instead of emitting nulls
+        return header
+
+    @classmethod
+    def _from_fields(cls, fields: list) -> "BlockHeader":
         _validate_core_fields(fields)
         return cls(
             miner=fields[0],
@@ -111,7 +131,16 @@ class BlockHeader:
             _parent_base_fee=fields[15],
         )
 
+    # set on decode_lite results: opaque fields were validated but not
+    # materialized, so re-encoding would silently emit nulls in their place
+    _lite: bool = field(default=False, compare=False, repr=False)
+
     def encode(self) -> bytes:
+        if self._lite:
+            raise ValueError(
+                "cannot re-encode a decode_lite header: opaque fields were "
+                "not materialized (use BlockHeader.decode for round-trips)"
+            )
         return cbor_encode(
             [
                 self.miner,
@@ -133,6 +162,8 @@ class BlockHeader:
             ]
         )
 
+    def cid(self) -> CID:
+        return CID.hash_of(self.encode())
 
 def extract_parent_state_root(raw: bytes) -> CID:
     """Parent state root straight from raw header CBOR."""

@@ -235,7 +235,9 @@ class LocalLotusSession:
     """Hermetic in-process Lotus node speaking ``.post``-shaped JSON-RPC.
 
     Serves `Filecoin.ChainReadObj` from ``store`` (base64, like the real
-    API) and anything in ``responses`` verbatim; unknown methods return a
+    API) and anything in ``responses``: a value verbatim, or a callable
+    ``handler(params)``'s result (e.g. `Filecoin.ChainGetTipSetByHeight`
+    answered per height); unknown methods return a
     JSON-RPC "method not found" error. JSON-RPC batch arrays are answered
     with a response array (shuffled deterministically — real servers answer
     out of id order, which is what the client's demux must survive) unless
@@ -278,7 +280,9 @@ class LocalLotusSession:
             result = base64.b64encode(block).decode("ascii") if block is not None else None
             return {"jsonrpc": "2.0", "result": result, "id": req_id}
         if method in self._responses:
-            return {"jsonrpc": "2.0", "result": self._responses[method], "id": req_id}
+            handler = self._responses[method]
+            result = handler(params) if callable(handler) else handler
+            return {"jsonrpc": "2.0", "result": result, "id": req_id}
         return {
             "jsonrpc": "2.0",
             "error": {"code": -32601, "message": f"method '{method}' not found"},

@@ -1,7 +1,7 @@
-"""Strict JSON field accessors for the bundle parser.
+"""Strict JSON field accessors for the bundle and certificate parsers.
 
-Proof bundles arrive from untrusted sources. These accessors reject every
-malformed field as ValueError — never leaking KeyError/TypeError from
+Proof bundles and F3 certificates arrive from untrusted sources. These
+accessors reject every malformed field as ValueError — never leaking KeyError/TypeError from
 shape assumptions. Byte fields decode base64 STRICTLY AND CANONICALLY, so
 distinct JSON documents can never decode to one object.
 
@@ -70,6 +70,26 @@ class StrictFields:
         if base64.b64encode(out).decode("ascii") != v:
             raise self._err(f"{what} non-canonical base64")
         return out
+
+
+    def as_bytes(self, v, what: str) -> bytes:
+        if isinstance(v, (bytes, bytearray)):
+            return bytes(v)
+        if isinstance(v, str):  # Forest/bundle JSON byte encoding
+            return self.b64_strict(v, what)
+        if isinstance(v, list) and all(
+            isinstance(b, int) and not isinstance(b, bool) and 0 <= b < 256
+            for b in v
+        ):
+            return bytes(v)
+        raise self._err(f"{what} must be bytes")
+
+    def as_cid_str(self, v, what: str) -> str:
+        if isinstance(v, dict):  # Lotus/Forest {"/": "<cid>"} form
+            v = v.get("/")
+        if not isinstance(v, str):
+            raise self._err(f"{what} must be a CID string")
+        return v
 
 
 def strict_fields(prefix: str) -> StrictFields:

@@ -21,6 +21,7 @@ wall: 1.0 for serial code, towards N for N stages that overlap.
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from contextlib import contextmanager
@@ -66,6 +67,17 @@ class Metrics:
         self._union_active = 0  # guarded-by: _lock
         self._union_start = 0.0  # guarded-by: _lock
         self.union_wall_s = 0.0  # guarded-by: _lock
+
+    def reset(self) -> None:
+        """Drop every timer, counter and gauge (a driver that runs several
+        commands in one process reads each command's own counts)."""
+        with self._lock:
+            self.timers.clear()
+            self.counters.clear()
+            self.gauges.clear()
+            self._union_active = 0
+            self._union_start = 0.0
+            self.union_wall_s = 0.0
 
     @property
     def stage_s(self) -> "dict[str, float]":
@@ -151,6 +163,9 @@ class Metrics:
             if self.gauges:
                 out["gauges"] = dict(self.gauges)
             return out
+
+    def to_json(self) -> str:
+        return json.dumps(self.snapshot(), indent=2)
 
 
 _global = Metrics()

@@ -1,0 +1,434 @@
+"""The port's offline CLI held against the JAX package's, byte for byte.
+
+Both packages' ``main`` run the same subcommands with the same flags
+(``--backend cpu`` in both) over the same 6-pair `build_range_world`: the
+reference through its `FakeLotusClient`, the port through its real
+`LotusClient` over the hermetic node (`LocalLotusSession`), each factory
+swapped in as the reference's own CLI test does. Outputs compare as exact
+bytes (bundle files, vectors, CBOR) or as equal JSON (``verify`` without
+``verify_seconds``, ``cert``), and exit codes are equal. A ``range``
+checkpoint directory or job journal written by the JAX CLI resumes under
+the port's CLI with identical bytes and no block read: the state carried
+across packages.
+"""
+
+import base64
+import json
+
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import ipc_proofs_tpu.store.rpc as ref_rpc  # noqa: E402
+import ipc_proofs_tpu_torch.store.rpc as port_rpc  # noqa: E402
+from ipc_proofs_tpu import cli as ref_cli  # noqa: E402
+from ipc_proofs_tpu.fixtures import build_range_world as ref_build_range_world  # noqa: E402
+from ipc_proofs_tpu.state.address import Address as RefAddress  # noqa: E402
+from ipc_proofs_tpu.store.testing import FakeLotusClient as RefFakeLotusClient  # noqa: E402
+from ipc_proofs_tpu_torch import cli as port_cli  # noqa: E402
+from ipc_proofs_tpu_torch.core.cid import CID  # noqa: E402
+from ipc_proofs_tpu_torch.fixtures import (  # noqa: E402
+    build_range_world,
+    certificate_json_obj,
+    finality_certificates,
+    power_table_json,
+    seeded_power_table,
+)
+from ipc_proofs_tpu_torch.store.faults import LocalLotusSession  # noqa: E402
+from ipc_proofs_tpu_torch.store.testing import FakeLotusClient  # noqa: E402
+
+SIG = "NewTopDownMessage(bytes32,uint256)"
+SUBNET = "calib-subnet-1"
+ETH = "0x" + "52" * 20
+F410 = str(RefAddress.from_eth_address(ETH))
+BASE = 7000
+
+
+def _tipset_json(tipset) -> dict:
+    return {
+        "Cids": [{"/": str(c)} for c in tipset.cids],
+        "Blocks": [
+            {
+                "Parents": [{"/": str(p)} for p in h.parents],
+                "Height": h.height,
+                "ParentStateRoot": {"/": str(h.parent_state_root)},
+                "ParentMessageReceipts": {"/": str(h.parent_message_receipts)},
+                "Messages": {"/": str(h.messages)},
+                "Timestamp": h.timestamp,
+            }
+            for h in tipset.blocks
+        ],
+        "Height": tipset.height,
+    }
+
+
+def _by_height(pairs) -> dict:
+    out = {}
+    for pair in pairs:
+        out[pair.parent.height] = pair.parent
+        out[pair.child.height] = pair.child
+    return out
+
+
+class _RecordingSession(LocalLotusSession):
+    """The hermetic node, recording each answered method."""
+
+    def __init__(self, store, responses):
+        super().__init__(store, responses)
+        self.methods: "list[str]" = []
+
+    def _answer(self, req: dict) -> dict:
+        self.methods.append(req.get("method"))
+        return super()._answer(req)
+
+
+class Worlds:
+    """The 6-pair range world in both packages, and a node for each."""
+
+    def __init__(self):
+        self.ref_store, ref_pairs, self.n_matching = ref_build_range_world(
+            6, 4, 2, 0.5, base_height=BASE
+        )
+        self.store, pairs, _ = build_range_world(6, 4, 2, 0.5, base_height=BASE)
+        self.ref_by_height = _by_height(ref_pairs)
+        self.by_height = _by_height(pairs)
+        self.lo, self.hi = min(self.by_height), max(self.by_height)
+        self.tipsets = [self.by_height[h] for h in sorted(self.by_height)]
+
+    def ref_client(self):
+        return RefFakeLotusClient(
+            self.ref_store,
+            responses={
+                "Filecoin.ChainGetTipSetByHeight": lambda p: _tipset_json(self.ref_by_height[p[0]]),
+                "Filecoin.EthAddressToFilecoinAddress": F410,
+                "Filecoin.StateLookupID": "f01001",
+            },
+        )
+
+    def port_session(self):
+        fake = FakeLotusClient(self.store)
+        return _RecordingSession(
+            self.store,
+            {
+                "Filecoin.ChainGetTipSetByHeight": lambda p: _tipset_json(self.by_height[p[0]]),
+                "Filecoin.EthAddressToFilecoinAddress": F410,
+                "Filecoin.StateLookupID": "f01001",
+                "Filecoin.ChainGetParentReceipts": lambda p: fake.chain_get_parent_receipts(
+                    CID.from_string(p[0]["/"])
+                ),
+            },
+        )
+
+
+@pytest.fixture(scope="module")
+def worlds():
+    return Worlds()
+
+
+@pytest.fixture
+def nodes(worlds, monkeypatch):
+    """Swap both packages' `LotusClient` factories for the hermetic nodes;
+    yields (reference client, port session)."""
+    ref_client = worlds.ref_client()
+    session = worlds.port_session()
+    real = port_rpc.LotusClient
+    monkeypatch.setattr(ref_rpc, "LotusClient", lambda *a, **k: ref_client)
+    monkeypatch.setattr(
+        port_rpc, "LotusClient",
+        lambda endpoint, **k: real(endpoint, session=session, metrics=k.get("metrics")),
+    )
+    return ref_client, session
+
+
+def _both(tmp_path, argv, name: str):
+    """Run ``argv`` (with ``-o``) through both CLIs; returns (rc_ref,
+    bytes_ref, rc_port, bytes_port)."""
+    out = {}
+    for label, main in (("ref", ref_cli.main), ("port", port_cli.main)):
+        path = tmp_path / f"{label}-{name}"
+        rc = main(argv + ["-o", str(path)])
+        out[label] = (rc, path.read_bytes() if path.exists() else None)
+    return out["ref"][0], out["ref"][1], out["port"][0], out["port"][1]
+
+
+def _range_argv(worlds, *extra) -> list:
+    return [
+        "range", "--endpoint", "http://node.invalid/rpc/v1",
+        "--from-height", str(worlds.lo), "--to-height", str(worlds.hi - 1),
+        "--contract", ETH, "--event-sig", SIG, "--topic1", SUBNET,
+        "--storage-slot", SUBNET, "--chunk-size", "2", "--backend", "cpu", *extra,
+    ]
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [[], ["--pipeline-depth", "0"], ["--no-batch-rpc"], ["--pipeline-depth", "0", "--no-batch-rpc"]],
+    ids=["pipelined-plane", "chunked-plane", "pipelined-rpc", "chunked-rpc"],
+)
+def test_range_bundle_is_byte_equal(worlds, nodes, tmp_path, flags):
+    ref_rc, ref_out, rc, out = _both(tmp_path, _range_argv(worlds, *flags), "range.json")
+    assert ref_rc == rc == 0
+    assert out == ref_out
+    bundle = json.loads(out)
+    assert len(bundle["event_proofs"]) == worlds.n_matching
+    # one storage proof per pair the CLI forms (consecutive heights)
+    assert len(bundle["storage_proofs"]) == worlds.hi - worlds.lo
+
+
+def test_range_profile_writes_a_chrome_trace(worlds, nodes, tmp_path):
+    """``--profile DIR`` traces the run with `torch.profiler` into
+    ``DIR/trace.json`` (the reference writes a `jax.profiler` trace) and
+    leaves the bundle as it is."""
+    out = tmp_path / "profiled.json"
+    assert port_cli.main(_range_argv(worlds, "--profile", str(tmp_path / "prof"), "-o", str(out))) == 0
+    assert ref_cli.main(_range_argv(worlds, "-o", str(tmp_path / "ref.json"))) == 0
+    assert out.read_bytes() == (tmp_path / "ref.json").read_bytes()
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert trace["traceEvents"]
+
+
+@pytest.mark.parametrize("state", ["checkpoint-dir", "job-dir"])
+def test_jax_written_state_resumes_under_the_port(worlds, nodes, tmp_path, state):
+    """The JAX CLI writes the checkpoints (or the job journal); the port's
+    CLI resumes every chunk from them: identical bytes, no ChainReadObj."""
+    _, session = nodes
+    flag = "--checkpoint-dir" if state == "checkpoint-dir" else "--job-dir"
+    argv = _range_argv(worlds, flag, str(tmp_path / "state"))
+    assert ref_cli.main(argv + ["-o", str(tmp_path / "ref.json")]) == 0
+    session.methods.clear()
+    assert port_cli.main(argv + ["-o", str(tmp_path / "port.json")]) == 0
+    assert (tmp_path / "port.json").read_bytes() == (tmp_path / "ref.json").read_bytes()
+    assert "Filecoin.ChainReadObj" not in session.methods
+    if state == "job-dir":
+        assert port_cli.main(argv + ["--resume", "-o", str(tmp_path / "again.json")]) == 0
+        assert (tmp_path / "again.json").read_bytes() == (tmp_path / "ref.json").read_bytes()
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["--storage-slot", SUBNET],  # --storage-slot without --contract
+        ["--resume"],  # --resume without --job-dir
+        ["--resume", "--job-dir", "no-such-job"],  # no manifest to resume
+    ],
+    ids=["slot-without-contract", "resume-without-job-dir", "resume-without-manifest"],
+)
+def test_range_refusals_match(worlds, nodes, tmp_path, argv):
+    base = [
+        "range", "--endpoint", "http://node.invalid/rpc/v1",
+        "--from-height", str(worlds.lo), "--to-height", str(worlds.hi - 1),
+        "--event-sig", SIG, "--topic1", SUBNET, "--backend", "cpu",
+    ]
+    argv = [str(tmp_path / a) if a == "no-such-job" else a for a in argv]
+    assert ref_cli.main(base + argv) == port_cli.main(base + argv) == 2
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--contract", ETH, "--slot-subnet", SUBNET, "--event-sig", SIG, "--topic1", SUBNET],
+        ["--actor-id", "1001", "--event-sig", SIG, "--topic1", SUBNET, "--no-actor-filter"],
+        ["--actor-id", "1001", "--slot-subnet", SUBNET, "--slot-index", "3"],
+        ["--contract", ETH, "--event-sig", SIG, "--topic1", SUBNET, "--receipts-api"],
+    ],
+    ids=["storage+event", "event-unfiltered", "storage-slot-3", "receipts-api"],
+)
+def test_generate_bundle_is_byte_equal(worlds, nodes, tmp_path, flags):
+    argv = ["generate", "--endpoint", "http://node.invalid/rpc/v1", "--height", str(BASE),
+            "--backend", "cpu", *flags]
+    ref_rc, ref_out, rc, out = _both(tmp_path, argv, "bundle.json")
+    assert ref_rc == rc == 0
+    assert out == ref_out
+    assert json.loads(out)["storage_proofs"] or json.loads(out)["event_proofs"]
+
+
+def test_vectors_are_byte_equal(worlds, nodes, tmp_path):
+    argv = ["vectors", "--endpoint", "http://node.invalid/rpc/v1", "--height", str(BASE)]
+    ref_rc, ref_out, rc, out = _both(tmp_path, argv, "vectors.json")
+    assert ref_rc == rc == 0
+    assert out == ref_out
+    assert len(json.loads(out)["vectors"]) == 4  # parent header + TxMeta, child header, receipts root
+
+
+# --- verify ------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def signed(worlds):
+    """Three signers from a seed, one certificate over the whole range and
+    one over other epochs."""
+    sks, table = seeded_power_table(3, seed=11)
+    (covering,) = finality_certificates(worlds.tipsets, sks, table, per_cert=len(worlds.tipsets))
+    elsewhere = finality_certificates(worlds.tipsets[:3], sks, table, per_cert=2)[0]
+    return sks, table, covering, elsewhere
+
+
+@pytest.fixture(scope="module")
+def range_bundle(worlds, tmp_path_factory):
+    """The range bundle (both packages agree on its bytes, above), written
+    by the port's CLI once for the verify tests."""
+    path = tmp_path_factory.mktemp("bundle") / "range.json"
+    session = worlds.port_session()
+    real = port_rpc.LotusClient
+    mp = pytest.MonkeyPatch()
+    mp.setattr(port_rpc, "LotusClient", lambda endpoint, **k: real(endpoint, session=session))
+    try:
+        assert port_cli.main(_range_argv(worlds, "-o", str(path))) == 0
+    finally:
+        mp.undo()
+    return path
+
+
+def _flipped(path, tmp_path):
+    obj = json.loads(path.read_text())
+    block = obj["blocks"][len(obj["blocks"]) // 2]
+    data = bytearray(base64.b64decode(block["data"]))
+    data[len(data) // 2] ^= 0x01
+    block["data"] = base64.b64encode(bytes(data)).decode()
+    out = tmp_path / "flipped.json"
+    out.write_text(json.dumps(obj))
+    return out
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["accept-all", "check-cids", "f3-cert", "f3-cert-other-epochs", "event-filter",
+     "flipped-replay"],
+)
+def test_verify_output_and_exit_code_match(range_bundle, signed, tmp_path, capsys, case):
+    _, _, covering, elsewhere = signed
+    bundle = str(range_bundle)
+    argv = {
+        "accept-all": [bundle],
+        "check-cids": [bundle, "--check-cids"],
+        "f3-cert": [bundle, "--check-cids", "--f3-cert", "COVERING"],
+        "f3-cert-other-epochs": [bundle, "--f3-cert", "ELSEWHERE"],
+        "event-filter": [bundle, "--event-sig", SIG, "--topic1", "other-subnet"],
+        "flipped-replay": [str(_flipped(range_bundle, tmp_path))],
+    }[case]
+    for label, cert in (("COVERING", covering), ("ELSEWHERE", elsewhere)):
+        if label in argv:
+            path = tmp_path / f"{label}.json"
+            path.write_text(json.dumps(certificate_json_obj(cert)))
+            argv[argv.index(label)] = str(path)
+    (ref_rc, ref_obj), (rc, obj) = _verify_pair(argv, capsys)
+    assert obj == ref_obj
+    assert rc == ref_rc
+    want_ok = case in ("accept-all", "check-cids", "f3-cert")
+    assert (rc == 0) == want_ok and obj["all_valid"] == want_ok
+
+
+def _verify_pair(argv, capsys):
+    capsys.readouterr()
+    ref_rc = ref_cli.main(["verify", *argv])
+    ref_obj = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rc = port_cli.main(["verify", *argv, "--backend", "cpu"])
+    obj = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ref_obj.pop("verify_seconds")
+    obj.pop("verify_seconds")
+    return (ref_rc, ref_obj), (rc, obj)
+
+
+def test_verify_flipped_block_fails_both_with_check_cids(range_bundle, tmp_path):
+    """A flipped witness block under ``--check-cids`` raises ValueError in
+    both packages: the witness CID recompute rejects it before replay."""
+    flipped = str(_flipped(range_bundle, tmp_path))
+    with pytest.raises(ValueError, match="CID"):
+        ref_cli.main(["verify", flipped, "--check-cids"])
+    with pytest.raises(ValueError, match="CID"):
+        port_cli.main(["verify", flipped, "--check-cids", "--backend", "cpu"])
+
+
+# --- cert ----------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cert_chain(worlds, signed, tmp_path_factory):
+    """Two consecutive signed certificates as JSON files, the power table,
+    and a copy of the second with a forged signature."""
+    sks, table, _, _ = signed
+    certs = finality_certificates(worlds.tipsets[:5], sks, table, per_cert=2)
+    assert len(certs) == 2
+    root = tmp_path_factory.mktemp("certs")
+    paths = []
+    for cert in certs:
+        path = root / f"cert{cert.instance}.json"
+        path.write_text(json.dumps(certificate_json_obj(cert)))
+        paths.append(str(path))
+    table_path = root / "table.json"
+    table_path.write_text(json.dumps(power_table_json(table)))
+    forged = certificate_json_obj(certs[1])
+    forged["Signature"] = certificate_json_obj(certs[0])["Signature"]
+    forged_path = root / "forged.json"
+    forged_path.write_text(json.dumps(forged))
+    return paths, str(table_path), str(forged_path)
+
+
+@pytest.mark.parametrize(
+    "case", ["structure-only", "signatures", "forged", "out-of-order", "needs-table"]
+)
+def test_cert_output_and_exit_code_match(cert_chain, capsys, case):
+    paths, table, forged = cert_chain
+    argv = {
+        "structure-only": paths,
+        "signatures": [*paths, "--power-table", table, "--verify-signatures"],
+        "forged": [paths[0], forged, "--power-table", table, "--verify-signatures"],
+        "out-of-order": [paths[1], paths[0]],
+        "needs-table": [*paths, "--verify-signatures"],
+    }[case]
+    outcomes = []
+    for main in (ref_cli.main, port_cli.main):
+        capsys.readouterr()
+        try:
+            rc = main(["cert", *argv])
+        except SystemExit as exc:
+            rc = ("exit", str(exc.code))
+        outcomes.append((rc, capsys.readouterr().out))
+    assert outcomes[0] == outcomes[1]
+    rc, out = outcomes[1]
+    if case == "needs-table":
+        assert rc == ("exit", "--verify-signatures requires --power-table")
+        return
+    obj = json.loads(out)
+    assert (rc == 0) == (case in ("structure-only", "signatures")) == (obj["status"] == "ok")
+    assert obj["signatures_verified"] == (case == "signatures")
+
+
+def test_cert_cbor_round_trip_is_byte_equal(cert_chain, tmp_path, capsys):
+    """``--emit-cbor`` writes the same certexchange bytes in both packages,
+    and each package validates the other's CBOR file."""
+    paths, table, _ = cert_chain
+    ref_cbor, port_cbor = tmp_path / "ref.cbor", tmp_path / "port.cbor"
+    assert ref_cli.main(["cert", paths[0], "--emit-cbor", str(ref_cbor)]) == 0
+    assert port_cli.main(["cert", paths[0], "--emit-cbor", str(port_cbor)]) == 0
+    assert port_cbor.read_bytes() == ref_cbor.read_bytes()
+    capsys.readouterr()
+    assert port_cli.main(["cert", str(ref_cbor), "--power-table", table]) == 0
+    port_out = capsys.readouterr().out
+    assert ref_cli.main(["cert", str(port_cbor), "--power-table", table]) == 0
+    assert capsys.readouterr().out == port_out
+
+
+# --- demo and the parser -----------------------------------------------------------
+
+
+def test_demo_output_matches(capsys):
+    assert ref_cli.main(["demo"]) == 0
+    ref_out = capsys.readouterr().out
+    assert port_cli.main(["demo", "--backend", "cpu"]) == 0
+    assert capsys.readouterr().out == ref_out
+    assert "All valid: True" in ref_out
+
+
+@pytest.mark.parametrize("backend", ["cpu", "none"])
+def test_demo_host_backends(capsys, backend):
+    assert port_cli.main(["demo", "--backend", backend]) == 0
+    assert "All valid: True" in capsys.readouterr().out
+
+
+def test_event_sig_needs_topic1_in_both():
+    argv = ["verify", "bundle.json", "--event-sig", SIG]
+    for main in (ref_cli.main, port_cli.main):
+        with pytest.raises(SystemExit) as exc:
+            main(argv)
+        assert exc.value.code == 2

@@ -33,7 +33,8 @@ from ipc_proofs_tpu_torch.proofs.storage_batch import (
     MappingSlotSpec,
     generate_storage_proofs_batch,
 )
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
 
 pytestmark = pytest.mark.cuda
@@ -129,7 +130,7 @@ def test_small_range_path_on_card(cuda_device, monkeypatch):
     backend = get_backend("gpu")
     bundle = generate_event_proofs_for_range(store, pairs, spec, match_backend=backend)
     result = verify_proof_bundle(
-        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+        bundle, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
     )
     assert result.all_valid() and len(result.event_results) == n_matching > 0
     assert all(blake2b.LAUNCHES.values()) and not any(match.LAUNCHES.values())
@@ -147,7 +148,7 @@ def test_entry_points_default_to_the_card(cuda_device):
     spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
     blake2b.reset_launch_counts()
     bundle = generate_event_proofs_for_range(store, pairs, spec)
-    result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
+    result = verify_proof_bundle(bundle, TrustPolicy.accept_all(), verify_witness_cids=True)
     assert result.all_valid() and len(result.event_results) == n_matching > 0
     # the witness recompute and the replay's TxMeta recompute, both on the card
     assert blake2b.LAUNCHES["blake2b256_single_block"] == 2
@@ -175,7 +176,7 @@ def test_native_event_path_on_card_equals_pure_python(cuda_device):
     store, pairs, n_matching = build_range_world(64, 16, 4, 0.01)
     spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
     bundle = generate_event_proofs_for_range(store, pairs, spec)
-    result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
+    result = verify_proof_bundle(bundle, TrustPolicy.accept_all(), verify_witness_cids=True)
     assert result.all_valid() and len(result.event_results) == n_matching > 0
     env = dict(os.environ, PYTHONPATH=str(ROOT), IPC_PROOFS_NO_NATIVE="1")
     proc = subprocess.run(
@@ -223,7 +224,7 @@ def test_small_storage_path_on_card(cuda_device):
     keccak.reset_launch_counts()
     blake2b.reset_launch_counts()
     bundle = generate_storage_proofs_batch(world.store, world.parent, world.child, specs)
-    result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
+    result = verify_proof_bundle(bundle, TrustPolicy.accept_all(), verify_witness_cids=True)
     assert result.all_valid() and len(result.storage_results) == 33
     assert [int(p.value, 16) for p in bundle.storage_proofs] == list(range(1, 33)) + [0]
     assert keccak.LAUNCHES["keccak256_single_block"] == 1
@@ -274,7 +275,7 @@ def test_overlapped_driver_on_card_with_verify_workers(cuda_device, monkeypatch,
             store, pairs, spec, chunk_size=8, match_backend=backend, scan_threads=4,
             verify_workers=verify_workers, force_pipeline=True,
             verify_chunk=lambda b, backend=backend: verify_proof_bundle(
-                b, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+                b, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
             ).event_results,
         )
         torch.cuda.synchronize()
@@ -324,7 +325,9 @@ def test_verify_lane_on_card_equals_hashlib(cuda_device, monkeypatch, tmp_path):
     got = verify_blocks_batch(cids, blocks, metrics=m, backend=backend)
     torch.cuda.synchronize()
     assert got == [verify_block_bytes(c, b) for c, b in zip(cids, blocks)]
-    assert m.counter_value("verify.device_calls") == 2
+    # one per kernel launch: every blake2b and keccak kernel launched once
+    launched = sum(blake2b.LAUNCHES.values()) + sum(keccak.LAUNCHES.values())
+    assert m.counter_value("verify.device_calls") == launched == 5
     assert all(blake2b.LAUNCHES[name] == 1 for name in blake2b.LAUNCHES)
     assert all(keccak.LAUNCHES[name] == 1 for name in keccak.LAUNCHES)
 

@@ -294,6 +294,51 @@ def test_decode_header_lite_acceptance_equals_reference(header_raw, kind):
     assert (ours[0] == "ok") == (kind == "valid")
 
 
+def _full_lite_outcome(decoder, raw):
+    try:
+        h = decoder(raw)
+    except ValueError:
+        return ("raise", "ValueError")
+    return ("ok", [c.to_bytes() for c in h.parents], h.height, h.timestamp,
+            h.parent_state_root.to_bytes(), h.parent_message_receipts.to_bytes(),
+            h.messages.to_bytes(), h.fork_signaling)
+
+
+@pytest.mark.parametrize("kind", ["valid", "truncated-1", "trailing", "arity-17", "parents-not-cids"])
+def test_block_header_decode_lite_equals_reference(header_raw, kind):
+    """`BlockHeader.decode_lite`: the reference's acceptance and fields
+    (the opaque ones, the miner included, come back as None in both); a
+    lite header refuses to re-encode."""
+    from ipc_proofs_tpu.state.header import BlockHeader as RefHeader
+
+    raw = _header_variant(header_raw, kind)
+    ours = _full_lite_outcome(BlockHeader.decode_lite, raw)
+    assert ours == _full_lite_outcome(RefHeader.decode_lite, raw)
+    assert ours == _full_lite_outcome(BlockHeader.decode, raw)
+    if kind == "valid":
+        with pytest.raises(ValueError, match="decode_lite"):
+            BlockHeader.decode_lite(raw).encode()
+        assert BlockHeader.decode(raw).cid().to_bytes() == RefHeader.decode(raw).cid().to_bytes()
+
+
+def test_amt_for_each_and_count_equal_reference():
+    from ipc_proofs_tpu.ipld.amt import AMT as RefAMT
+    from ipc_proofs_tpu.ipld.amt import amt_build as ref_amt_build
+    from ipc_proofs_tpu.ipld.amt import amt_count as ref_amt_count
+    from ipc_proofs_tpu.store.blockstore import MemoryBlockstore as RefStore
+    from ipc_proofs_tpu_torch.ipld.amt import AMT, amt_build, amt_count
+
+    values = {i * 7: f"v{i}".encode() for i in range(300)}
+    store, ref_store = MemoryBlockstore(), RefStore()
+    root, ref_root = amt_build(store, values), ref_amt_build(ref_store, values)
+    assert root.to_bytes() == ref_root.to_bytes()
+    ours, ref = [], []
+    AMT.load(store, root).for_each(lambda i, v: ours.append((i, v)))
+    RefAMT.load(ref_store, ref_root).for_each(lambda i, v: ref.append((i, v)))
+    assert ours == ref == sorted(values.items())
+    assert amt_count(values) == ref_amt_count(values) == 300
+
+
 # --- scanner, match, HAMT walker ---------------------------------------------
 
 
@@ -392,6 +437,31 @@ def test_range_bundle_equals_reference(worlds, monkeypatch, fused, with_storage)
     assert ours.to_json() == ref.to_json()
     assert metrics.counters["range_events"] == WORLD["n_pairs"] * 8 * 4
     assert {"range_scan", "range_match", "range_record"} <= metrics.stage_s.keys()
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_no_snapshot_knob_equals_reference(worlds, monkeypatch, fused):
+    """``IPC_SCAN_NO_SNAPSHOT=1`` (the differential knob: the C walks probe
+    the live dict under the GIL, provided snapshots ignored) gives the
+    bundle of the snapshot path, in both packages."""
+    from ipc_proofs_tpu_torch.proofs.scan_native import _snapshot_of
+
+    store, pairs, _, ref_store, ref_pairs = worlds
+    if not fused:
+        monkeypatch.setenv("IPC_SCAN_FUSED_MATCH", "0")
+    spec = EventProofSpec(SIG, TOPIC1, ACTOR)
+    slots = [MappingSlotSpec(*s) for s in STORAGE_SPECS]
+    with_snapshot = generate_event_proofs_for_range(
+        store, pairs, spec, match_backend=BACKEND, storage_specs=slots
+    ).to_json()
+    monkeypatch.setenv("IPC_SCAN_NO_SNAPSHOT", "1")
+    assert _snapshot_of(store, store._raw_readonly()) is None
+    ours = generate_event_proofs_for_range(store, pairs, spec, match_backend=BACKEND, storage_specs=slots)
+    ref = ref_generate(
+        ref_store, ref_pairs, RefSpec(SIG, TOPIC1, ACTOR), match_backend=ref_get_backend("cpu"),
+        storage_specs=[RefSlotSpec(*s) for s in STORAGE_SPECS],
+    )
+    assert ours.to_json() == ref.to_json() == with_snapshot
 
 
 def _extra_encodings(orig, put_cbor):

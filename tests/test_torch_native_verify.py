@@ -68,7 +68,8 @@ from ipc_proofs_tpu_torch.proofs.storage_verifier import (  # noqa: E402
     verify_storage_proof,
     verify_storage_proofs_batch,
 )
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle  # noqa: E402
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy as PortTrustPolicy  # noqa: E402
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store  # noqa: E402
 from ipc_proofs_tpu_torch.state.header import decode_header_lite  # noqa: E402
 from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot  # noqa: E402
@@ -509,7 +510,7 @@ def test_unified_verdicts_equal_reference(encoding):
     e_proofs = list(e_proofs)
     e_proofs[0] = dataclasses.replace(e_proofs[0], event_index=e_proofs[0].event_index + 1)
     ours = verify_proof_bundle(
-        UnifiedProofBundle(s_proofs, e_proofs, blocks), accept_all, accept_all,
+        UnifiedProofBundle(s_proofs, e_proofs, blocks), PortTrustPolicy.accept_all(),
         verify_witness_cids=True, cid_backend=BACKEND,
     )
     ref = ref_verify(

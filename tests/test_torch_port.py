@@ -19,6 +19,9 @@
   ``autotune_crossover`` and the verifying fetch plane and segment store
   raise instead of running on the CPU; the
   scalar replay of the ``IPC_PROOFS_NO_NATIVE=1`` universe runs no kernel.
+- The CLI (``python -m ipc_proofs_tpu_torch.cli``) defaults to the card:
+  without CUDA its ``demo``, ``verify`` and ``range`` exit with the
+  backend's error before any work, and ``--backend cpu`` runs.
 """
 
 import ast
@@ -48,7 +51,8 @@ from ipc_proofs_tpu_torch.proofs.storage_batch import (
     generate_storage_proofs_batch,
     hash_slot_specs,
 )
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.proofs.trust import MockTrustVerifier, TrustPolicy
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "ipc_proofs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -83,7 +87,9 @@ def test_port_files_exist():
         "parallel/pipeline.py", "jobs/journal.py", "jobs/job.py", "utils/threads.py",
         "utils/deadline.py", "utils/log.py", "utils/lockdep.py", "store/rpc.py",
         "ops/verify.py", "store/faults.py", "store/testing.py", "store/fetchplane.py",
-        "storex/segments.py", "storex/tiered.py",
+        "storex/segments.py", "storex/tiered.py", "cli.py", "crypto/bls.py",
+        "crypto/rleplus.py", "proofs/gpbft.py", "proofs/cert.py", "proofs/cert_cbor.py",
+        "proofs/trust.py", "proofs/address.py", "proofs/vectors.py", "utils/profiling.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
@@ -102,7 +108,8 @@ from ipc_proofs_tpu_torch.fixtures import build_range_world
 from ipc_proofs_tpu_torch.proofs import range as range_mod
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 import chip_smoke  # the smoke script's imports too
 
 assert load_scan_ext() is not None
@@ -128,7 +135,7 @@ bundle = generate_event_proofs_for_range(
     match_backend=backend,
 )
 assert native_ok == [True], native_ok
-result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True,
+result = verify_proof_bundle(bundle, TrustPolicy.accept_all(), verify_witness_cids=True,
                              cid_backend=backend)
 assert result.all_valid() and len(result.event_results) == n_matching > 0
 event_bundle = bundle
@@ -147,7 +154,7 @@ bundle = generate_event_proofs_for_range(
     match_backend=backend, storage_specs=specs,
 )
 assert storage_native == [True], storage_native
-result = verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True,
+result = verify_proof_bundle(bundle, TrustPolicy.accept_all(), verify_witness_cids=True,
                              cid_backend=backend)
 assert result.all_valid() and len(result.storage_results) == 8 and not bundle.event_proofs
 
@@ -155,6 +162,8 @@ import pkgutil, importlib, tempfile
 import ipc_proofs_tpu_torch
 for info in pkgutil.walk_packages(ipc_proofs_tpu_torch.__path__, "ipc_proofs_tpu_torch."):
     importlib.import_module(info.name)
+from ipc_proofs_tpu_torch import cli
+assert cli.main(["demo", "--backend", "cpu"]) == 0
 from ipc_proofs_tpu_torch.proofs.range import (
     generate_and_verify_range_overlapped,
     generate_event_proofs_for_range_pipelined,
@@ -164,7 +173,7 @@ with tempfile.TemporaryDirectory() as job_dir:
         store, pairs, EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
         chunk_size=3, match_backend=backend, scan_threads=2, force_pipeline=True, job_dir=job_dir,
         verify_chunk=lambda b: verify_proof_bundle(
-            b, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+            b, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
         ).event_results,
     )
 assert merged.to_json() == event_bundle.to_json()
@@ -237,6 +246,45 @@ def test_range_drivers_default_to_the_card(monkeypatch, small_range, driver):
         call()
 
 
+@pytest.mark.parametrize("command", ["demo", "verify", "range"])
+def test_cli_refuses_the_host_without_cuda(monkeypatch, tmp_path, small_range, command):
+    """With CUDA reported absent, the CLI's default ``--backend gpu`` exits
+    with the backend's error before any work, and ``--backend cpu`` runs."""
+    _, _, bundle = small_range
+    path = tmp_path / "bundle.json"
+    path.write_text(bundle.to_json())
+    argv = {
+        "demo": ["demo"],
+        "verify": ["verify", str(path), "--check-cids"],
+        "range": ["range", "--endpoint", "http://node.invalid/rpc/v1", "--from-height", "0",
+                  "--to-height", "1", "--event-sig", SPEC.event_signature, "--topic1", "x"],
+    }[command]
+    from ipc_proofs_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        cli.main(argv)
+    if command != "range":  # range's host run needs a node (tests/test_torch_cli.py)
+        assert cli.main(argv + ["--backend", "cpu"]) == 0
+
+
+def test_cli_module_exits_nonzero_without_cuda():
+    """``python -m ipc_proofs_tpu_torch.cli demo`` with CUDA reported
+    absent: a non-zero exit with the backend's error, no result printed."""
+    script = (
+        "import runpy, sys, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "sys.argv = ['ipc_proofs_tpu_torch.cli', 'demo']\n"
+        "runpy.run_module('ipc_proofs_tpu_torch.cli', run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert "All valid" not in proc.stdout
+
+
 def test_gpu_backend_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -267,7 +315,8 @@ from ipc_proofs_tpu_torch.backend.native import load_scan_ext
 from ipc_proofs_tpu_torch.fixtures import build_range_world
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 
 assert load_scan_ext() is None
 store, pairs, _ = build_range_world(4, 4, 2, 0.5)
@@ -276,7 +325,7 @@ bundle = generate_event_proofs_for_range(
     match_backend=get_backend("gpu", device="cpu"),
 )
 torch.cuda.is_available = lambda: False
-result = verify_proof_bundle(bundle, accept_all, accept_all)
+result = verify_proof_bundle(bundle, TrustPolicy.accept_all())
 assert result.event_results and result.all_valid()
 print("SCALAR REPLAY OK", len(result.event_results))
 """
@@ -289,15 +338,17 @@ def test_entry_points_default_to_the_card(monkeypatch, small_range):
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_event_proofs_for_range(store, pairs, SPEC)
     with pytest.raises(RuntimeError, match="CUDA"):
-        verify_proof_bundle(bundle, accept_all, accept_all, verify_witness_cids=True)
+        verify_proof_bundle(bundle, TrustPolicy.accept_all(), verify_witness_cids=True)
     # the batched replay's TxMeta recompute needs the card ...
     with pytest.raises(RuntimeError, match="CUDA"):
-        verify_proof_bundle(bundle, accept_all, accept_all)
+        verify_proof_bundle(bundle, TrustPolicy.accept_all())
     # ... and runs on the backend it is given
-    assert verify_proof_bundle(bundle, accept_all, accept_all, cid_backend=backend).all_valid()
+    assert verify_proof_bundle(bundle, TrustPolicy.accept_all(), cid_backend=backend).all_valid()
     # no proof reaches the TxMeta recompute: nothing needs the card
     assert not any(
-        verify_proof_bundle(bundle, lambda e, c: False, accept_all).event_results
+        verify_proof_bundle(
+            bundle, TrustPolicy.with_custom_verifier(MockTrustVerifier(parent_result=False))
+        ).event_results
     )
     # the scalar replay of the pure-Python universe runs no kernel
     env = dict(os.environ, PYTHONPATH=str(ROOT), IPC_PROOFS_NO_NATIVE="1")
@@ -322,11 +373,11 @@ def test_witness_block_of_another_multihash_recomputes_on_the_host(small_range, 
     if tamper:
         with pytest.raises(ValueError):
             verify_proof_bundle(
-                mixed, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+                mixed, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
             )
     else:
         assert verify_proof_bundle(
-            mixed, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+            mixed, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
         ).all_valid()
 
 

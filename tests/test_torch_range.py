@@ -36,7 +36,8 @@ from ipc_proofs_tpu_torch.proofs.event_generator import (  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec  # noqa: E402
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle  # noqa: E402
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy as PortTrustPolicy  # noqa: E402
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle  # noqa: E402
 from ipc_proofs_tpu_torch.utils.metrics import Metrics  # noqa: E402
 
 WORLD = dict(n_pairs=24, receipts_per_pair=8, events_per_receipt=4, match_rate=0.125)
@@ -143,28 +144,39 @@ def test_verdicts_equal_reference(ref_world, port_world):
     )
     backend = get_backend("gpu", device="cpu")
     ours = verify_proof_bundle(
-        port_world[3], accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+        port_world[3], PortTrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
     )
-    replay_only = verify_proof_bundle(port_world[3], accept_all, accept_all, cid_backend=backend)
+    replay_only = verify_proof_bundle(port_world[3], PortTrustPolicy.accept_all(), cid_backend=backend)
     assert ours.event_results == replay_only.event_results == ref.event_results
     assert ours.all_valid() and len(ours.event_results) == port_world[2]
 
 
 def test_rejecting_trust_callables_match_reference(ref_world, port_world):
-    def reject_parent(epoch, cids):
-        return epoch % 4 != 0
+    class RejectParent:
+        def verify_parent_tipset(self, epoch, cids):
+            return epoch % 4 != 0
 
-    def broken(epoch, cid):
-        raise RuntimeError("trust check unavailable")
+        def verify_child_header(self, epoch, cid):
+            return True
+
+    class Broken(RejectParent):
+        def verify_parent_tipset(self, epoch, cids):
+            return True
+
+        def verify_child_header(self, epoch, cid):
+            raise RuntimeError("trust check unavailable")
+
+    reject_parent = PortTrustPolicy.with_custom_verifier(RejectParent())
+    broken = PortTrustPolicy.with_custom_verifier(Broken())
 
     backend = get_backend("gpu", device="cpu")
     ref = ref_verify(ref_world[3], TrustPolicy.accept_all()).event_results
     ours = verify_proof_bundle(
-        port_world[3], reject_parent, accept_all, cid_backend=backend
+        port_world[3], reject_parent, cid_backend=backend
     ).event_results
     assert ours == [r and p.parent_epoch % 4 != 0 for r, p in zip(ref, port_world[3].event_proofs)]
     assert not any(
-        verify_proof_bundle(port_world[3], accept_all, broken, cid_backend=backend).event_results
+        verify_proof_bundle(port_world[3], broken, cid_backend=backend).event_results
     )
 
 
@@ -185,7 +197,7 @@ def test_tampered_block_rejected_by_both(ref_world, port_world, which):
         )
     with pytest.raises(ValueError):
         verify_proof_bundle(
-            _tampered(port_world[3], ProofBlock, index), accept_all, accept_all,
+            _tampered(port_world[3], ProofBlock, index), PortTrustPolicy.accept_all(),
             verify_witness_cids=True, cid_backend=get_backend("gpu", device="cpu"),
         )
 
@@ -208,7 +220,7 @@ def test_reference_bundle_json_parses_and_verifies(ref_world):
     bundle = UnifiedProofBundle.from_json(text)
     assert bundle.to_json() == text
     assert verify_proof_bundle(
-        bundle, accept_all, accept_all, cid_backend=get_backend("gpu", device="cpu")
+        bundle, PortTrustPolicy.accept_all(), cid_backend=get_backend("gpu", device="cpu")
     ).all_valid()
     # and the other way: the port's JSON is a valid reference bundle
     assert RefBundle.from_json(bundle.to_json()).digest() == bundle.digest()
@@ -247,7 +259,7 @@ def test_range_with_storage_specs_equals_reference(port_world, storage_ranges):
     assert {b.cid for b in port_world[3].blocks} < {b.cid for b in ours.blocks}
     backend = get_backend("gpu", device="cpu")
     result = verify_proof_bundle(
-        ours, accept_all, accept_all, verify_witness_cids=True, cid_backend=backend
+        ours, PortTrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
     )
     ref_result = ref_verify(
         ref, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=ref_get_backend("cpu")

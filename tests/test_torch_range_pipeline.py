@@ -48,7 +48,8 @@ from ipc_proofs_tpu_torch.proofs.range import (
 )
 from ipc_proofs_tpu_torch.proofs.scan_native import scan_events_flat, scan_match_hits
 from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy as PortTrustPolicy
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, hash_event_signature
 from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
 from ipc_proofs_tpu_torch.store.blockstore import MemoryBlockstore
@@ -162,7 +163,7 @@ class _CountingBackend:
 
 
 def _verify_chunk(bundle):
-    return verify_proof_bundle(bundle, accept_all, accept_all, cid_backend=BACKEND).event_results
+    return verify_proof_bundle(bundle, PortTrustPolicy.accept_all(), cid_backend=BACKEND).event_results
 
 
 @pytest.mark.parametrize("with_storage", [False, True], ids=["events", "events+storage"])
@@ -299,7 +300,7 @@ def test_worker_grid_with_storage_values(chain_worlds, record_workers, verify_wo
     assert [int(p.value, 16) for p in piped.storage_proofs] == [1, 2, 3, 4, 5]
     assert results == [1, 1, 1] and sum(results) == len(piped.event_proofs) == 3
     assert verify_proof_bundle(
-        piped, accept_all, accept_all, verify_witness_cids=True, cid_backend=BACKEND
+        piped, PortTrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=BACKEND
     ).all_valid()
 
 

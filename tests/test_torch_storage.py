@@ -73,7 +73,8 @@ from ipc_proofs_tpu_torch.proofs.storage_batch import (  # noqa: E402
 )
 from ipc_proofs_tpu_torch.proofs.storage_generator import generate_storage_proof  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.storage_verifier import verify_storage_proof  # noqa: E402
-from ipc_proofs_tpu_torch.proofs.verifier import accept_all, verify_proof_bundle  # noqa: E402
+from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy as PortTrustPolicy  # noqa: E402
+from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle  # noqa: E402
 from ipc_proofs_tpu_torch.state.actors import get_actor_state, parse_evm_state  # noqa: E402
 from ipc_proofs_tpu_torch.state.address import Address  # noqa: E402
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32  # noqa: E402
@@ -223,9 +224,9 @@ def test_scalar_proofs_equal_reference(worlds):
         )
         assert proof.to_json_obj() == ref_proof.to_json_obj()
         assert [b.to_json_obj() for b in blocks] == [b.to_json_obj() for b in ref_blocks]
-        assert verify_storage_proof(proof, blocks, accept_all)
+        assert verify_storage_proof(proof, blocks, PortTrustPolicy.accept_all().verify_child_header)
         assert verify_proof_bundle(
-            UnifiedProofBundle([proof], [], blocks), accept_all, accept_all,
+            UnifiedProofBundle([proof], [], blocks), PortTrustPolicy.accept_all(),
             verify_witness_cids=True, cid_backend=BACKEND,
         ).storage_results == [True]
     with pytest.raises(ValueError, match="32 bytes"):
@@ -250,7 +251,7 @@ def test_unified_bundle_equals_reference(worlds):
     assert len(bundle.storage_proofs) == len(bundle.event_proofs) == N_CONTRACTS
     assert bundle.to_json() == ref_bundle.to_json()
     result = verify_proof_bundle(
-        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=BACKEND
+        bundle, PortTrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=BACKEND
     )
     ref_result = ref_verify(ref_bundle, TrustPolicy.accept_all())
     assert result.all_valid()
@@ -266,7 +267,7 @@ def _tamper_proof(bundle, index, **fields):
 
 def _both_verdicts(bundle, ref_bundle_cls=RefBundle):
     ours = verify_proof_bundle(
-        bundle, accept_all, accept_all, verify_witness_cids=True, cid_backend=BACKEND
+        bundle, PortTrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=BACKEND
     ).storage_results
     ref = ref_verify(
         ref_bundle_cls.from_json(bundle.to_json()), TrustPolicy.accept_all(),
@@ -299,7 +300,15 @@ def test_tampered_claims_give_the_reference_verdicts(batches, field):
 def test_rejecting_trust_anchor(batches):
     bundle = batches[0]
     epoch = bundle.storage_proofs[0].child_epoch
-    result = verify_proof_bundle(bundle, accept_all, lambda e, cid: e != epoch)
+
+    class RejectEpoch:
+        def verify_parent_tipset(self, e, cids):
+            return True
+
+        def verify_child_header(self, e, cid):
+            return e != epoch
+
+    result = verify_proof_bundle(bundle, PortTrustPolicy.with_custom_verifier(RejectEpoch()))
     assert not any(result.storage_results)
 
 
@@ -315,7 +324,7 @@ def test_flipped_witness_byte_is_rejected_by_both(batches):
         tampered = dataclasses.replace(bundle, blocks=blocks)
         with pytest.raises(ValueError):
             verify_proof_bundle(
-                tampered, accept_all, accept_all, verify_witness_cids=True, cid_backend=BACKEND
+                tampered, PortTrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=BACKEND
             )
         with pytest.raises(ValueError):
             ref_verify(

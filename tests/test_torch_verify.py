@@ -116,8 +116,10 @@ class TestDifferentialGrid:
         assert counters["verify.batch_blocks"] == len(cids)
         batchable = sum(c.mh_code in (BLAKE2B_256, KECCAK_256) for c in cids)
         if lane == "device":
-            # one backend call per family, no filler rows
-            assert counters["verify.device_calls"] == 2
+            # one kernel dispatch per size class of each family (blake2b:
+            # single, two and multi-block; keccak: single and multi-block),
+            # no filler rows
+            assert counters["verify.device_calls"] == 5
             assert counters["verify.device_blocks"] == batchable
             assert counters["verify.scalar_blocks"] == len(cids) - batchable
         else:
@@ -140,8 +142,9 @@ class TestDifferentialGrid:
 
     def test_one_huge_block_among_small_ones(self, monkeypatch):
         """One 16 KiB block beside 40 small ones: the same verdicts as the
-        reference's, in ONE blake2b call (the backend splits it by size
-        class; the reference makes one call per power-of-two class)."""
+        reference's, in ONE blake2b call that the backend splits into two
+        kernel dispatches (single-block and multi-block), each counted in
+        ``verify.device_calls``, the reference's unit."""
         monkeypatch.setenv("IPC_VERIFY_MIN_BYTES", DEVICE)
         small = [b"s%02d" % i * 20 for i in range(40)]
         huge = bytes(range(256)) * 64
@@ -152,7 +155,29 @@ class TestDifferentialGrid:
         got = verify_blocks_batch(cids, blocks, metrics=m, backend=CPU)
         assert got == [i != 7 for i in range(len(blocks))]
         assert got == ref_verify.verify_blocks_batch(_ref(cids), blocks)
-        assert m.snapshot()["counters"]["verify.device_calls"] == 1
+        assert m.snapshot()["counters"]["verify.device_calls"] == 2
+
+    def test_device_calls_count_kernel_dispatches(self, grid, monkeypatch):
+        """``verify.device_calls`` is the reference's unit, one per kernel
+        dispatch of the lane: it equals the number of per-class kernel
+        calls the backend makes, not the number of families."""
+        monkeypatch.setenv("IPC_VERIFY_MIN_BYTES", DEVICE)
+        cids, _, blocks, want = grid
+        backend = get_backend("gpu", device="cpu")
+        dispatches = []
+        for name in ("_single_block", "_two_block", "_multi_block",
+                     "_keccak_single_block", "_keccak_multi_block"):
+            original = getattr(backend, name)
+
+            def counted(messages, original=original, name=name):
+                dispatches.append(name)
+                return original(messages)
+
+            monkeypatch.setattr(backend, name, counted)
+        m = Metrics()
+        assert verify_blocks_batch(cids, blocks, metrics=m, backend=backend) == want
+        assert len(dispatches) == len(set(dispatches)) == 5
+        assert m.counter_value("verify.device_calls") == len(dispatches)
 
     def test_empty_and_mismatched_inputs(self):
         assert verify_blocks_batch([], [], backend=CPU) == []
