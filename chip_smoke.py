@@ -26,6 +26,21 @@ Phases, none of which may fail:
    - keccak: 1,048,576 single-block messages of 0–135 B, and 262,144
      multi-block messages of 136–543 B (2–4 blocks) with rows whose block
      count is 0 (digest of zeros) or above the layout's 4 (absorbs 4);
+3a. device match pipeline — the kernel leg's world at full width,
+   ``synthetic_event_batch(4096, 16, 4, match_rate=0.01, seed=42)``
+   (262,144 events, 16.8 MB of topic words), through ``match_pipeline`` on
+   the card and ``sharded_match_pipeline`` on the real mesh
+   ``make_mesh(1)`` and on a virtual (dp=2, sp=2) mesh over
+   ``[cuda:0] * 4``: each bit-equal to the plain run on the CPU, six block
+   evaluations counted; ``receipts_with_match`` over the flat mask equal
+   to the hits; each timed by ``measure_pass_seconds`` (µs a pass, events/s,
+   from replays of one CUDA graph) and by CUDA events beside its byte bound, and the fingerprint mask over
+   the same events (single device and the virtual mesh) against the plain
+   mask;
+3b. CID bench — ``blake2b_cid_bench_setup`` over 1,048,576 nodes of 200 B
+   from the seed (BASELINE config 4; the two-block kernel): every first
+   digest equal to hashlib; CIDs/s by the slope of k passes, and the kernel
+   alone by CUDA events;
 4. event path — ``build_range_world(4096, 16, 4, 0.01)`` (BASELINE config
    2), then ``generate_event_proofs_for_range`` with ``get_backend("gpu")``
    and ``verify_proof_bundle`` with the witness CID recompute on the card,
@@ -61,6 +76,19 @@ Phases, none of which may fail:
    ``IPC_SCAN_FUSED_MATCH=0`` must pass the same checks, give the same
    bytes and launch the fingerprint mask (its coalescing counted), each
    recorded mask equal to the plain mask on the same arrays;
+5a. mesh range — the same world with the topdown nonce slot at every pair
+   through ``generate_event_proofs_for_range`` with ``get_backend("gpu",
+   mesh_devices=1)`` and with a virtual 4-device mesh on the card (the
+   fused scan off, the fingerprint mask sharded): the single-device
+   bundle's bytes; then ``generate_and_verify_range_overlapped`` over the
+   virtual mesh: the same bytes, every verdict true,
+   ``range_match_coalesced`` and the sharded mask's launches non-zero; every recorded mask and hash equal to the
+   plain versions; then ``dryrun_multichip`` over the real cards and over
+   ``[cuda:0] * 4``;
+5b. multihost — a one-rank NCCL group on the card (a TCP store on
+   localhost): the sharded match over ``global_mesh(sp=2)`` on
+   ``[cuda:0] * 4``, the count all-reduced and the hits all-gathered
+   through NCCL, equal to the single-device run;
 6. storage path — BASELINE config 3: ``build_chain`` with 256 EVM
    contracts × 256 mapping slots (keys ``keccak(ascii_to_bytes32(
    f"subnet-{c}") ‖ be32(i))``, hashed on the card and sampled against
@@ -168,6 +196,10 @@ Phases, none of which may fail:
      fails; ``--emit-cbor`` writes CBOR that validates again;
    - ``generate`` (one pair: the slot keccak launched), ``vectors``
      (capture, then ``check_vectors``) and ``demo``, each exit 0;
+15a. CLI ``range --mesh-devices 1`` over the first 512 pairs of the chained
+   world (default crossovers): the bundle of the same command without the
+   flag, the full-word mask launched sharded with the flag and flat
+   without it, every recorded kernel call equal to the plain versions;
 16. autotune — ``autotune_crossover(quick=False)`` on the card, its record
    written as ``verify_autotune_cuda.json``; last, since the tuned crossover
    applies to every later verify call of the process.
@@ -182,7 +214,9 @@ event path for blake2b, the storage path for the single-block keccak, the
 mixed-multihash sweep for the multi-block keccak); ``launches_by_path``
 holds its count on each path (the unfused event run, the overlapped runs,
 the resumable range's two runs, the two pure-Python paths, the cold
-read path's phases and the CLI's runs included).
+read path's phases, the CLI's runs and the mesh phases included). The
+device match functions (PyTorch ops, not kernels of this repository)
+report their times in their phase's line.
 """
 
 from __future__ import annotations
@@ -201,6 +235,7 @@ import os
 import re
 import shutil
 import struct
+import socket
 import subprocess
 import sys
 import tempfile
@@ -214,7 +249,7 @@ import torch
 from ipc_proofs_tpu_torch import backend as backend_mod
 from ipc_proofs_tpu_torch import cli
 from ipc_proofs_tpu_torch.backend import get_backend
-from ipc_proofs_tpu_torch.backend.gpu import KECCAK_CLASSES, SIZE_CLASSES, keccak_class, size_class
+from ipc_proofs_tpu_torch.backend.gpu import KECCAK_CLASSES, SIZE_CLASSES, GpuBackend, keccak_class, size_class
 from ipc_proofs_tpu_torch.backend.native import load_scan_ext
 from ipc_proofs_tpu_torch.core.cid import (
     BLAKE2B_256,
@@ -235,7 +270,20 @@ from ipc_proofs_tpu_torch.fixtures import (
     power_table_json,
     seeded_power_table,
 )
+from ipc_proofs_tpu_torch.entry import dryrun_multichip
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
+from ipc_proofs_tpu_torch.ops.cid_bench import blake2b_cid_bench_setup
+from ipc_proofs_tpu_torch.parallel import pipeline
+from ipc_proofs_tpu_torch.parallel.mesh import make_mesh
+from ipc_proofs_tpu_torch.parallel.multihost import global_mesh, host_local_pairs, initialize_distributed
+from ipc_proofs_tpu_torch.parallel.pipeline import (
+    EventBatch,
+    batch_args,
+    match_pipeline,
+    sharded_match_pipeline,
+    synthetic_event_batch,
+)
+from ipc_proofs_tpu_torch.proofs.scan_native import topic_fingerprint
 from ipc_proofs_tpu_torch.jobs.journal import FRAME_HEADER
 from ipc_proofs_tpu_torch.ops.build import build_libraries, cuda_tool
 from ipc_proofs_tpu_torch.ops.pack import (
@@ -265,7 +313,7 @@ from ipc_proofs_tpu_torch.proofs.vectors import check_vectors, load_vectors
 from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
 from ipc_proofs_tpu_torch.state.address import Address
-from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, left_pad_32
+from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, hash_event_signature, left_pad_32
 from ipc_proofs_tpu_torch.store import rpc as rpc_mod
 from ipc_proofs_tpu_torch.store import fetchplane as fetchplane_mod
 from ipc_proofs_tpu_torch.store.faults import FaultPlan, FaultySession, LocalLotusSession
@@ -276,6 +324,7 @@ from ipc_proofs_tpu_torch.storex import SEGMENT_MAGIC, SegmentStore, TieredBlock
 from ipc_proofs_tpu_torch.storex import segments as segments_mod
 from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
+from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
 
 # Peak rates of one H100 SXM at its 700 W limit. Memory: HBM3 at 3.35 TB/s
 # (NVIDIA data sheet). Integer: the CUDA C++ Programming Guide's
@@ -655,12 +704,13 @@ def _reject_changed_value(bundle) -> None:
 def _reset_counts() -> None:
     blake2b.reset_launch_counts()
     keccak.reset_launch_counts()
-    for name in match.LAUNCHES:
-        match.LAUNCHES[name] = 0
+    for counts in (match.LAUNCHES, pipeline.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _counts() -> "dict[str, int]":
-    return dict(blake2b.LAUNCHES, **keccak.LAUNCHES, **match.LAUNCHES)
+    return dict(blake2b.LAUNCHES, **keccak.LAUNCHES, **match.LAUNCHES, **pipeline.LAUNCHES)
 
 
 def _require_launched(path: str, launches: "dict[str, int]", names) -> None:
@@ -842,8 +892,13 @@ def _check_recorded(label: str, recording: _RecordingBackend, plain_cache: dict)
                 raise AssertionError(f"{label}: a {kind} batch differs from the host golden model")
         checked[kind] = {"batches": len(batches), "rows": sum(len(m) for m, _ in batches)}
     for args, mask in recording.masks:
-        if not np.array_equal(mask, cpu.event_match_mask_fp(*args)):
+        # a mesh backend's mask has the padded length: its first N rows
+        # count, and its filler rows must all be False
+        n = len(args[0])
+        if not np.array_equal(mask[:n], cpu.event_match_mask_fp(*args)):
             raise AssertionError(f"{label}: a fingerprint mask differs from the plain mask")
+        if np.asarray(mask[n:]).any():
+            raise AssertionError(f"{label}: a filler row of a padded fingerprint mask matched")
     checked["event_match_mask_fp"] = {"calls": len(recording.masks), "rows": sum(len(a[0]) for a, _ in recording.masks)}
     for args, mask in recording.event_masks:
         if mask != cpu.event_match_mask(*args):
@@ -1999,8 +2054,12 @@ def _cli_node(session, recording):
     ``recording``, which records every kernel call for `_check_recorded`."""
     real_client, real_backend = rpc_mod.LotusClient, backend_mod.get_backend
 
-    def get_backend_(name="gpu", device=None):
-        return recording if device is None else real_backend(name, device=device)
+    def get_backend_(name="gpu", device=None, mesh_devices=None):
+        if device is not None:
+            return real_backend(name, device=device, mesh_devices=mesh_devices)
+        if (mesh_devices is None) != (getattr(recording, "mesh", None) is None):
+            raise AssertionError(f"the CLI asked for mesh_devices={mesh_devices}; the recording has {recording.mesh}")
+        return recording
 
     rpc_mod.LotusClient = lambda endpoint, **kw: real_client(endpoint, session=session, metrics=kw.get("metrics"))
     backend_mod.get_backend = get_backend_
@@ -2246,6 +2305,346 @@ def cli_rest(world, root: str) -> dict:
     return out
 
 
+# --- slice 7: the device mesh and the batch match pipeline ------------------------
+
+MATCH_WORLD = (4096, 16, 4)  # bench.py's kernel leg world: T, R, E (262,144 events)
+CID_MESSAGES = 1 << 20  # BASELINE config 4: 1,048,576 nodes of 200 B
+CID_NODE_BYTES = 200
+MESH_CLI_PAIRS = 512  # the CLI's mesh run: a prefix of the chained world
+
+
+def _match_bytes(batch: EventBatch) -> int:
+    """What `match_pipeline` must move: each input read once (topics 64 B,
+    n_topics 4 B, emitters 4 B, valid 1 B an event), each output written
+    once (the mask 1 B an event, the hits 1 B a receipt, the count)."""
+    t, r, e = batch.shape
+    return t * r * e * (64 + 4 + 4 + 1 + 1) + t * r + 4
+
+
+def _pass_body(fn):
+    """A `measure_pass_seconds` body for a match function over seven
+    arguments: ``i`` is XORed into topic0's 8 spec words (not into the
+    16.8 MB of topics, which in eager PyTorch would be a pass of its own),
+    and the pass returns the count."""
+
+    def body(i, topics, n_topics, emitters, valid, topic0, topic1, actor_id):
+        return fn(topics, n_topics, emitters, valid, topic0 ^ i, topic1, actor_id)[2]
+
+    return body
+
+
+def _sharded_body(fn):
+    """`_pass_body` for a sharded function: ``i`` into every replica of
+    topic0's spec words."""
+
+    def body(i, topics, n_topics, emitters, valid, topic0, topic1, actor_id):
+        spec = tuple(t ^ i.to(t.device) for t in topic0)
+        return fn(topics, n_topics, emitters, valid, spec, topic1, actor_id)[2]
+
+    return body
+
+
+def _same_match(label: str, got, want) -> None:
+    hits, mask, count = (x.cpu() for x in got)
+    if not (torch.equal(hits, want[0]) and torch.equal(mask, want[1]) and int(count) == int(want[2])):
+        raise AssertionError(f"{label}: differs from the plain run on the CPU")
+
+
+def device_match_phase(device, smi: str) -> dict:
+    """The kernel leg's world at full width (``synthetic_event_batch(4096,
+    16, 4, match_rate=0.01, seed=42)``: 262,144 events, 16.8 MB of topic
+    words) through `match_pipeline` on the card, `sharded_match_pipeline`
+    on the real mesh ``make_mesh(1)`` and on a virtual (dp=2, sp=2) mesh
+    over ``[cuda:0] * 4``: each bit-equal to the plain run on the CPU, and
+    `receipts_with_match` over the flat mask equal to the hits. Then each
+    is timed: per-pass µs by `measure_pass_seconds` (the slope of k
+    replays of the pass captured as one CUDA graph, host clock, one sync)
+    and by CUDA events over 20 back-to-back calls,
+    beside the byte bound; the fingerprint mask on the same events too."""
+    t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
+    batch = synthetic_event_batch(*MATCH_WORLD, t0, t1, emitter=ACTOR_ID, match_rate=0.01, seed=42)
+    t, r, e = batch.shape
+    plain = match_pipeline(*batch_args(batch, t0, t1, ACTOR_ID, "cpu"))
+    single_args = batch_args(batch, t0, t1, ACTOR_ID, device)
+    meshes = {"mesh of 1": make_mesh(1), "virtual mesh (dp=2, sp=2)": make_mesh(4, sp=2, devices=[device] * 4)}
+    sharded = {label: sharded_match_pipeline(mesh) for label, mesh in meshes.items()}
+    sharded_args = {label: shard(batch, t0, t1, ACTOR_ID) for label, (_, shard) in sharded.items()}
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    outs = {"single device": match_pipeline(*single_args)}
+    for label, (fn, _) in sharded.items():
+        outs[label] = fn(*sharded_args[label])
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches["match_pipeline"] != 1 + 1 + 4:
+        raise AssertionError(f"device match: launches {launches}")
+    for label, out in outs.items():
+        _same_match(f"device match ({label})", out, plain)
+    flat = outs["single device"][1].reshape(-1)
+    ids = torch.arange(t * r, dtype=torch.int32, device=device).repeat_interleave(e)
+    receipts = match.receipts_with_match(flat, ids, t * r)
+    if not torch.equal(receipts.cpu(), plain[0].reshape(-1)):
+        raise AssertionError("receipts_with_match differs from the plain hits")
+
+    bound_ms = _match_bytes(batch) / HBM_BYTES_PER_S * 1e3
+    timings = {}
+    for label, fn, args, body in (
+        ("single device", match_pipeline, single_args, _pass_body(match_pipeline)),
+        *((label, fn, sharded_args[label], _sharded_body(fn)) for label, (fn, _) in sharded.items()),
+    ):
+        pt = measure_pass_seconds(body, args)
+        if not pt.graph:
+            raise AssertionError(f"device match ({label}): the slope did not replay a CUDA graph")
+        ms = _cuda_ms(lambda: fn(*args), reps=20)
+        timings[label] = {
+            "pass_us": pt.seconds * 1e6, "k": [pt.k_small, pt.k_large],
+            "events_per_s": t * r * e / pt.seconds, "ms": ms, "bound_ms": bound_ms,
+        }
+        _log(f"device match ({label}) on {smi}: {pt.seconds * 1e6:.1f} us/pass (slope k={pt.k_small}/"
+             f"{pt.k_large}, graph replays), {t * r * e / pt.seconds:,.0f} events/s; CUDA events {ms * 1e3:.1f} us a call; "
+             f"bound {bound_ms * 1e3:.2f} us (bytes)")
+
+    receipt_ms = _cuda_ms(lambda: match.receipts_with_match(flat, ids, t * r), reps=20)
+    receipt_bound = (t * r * e * (1 + 4) + t * r) / HBM_BYTES_PER_S * 1e3
+    library_ms = _cuda_ms(lambda: outs["single device"][1].any(dim=-1), reps=20)
+
+    # the fingerprint mask over the same events: one u64 and a valid bit an event
+    fp = np.random.default_rng(42).integers(0, 1 << 63, size=t * r * e, dtype=np.uint64)
+    fp[::100] = np.uint64(topic_fingerprint(t0, t1))
+    n_topics = np.full(t * r * e, 2, dtype=np.int32)
+    emitters = np.full(t * r * e, ACTOR_ID, dtype=np.int64)
+    valid = np.ones(t * r * e, dtype=bool)
+    target = int.from_bytes(topic_fingerprint(t0, t1).to_bytes(8, "little"), "little", signed=True)
+    f_dev = torch.from_numpy(fp.view(np.int64)).to(device)
+    v_dev = torch.from_numpy(valid).to(device)
+    fp_ms = _cuda_ms(lambda: v_dev & (f_dev == target), reps=20)
+    fp_bound = t * r * e * (8 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+    cpu_backend = get_backend("gpu", device="cpu")
+    want = cpu_backend.event_match_mask_fp(fp, n_topics, emitters, valid, t0, t1, ACTOR_ID)
+    fp_calls = {}
+    for label, backend in (("single device", get_backend("gpu")),
+                           ("virtual mesh of 4", GpuBackend(device, mesh=meshes["virtual mesh (dp=2, sp=2)"]))):
+        got = backend.event_match_mask_fp(fp, n_topics, emitters, valid, t0, t1, ACTOR_ID)
+        if not np.array_equal(got[: len(fp)], want):
+            raise AssertionError(f"fingerprint mask ({label}) differs from the plain mask")
+        start = time.perf_counter()
+        for _ in range(10):
+            backend.event_match_mask_fp(fp, n_topics, emitters, valid, t0, t1, ACTOR_ID)
+        fp_calls[label] = (time.perf_counter() - start) * 1e2  # ms a call, copies included
+    _log(f"fingerprint mask on {smi}: compare {fp_ms * 1e3:.1f} us on the card (bound {fp_bound * 1e3:.2f} us); "
+         f"a whole call with its copies {json.dumps(fp_calls)} ms")
+    _log(f"receipts_with_match on {smi}: {receipt_ms * 1e3:.1f} us (bound {receipt_bound * 1e3:.2f} us; "
+         f"mask.any(dim=-1) {library_ms * 1e3:.1f} us)")
+    return {
+        "events": t * r * e, "topic_bytes": batch.topics.nbytes, "matches": int(plain[2]),
+        "timings": timings,
+        "receipts_with_match": {"ms": receipt_ms, "bound_ms": receipt_bound, "library_ms": library_ms},
+        "fp_mask": {"ms": fp_ms, "bound_ms": fp_bound, "call_ms": fp_calls},
+        "launches": launches,
+    }
+
+
+def cid_bench_phase(seed: int, smi: str, per_compression: "dict[str, dict[str, int]]") -> dict:
+    """BASELINE config 4: `blake2b_cid_bench_setup` over 1,048,576 nodes of
+    200 B from the seed (the two-block kernel); every first digest equal to
+    hashlib; CIDs/s from `measure_pass_seconds` (each pass XORs ``i`` into
+    the first plane, then hashes), and the kernel alone by CUDA events
+    beside its bound (two compressions a node, as the kernel phase counts
+    them)."""
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 256, size=(CID_MESSAGES, CID_NODE_BYTES), dtype=np.uint8)
+    messages = [row.tobytes() for row in payload]
+    _reset_counts()
+    one_pass, args, first, name = blake2b_cid_bench_setup(messages)
+    torch.cuda.synchronize()
+    launches = _counts()
+    if name != "blake2b256_two_block" or launches[name] != 1:
+        raise AssertionError(f"cid bench: kernel {name}, launches {launches}")
+    digests = first.astype("<u4").tobytes()
+    for i, message in enumerate(messages):
+        if digests[32 * i : 32 * i + 32] != _blake2b(message):
+            raise AssertionError(f"cid bench: digest {i} differs from hashlib")
+    pt = measure_pass_seconds(one_pass, args, k_small=3, k_large=23)
+    if not pt.graph:
+        raise AssertionError("cid bench: the slope did not replay a CUDA graph")
+    kernel = getattr(blake2b, name)
+    kernel_ms = _cuda_ms(lambda: kernel(*args), reps=20)
+    rate = CID_MESSAGES / pt.seconds
+    bytes_ms = CID_MESSAGES * (256 + 4 + 32) / HBM_BYTES_PER_S * 1e3
+    ops_ms = _ops_ms(per_compression["SplitPlanes"], 2 * CID_MESSAGES)
+    _log(f"cid bench on {smi}: {name}, {rate:,.0f} CIDs/s (slope k={pt.k_small}/{pt.k_large}, "
+         f"{pt.seconds * 1e3:.4f} ms a pass with the XOR); kernel alone {kernel_ms:.4f} ms, "
+         f"{CID_MESSAGES / kernel_ms * 1e3:,.0f} CIDs/s, bound {max(bytes_ms, ops_ms):.4f} ms")
+    return {"messages": CID_MESSAGES, "kernel": name, "pass_ms": pt.seconds * 1e3, "k": [pt.k_small, pt.k_large],
+            "cids_per_s": rate, "kernel_ms": kernel_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "launches": launches}
+
+
+def _mesh_generate(label, store, pairs, backend, specs, expected, plain_cache):
+    """One serial range run with a mesh backend, counts from 0: its bytes
+    equal to the single-device bundle's, the sharded mask launched, and
+    every recorded kernel call and mask equal to the plain versions."""
+    recording = _RecordingBackend(backend)
+    gc.collect()
+    _reset_counts()
+    t0 = time.perf_counter()
+    bundle = generate_event_proofs_for_range(
+        store, pairs, EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID), match_backend=recording, storage_specs=specs
+    )
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    if bundle.to_json() != expected:
+        raise AssertionError(f"{label}: the bundle differs from the single-device bundle")
+    _require_launched(label, launches, ["event_match_mask_fp_sharded", "keccak256_single_block"])
+    checked = _check_recorded(label, recording, plain_cache)
+    return {"wall_ms": wall_ms, "proofs_per_s": len(bundle.event_proofs) / wall_ms * 1e3,
+            "launches": launches, "checked": checked}
+
+
+def mesh_range(world, device) -> dict:
+    """The event path's world with the topdown nonce slot at every pair,
+    through `generate_event_proofs_for_range` with ``get_backend("gpu",
+    mesh_devices=1)`` and with a virtual 4-device mesh on the card: the
+    single-device bundle's bytes; then `generate_and_verify_range_overlapped`
+    over the virtual mesh at the host's budget: the same bytes, every
+    verdict true, the coalescer's ``range_match_coalesced`` and the sharded
+    mask's launches non-zero, every recorded mask (its filler rows False)
+    and hash equal to the plain versions; last
+    `dryrun_multichip` over the real cards and over ``[cuda:0] * 4``."""
+    store, pairs, n_matching = world
+    specs = [MappingSlotSpec(ACTOR_ID, TOPIC1, 0)]
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    single = get_backend("gpu")
+    expected = generate_event_proofs_for_range(store, pairs, spec, match_backend=single, storage_specs=specs).to_json()
+    virtual = GpuBackend(device, mesh=make_mesh(4, sp=2, devices=[device] * 4))
+    plain_cache: dict = {}
+    out = {
+        "mesh of 1": _mesh_generate("mesh range (mesh of 1)", store, pairs, get_backend("gpu", mesh_devices=1),
+                                    specs, expected, plain_cache),
+        "virtual mesh of 4": _mesh_generate("mesh range (virtual mesh of 4)", store, pairs, virtual, specs,
+                                            expected, plain_cache),
+    }
+    budget = resolve_thread_budget()
+    chunk_size = max(1, min(1024, len(pairs) // max(4, 2 * budget.scan_workers)))
+    recording = _RecordingBackend(virtual)
+    gc.collect()
+    metrics = Metrics()
+    _reset_counts()
+    t0 = time.perf_counter()
+    merged, verdicts = generate_and_verify_range_overlapped(
+        store, pairs, spec, chunk_size=chunk_size, match_backend=recording, metrics=metrics,
+        storage_specs=specs, threads=budget.total, scan_threads=budget.scan_workers,
+        verify_chunk=lambda b: verify_proof_bundle(
+            b, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=recording
+        ).event_results,
+    )
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    if merged.to_json() != expected:
+        raise AssertionError("mesh range (overlapped): the bundle differs from the single-device bundle")
+    flat = [v for chunk in verdicts for v in chunk]
+    if len(flat) != n_matching or not all(flat):
+        raise AssertionError("mesh range (overlapped): a verdict is false")
+    counters = {"range_match_coalesced": metrics.counter_value("range_match_coalesced")}
+    if not all(counters.values()) or not launches["event_match_mask_fp_sharded"]:
+        raise AssertionError(f"mesh range (overlapped): counters {counters}, launches {launches}")
+    checked = _check_recorded("mesh range (overlapped)", recording, plain_cache)
+    out["overlapped"] = {"wall_ms": wall_ms, "proofs_per_s": len(merged.event_proofs) / wall_ms * 1e3,
+                         "chunk_size": chunk_size, "counters": counters, "launches": launches, "checked": checked}
+    out["dryrun_multichip"] = {
+        "cards": dryrun_multichip(torch.cuda.device_count()),
+        "virtual": dryrun_multichip(4, devices=[device] * 4),
+    }
+    out.update(pairs=len(pairs), proofs=n_matching, storage_proofs=len(pairs),
+               launches=out["virtual mesh of 4"]["launches"])
+    return out
+
+
+def multihost_phase(device) -> dict:
+    """A one-rank NCCL group on the card (a TCP store on localhost): the
+    sharded match over `global_mesh(sp=2)` on ``[cuda:0] * 4`` with the
+    count all-reduced and the hits all-gathered through NCCL, equal to the
+    single-device run."""
+    import torch.distributed as dist
+
+    t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
+    batch = synthetic_event_batch(512, 16, 4, t0, t1, emitter=ACTOR_ID, match_rate=0.01, seed=42)
+    want = match_pipeline(*batch_args(batch, t0, t1, ACTOR_ID, device))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if not initialize_distributed(f"127.0.0.1:{port}", 1, 0, device=device):
+        raise AssertionError("multihost: no process group")
+    try:
+        backend = dist.get_backend()
+        mesh = global_mesh(sp=2, devices=[device] * 4)
+        if not mesh.distributed or mesh.shape != {"dp": 2, "sp": 2}:
+            raise AssertionError(f"multihost: mesh {mesh}")
+        mine = host_local_pairs(list(range(batch.shape[0])))
+        fn, shard_batch = sharded_match_pipeline(mesh)
+        args = shard_batch(batch, t0, t1, ACTOR_ID)
+        _reset_counts()
+        t_start = time.perf_counter()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_start) * 1e3
+        launches = _counts()
+        # the first collective sets the communicator up; a second call is warm
+        t_start = time.perf_counter()
+        again = fn(*args)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t_start) * 1e3
+    finally:
+        dist.destroy_process_group()
+    _same_match("multihost (one-rank NCCL, warm)", again, [x.cpu() for x in want])
+    _same_match("multihost (one-rank NCCL)", got, [x.cpu() for x in want])
+    if backend != ("nccl" if device.type == "cuda" else "gloo") or len(mine) != batch.shape[0] \
+            or launches["match_pipeline"] != 4:
+        raise AssertionError(f"multihost: backend {backend}, {len(mine)} rows, launches {launches}")
+    return {"backend": backend, "mesh": mesh.shape, "events": int(np.prod(batch.shape)),
+            "matches": int(got[2]), "first_ms": wall_ms, "warm_ms": warm_ms, "launches": launches}
+
+
+def cli_mesh_range(world, root: str) -> dict:
+    """``range --mesh-devices 1`` over the first 512 pairs of the chained
+    world through the hermetic node (default crossovers, no checkpoint
+    directory): the bundle of the same command without the flag. Over the
+    RPC store the scan is the Python walk, so the flag must move the
+    full-word mask from its flat launch to its sharded one."""
+    store, _, tipsets, _ = world
+    argv = [
+        "range", "--endpoint", CLI_ENDPOINT,
+        "--from-height", str(tipsets[0].height), "--to-height", str(tipsets[MESH_CLI_PAIRS - 1].height),
+        "--contract", CLI_ETH, "--event-sig", SIGNATURE, "--topic1", CLI_SUBNET,
+        "--storage-slot", CLI_SUBNET, "--chunk-size", str(CLI_CHUNK // 4), "--backend", "gpu",
+    ]
+    out = {}
+    for label, extra, backend, mask, idle in (
+        ("plain", [], get_backend("gpu"), "event_match_mask", "event_match_mask_sharded"),
+        ("mesh", ["--mesh-devices", "1"], get_backend("gpu", mesh_devices=1),
+         "event_match_mask_sharded", "event_match_mask"),
+    ):
+        path = os.path.join(root, f"cli-mesh-{label}.json")
+        recording = _RecordingBackend(backend)
+        with _cli_node(_NodeSession(store, tipsets), recording):
+            _, wall_ms, launches, snap = _cli(f"cli range ({label})", argv + extra + ["-o", path])
+        _require_launched(f"cli range ({label})", launches, ["keccak256_single_block", mask])
+        if launches[idle]:
+            raise AssertionError(f"cli range ({label}): {idle} launched {launches[idle]} times")
+        with open(path) as fh:
+            out[label] = {"bundle": fh.read(), "wall_ms": wall_ms, "launches": launches,
+                          "checked": _check_recorded(f"cli range ({label})", recording, {})}
+    if out["mesh"]["bundle"] != out["plain"]["bundle"]:
+        raise AssertionError("cli range --mesh-devices 1: the bundle differs from the run without the flag")
+    n_proofs = len(json.loads(out["mesh"]["bundle"])["event_proofs"])
+    return {"pairs": MESH_CLI_PAIRS, "proofs": n_proofs,
+            "wall_ms": {k: v["wall_ms"] for k, v in out.items()},
+            "checked": out["mesh"]["checked"], "launches": out["mesh"]["launches"]}
+
+
 def autotune_phase(root: str) -> dict:
     """`autotune_crossover` on the card, its record under the port's own
     file name."""
@@ -2318,9 +2717,13 @@ def main(argv=None) -> int:
         paths[label] = fn(*fn_args)
         _log(f"{label} ({time.perf_counter() - t0:.1f} s): {json.dumps(paths[label])}")
 
+    run("device match pipeline", device_match_phase, device, smi)
+    run("cid bench", cid_bench_phase, args.seed, smi, per_compression)
     world = event_world(args.pairs)
     run("event path", event_path, world, device)
     run("overlapped event path", overlapped_path, world, device, paths["event path"]["proofs_per_s"])
+    run("mesh range", mesh_range, world, device)
+    run("multihost", multihost_phase, device)
     with tempfile.TemporaryDirectory() as root:
         cold_world = (world[0], world[1][:COLD_PAIRS], None)
         run("cold read", cold_read_path, cold_world, device, root)
@@ -2338,6 +2741,7 @@ def main(argv=None) -> int:
         run("cli verify", cli_verify, chain, paths["cli range"]["bundle"], root, args.seed)
         run("cli cert", cli_cert, chain, root, args.seed)
         run("cli generate, vectors, demo", cli_rest, chain, root)
+        run("cli range --mesh-devices 1", cli_mesh_range, chain, root)
         del chain
         # last: the tuned crossover applies to every later verify call
         run("autotune", autotune_phase, root)
@@ -2354,6 +2758,8 @@ def main(argv=None) -> int:
     launch_counts["cli verify, f3 cert"] = paths["cli verify"]["f3"]["launches"]
     launch_counts["cli generate"] = cli_paths["generate"]["launches"]
     launch_counts["cli demo"] = cli_paths["demo"]["launches"]
+    launch_counts["mesh range, mesh of 1"] = paths["mesh range"]["mesh of 1"]["launches"]
+    launch_counts["mesh range, overlapped"] = paths["mesh range"]["overlapped"]["launches"]
 
     rows = []
     for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
@@ -2462,6 +2868,17 @@ def main(argv=None) -> int:
         f"{c_cert['ms_per_certificate']} ms per certificate"
     )
     _log(f"autotune on {smi}: {json.dumps(paths['autotune']['record'])}")
+    mesh = paths["mesh range"]
+    _log(
+        f"mesh range on {smi}: {mesh['proofs']} event + {mesh['storage_proofs']} storage proofs over "
+        f"{mesh['pairs']} pairs; serial proofs/s: mesh of 1 {mesh['mesh of 1']['proofs_per_s']}, virtual mesh "
+        f"of 4 {mesh['virtual mesh of 4']['proofs_per_s']}; overlapped over the virtual mesh "
+        f"{mesh['overlapped']['proofs_per_s']} ({json.dumps(mesh['overlapped']['counters'])})"
+    )
+    for label, timing in paths["device match pipeline"]["timings"].items():
+        _log(f"device match ({label}) on {smi}: {timing['pass_us']} us/pass, {timing['events_per_s']} events/s")
+    _log(f"cid bench on {smi}: {paths['cid bench']['cids_per_s']} CIDs/s ({paths['cid bench']['kernel']})")
+    _log(f"multihost on {smi}: {json.dumps(paths['multihost'])}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Optional, Protocol, Sequence
 
+import torch
+
 from ipc_proofs_tpu_torch.state.events import StampedEvent
 
 __all__ = ["BatchHashBackend", "get_backend"]
@@ -54,16 +56,34 @@ class BatchHashBackend(Protocol):
 _BACKENDS: "dict[str, BatchHashBackend]" = {}
 
 
-def get_backend(name: str = "gpu", device=None) -> BatchHashBackend:
-    """Backend registry; one cached instance per (name, device) variant.
+def get_backend(name: str = "gpu", device=None, mesh_devices: Optional[int] = None) -> BatchHashBackend:
+    """Backend registry; one cached instance per (name, device, mesh)
+    variant.
 
     ``device`` defaults to the card (``cuda``); ``device="cpu"`` runs the
-    kernels' plain versions, as the tests do.
+    kernels' plain versions, as the tests do. ``mesh_devices`` lays the
+    fingerprint mask across that many devices (`parallel.mesh.make_mesh`):
+    CUDA cards (0 = all of them; raises without CUDA), or with
+    ``device="cpu"`` that many virtual CPU devices. ``None`` keeps the
+    single-device path. Mesh variants cache under their own key.
     """
     if name != "gpu":
         raise ValueError(f"unknown backend {name!r} (expected gpu)")
     from ipc_proofs_tpu_torch.backend.gpu import GpuBackend
 
-    backend = GpuBackend(device)
-    key = f"{name}:{backend.device}"
-    return _BACKENDS.setdefault(key, backend)
+    if mesh_devices is None:
+        backend = GpuBackend(device)
+        key = f"{name}:{backend.device}"
+        return _BACKENDS.setdefault(key, backend)
+    from ipc_proofs_tpu_torch.parallel.mesh import make_mesh
+
+    key = f"{name}:{torch.device('cuda' if device is None else device)}:mesh{mesh_devices}"
+    if key not in _BACKENDS:
+        if device is not None and torch.device(device).type == "cpu":
+            if mesh_devices < 1:
+                raise ValueError(f"mesh_devices={mesh_devices}: a CPU mesh needs at least one device")
+            mesh = make_mesh(mesh_devices, devices=[torch.device("cpu")] * mesh_devices)
+        else:
+            mesh = make_mesh(mesh_devices or None)  # 0 = every card
+        _BACKENDS.setdefault(key, GpuBackend(device, mesh=mesh))
+    return _BACKENDS[key]

@@ -18,7 +18,12 @@ preimages on the host; here every non-empty class launches.)
 `event_match_mask_fp` is the counterpart of the TPU backend's fingerprint
 mask: its presence (with ``mesh`` None) is what makes the range driver take
 the fused C scan+match, as the reference does; the unfused branch
-(``IPC_SCAN_FUSED_MATCH=0``) runs this mask on the card.
+(``IPC_SCAN_FUSED_MATCH=0``) runs this mask on the card. A backend built
+with a device mesh (`parallel.mesh.Mesh`) runs that mask sharded over every
+mesh device (rows padded to a mesh-divisible bucket), and its full-word
+masks too (rows split, exact length): those are what the range scan runs
+over a store without a raw map, such as the CLI's RPC store. Its hash
+kernels stay on ``device``, as in the reference.
 
 A backend holds nothing but its device, so one instance serves several
 host threads at once (the pipelined driver's workers): every call packs
@@ -44,6 +49,7 @@ from ipc_proofs_tpu_torch.ops.pack import (
     pack_two_block_blake2b,
     pad_blake2b,
     pad_keccak,
+    to_int32,
 )
 from ipc_proofs_tpu_torch.proofs.scan_native import topic_fingerprint
 from ipc_proofs_tpu_torch.state.events import StampedEvent
@@ -83,18 +89,17 @@ def _split(messages: Sequence[bytes], classes: "tuple[str, ...]", route, hashers
     return out
 
 
-def _on(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(array).view(np.int32)).to(device)
-
-
 class GpuBackend:
     name = "gpu"
-    mesh = None  # single device: no sharded match
 
-    def __init__(self, device: "torch.device | str | None" = None):
-        """``device`` defaults to the card; without a CUDA device that
-        raises rather than running on the CPU. ``device="cpu"`` runs the
-        kernels' plain versions (the tests)."""
+    def __init__(self, device: "torch.device | str | None" = None, mesh=None):
+        """``device`` defaults to the card (or to the first device of
+        ``mesh``); without a CUDA device that raises rather than running on
+        the CPU. ``device="cpu"`` runs the kernels' plain versions (the
+        tests). ``mesh``: a `parallel.mesh.Mesh` over which the event
+        masks run sharded (None: single device)."""
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -103,6 +108,7 @@ class GpuBackend:
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
         self.device = device
+        self.mesh = mesh
 
     def warm(self) -> None:
         """Build (nvcc) and load the blake2b and keccak kernels now, both
@@ -120,12 +126,12 @@ class GpuBackend:
 
     def _keccak_single_block(self, messages: "list[bytes]") -> list[bytes]:
         lo, hi, n = pack_single_block_keccak(messages)
-        words = keccak.keccak256_single_block(_on(lo, self.device), _on(hi, self.device))
+        words = keccak.keccak256_single_block(to_int32(lo, self.device), to_int32(hi, self.device))
         return digests_to_bytes(words[:n].cpu().numpy())
 
     def _keccak_multi_block(self, messages: "list[bytes]") -> list[bytes]:
         blocks, n_blocks = pad_keccak(messages)
-        words = keccak.keccak256_blocks(_on(blocks, self.device), _on(n_blocks, self.device))
+        words = keccak.keccak256_blocks(to_int32(blocks, self.device), to_int32(n_blocks, self.device))
         return digests_to_bytes(words.cpu().numpy())
 
     def blake2b256_batch(self, messages: Sequence[bytes]) -> list[bytes]:
@@ -139,21 +145,21 @@ class GpuBackend:
     def _single_block(self, messages: "list[bytes]") -> list[bytes]:
         m_lo, m_hi, lengths, n = pack_single_block_blake2b(messages)
         words = blake2b.blake2b256_single_block(
-            _on(m_lo, self.device), _on(m_hi, self.device), _on(lengths, self.device)
+            to_int32(m_lo, self.device), to_int32(m_hi, self.device), to_int32(lengths, self.device)
         )
         return digests_to_bytes(words[:n].cpu().numpy())
 
     def _two_block(self, messages: "list[bytes]") -> list[bytes]:
         m_lo, m_hi, lengths, n = pack_two_block_blake2b(messages)
         words = blake2b.blake2b256_two_block(
-            _on(m_lo, self.device), _on(m_hi, self.device), _on(lengths, self.device)
+            to_int32(m_lo, self.device), to_int32(m_hi, self.device), to_int32(lengths, self.device)
         )
         return digests_to_bytes(words[:n].cpu().numpy())
 
     def _multi_block(self, messages: "list[bytes]") -> list[bytes]:
         blocks, n_blocks, lengths = pad_blake2b(messages)
         words = blake2b.blake2b256_blocks(
-            _on(blocks, self.device), _on(n_blocks, self.device), _on(lengths, self.device)
+            to_int32(blocks, self.device), to_int32(n_blocks, self.device), to_int32(lengths, self.device)
         )
         return digests_to_bytes(words.cpu().numpy())
 
@@ -172,7 +178,9 @@ class GpuBackend:
         topic1: bytes,
         actor_id_filter: Optional[int],
     ) -> list[bool]:
-        return match.event_match_mask(events, topic0, topic1, actor_id_filter, self.device)
+        return match.event_match_mask(
+            events, topic0, topic1, actor_id_filter, self.device, mesh=self.mesh
+        )
 
     def event_match_mask_flat(
         self,
@@ -186,7 +194,8 @@ class GpuBackend:
     ) -> np.ndarray:
         """Mask over pre-flattened arrays (exact length, no padding)."""
         return match.event_match_mask_flat(
-            topics, n_topics, emitters, valid, topic0, topic1, actor_id_filter, self.device
+            topics, n_topics, emitters, valid, topic0, topic1, actor_id_filter,
+            self.device, mesh=self.mesh,
         )
 
     def event_match_mask_fp(
@@ -205,7 +214,7 @@ class GpuBackend:
         collision, which pass 2 (the exact matcher) filters out."""
         return match.event_match_mask_fp(
             fp, n_topics, emitters, valid, topic_fingerprint(topic0, topic1),
-            actor_id_filter, self.device,
+            actor_id_filter, self.device, mesh=self.mesh,
         )
 
     def any_event_matches(

@@ -24,10 +24,17 @@ the host), ``cpu`` (the kernels' plain PyTorch versions on the host) or
 runs the plain versions as ``cpu`` does). ``verify`` and ``demo`` take the
 flag as well, because the port's verifier recomputes CIDs on the backend.
 
-Not ported yet: the ``backfill``, ``serve`` and ``cluster`` subcommands,
-the endpoint pool (``--endpoints``, ``--hedge-ms``,
-``--breaker-threshold``), ``--mesh-devices`` and the span tracing
-(``--trace-out`` and the OTLP exports). ``--batch-verify`` has no
+``range --mesh-devices N`` shards the event mask over a device mesh: the
+first N cards (0 = all) under ``--backend gpu``, N virtual CPU devices
+under ``--backend cpu``; ``--backend none`` refuses it. Over the CLI's RPC
+store the range scan is the Python walk, so the mask it shards is the
+full-word one (`ops.match.event_match_mask_flat`), rows split over every
+device. The bundle is byte-identical to the single-device run's.
+
+Not ported yet: the ``backfill``, ``serve`` and ``cluster`` subcommands
+(each takes ``--mesh-devices`` with its slice), the endpoint pool
+(``--endpoints``, ``--hedge-ms``, ``--breaker-threshold``) and the span
+tracing (``--trace-out`` and the OTLP exports). ``--batch-verify`` has no
 counterpart: every fetch-plane wave and disk read of the port goes through
 the verify lane.
 """
@@ -46,18 +53,21 @@ log = get_logger(__name__)
 BACKENDS = ("gpu", "cpu", "none")
 
 
-def _backend(name: str):
+def _backend(name: str, mesh_devices=None):
     """The `GpuBackend` ``--backend`` names: the card, or the plain versions
-    on the host for ``cpu`` and ``none``. Without CUDA, ``gpu`` exits
-    non-zero with the backend's error."""
+    on the host for ``cpu`` and ``none``; with ``mesh_devices``, its mesh
+    variant (``none`` refuses a mesh). Without CUDA, ``gpu`` exits non-zero
+    with the backend's error."""
     from ipc_proofs_tpu_torch.backend import get_backend
 
-    if name != "gpu":
-        return get_backend("gpu", device="cpu")
+    if mesh_devices is not None and name == "none":
+        raise SystemExit("--mesh-devices requires --backend gpu or cpu")
     try:
-        return get_backend("gpu")
-    except RuntimeError as exc:
-        raise SystemExit(f"--backend gpu: {exc}") from exc
+        if name != "gpu":
+            return get_backend("gpu", device="cpu", mesh_devices=mesh_devices)
+        return get_backend("gpu", mesh_devices=mesh_devices)
+    except (RuntimeError, ValueError) as exc:
+        raise SystemExit(f"--backend {name}: {exc}") from exc
 
 
 def _make_rpc_client(args, metrics=None):
@@ -216,7 +226,9 @@ def _cmd_range(args) -> int:
             log.error("--resume: no job manifest in %s (nothing to resume)", args.job_dir)
             return 2
 
-    backend = _backend(args.backend)
+    backend = _backend(args.backend, args.mesh_devices)
+    if backend.mesh is not None:
+        log.info("mesh-sharded matching: %d device(s)", backend.mesh.size)
     metrics = get_metrics()
     client = _make_rpc_client(args, metrics=metrics)
 
@@ -640,6 +652,13 @@ def main(argv=None) -> int:
         "of silently starting a fresh job)",
     )
     _add_backend_flag(rng)
+    rng.add_argument(
+        "--mesh-devices", type=int, default=None, metavar="N",
+        help="shard the event-match batches across a mesh of N devices: "
+        "the first N cards (0 = all) with --backend gpu, N virtual CPU "
+        "devices with --backend cpu. Results are bit-identical to the "
+        "single-device path",
+    )
     rng.add_argument("-o", "--output", default=None)
     rng.add_argument("--metrics", action="store_true")
     rng.add_argument(

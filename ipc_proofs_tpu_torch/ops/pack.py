@@ -14,12 +14,15 @@ kernels take the same arrays:
 - `pack_single_block_keccak` — one padded rate block per message as
   de-interleaved lo/hi planes ``[Np, 17]`` (the single-block keccak
   kernel's layout);
-- `digests_to_bytes` — ``[N, 8]`` little-endian digest words → bytes.
+- `digests_to_bytes` — ``[N, 8]`` little-endian digest words → bytes;
+- `to_int32` — a u32 (or int32) array onto a device as an int32 bit view,
+  the kernels' input type (CPU PyTorch lacks most uint32 ops).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "TILE",
@@ -31,6 +34,7 @@ __all__ = [
     "pad_keccak",
     "pack_single_block_keccak",
     "digests_to_bytes",
+    "to_int32",
 ]
 
 TILE = 256
@@ -139,3 +143,9 @@ def digests_to_bytes(digests) -> "list[bytes]":
     """uint32 [N, 8] little-endian words → 32-byte digests."""
     raw = np.asarray(digests).view(np.uint32).astype("<u4").tobytes()
     return [raw[i : i + 32] for i in range(0, len(raw), 32)]
+
+
+def to_int32(array: np.ndarray, device) -> torch.Tensor:
+    """``array`` (4-byte words) on ``device`` as an int32 tensor of the same
+    bits."""
+    return torch.from_numpy(np.ascontiguousarray(array).view(np.int32)).to(device)

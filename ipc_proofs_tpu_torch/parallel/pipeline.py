@@ -1,8 +1,23 @@
-"""The host stage pipeline of the range drivers.
+"""The batch event-match pipelines and the host stage pipeline.
 
-The counterpart of the host half of ``ipc_proofs_tpu.parallel.pipeline``:
+The counterpart of ``ipc_proofs_tpu.parallel.pipeline``:
 
-1. `PipelineStage` / `run_pipeline`: a bounded-queue, order-preserving,
+1. The **device match pipeline** (`match_pipeline` /
+   `sharded_match_pipeline`): one computation over a padded
+   ``[tipset, receipt, event]`` world instead of a loop over receipts ×
+   events:
+
+       mask    = topic0/topic1/emitter predicate per event   (elementwise)
+       hits    = any-reduce over the event axis per receipt  (OR over ``sp``)
+       count   = global proof count                          (full reduce)
+
+   The JAX package leaves these compares and reductions to XLA outside any
+   Pallas kernel; here they are PyTorch ops. Sharding (tipsets over ``dp``,
+   events over ``sp``) places one block on each mesh device; the blocks'
+   hits are ORed and their counts summed on the mesh's first device, and
+   under a process group the count is all-reduced and the hits all-gathered
+   across processes (`parallel.multihost`).
+2. `PipelineStage` / `run_pipeline`: a bounded-queue, order-preserving,
    multi-worker staged executor for the chunked proof drivers. Stage k+1
    of chunk i runs concurrently with stage k of chunk i+1 (scan ∥ record ∥
    merge ∥ verify), each stage with its own worker count, with
@@ -11,12 +26,12 @@ The counterpart of the host half of ``ipc_proofs_tpu.parallel.pipeline``:
    cancellation: the first worker exception cancels all pending work and
    re-raises in the caller. The caller's `utils.deadline.CancelScope` hops
    to every stage worker; the reference's trace context waits for the
-   port's ``obs/`` (ROADMAP Queue 1 item 5).
-2. `MatchCoalescer`: concurrent scan workers' fingerprint-mask calls on the
+   port's ``obs/`` (ROADMAP Queue 1 item 4).
+3. `MatchCoalescer`: concurrent scan workers' fingerprint-mask calls on the
    unfused path combine into one call on the card.
 
-The device match pipelines (``match_pipeline``, ``sharded_match_pipeline``,
-``EventBatch``) wait for the multi-device slice (ROADMAP Queue 1 item 4).
+u32 words travel as int32 bit patterns (CPU PyTorch lacks most uint32
+ops; int32 equality is u32 equality).
 """
 
 from __future__ import annotations
@@ -27,11 +42,188 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
+from ipc_proofs_tpu_torch.ops.pack import to_int32
 from ipc_proofs_tpu_torch.utils.deadline import current_scope, use_scope
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
 
-__all__ = ["MatchCoalescer", "PipelineStage", "run_pipeline"]
+__all__ = [
+    "EventBatch",
+    "LAUNCHES",
+    "batch_args",
+    "synthetic_event_batch",
+    "match_pipeline",
+    "sharded_match_pipeline",
+    "make_specs_u32",
+    "PipelineStage",
+    "run_pipeline",
+    "MatchCoalescer",
+]
+
+# match_pipeline evaluations on a CUDA device since the last reset (one per
+# block of a sharded call)
+LAUNCHES = {"match_pipeline": 0}
+_count_lock = threading.Lock()
+
+
+@dataclass
+class EventBatch:
+    """Host-side padded batch: T tipsets × R receipts × E event slots."""
+
+    topics: np.ndarray  # uint32 [T, R, E, 2, 8] — first two topics as u32 words
+    n_topics: np.ndarray  # int32 [T, R, E]
+    emitters: np.ndarray  # int32 [T, R, E]
+    valid: np.ndarray  # bool [T, R, E] (False = padding / non-EVM event)
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return self.n_topics.shape  # type: ignore[return-value]
+
+    @property
+    def n_events(self) -> int:
+        return int(self.valid.sum())
+
+
+def make_specs_u32(topic0: bytes, topic1: bytes) -> tuple[np.ndarray, np.ndarray]:
+    return (
+        np.frombuffer(topic0, dtype="<u4").copy(),
+        np.frombuffer(topic1, dtype="<u4").copy(),
+    )
+
+
+def synthetic_event_batch(
+    n_tipsets: int,
+    receipts_per_tipset: int,
+    events_per_receipt: int,
+    topic0: bytes,
+    topic1: bytes,
+    emitter: int = 1001,
+    match_rate: float = 0.01,
+    seed: int = 0,
+) -> EventBatch:
+    """A padded event world where ~``match_rate`` of receipts contain one
+    matching event (BASELINE.json config 2's sparse-filter shape). The same
+    generator calls as the reference, so a seed gives equal arrays."""
+    rng = np.random.default_rng(seed)
+    t, r, e = n_tipsets, receipts_per_tipset, events_per_receipt
+    topics = rng.integers(0, 2**32, size=(t, r, e, 2, 8), dtype=np.uint32)
+    n_topics = np.full((t, r, e), 2, dtype=np.int32)
+    emitters = np.full((t, r, e), emitter, dtype=np.int32)
+    valid = np.ones((t, r, e), dtype=bool)
+
+    spec0, spec1 = make_specs_u32(topic0, topic1)
+    match_receipts = rng.random((t, r)) < match_rate
+    ts_idx, rc_idx = np.nonzero(match_receipts)
+    ev_idx = rng.integers(0, e, size=len(ts_idx))
+    topics[ts_idx, rc_idx, ev_idx, 0] = spec0
+    topics[ts_idx, rc_idx, ev_idx, 1] = spec1
+    return EventBatch(topics=topics, n_topics=n_topics, emitters=emitters, valid=valid)
+
+
+def batch_args(
+    batch: EventBatch, topic0: bytes, topic1: bytes, actor_id: Optional[int], device
+) -> tuple:
+    """`match_pipeline`'s seven arguments for ``batch`` on ``device``:
+    topics, n_topics, emitters and the spec words as int32 bit views,
+    ``valid`` as bool, ``actor_id`` as an int32 scalar (-1 = no filter)."""
+    device = torch.device(device)
+    spec0, spec1 = make_specs_u32(topic0, topic1)
+    return (
+        to_int32(batch.topics, device),
+        to_int32(batch.n_topics.astype(np.int32, copy=False), device),
+        to_int32(batch.emitters.astype(np.int32, copy=False), device),
+        torch.from_numpy(np.ascontiguousarray(batch.valid, dtype=bool)).to(device),
+        to_int32(spec0, device),
+        to_int32(spec1, device),
+        torch.tensor(-1 if actor_id is None else actor_id, dtype=torch.int32, device=device),
+    )
+
+
+def match_pipeline(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
+    """The device step: per-event mask → per-receipt hits → count.
+
+    Shapes: topics int32 [T,R,E,2,8]; n_topics/emitters int32 and valid
+    bool [T,R,E]; topic0/topic1 int32 [8]; actor_id an int32 scalar tensor
+    (negative = no filter). All on one device.
+
+    Returns (receipt_hits bool [T,R], event_mask bool [T,R,E], n_proofs
+    int32 scalar), on that device.
+    """
+    t0_eq = (topics[..., 0, :] == topic0).all(dim=-1)
+    t1_eq = (topics[..., 1, :] == topic1).all(dim=-1)
+    emitter_ok = (emitters == actor_id) | (actor_id < 0)
+    mask = valid & (n_topics >= 2) & t0_eq & t1_eq & emitter_ok
+    receipt_hits = mask.any(dim=-1)  # reduce over the (sp-sharded) event axis
+    n_proofs = mask.sum(dtype=torch.int32)
+    if topics.device.type == "cuda":
+        with _count_lock:
+            LAUNCHES["match_pipeline"] += 1
+    return receipt_hits, mask, n_proofs
+
+
+def sharded_match_pipeline(mesh):
+    """`match_pipeline` with tipsets sharded over ``dp`` and the event axis
+    over ``sp``. Returns ``(fn, shard_batch)``:
+
+    - ``shard_batch(batch, topic0, topic1, actor_id)`` places a host
+      `EventBatch` on the mesh: block (d, s) — tipset rows d, event columns
+      s — on device ``mesh.grid[d][s]``, the spec words and actor copied to
+      every device. It returns seven tuples, one tensor per block each, in
+      row-major block order. T must divide by dp and E by sp. Under a
+      process group the batch is this process's rows (its share of the
+      tipsets, as `parallel.multihost.host_local_pairs` splits them).
+    - ``fn(*shard_batch(...))`` computes each block on its device, ORs the
+      hits over ``sp`` and sums the counts over every block on the mesh's
+      first device, and returns (hits [T,R], mask [T,R,E], count) there.
+      Under a process group the count is all-reduced and the hits
+      all-gathered, so hits and count are the whole mesh's; the mask stays
+      this process's rows.
+    """
+    grid = mesh.grid
+    dp, sp = mesh.local_dp, len(grid[0])
+    out_device = grid[0][0]
+
+    def shard_batch(batch: EventBatch, topic0: bytes, topic1: bytes, actor_id: Optional[int]):
+        t, _, e = batch.shape
+        if t % dp or e % sp:
+            raise ValueError(f"batch {batch.shape}: tipsets must divide by dp={dp}, events by sp={sp}")
+        tb, eb = t // dp, e // sp
+        blocks = []
+        for d in range(dp):
+            for s in range(sp):
+                rows, cols = slice(d * tb, (d + 1) * tb), slice(s * eb, (s + 1) * eb)
+                block = EventBatch(
+                    topics=batch.topics[rows, :, cols],
+                    n_topics=batch.n_topics[rows, :, cols],
+                    emitters=batch.emitters[rows, :, cols],
+                    valid=batch.valid[rows, :, cols],
+                )
+                blocks.append(batch_args(block, topic0, topic1, actor_id, grid[d][s]))
+        return tuple(zip(*blocks))
+
+    def fn(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
+        outs = [
+            match_pipeline(*block)
+            for block in zip(topics, n_topics, emitters, valid, topic0, topic1, actor_id)
+        ]
+        hits_rows, mask_rows = [], []
+        for d in range(dp):
+            row = outs[d * sp : (d + 1) * sp]
+            hits = row[0][0].to(out_device)
+            for block_hits, _, _ in row[1:]:
+                hits = hits | block_hits.to(out_device)  # the reference's psum over sp
+            hits_rows.append(hits)
+            mask_rows.append(torch.cat([mask.to(out_device) for _, mask, _ in row], dim=2))
+        count = torch.stack([c.to(out_device) for _, _, c in outs]).sum(dtype=torch.int32)
+        hits = torch.cat(hits_rows)
+        if mesh.distributed:
+            from ipc_proofs_tpu_torch.parallel.multihost import reduce_across_processes
+
+            hits, count = reduce_across_processes(hits, count)
+        return hits, torch.cat(mask_rows), count
+
+    return fn, shard_batch
 
 
 # --------------------------------------------------------------------------
@@ -77,7 +269,8 @@ class MatchCoalescer:
     Dispatch discipline: every batch goes to the card at its own length.
     (The reference pads each dispatch to a power-of-two bucket so that XLA
     traces O(log n) shapes; the port's eager mask compiles nothing per
-    shape, so padding would only copy filler rows.)
+    shape. Under a device mesh `ops.match.event_match_mask_fp` pads the
+    rows to a mesh-divisible bucket itself.)
     """
 
     def __init__(self, backend, metrics=None):

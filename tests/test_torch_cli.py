@@ -27,6 +27,7 @@ from ipc_proofs_tpu.state.address import Address as RefAddress  # noqa: E402
 from ipc_proofs_tpu.store.testing import FakeLotusClient as RefFakeLotusClient  # noqa: E402
 from ipc_proofs_tpu_torch import cli as port_cli  # noqa: E402
 from ipc_proofs_tpu_torch.core.cid import CID  # noqa: E402
+from ipc_proofs_tpu_torch.ops import match as port_match  # noqa: E402
 from ipc_proofs_tpu_torch.fixtures import (  # noqa: E402
     build_range_world,
     certificate_json_obj,
@@ -185,6 +186,45 @@ def test_range_profile_writes_a_chrome_trace(worlds, nodes, tmp_path):
     assert out.read_bytes() == (tmp_path / "ref.json").read_bytes()
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+
+
+@pytest.mark.parametrize("n", [4, 1], ids=["mesh4", "mesh1"])
+@pytest.mark.parametrize("flags", [[], ["--pipeline-depth", "0"]], ids=["pipelined", "chunked"])
+def test_range_mesh_devices_gives_the_same_bundle(worlds, nodes, tmp_path, caplog, monkeypatch, n, flags):
+    """``--mesh-devices N --backend cpu`` shards the event mask over N
+    virtual CPU devices and logs the mesh: the bundle is the reference's
+    and the port's without the flag, byte for byte. Over the RPC store the
+    scan is the Python walk, so every mask it runs is the full-word one,
+    sharded over the N devices with the flag and flat without it."""
+    import logging
+
+    meshes: list = []
+    real = port_match.event_match_mask_flat
+
+    def spy(*args, mesh=None):
+        meshes.append(None if mesh is None else mesh.size)
+        return real(*args, mesh=mesh)
+
+    monkeypatch.setattr(port_match, "event_match_mask_flat", spy)
+    ref_rc, ref_out, rc, out = _both(tmp_path, _range_argv(worlds, *flags), "plain.json")
+    assert ref_rc == rc == 0 and out == ref_out
+    assert meshes and set(meshes) == {None}
+    meshes.clear()
+    meshed = tmp_path / "meshed.json"
+    with caplog.at_level(logging.INFO):
+        assert port_cli.main(_range_argv(worlds, *flags, "--mesh-devices", str(n), "-o", str(meshed))) == 0
+    assert meshed.read_bytes() == ref_out
+    assert f"mesh-sharded matching: {n} device(s)" in caplog.text
+    assert meshes and set(meshes) == {n}
+
+
+@pytest.mark.parametrize("backend,n", [("none", "2"), ("cpu", "0")])
+def test_range_mesh_devices_refusals(worlds, nodes, tmp_path, backend, n):
+    argv = _range_argv(worlds, "--mesh-devices", n, "-o", str(tmp_path / "x.json"))
+    argv[argv.index("--backend") + 1] = backend
+    with pytest.raises(SystemExit, match="mesh"):
+        port_cli.main(argv)
+    assert not (tmp_path / "x.json").exists()
 
 
 @pytest.mark.parametrize("state", ["checkpoint-dir", "job-dir"])

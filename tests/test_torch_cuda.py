@@ -136,7 +136,12 @@ def test_small_range_path_on_card(cuda_device, monkeypatch):
     assert all(blake2b.LAUNCHES.values()) and not any(match.LAUNCHES.values())
     monkeypatch.setenv("IPC_SCAN_FUSED_MATCH", "0")
     unfused = generate_event_proofs_for_range(store, pairs, spec, match_backend=backend)
-    assert match.LAUNCHES == {"event_match_mask": 0, "event_match_mask_fp": 1}
+    assert match.LAUNCHES == {
+        "event_match_mask": 0,
+        "event_match_mask_sharded": 0,
+        "event_match_mask_fp": 1,
+        "event_match_mask_fp_sharded": 0,
+    }
     on_cpu = generate_event_proofs_for_range(
         store, pairs, spec, match_backend=get_backend("gpu", device="cpu")
     )
@@ -349,3 +354,119 @@ def test_verify_lane_on_card_equals_hashlib(cuda_device, monkeypatch, tmp_path):
         disk.close()
     assert got_bundle.to_json() == want
     assert metrics.counter_value("verify.device_blocks") > 0
+
+
+# --- the device mesh on the card -------------------------------------------------
+
+
+def _virtual_mesh(cuda_device, n=4, sp=2):
+    from ipc_proofs_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, sp=sp, devices=[cuda_device] * n)
+
+
+@pytest.mark.parametrize("actor", [None, 1001], ids=["no-filter", "actor"])
+def test_sharded_pipeline_on_a_virtual_mesh_equals_cpu(cuda_device, actor):
+    """The sharded match over ``[cuda] * 4`` (dp=2, sp=2) and the
+    single-device match on the card equal the plain run on the CPU; each
+    block is one evaluation on the card."""
+    from ipc_proofs_tpu_torch.parallel import pipeline
+    from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, hash_event_signature
+
+    t0, t1 = hash_event_signature("NewTopDownMessage(bytes32,uint256)"), ascii_to_bytes32("calib-subnet-1")
+    batch = pipeline.synthetic_event_batch(16, 8, 4, t0, t1, emitter=1001, match_rate=0.2, seed=5)
+    want = pipeline.match_pipeline(*pipeline.batch_args(batch, t0, t1, actor, "cpu"))
+    pipeline.LAUNCHES["match_pipeline"] = 0
+    single = pipeline.match_pipeline(*pipeline.batch_args(batch, t0, t1, actor, cuda_device))
+    fn, shard_batch = pipeline.sharded_match_pipeline(_virtual_mesh(cuda_device))
+    sharded = fn(*shard_batch(batch, t0, t1, actor))
+    torch.cuda.synchronize()
+    for got in (single, sharded):
+        assert all(x.device.type == "cuda" for x in got)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert int(got[2]) == int(want[2]) > 0
+    assert pipeline.LAUNCHES["match_pipeline"] == 5
+
+
+def test_sharded_fp_mask_on_a_virtual_mesh_equals_cpu(cuda_device):
+    from ipc_proofs_tpu_torch.backend.gpu import GpuBackend
+    from ipc_proofs_tpu_torch.proofs.scan_native import topic_fingerprint
+
+    rng = np.random.default_rng(8)
+    n = 1000
+    t0, t1 = b"\x11" * 32, b"\x22" * 32
+    fp = rng.integers(0, 1 << 63, size=n, dtype=np.uint64)
+    fp[rng.random(n) < 0.2] = np.uint64(topic_fingerprint(t0, t1))
+    n_topics = rng.integers(1, 4, n).astype(np.int32)
+    emitters = rng.integers(1000, 1003, n).astype(np.int64)
+    valid = rng.random(n) < 0.9
+    _reset_match_counts()
+    meshed = GpuBackend(mesh=_virtual_mesh(cuda_device))
+    got = meshed.event_match_mask_fp(fp, n_topics, emitters, valid, t0, t1, 1001)
+    want = get_backend("gpu", device="cpu").event_match_mask_fp(fp, n_topics, emitters, valid, t0, t1, 1001)
+    assert len(got) == 1024 and not got[n:].any()
+    np.testing.assert_array_equal(got[:n], want)
+    assert want.any()
+    assert match.LAUNCHES["event_match_mask_fp_sharded"] == 4
+
+
+def test_sharded_flat_mask_on_a_virtual_mesh_equals_cpu(cuda_device):
+    from ipc_proofs_tpu_torch.backend.gpu import GpuBackend
+
+    rng = np.random.default_rng(11)
+    n = 1001
+    t0, t1 = b"\x11" * 32, b"\x22" * 32
+    topics = rng.integers(0, 1 << 32, (n, 2, 8), dtype=np.uint64).astype(np.uint32)
+    planted = rng.random(n) < 0.2
+    topics[planted, 0] = np.frombuffer(t0, "<u4")
+    topics[planted, 1] = np.frombuffer(t1, "<u4")
+    n_topics = rng.integers(1, 4, n).astype(np.int32)
+    emitters = rng.integers(1000, 1003, n).astype(np.int64)
+    valid = rng.random(n) < 0.9
+    _reset_match_counts()
+    got = GpuBackend(mesh=_virtual_mesh(cuda_device)).event_match_mask_flat(
+        topics, n_topics, emitters, valid, t0, t1, 1001
+    )
+    want = get_backend("gpu", device="cpu").event_match_mask_flat(topics, n_topics, emitters, valid, t0, t1, 1001)
+    assert got.shape == (n,)
+    np.testing.assert_array_equal(got, want)
+    assert want.any()
+    assert match.LAUNCHES["event_match_mask_sharded"] == 4 and match.LAUNCHES["event_match_mask"] == 0
+
+
+def test_graph_replays_advance_the_pass_index(cuda_device):
+    """On the card the pass is one CUDA graph: each replay sees the next
+    ``i`` (the warm pass 0, then 1..k) and adds to the one accumulator."""
+    from ipc_proofs_tpu_torch.utils.timing import _graph_runner
+
+    x = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    run = _graph_runner(lambda i, v: (v + i).amax(), (x,), cuda_device)
+    assert run(3) == 0 + 1 + 2 + 3
+    assert run(2) == 6 + 4 + 5
+
+
+def test_cid_bench_and_slope_timing_on_the_card(cuda_device):
+    from ipc_proofs_tpu_torch.ops.cid_bench import blake2b_cid_bench_setup
+    from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
+
+    messages = _messages([200] * 4096, seed=9)
+    blake2b.reset_launch_counts()
+    one_pass, args, first, name = blake2b_cid_bench_setup(messages)
+    assert name == "blake2b256_two_block" and blake2b.LAUNCHES[name] == 1
+    assert [row.astype("<u4").tobytes() for row in first] == [
+        hashlib.blake2b(m, digest_size=32).digest() for m in messages
+    ]
+    pt = measure_pass_seconds(one_pass, args, k_small=2, k_large=12, repeats=2)
+    assert pt.seconds > 0 and pt.k_large >= 12 and pt.graph
+
+
+def test_dryrun_multichip_on_a_virtual_mesh(cuda_device):
+    from ipc_proofs_tpu_torch.entry import dryrun_multichip
+
+    blake2b.reset_launch_counts()
+    _reset_match_counts()
+    out = dryrun_multichip(4, devices=[cuda_device] * 4)
+    assert out["mesh"] == {"dp": 2, "sp": 2} and out["event_proofs"] > 0
+    # leg 2: one multi-block launch per mesh device
+    assert blake2b.LAUNCHES["blake2b256_blocks"] >= 4
+    assert match.LAUNCHES["event_match_mask_fp_sharded"] > 0

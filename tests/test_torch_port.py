@@ -90,6 +90,8 @@ def test_port_files_exist():
         "storex/segments.py", "storex/tiered.py", "cli.py", "crypto/bls.py",
         "crypto/rleplus.py", "proofs/gpbft.py", "proofs/cert.py", "proofs/cert_cbor.py",
         "proofs/trust.py", "proofs/address.py", "proofs/vectors.py", "utils/profiling.py",
+        "parallel/mesh.py", "parallel/multihost.py", "utils/timing.py", "ops/cid_bench.py",
+        "entry.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
@@ -203,6 +205,9 @@ with tempfile.TemporaryDirectory() as store_dir:
         assert cold.to_json() == event_bundle.to_json()
         assert metrics.counter_value("verify.device_blocks") > 0
         assert (metrics.counter_value("rpc.calls") == 0) == sweep
+import torch
+from ipc_proofs_tpu_torch.entry import dryrun_multichip
+assert dryrun_multichip(2, devices=[torch.device("cpu")] * 2)["event_proofs"] > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu", "requests"))
 print("LOADED", bad)
@@ -379,6 +384,35 @@ def test_witness_block_of_another_multihash_recomputes_on_the_host(small_range, 
         assert verify_proof_bundle(
             mixed, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend
         ).all_valid()
+
+
+def test_mesh_entry_points_default_to_the_card(monkeypatch):
+    """Without CUDA the mesh, its backend, the multi-device dry run, the
+    device step and the CID bench setup raise, unless given CPU devices."""
+    from ipc_proofs_tpu_torch.entry import dryrun_multichip, entry
+    from ipc_proofs_tpu_torch.ops.cid_bench import blake2b_cid_bench_setup
+    from ipc_proofs_tpu_torch.parallel.mesh import make_mesh
+    from ipc_proofs_tpu_torch.parallel.multihost import global_mesh, initialize_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        make_mesh,
+        global_mesh,
+        lambda: get_backend("gpu", mesh_devices=1),
+        lambda: get_backend("gpu", mesh_devices=0),
+        lambda: GpuBackend(mesh=None),
+        entry,
+        lambda: dryrun_multichip(1),
+        lambda: blake2b_cid_bench_setup([b"x"]),
+        lambda: initialize_distributed("127.0.0.1:1", 1, 0),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    cpu = torch.device("cpu")
+    assert make_mesh(2, devices=[cpu] * 2).size == 2
+    assert global_mesh(devices=[cpu]).size == 1
+    assert get_backend("gpu", device="cpu", mesh_devices=2).mesh.devices == [cpu, cpu]
+    assert entry(device="cpu")[1][0].device == cpu
 
 
 def test_cpu_backend_is_cached_per_variant():
