@@ -89,6 +89,15 @@ Phases, none of which may fail:
    localhost): the sharded match over ``global_mesh(sp=2)`` on
    ``[cuda:0] * 4``, the count all-reduced and the hits all-gathered
    through NCCL, equal to the single-device run;
+5c. traced event path (run right after 5) — the same world through the
+   overlapped driver with the span collector off and on, interleaved,
+   best of 2 each (the JAX ``bench.py`` observability leg's way): the same
+   bytes and the same launch counts with and without tracing, every
+   recorded kernel call equal to the plain versions; the traced run's
+   spans written as Chrome trace-event JSON and OTLP/JSON and POSTed to a
+   collector on 127.0.0.1, each parsing back to the recorded span count;
+   prints ``trace.spans_recorded``, ``trace.spans_dropped``, spans a proof
+   and the overhead %;
 6. storage path — BASELINE config 3: ``build_chain`` with 256 EVM
    contracts × 256 mapping slots (keys ``keccak(ascii_to_bytes32(
    f"subnet-{c}") ‖ be32(i))``, hashed on the card and sampled against
@@ -129,7 +138,7 @@ Phases, none of which may fail:
    at 16 contracts × 256 slots), each verified on the card with its own
    launch counts; their bundle digests (sha256 of the canonical JSON) must
    equal those of the native branches on the same worlds;
-10. cold read — the event path's world, cut to its first 2,048 pairs
+10. cold read — the event path's world, cut to its first 1,024 pairs
    (``COLD_PAIRS``), read cold: the hermetic Lotus node
    (``LocalLotusSession``) → ``LotusClient`` → ``FetchPlane`` (speculate
    depth 1, every wave verified on the card) → ``TieredBlockstore`` over a ``SegmentStore``
@@ -156,6 +165,19 @@ Phases, none of which may fail:
    changed block byte and a valid CRC: the sweep at open evicts exactly
    those, and a read of each through the tier refetches it (one RPC call
    each) and repairs the disk;
+12a. endpoint pool — the 4096-pair event world read through an
+   ``EndpointPool`` of two hermetic endpoints (the ``bench.py`` resilience
+   leg's pool: breaker threshold 3, reset 50 ms, backoff 0.5–2 ms, chunks
+   of 8) behind the fetch plane, every landed wave of two or more blocks
+   verified by the pool on the card (``IPC_VERIFY_MIN_BYTES=0``):
+   fault-free with integrity on, fault-free with integrity off (one client
+   that claims to verify), and at 10 % injected faults over the first 256
+   pairs (a typed abort moves to the next plan); each bundle the in-memory
+   one, blake2b launched,
+   every recorded lane batch equal to the plain versions and hashlib; the
+   recovery ms from a dead primary to a healthy secondary; a third
+   endpoint serving one flipped block (the world's first 512 pairs): it is
+   demoted and the bundle does not change;
 13. lying node — 8 runs at 256 pairs over ``FaultySession`` with seeded
    bit-flip plans (16 lies each): each run gives the in-memory bytes or a
    typed error (``IntegrityError``, ``RpcError``), every lie is counted
@@ -174,7 +196,8 @@ Phases, none of which may fail:
    the host;
 15. CLI — ``ipc_proofs_tpu_torch.cli.main`` as a user runs it, over
    ``build_range_world(4096, 16, 4, 0.01, chained=True)`` (the event
-   path's world on 4,097 consecutive heights) served by the hermetic node
+   path's world on 4,097 consecutive heights), cut to its first 2,048 pairs
+   (``CLI_RANGE_PAIRS``; the follower and 15c use the whole chain), served by the hermetic node
    (every height's tipset, the contract's f410 address and its ID), each
    run's metrics and launch counts from 0, each recorded kernel call held
    against the plain versions and hashlib:
@@ -187,7 +210,7 @@ Phases, none of which may fail:
      and the flat event mask launched; a second run resumes every chunk
      with the same bytes and no ``Filecoin.ChainReadObj``;
    - ``verify --check-cids`` on that bundle: exit 0 with blake2b launched;
-     with ``--f3-cert`` (a certificate over the 4,097 tipsets signed by a
+     with ``--f3-cert`` (a certificate over the 2,049 tipsets signed by a
      seeded power table of 4 participants with the port's ``crypto/bls.py``)
      exit 0; a certificate over other epochs exit 1; a flipped witness
      block raises in the CID recompute;
@@ -200,6 +223,22 @@ Phases, none of which may fail:
    world (default crossovers): the bundle of the same command without the
    flag, the full-word mask launched sharded with the flag and flat
    without it, every recorded kernel call equal to the plain versions;
+15b. chain follower — a ``ChainFollower`` (lag 1, from the chain's first
+   height) over the chained world's hermetic node (which answers
+   ``Filecoin.ChainHead``) warms a ``TieredBlockstore`` over a
+   ``SegmentStore``, each landed wave of two or more blocks verified on the
+   card, polled until the head: ``follow.errors`` 0, ``follow.tipsets``
+   the heights walked, blake2b launched, every recorded lane batch equal to
+   the plain versions; then the range over a fresh memory cache on the
+   warmed disk (the in-memory bytes; ``prefetch_hit_ratio``); a second node
+   serving one corrupt spine block: exactly one ``follow.errors``, the
+   block never stored;
+15c. CLI ``range --endpoints <replica> --hedge-ms 5 --breaker-threshold 3
+   --trace-out F --trace-otlp G --job-dir J`` over the first 512 pairs of
+   the chained world, two hermetic nodes: the bundle of the run without
+   the flags; F holds the command's root, ``rpc.*``, ``pool.*``,
+   pipeline-stage and ``journal.append`` spans in one trace and G as many
+   spans; the pool's lane launched blake2b;
 16. autotune — ``autotune_crossover(quick=False)`` on the card, its record
    written as ``verify_autotune_cuda.json``; last, since the tuned crossover
    applies to every later verify call of the process.
@@ -214,7 +253,8 @@ event path for blake2b, the storage path for the single-block keccak, the
 mixed-multihash sweep for the multi-block keccak); ``launches_by_path``
 holds its count on each path (the unfused event run, the overlapped runs,
 the resumable range's two runs, the two pure-Python paths, the cold
-read path's phases, the CLI's runs and the mesh phases included). The
+read path's phases, the CLI's runs, the mesh phases and slice 8's
+``traced``, ``pool``, ``follower`` and ``cli_pool`` included). The
 device match functions (PyTorch ops, not kernels of this repository)
 report their times in their phase's line.
 """
@@ -228,10 +268,12 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import http.server
 import io
 import json
 import multiprocessing
 import os
+import random
 import re
 import shutil
 import struct
@@ -285,6 +327,13 @@ from ipc_proofs_tpu_torch.parallel.pipeline import (
 )
 from ipc_proofs_tpu_torch.proofs.scan_native import topic_fingerprint
 from ipc_proofs_tpu_torch.jobs.journal import FRAME_HEADER
+from ipc_proofs_tpu_torch.obs import (
+    disable_tracing,
+    enable_tracing,
+    post_otlp_trace,
+    write_chrome_trace,
+    write_otlp_trace,
+)
 from ipc_proofs_tpu_torch.ops.build import build_libraries, cuda_tool
 from ipc_proofs_tpu_torch.ops.pack import (
     RATE_BYTES,
@@ -307,7 +356,7 @@ from ipc_proofs_tpu_torch.proofs.range import (
     generate_event_proofs_for_range_pipelined,
 )
 from ipc_proofs_tpu_torch.proofs.storage_batch import MappingSlotSpec, generate_storage_proofs_batch
-from ipc_proofs_tpu_torch.ops.verify import autotune_crossover, load_autotune
+from ipc_proofs_tpu_torch.ops.verify import VerifyLaneError, autotune_crossover, load_autotune
 from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
 from ipc_proofs_tpu_torch.proofs.vectors import check_vectors, load_vectors
 from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
@@ -318,9 +367,12 @@ from ipc_proofs_tpu_torch.store import rpc as rpc_mod
 from ipc_proofs_tpu_torch.store import fetchplane as fetchplane_mod
 from ipc_proofs_tpu_torch.store.faults import FaultPlan, FaultySession, LocalLotusSession
 from ipc_proofs_tpu_torch.store.blockstore import MemoryBlockstore
+from ipc_proofs_tpu_torch.store import failover as failover_mod
+from ipc_proofs_tpu_torch.store.failover import EndpointPool
 from ipc_proofs_tpu_torch.store.fetchplane import FetchPlane, PlaneBlockstore
-from ipc_proofs_tpu_torch.store.rpc import IntegrityError, LotusClient, RpcError, verify_block_bytes
-from ipc_proofs_tpu_torch.storex import SEGMENT_MAGIC, SegmentStore, TieredBlockstore
+from ipc_proofs_tpu_torch.store.rpc import IntegrityError, LotusClient, RpcBlockstore, RpcError, verify_block_bytes
+from ipc_proofs_tpu_torch.storex import SEGMENT_MAGIC, ChainFollower, SegmentStore, TieredBlockstore
+from ipc_proofs_tpu_torch.storex import follower as follower_mod
 from ipc_proofs_tpu_torch.storex import segments as segments_mod
 from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
@@ -348,8 +400,8 @@ SOURCE = "ipc_proofs_tpu_torch/csrc/blake2b.cu"
 KERNELS = (
     # name, TPU function it replaces, lengths (lo, hi] of its rows, loader
     # of its kernel instantiation in the source
-    ("blake2b256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:337", (-1, 128), "SplitPlanes"),
-    ("blake2b256_two_block", "ipc_proofs_tpu/ops/pallas_kernels.py:363", (128, 256), "SplitPlanes"),
+    ("blake2b256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:338", (-1, 128), "SplitPlanes"),
+    ("blake2b256_two_block", "ipc_proofs_tpu/ops/pallas_kernels.py:364", (128, 256), "SplitPlanes"),
     ("blake2b256_blocks", "ipc_proofs_tpu/ops/blake2b_jax.py:140", (256, 520), "PaddedBlocks"),
 )
 KECCAK_SOURCE = "ipc_proofs_tpu_torch/csrc/keccak.cu"
@@ -364,7 +416,7 @@ OWN_PATH = {
 }
 KECCAK_KERNELS = (
     # name, TPU function it replaces, loader of its kernel instantiation
-    ("keccak256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:304", "SplitPlanes17"),
+    ("keccak256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:305", "SplitPlanes17"),
     ("keccak256_blocks", "ipc_proofs_tpu/ops/keccak_jax.py:123", "PaddedBlocks34"),
 )
 KECCAK_ROUNDS = 24
@@ -717,6 +769,13 @@ def _require_launched(path: str, launches: "dict[str, int]", names) -> None:
     idle = [name for name in names if launches[name] == 0]
     if idle:
         raise AssertionError(f"{path} did not launch: {idle}")
+
+
+def _require_blake2b(path: str, launches: "dict[str, int]") -> None:
+    """At least one blake2b kernel launched (which size classes a path's
+    waves hold depends on the wave's blocks)."""
+    if not sum(launches[name] for name in SIZE_CLASSES):
+        raise AssertionError(f"{path} launched no blake2b kernel: {launches}")
 
 
 def _reject_flipped_blocks(bundle, backend) -> None:
@@ -1491,9 +1550,9 @@ def pure_python_phase(n_pairs: int, n_contracts: int, n_slots: int) -> dict:
 
 COLD_PREFIXES = ("rpc.", "fetch.", "verify.", "storex.")
 # the cold read, warm restart and lying disk run the event world's first
-# 2048 pairs (cut in depth to keep the script's time; the CLI's range reads
-# a 4096-pair chain cold)
-COLD_PAIRS = 2048
+# 1024 pairs (cut in depth to keep the script's time; the CLI's range and
+# the endpoint pool read 4096 pairs cold)
+COLD_PAIRS = 1024
 LYING_NODE_PAIRS = 256
 LYING_NODE_RUNS = 8
 FORGED_FRAMES = 64
@@ -2027,17 +2086,21 @@ def _tipset_json(tipset) -> dict:
 
 
 class _NodeSession(LocalLotusSession):
-    """The hermetic node serving a chain: every height's tipset, the
-    contract's delegated address and its ID; each answered method counted
+    """The hermetic node serving a chain: every height's tipset, the head
+    (the chain's last height), the contract's delegated address and its ID;
+    each answered method counted
     (the fetch plane's dispatchers post from two threads)."""
 
     def __init__(self, store, tipsets):
         by_height = {ts.height: ts for ts in tipsets}
-        super().__init__(store, {
+        responses = {
             "Filecoin.ChainGetTipSetByHeight": lambda params: _tipset_json(by_height[params[0]]),
             "Filecoin.EthAddressToFilecoinAddress": str(Address.from_eth_address(CLI_ETH)),
             "Filecoin.StateLookupID": f"f0{ACTOR_ID}",
-        })
+        }
+        if tipsets:
+            responses["Filecoin.ChainHead"] = {"Height": tipsets[-1].height}
+        super().__init__(store, responses)
         self._count_lock = threading.Lock()
         self.methods: "dict[str, int]" = {}
 
@@ -2050,7 +2113,8 @@ class _NodeSession(LocalLotusSession):
 @contextlib.contextmanager
 def _cli_node(session, recording):
     """The CLI as a user runs it, with two seams: its `LotusClient` posts to
-    the hermetic node, and its card backend (``--backend gpu``) is
+    the hermetic node (``session``, or ``session[endpoint]`` for a dict of
+    nodes by endpoint URL), and its card backend (``--backend gpu``) is
     ``recording``, which records every kernel call for `_check_recorded`."""
     real_client, real_backend = rpc_mod.LotusClient, backend_mod.get_backend
 
@@ -2061,7 +2125,11 @@ def _cli_node(session, recording):
             raise AssertionError(f"the CLI asked for mesh_devices={mesh_devices}; the recording has {recording.mesh}")
         return recording
 
-    rpc_mod.LotusClient = lambda endpoint, **kw: real_client(endpoint, session=session, metrics=kw.get("metrics"))
+    def client(endpoint, **kw):
+        node = session[endpoint] if isinstance(session, dict) else session
+        return real_client(endpoint, session=node, metrics=kw.get("metrics"))
+
+    rpc_mod.LotusClient = client
     backend_mod.get_backend = get_backend_
     try:
         yield
@@ -2096,6 +2164,18 @@ def cli_world(n_pairs: int):
     _log(f"cli world: {n_pairs} pairs, {len(tipsets)} heights, {len(store)} blocks, "
          f"{time.perf_counter() - t0:.1f} s")
     return store, pairs, tipsets, n_matching
+
+
+CLI_RANGE_PAIRS = 2048  # the PR 6 CLI phases read the chain's first 2048 pairs
+
+
+def _chain_prefix(world, n_pairs: int):
+    """The chained world's first ``n_pairs`` pairs (``n_pairs + 1``
+    heights), with its matching receipts counted by the fixture's rule (a
+    receipt matches when its global index is a multiple of 100 at
+    ``match_rate=0.01``; 16 receipts a pair)."""
+    store, pairs, tipsets, _ = world
+    return store, pairs[:n_pairs], tipsets[: n_pairs + 1], len(range(0, n_pairs * 16, 100))
 
 
 def cli_range(world, root: str) -> dict:
@@ -2645,6 +2725,493 @@ def cli_mesh_range(world, root: str) -> dict:
             "checked": out["mesh"]["checked"], "launches": out["mesh"]["launches"]}
 
 
+# --- slice 8: span tracing, the endpoint pool, the chain follower ----------
+
+POOL_LIAR_PAIRS = 512  # the lying-endpoint check reads a prefix of the world
+POOL_FAULT_RATE = 0.1
+# the faulted run reads the world's first 256 pairs: at 10 % faults (bit
+# flips among them) each flip demotes an endpoint, so two endpoints spend
+# much of a run in lotus_down, and a 4096-pair run aborted typed under
+# every one of ten plans (a record-stage read is not retried)
+POOL_FAULT_PAIRS = 256
+POOL_CHUNK = 8  # the JAX bench.py resilience leg's chunk size
+CLI_POOL_PAIRS = 512
+CLI_REPLICA = "http://lotus-replica.local/rpc/v1"
+
+
+class _Collector(http.server.BaseHTTPRequestHandler):
+    """A local OTLP/HTTP collector on 127.0.0.1: keeps every POSTed body."""
+
+    def do_POST(self):  # noqa: N802 - http.server's name
+        self.server.bodies.append(self.rfile.read(int(self.headers["Content-Length"])))
+        self.send_response(200)
+        self.end_headers()
+
+    def log_message(self, *args):
+        pass
+
+
+def _check_exports(label: str, spans, root: str) -> dict:
+    """Write ``spans`` as Chrome trace-event JSON and as OTLP/JSON, POST
+    them to a collector on 127.0.0.1; each must parse back to exactly
+    ``len(spans)`` spans."""
+    chrome, otlp = os.path.join(root, f"{label}.trace.json"), os.path.join(root, f"{label}.otlp.json")
+    write_chrome_trace(chrome, spans)
+    write_otlp_trace(otlp, spans)
+    server = http.server.HTTPServer(("127.0.0.1", 0), _Collector)
+    server.bodies = []
+    thread = threading.Thread(target=server.serve_forever, name="otlp-collector", daemon=True)
+    thread.start()
+    try:
+        posted = post_otlp_trace(f"http://127.0.0.1:{server.server_port}/v1/traces", spans, metrics=Metrics())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    with open(chrome) as fh:
+        n_chrome = sum(1 for e in json.load(fh)["traceEvents"] if e["ph"] == "X")
+    with open(otlp) as fh:
+        n_otlp = len(json.load(fh)["resourceSpans"][0]["scopeSpans"][0]["spans"])
+    n_posted = [len(json.loads(b)["resourceSpans"][0]["scopeSpans"][0]["spans"]) for b in server.bodies]
+    if not posted or [n_chrome, n_otlp, n_posted] != [len(spans), len(spans), [len(spans)]]:
+        raise AssertionError(
+            f"{label}: exports hold {n_chrome} / {n_otlp} / {n_posted} spans (posted {posted}), recorded {len(spans)}"
+        )
+    return {"spans": len(spans), "chrome_bytes": os.path.getsize(chrome), "otlp_bytes": os.path.getsize(otlp)}
+
+
+def traced_path(world, device) -> dict:
+    """The event world through the generate ∥ verify driver with the span
+    collector off and on, interleaved, best of 2 each (the JAX ``bench.py``
+    observability leg's way): the same bytes and the same kernel launches
+    on and off, every recorded kernel call equal to the plain versions;
+    the traced run's spans exported three ways and parsed back."""
+    store, pairs, n_matching = world
+    backend = get_backend("gpu")
+    budget = resolve_thread_budget()
+    chunk_size = max(1, min(1024, len(pairs) // max(4, 2 * budget.scan_workers)))
+    spec = _spec()
+    plain_cache: dict = {}
+    best = {}
+    disable_tracing()
+    _overlapped_run(store, pairs, spec, chunk_size, budget, backend)  # warm
+    for rep in range(2):
+        for traced in (False, True):
+            recording, seen = _RecordingBackend(backend), []
+            trace_metrics = Metrics()
+            collector = enable_tracing(metrics=trace_metrics) if traced else None
+            try:
+                merged, chunk_out, metrics, wall_ms, launches = _overlapped_run(
+                    store, pairs, spec, chunk_size, budget, recording, seen
+                )
+            finally:
+                disable_tracing()
+            verdicts = [v for chunk, _ in chunk_out for v in chunk]
+            if len(verdicts) != n_matching or not all(verdicts):
+                raise AssertionError(f"traced path ({traced}): verdicts {verdicts.count(False)} false")
+            checked = _check_recorded(f"traced path ({'on' if traced else 'off'})", recording, plain_cache)
+            run = {"bundle": merged.to_json(), "wall_ms": wall_ms, "launches": launches, "checked": checked,
+                   "proofs": len(merged.event_proofs),
+                   "present": [name for name, at in _classes(merged.blocks).items() if at]}
+            if traced:
+                run["spans"] = collector.snapshot()
+                run["recorded"] = trace_metrics.counter_value("trace.spans_recorded")
+                run["dropped"] = trace_metrics.counter_value("trace.spans_dropped")
+            key = "on" if traced else "off"
+            if key not in best or wall_ms < best[key]["wall_ms"]:
+                best[key] = run
+            if traced and (run["bundle"] != best["off"]["bundle"] or launches != best["off"]["launches"]):
+                raise AssertionError(
+                    f"traced path: tracing changed the bytes or the launches ({launches} vs {best['off']['launches']})"
+                )
+    on, off = best["on"], best["off"]
+    _require_launched("traced path", on["launches"], on["present"])
+    spans = on["spans"]
+    if on["recorded"] != len(spans) or on["dropped"]:
+        raise AssertionError(f"traced path: {on['recorded']} recorded, {len(spans)} collected, {on['dropped']} dropped")
+    names = {}
+    for sp in spans:
+        names[sp.name] = names.get(sp.name, 0) + 1
+    if not {"range_scan", "range_record", "range_merge", "range_verify"} <= set(names):
+        raise AssertionError(f"traced path: stage spans missing from {sorted(names)}")
+    with tempfile.TemporaryDirectory() as root:
+        exports = _check_exports("traced", spans, root)
+    return {
+        "pairs": len(pairs),
+        "proofs": on["proofs"],
+        "chunk_size": chunk_size,
+        "wall_ms": {"off": off["wall_ms"], "on": on["wall_ms"]},
+        "proofs_per_s": {"off": off["proofs"] / off["wall_ms"] * 1e3, "on": on["proofs"] / on["wall_ms"] * 1e3},
+        "overhead_pct": 100.0 * (on["wall_ms"] - off["wall_ms"]) / off["wall_ms"],
+        "trace.spans_recorded": on["recorded"],
+        "trace.spans_dropped": on["dropped"],
+        "spans_per_proof": on["recorded"] / on["proofs"],
+        "spans_by_name": names,
+        "exports": exports,
+        "checked": on["checked"],
+        "launches": on["launches"],
+    }
+
+
+class _FlippingNode:
+    """A node serving one block with a flipped bit, in single and batch
+    reads; every other answer as the wrapped node gives it."""
+
+    def __init__(self, inner, cid):
+        self._inner, self._cid = inner, str(cid)
+        self.flips = 0
+
+    def post(self, url, data=None, headers=None, timeout=None):
+        resp = self._inner.post(url, data=data, headers=headers, timeout=timeout)
+        reqs, body = json.loads(data), resp.json()
+        by_id = {r["id"]: r for r in (reqs if isinstance(reqs, list) else [reqs])}
+        for entry in body if isinstance(body, list) else [body]:
+            req = by_id.get(entry.get("id"))
+            if (req and req["method"] == "Filecoin.ChainReadObj" and req["params"][0]["/"] == self._cid
+                    and isinstance(entry.get("result"), str)):
+                raw = bytearray(base64.b64decode(entry["result"]))
+                raw[len(raw) // 2] ^= 1
+                entry["result"] = base64.b64encode(bytes(raw)).decode("ascii")
+                self.flips += 1
+        return resp
+
+
+def _pool_client(name: str, session, seed: int, metrics, max_retries: int = 3):
+    """A pool endpoint as the JAX ``bench.py`` resilience leg builds it:
+    full-jitter backoff of 0.5–2 ms from a seeded jitter source."""
+    return LotusClient(f"http://{name}", session=session, backoff_base_s=0.0005, backoff_max_s=0.002,
+                       rng=random.Random(seed), metrics=metrics, max_retries=max_retries)
+
+
+def _plane_run(reader, pairs, backend, budget, chunk_size, metrics):
+    """One pipelined run over ``reader`` (a pool or a client) behind the
+    fetch plane at speculate depth 1, counts from 0: (bundle JSON, wall
+    ms, launches)."""
+    gc.collect()
+    plane = FetchPlane(reader, speculate_depth=1, backend=backend, metrics=metrics)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        bundle = generate_event_proofs_for_range_pipelined(
+            PlaneBlockstore(plane), pairs, _spec(), chunk_size=chunk_size, match_backend=backend,
+            metrics=metrics, threads=budget.total, scan_threads=budget.scan_workers,
+            record_workers=budget.record_workers, scan_retries=2,
+        )
+        torch.cuda.synchronize()
+    finally:
+        plane.close()
+    return bundle.to_json(), (time.perf_counter() - t0) * 1e3, _counts()
+
+
+POOL_PREFIXES = ("rpc.", "failover.", "degraded.", "verify.", "fetch.batches")
+
+
+def pool_path(world, seed: int) -> dict:
+    """The event world read through two endpoints behind an `EndpointPool`
+    (the JAX ``bench.py`` resilience leg's pool: breaker threshold 3,
+    reset 50 ms, backoff 0.5–2 ms, chunks of 8 pairs, 2 scan retries)
+    behind the fetch plane, every landed
+    wave of two or more blocks verified by the pool on the card
+    (``IPC_VERIFY_MIN_BYTES=0``): fault-free with integrity on (the pool's
+    lane), fault-free with integrity off (one client that claims to
+    verify: the plane skips the lane), and at 10 % injected faults on both
+    endpoints over the world's first 256 pairs (a typed abort moves to the
+    next seed, as in the leg). Each
+    bundle is the in-memory one; every recorded lane batch is held against
+    the plain versions; then the failover recovery time, and a third
+    endpoint serving one flipped block on a prefix of the world: demoted,
+    the bundle unchanged."""
+    store, pairs, _ = world
+    backend = get_backend("gpu")
+    budget = resolve_thread_budget()
+    chunk_size = POOL_CHUNK
+    expected = generate_event_proofs_for_range(store, pairs, _spec(), match_backend=backend)
+    expected_json, n_proofs = expected.to_json(), len(expected.event_proofs)
+    runs = {}
+    plain_cache: dict = {}
+    with _env("IPC_VERIFY_MIN_BYTES", "0"):
+        # fault-free, integrity on: the pool verifies every wave on the card
+        metrics, recording = Metrics(), _RecordingBackend(backend)
+        pool = EndpointPool([_pool_client(f"pool-{i}", LocalLotusSession(store), seed + i, metrics) for i in range(2)],
+                            breaker_threshold=3, breaker_reset_s=0.05, metrics=metrics, backend=recording)
+        try:
+            with _verify_calls(failover_mod) as lane:
+                bundle, wall_ms, launches = _plane_run(pool, pairs, backend, budget, chunk_size, metrics)
+        finally:
+            pool.close()
+        if bundle != expected_json:
+            raise AssertionError("pool (integrity on): the bundle differs from the in-memory one")
+        # the batch reads' latency, lane call included, is what the pool's
+        # p99-driven hedge delay reads
+        with pool._lock:
+            read_ms = {k: v * 1e3 for k, v in pool._latency.percentiles((0.5, 0.99)).items()}
+        _require_blake2b("pool (integrity on)", launches)
+        if metrics.counter_value("verify.device_blocks") == 0:
+            raise AssertionError("pool (integrity on): no wave reached the card")
+        runs["on"] = {"wall_ms": wall_ms, "launches": launches, "health": pool.health(),
+                      "batch_read_ms": read_ms, "hedge_delay_ms_at_5ms_floor": max(5.0, read_ms.get("p99", 0.0)),
+                      "lane_ms_per_call": sum(ms for _, ms in lane) / max(1, len(lane)), "lane_calls": len(lane),
+                      "counters": {k: v for k, v in sorted(metrics.counters.items()) if k.startswith(POOL_PREFIXES)},
+                      "checked": _check_recorded("pool (integrity on)", recording, plain_cache)}
+        # fault-free, integrity off: the "pool already verifies" hatch
+        metrics = Metrics()
+        trusting = _pool_client("trusting", LocalLotusSession(store), seed, metrics)
+        trusting.verifies_integrity = True
+        bundle, wall_ms, off_launches = _plane_run(trusting, pairs, backend, budget, chunk_size, metrics)
+        if bundle != expected_json:
+            raise AssertionError("pool (integrity off): the bundle differs from the in-memory one")
+        runs["off"] = {"wall_ms": wall_ms, "launches": off_launches}
+        # 10 % faults on both endpoints, over a prefix of the world
+        fault_pairs = pairs[:POOL_FAULT_PAIRS]
+        fault_expected = generate_event_proofs_for_range(store, fault_pairs, _spec(), match_backend=backend)
+        aborts = []
+        for attempt in range(10):
+            metrics, recording = Metrics(), _RecordingBackend(backend)
+            clients = [
+                _pool_client(
+                    f"faulty-{i}",
+                    FaultySession(LocalLotusSession(store), FaultPlan(attempt * 101 + i, fault_rate=POOL_FAULT_RATE),
+                                  sleep=lambda s: None),
+                    seed + attempt + i, metrics,
+                )
+                for i in range(2)
+            ]
+            pool = EndpointPool(clients, breaker_threshold=3, breaker_reset_s=0.05, metrics=metrics, backend=recording)
+            try:
+                bundle, wall_ms, f_launches = _plane_run(pool, fault_pairs, backend, budget, chunk_size, metrics)
+            except VerifyLaneError:
+                raise
+            except (RuntimeError, ConnectionError, TimeoutError, OSError) as exc:
+                _log(f"pool (faulted, plan {attempt}): typed abort {type(exc).__name__}: {exc}")
+                aborts.append(type(exc).__name__)
+                continue
+            finally:
+                pool.close()
+            if bundle != fault_expected.to_json():
+                raise AssertionError(f"pool (faulted, plan {attempt}): the bundle differs from the in-memory one")
+            runs["faulted"] = {
+                "pairs": len(fault_pairs), "proofs": len(fault_expected.event_proofs), "aborts": aborts,
+                "plan": attempt, "wall_ms": wall_ms, "launches": f_launches, "health": pool.health(),
+                "counters": {k: v for k, v in sorted(metrics.counters.items()) if k.startswith(POOL_PREFIXES)},
+                "checked": _check_recorded("pool (faulted)", recording, plain_cache),
+            }
+            break
+        else:
+            raise AssertionError("pool (faulted): every fault plan aborted")
+        # a third endpoint serving one flipped block, first in the routing
+        liar_pairs = pairs[:POOL_LIAR_PAIRS]
+        liar_expected = generate_event_proofs_for_range(store, liar_pairs, _spec(), match_backend=backend).to_json()
+        target = UnifiedProofBundle.from_json(liar_expected).blocks[0].cid
+        metrics, recording = Metrics(), _RecordingBackend(backend)
+        liar = _FlippingNode(LocalLotusSession(store), target)
+        pool = EndpointPool(
+            [_pool_client("liar", liar, seed, metrics)]
+            + [_pool_client(f"honest-{i}", LocalLotusSession(store), seed + i, metrics) for i in range(2)],
+            breaker_threshold=3, breaker_reset_s=0.05, metrics=metrics, backend=recording,
+        )
+        try:
+            bundle, l_wall_ms, l_launches = _plane_run(pool, liar_pairs, backend, budget, chunk_size, metrics)
+        finally:
+            pool.close()
+        health = pool.health()
+        if bundle != liar_expected or not liar.flips or health["endpoints"][0]["integrity_demotions"] < 1:
+            raise AssertionError(f"pool (lying endpoint): flips {liar.flips}, health {health}")
+        runs["liar"] = {"pairs": len(liar_pairs), "flips": liar.flips, "wall_ms": l_wall_ms, "health": health,
+                        "integrity_failures": metrics.counter_value("rpc.integrity_failures"),
+                        "launches": l_launches, "checked": _check_recorded("pool (liar)", recording, plain_cache)}
+
+    class _Dead:
+        def post(self, url, data=None, headers=None, timeout=None):
+            raise ConnectionError("dead endpoint")
+
+    probe = UnifiedProofBundle.from_json(expected_json).blocks[0]
+    recovery_s = float("inf")
+    for rep in range(5):
+        pool = EndpointPool([_pool_client("dead", _Dead(), rep, Metrics(), max_retries=1),
+                             _pool_client("healthy", LocalLotusSession(store), rep, Metrics())],
+                            breaker_threshold=1, backend=backend, metrics=Metrics())
+        pool._endpoints[0].score = 2.0  # the dead endpoint routes first
+        t0 = time.perf_counter()
+        data = pool.chain_read_obj(probe.cid)
+        recovery_s = min(recovery_s, time.perf_counter() - t0)
+        pool.close()
+        if data != probe.data:
+            raise AssertionError("pool recovery: the healthy endpoint's block differs")
+    on, off, faulted = runs["on"], runs["off"], runs["faulted"]
+    return {
+        "pairs": len(pairs),
+        "proofs": n_proofs,
+        "chunk_size": chunk_size,
+        "proofs_per_s": {"on": n_proofs / on["wall_ms"] * 1e3, "off": n_proofs / off["wall_ms"] * 1e3,
+                         "faulted": faulted["proofs"] / faulted["wall_ms"] * 1e3},
+        "wall_ms": {k: runs[k]["wall_ms"] for k in ("on", "off", "faulted")},
+        "integrity_overhead_pct": 100.0 * (on["wall_ms"] - off["wall_ms"]) / off["wall_ms"],
+        "recovery_ms": recovery_s * 1e3,
+        "runs": runs,
+        "launches": on["launches"],
+        "host": _host_info(),
+    }
+
+
+def follower_path(world, root: str) -> dict:
+    """A `ChainFollower` (lag 1, from the chain's first height, up to 4,096
+    heights a poll) over the chained world's hermetic node warms a
+    `TieredBlockstore` over a `SegmentStore`, every landed wave of two or
+    more blocks verified on the card (``IPC_VERIFY_MIN_BYTES=0``), polled
+    until the head; then the range over a fresh memory cache on the warmed
+    disk (the JAX ``bench.py`` storage leg's follower half): the in-memory
+    bytes, and the share of its reads the follower anticipated. A second
+    node serving one corrupt spine block: one ``follow.errors``, the block
+    never stored."""
+    store, pairs, tipsets, _ = world
+    backend = get_backend("gpu")
+    expected = generate_event_proofs_for_range(store, pairs, _spec(), match_backend=backend).to_json()
+    metrics, recording = Metrics(), _RecordingBackend(backend)
+    disk = SegmentStore(os.path.join(root, "follow"), backend=backend, metrics=metrics)
+    client = LotusClient(CLI_ENDPOINT, session=_NodeSession(store, tipsets), metrics=metrics)
+    tier = TieredBlockstore(RpcBlockstore(client, metrics=metrics), disk, metrics=metrics)
+    follower = ChainFollower(client, tier, metrics=metrics, lag=1, start_height=tipsets[0].height,
+                             max_tipsets_per_poll=len(tipsets), backend=recording)
+    try:
+        with _env("IPC_VERIFY_MIN_BYTES", "0"), _verify_calls(follower_mod) as waves:
+            gc.collect()
+            _reset_counts()
+            t0 = time.perf_counter()
+            polls = [follower.poll_once()]
+            while polls[-1]:
+                polls.append(follower.poll_once())
+            torch.cuda.synchronize()
+            follow_ms = (time.perf_counter() - t0) * 1e3
+            launches = _counts()
+        walked = tipsets[-1].height - 1 - tipsets[0].height + 1
+        counters = {k: v for k, v in sorted(metrics.counters.items()) if k.startswith(("follow.", "verify.", "rpc."))}
+        if counters.get("follow.errors", 0) or counters.get("follow.tipsets") != walked:
+            raise AssertionError(f"follower: {counters} over {walked} heights")
+        _require_blake2b("follower", launches)
+        checked = _check_recorded("follower", recording, {})
+        stats = disk.stats()
+        # the range over a fresh memory cache on the warmed disk
+        r_metrics = Metrics()
+        r_client = LotusClient(CLI_ENDPOINT, session=_NodeSession(store, tipsets), metrics=r_metrics)
+        r_tier = TieredBlockstore(RpcBlockstore(r_client, metrics=r_metrics), disk, metrics=r_metrics)
+        budget = resolve_thread_budget()
+        chunk_size = max(1, min(1024, len(pairs) // max(4, 2 * budget.scan_workers)))
+        disk_hits0 = metrics.counter_value("storex.disk_hits")  # the disk counts into its own metrics
+        t0 = time.perf_counter()
+        bundle = generate_event_proofs_for_range_pipelined(
+            r_tier, pairs, _spec(), chunk_size=chunk_size, match_backend=backend, metrics=r_metrics,
+            threads=budget.total, scan_threads=budget.scan_workers, record_workers=budget.record_workers,
+        )
+        range_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        disk.close()
+    if bundle.to_json() != expected:
+        raise AssertionError("follower: the range over the warmed tier differs from the in-memory bundle")
+    disk_hits = metrics.counter_value("storex.disk_hits") - disk_hits0
+    gets = r_tier.hits + r_tier.misses
+    # a second node that serves one spine block corrupt (the first
+    # height's messages root, read in the spine wave only)
+    spine = tipsets[0].blocks[0].messages
+    c_metrics = Metrics()
+    c_disk = SegmentStore(os.path.join(root, "follow-corrupt"), backend=backend, metrics=c_metrics)
+    node = _FlippingNode(_NodeSession(store, tipsets), spine)
+    c_client = LotusClient(CLI_REPLICA, session=node, metrics=c_metrics)
+    c_tier = TieredBlockstore(RpcBlockstore(c_client, metrics=c_metrics), c_disk, metrics=c_metrics)
+    try:
+        corrupt = ChainFollower(c_client, c_tier, metrics=c_metrics, lag=len(tipsets) - 1,
+                                start_height=tipsets[0].height, backend=backend)
+        with _env("IPC_VERIFY_MIN_BYTES", "0"):
+            warmed = corrupt.poll_once()
+        stored = c_tier.has_local(spine)
+    finally:
+        c_disk.close()
+    if warmed != 1 or node.flips != 1 or c_metrics.counter_value("follow.errors") != 1 or stored:
+        raise AssertionError(
+            f"follower (corrupt spine): warmed {warmed}, flips {node.flips}, "
+            f"follow.errors {c_metrics.counter_value('follow.errors')}, stored {stored}"
+        )
+    multi = [n for n, _ in waves if n >= 2]
+    return {
+        "heights": walked,
+        "polls": len(polls),
+        "follow_ms": follow_ms,
+        "ms_per_height": follow_ms / walked,
+        "blocks_prefetched": counters.get("follow.blocks_prefetched", 0),
+        "waves": {"total": len(waves), "multi_block": len(multi), "largest": max(multi, default=0),
+                  "verify_ms": sum(ms for _, ms in waves)},
+        "disk": stats,
+        "counters": counters,
+        "range_ms": range_ms,
+        "range_rpc_calls": r_metrics.counter_value("rpc.calls"),
+        "prefetch_hit_ratio": (r_tier.hits + disk_hits) / gets if gets else None,
+        "corrupt_spine": {"follow.errors": 1, "stored": stored},
+        "checked": checked,
+        "launches": launches,
+    }
+
+
+def cli_pool_range(world, root: str) -> dict:
+    """``range --endpoints <replica> --hedge-ms 5 --breaker-threshold 3
+    --trace-out F --trace-otlp G --job-dir J`` over the first 512 pairs of
+    the chained world, two hermetic nodes, every landed wave of two or more
+    blocks verified by the pool on the card (``IPC_VERIFY_MIN_BYTES=0``):
+    the bundle of the same command without the flags; F holds the
+    command's root, ``rpc.*``, ``pool.*``, pipeline-stage and
+    ``journal.append`` spans in one trace, and G the same spans."""
+    store, _, tipsets, _ = world
+    argv = [
+        "range", "--endpoint", CLI_ENDPOINT,
+        "--from-height", str(tipsets[0].height), "--to-height", str(tipsets[CLI_POOL_PAIRS - 1].height),
+        "--contract", CLI_ETH, "--event-sig", SIGNATURE, "--topic1", CLI_SUBNET,
+        "--storage-slot", CLI_SUBNET, "--chunk-size", str(CLI_CHUNK // 4), "--backend", "gpu",
+    ]
+    backend = get_backend("gpu")
+    chrome, otlp = os.path.join(root, "cli-pool.trace.json"), os.path.join(root, "cli-pool.otlp.json")
+    out = {}
+    for label, extra in (
+        ("plain", []),
+        ("pool", ["--endpoints", CLI_REPLICA, "--hedge-ms", "5", "--breaker-threshold", "3",
+                  "--trace-out", chrome, "--trace-otlp", otlp, "--job-dir", os.path.join(root, "cli-pool-job")]),
+    ):
+        path = os.path.join(root, f"cli-pool-{label}.json")
+        recording = _RecordingBackend(backend)
+        sessions = {CLI_ENDPOINT: _NodeSession(store, tipsets), CLI_REPLICA: _NodeSession(store, tipsets)}
+        with _cli_node(sessions, recording), _env("IPC_VERIFY_MIN_BYTES", "0"):
+            _, wall_ms, launches, snap = _cli(f"cli range ({label})", argv + extra + ["-o", path])
+        with open(path) as fh:
+            out[label] = {"bundle": fh.read(), "wall_ms": wall_ms, "launches": launches, "snap": snap,
+                          "checked": _check_recorded(f"cli range ({label})", recording, {}),
+                          "methods": {u: s.methods.get("Filecoin.ChainReadObj", 0) for u, s in sessions.items()}}
+    if out["pool"]["bundle"] != out["plain"]["bundle"]:
+        raise AssertionError("cli range --endpoints: the bundle differs from the run without the flags")
+    pool = out["pool"]
+    _require_blake2b("cli range --endpoints", pool["launches"])
+    with open(chrome) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e["ph"] == "X"]
+    with open(otlp) as fh:
+        n_otlp = len(json.load(fh)["resourceSpans"][0]["scopeSpans"][0]["spans"])
+    names = {e["name"] for e in events}
+    traces = {e["args"]["trace_id"] for e in events}
+    wanted = [
+        any(n.startswith("rpc.") for n in names), names & {"pool.read", "pool.read_many"},
+        names & {"range_scan", "range_record", "range_merge"}, "journal.append" in names, "cli.range" in names,
+    ]
+    if not all(wanted) or len(traces) != 1 or n_otlp != len(events):
+        raise AssertionError(f"cli range --trace-out: {len(traces)} traces, {n_otlp} OTLP spans, names {sorted(names)}")
+    counters = pool["snap"]["counters"]
+    return {
+        "pairs": CLI_POOL_PAIRS,
+        "proofs": len(json.loads(pool["bundle"])["event_proofs"]),
+        "wall_ms": {k: v["wall_ms"] for k, v in out.items()},
+        "spans": len(events),
+        "span_names": sorted(names),
+        "reads_by_endpoint": pool["methods"],
+        "counters": {k: v for k, v in sorted(counters.items()) if k.startswith(POOL_PREFIXES)},
+        "checked": pool["checked"],
+        "launches": pool["launches"],
+    }
+
+
 def autotune_phase(root: str) -> dict:
     """`autotune_crossover` on the card, its record under the port's own
     file name."""
@@ -2722,6 +3289,7 @@ def main(argv=None) -> int:
     world = event_world(args.pairs)
     run("event path", event_path, world, device)
     run("overlapped event path", overlapped_path, world, device, paths["event path"]["proofs_per_s"])
+    run("traced", traced_path, world, device)
     run("mesh range", mesh_range, world, device)
     run("multihost", multihost_phase, device)
     with tempfile.TemporaryDirectory() as root:
@@ -2729,6 +3297,7 @@ def main(argv=None) -> int:
         run("cold read", cold_read_path, cold_world, device, root)
         run("warm restart", warm_restart, cold_world, root)
         run("lying disk", lying_disk, cold_world, root, args.seed)
+        run("pool", pool_path, world, args.seed)
         del world, cold_world
         run("storage path", storage_path, CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device)
         run("mixed range", mixed_range, 64, device)
@@ -2737,11 +3306,15 @@ def main(argv=None) -> int:
         run("lying node", lying_node, LYING_NODE_PAIRS, root, args.seed)
         run("mixed-multihash sweep", mixed_sweep, root, args.seed)
         chain = cli_world(args.pairs)
-        run("cli range", cli_range, chain, root)
-        run("cli verify", cli_verify, chain, paths["cli range"]["bundle"], root, args.seed)
-        run("cli cert", cli_cert, chain, root, args.seed)
-        run("cli generate, vectors, demo", cli_rest, chain, root)
+        cut = _chain_prefix(chain, min(CLI_RANGE_PAIRS, args.pairs))
+        run("cli range", cli_range, cut, root)
+        run("cli verify", cli_verify, cut, paths["cli range"]["bundle"], root, args.seed)
+        run("cli cert", cli_cert, cut, root, args.seed)
+        run("cli generate, vectors, demo", cli_rest, cut, root)
+        del cut
         run("cli range --mesh-devices 1", cli_mesh_range, chain, root)
+        run("follower", follower_path, chain, root)
+        run("cli_pool", cli_pool_range, chain, root)
         del chain
         # last: the tuned crossover applies to every later verify call
         run("autotune", autotune_phase, root)
@@ -2879,6 +3452,30 @@ def main(argv=None) -> int:
         _log(f"device match ({label}) on {smi}: {timing['pass_us']} us/pass, {timing['events_per_s']} events/s")
     _log(f"cid bench on {smi}: {paths['cid bench']['cids_per_s']} CIDs/s ({paths['cid bench']['kernel']})")
     _log(f"multihost on {smi}: {json.dumps(paths['multihost'])}")
+    traced, pool, follow, cli_pool = paths["traced"], paths["pool"], paths["follower"], paths["cli_pool"]
+    _log(
+        f"traced on {smi}: {traced['proofs']} proofs, wall ms off {traced['wall_ms']['off']} / on "
+        f"{traced['wall_ms']['on']}, overhead {traced['overhead_pct']} %, trace.spans_recorded "
+        f"{traced['trace.spans_recorded']}, trace.spans_dropped {traced['trace.spans_dropped']}, "
+        f"{traced['spans_per_proof']} spans a proof"
+    )
+    _log(
+        f"pool on {smi}: proofs/s {json.dumps(pool['proofs_per_s'])}, integrity_overhead_pct "
+        f"{pool['integrity_overhead_pct']}, recovery_ms {pool['recovery_ms']}, batch read ms "
+        f"{json.dumps(pool['runs']['on']['batch_read_ms'])} (lane {pool['runs']['on']['lane_ms_per_call']} ms "
+        f"a call), faulted counters "
+        f"{json.dumps(pool['runs']['faulted']['counters'])}, launches {json.dumps(pool['launches'])}"
+    )
+    _log(
+        f"follower on {smi}: {follow['heights']} heights in {follow['follow_ms']} ms "
+        f"({follow['ms_per_height']} ms a height), {follow['blocks_prefetched']} blocks, waves "
+        f"{json.dumps(follow['waves'])}, prefetch_hit_ratio {follow['prefetch_hit_ratio']}, range over the "
+        f"warmed tier {follow['range_ms']} ms ({follow['range_rpc_calls']} RPC calls)"
+    )
+    _log(
+        f"cli range --endpoints on {smi}: wall ms {json.dumps(cli_pool['wall_ms'])}, {cli_pool['spans']} spans, "
+        f"reads by endpoint {json.dumps(cli_pool['reads_by_endpoint'])}"
+    )
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({

@@ -31,11 +31,24 @@ store the range scan is the Python walk, so the mask it shards is the
 full-word one (`ops.match.event_match_mask_flat`), rows split over every
 device. The bundle is byte-identical to the single-device run's.
 
+``generate`` and ``range`` take the failover flags: ``--endpoints URL``
+(repeatable) puts ``--endpoint`` and every replica behind one
+`store.failover.EndpointPool` (circuit breakers at ``--breaker-threshold``
+consecutive failures, hedged block reads after ``--hedge-ms``, per-endpoint
+integrity demotion), whose batch reads verify on the ``--backend`` lane.
+They take the trace flags too: ``--trace-out PATH`` (Chrome trace-event
+JSON), ``--trace-otlp PATH`` (OTLP/JSON), ``--trace-otlp-url URL`` (POSTed
+to a collector, retried, fail-soft) and ``--trace-sample RATE`` (head
+sampling per trace). Every command runs under one root span,
+``cli.<command>``, so a traced run is one trace: RPC calls, pool reads,
+pipeline stages and journal appends nest under it. ``--profile`` traces the
+card with torch.profiler beside them. An unhandled error dumps the flight
+recorder's recent spans and warnings to stderr.
+
 Not ported yet: the ``backfill``, ``serve`` and ``cluster`` subcommands
-(each takes ``--mesh-devices`` with its slice), the endpoint pool
-(``--endpoints``, ``--hedge-ms``, ``--breaker-threshold``) and the span
-tracing (``--trace-out`` and the OTLP exports). ``--batch-verify`` has no
-counterpart: every fetch-plane wave and disk read of the port goes through
+(each takes ``--mesh-devices`` with its slice) and their retry budget
+(``--retry-budget``). ``--batch-verify`` has no counterpart: every
+fetch-plane wave, pool batch read and disk read of the port goes through
 the verify lane.
 """
 
@@ -45,6 +58,7 @@ import argparse
 import json
 import sys
 import time
+from contextlib import contextmanager
 
 from ipc_proofs_tpu_torch.utils.log import get_logger
 
@@ -70,15 +84,108 @@ def _backend(name: str, mesh_devices=None):
         raise SystemExit(f"--backend {name}: {exc}") from exc
 
 
-def _make_rpc_client(args, metrics=None):
-    """One `LotusClient` on ``--endpoint``."""
+def _make_rpc_client(args, metrics=None, backend=None):
+    """The chain client: one `LotusClient` on ``--endpoint``, or an
+    `EndpointPool` across it and every ``--endpoints`` replica, verifying
+    its batch reads on ``backend``."""
     from ipc_proofs_tpu_torch.store.rpc import LotusClient
 
-    if not args.endpoint:
+    endpoints = [args.endpoint] if args.endpoint else []
+    for extra in getattr(args, "endpoints", None) or []:
+        if extra not in endpoints:
+            endpoints.append(extra)
+    if not endpoints:
         raise ValueError("no RPC endpoint configured")
-    return LotusClient(
-        args.endpoint, bearer_token=args.token, timeout_s=args.timeout, metrics=metrics
+    clients = [
+        LotusClient(e, bearer_token=args.token, timeout_s=args.timeout, metrics=metrics)
+        for e in endpoints
+    ]
+    if len(clients) == 1:
+        return clients[0]
+    from ipc_proofs_tpu_torch.store.failover import EndpointPool
+
+    log.info(
+        "endpoint pool: %d endpoints (breaker_threshold=%d hedge_ms=%s)",
+        len(clients), args.breaker_threshold, args.hedge_ms,
     )
+    return EndpointPool(
+        clients,
+        breaker_threshold=args.breaker_threshold,
+        hedge_ms=args.hedge_ms,
+        metrics=metrics,
+        backend=backend,
+    )
+
+
+def _close_client(client) -> None:
+    """Stop a pool's hedge threads and log its endpoints' health (a single
+    `LotusClient` holds nothing to close)."""
+    close = getattr(client, "close", None)
+    if close is not None:
+        log.info("endpoint pool: %s", client.health())
+        close()
+
+
+def _start_tracing(args) -> bool:
+    """Enable the span collector when ``--trace-out``, ``--trace-otlp`` or
+    ``--trace-otlp-url`` was given; ``--trace-sample`` head-samples whole
+    traces at the collector (the always-on flight ring is unaffected)."""
+    if not (
+        getattr(args, "trace_out", None)
+        or getattr(args, "trace_otlp", None)
+        or getattr(args, "trace_otlp_url", None)
+    ):
+        return False
+    from ipc_proofs_tpu_torch.obs import enable_tracing
+
+    enable_tracing(sample=getattr(args, "trace_sample", 1.0))
+    return True
+
+
+def _finish_tracing(args) -> None:
+    """Export the collected spans to ``--trace-out`` (Chrome trace JSON,
+    load at ui.perfetto.dev or chrome://tracing), ``--trace-otlp``
+    (OTLP/JSON file) and ``--trace-otlp-url`` (POSTed, retried, fail-soft)."""
+    from ipc_proofs_tpu_torch.obs import (
+        disable_tracing,
+        get_collector,
+        post_otlp_trace,
+        write_chrome_trace,
+        write_otlp_trace,
+    )
+
+    collector = get_collector()
+    spans = collector.snapshot() if collector is not None else []
+    dropped = collector.dropped if collector is not None else 0
+    disable_tracing()
+    if getattr(args, "trace_out", None):
+        n = write_chrome_trace(args.trace_out, spans)
+        log.info(
+            "trace: %d events → %s%s", n, args.trace_out,
+            f" ({dropped} spans dropped at capacity)" if dropped else "",
+        )
+    if getattr(args, "trace_otlp", None):
+        n = write_otlp_trace(args.trace_otlp, spans)
+        log.info("trace: %d spans → %s (OTLP/JSON)", n, args.trace_otlp)
+    if getattr(args, "trace_otlp_url", None):
+        if post_otlp_trace(args.trace_otlp_url, spans):
+            log.info("trace: %d spans POSTed → %s", len(spans), args.trace_otlp_url)
+
+
+@contextmanager
+def _traced(args):
+    """Run a command under its root span ``cli.<command>``, collecting
+    spans when a trace flag was given and exporting them at exit (a failed
+    run's spans too)."""
+    from ipc_proofs_tpu_torch.obs import root_span
+
+    tracing = _start_tracing(args)
+    try:
+        with root_span(f"cli.{args.command}"):
+            yield
+    finally:
+        if tracing:
+            _finish_tracing(args)
 
 
 def _cmd_generate(args) -> int:
@@ -95,7 +202,7 @@ def _cmd_generate(args) -> int:
 
     backend = _backend(args.backend)
     metrics = get_metrics()
-    client = _make_rpc_client(args, metrics=metrics)
+    client = _make_rpc_client(args, metrics=metrics, backend=backend)
 
     with metrics.stage("fetch_tipsets"):
         parent = Tipset.fetch(client, args.height)
@@ -129,11 +236,14 @@ def _cmd_generate(args) -> int:
         )
 
     store = RpcBlockstore(client, metrics=metrics)
-    with metrics.stage("generate"):
-        bundle = generate_proof_bundle(
-            store, parent, child, storage_specs, event_specs, match_backend=backend,
-            receipts_client=client if args.receipts_api else None,
-        )
+    try:
+        with metrics.stage("generate"):
+            bundle = generate_proof_bundle(
+                store, parent, child, storage_specs, event_specs, match_backend=backend,
+                receipts_client=client if args.receipts_api else None,
+            )
+    finally:
+        _close_client(client)
 
     output = args.output or "bundle.json"
     with open(output, "w") as fh:
@@ -230,7 +340,7 @@ def _cmd_range(args) -> int:
     if backend.mesh is not None:
         log.info("mesh-sharded matching: %d device(s)", backend.mesh.size)
     metrics = get_metrics()
-    client = _make_rpc_client(args, metrics=metrics)
+    client = _make_rpc_client(args, metrics=metrics, backend=backend)
 
     actor_id = None
     if args.contract:
@@ -320,6 +430,7 @@ def _cmd_range(args) -> int:
             log.info("fetch plane: %s", plane.stats())
         if disk is not None:
             disk.close()
+        _close_client(client)
     output = args.output or "range_bundle.json"
     with open(output, "w") as fh:
         fh.write(bundle.to_json())
@@ -517,8 +628,58 @@ def _add_backend_flag(p) -> None:
 
 
 def main(argv=None) -> int:
+    from ipc_proofs_tpu_torch.obs import install_crash_dump
+
+    install_crash_dump()  # an unhandled error dumps the flight recorder
     parser = argparse.ArgumentParser(prog="ipc-proofs-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    def add_failover_flags(p):
+        p.add_argument(
+            "--endpoints", action="append", default=None, metavar="URL",
+            help="additional Lotus endpoint replicas (repeatable): enables "
+            "the failover pool — circuit breakers, health-scored routing, "
+            "hedged fetches, per-endpoint integrity demotion",
+        )
+        p.add_argument(
+            "--hedge-ms", type=float, default=None,
+            help="hedged block fetches: fire a second fetch on the next "
+            "healthy endpoint after this many ms (floor; the observed p99 "
+            "raises it). Default: hedging off",
+        )
+        p.add_argument(
+            "--breaker-threshold", type=int, default=5,
+            help="consecutive failures that open an endpoint's circuit "
+            "breaker (default 5)",
+        )
+
+    def add_trace_export_flags(p):
+        p.add_argument(
+            "--trace-out", default=None, metavar="PATH",
+            help="export all command/stage/RPC/pool/journal spans as Chrome "
+            "trace-event JSON (open at ui.perfetto.dev)",
+        )
+        p.add_argument(
+            "--trace-otlp", default=None, metavar="PATH",
+            help="also export collected spans as OTLP/JSON "
+            "(resourceSpans/scopeSpans shape — POST to any OpenTelemetry "
+            "collector's /v1/traces)",
+        )
+        p.add_argument(
+            "--trace-otlp-url", default=None, metavar="URL",
+            help="POST collected spans as OTLP/JSON to a live collector "
+            "endpoint (e.g. http://localhost:4318/v1/traces); retried with "
+            "bounded exponential backoff, fail-soft — a dead collector "
+            "costs a warning and a trace.otlp_post_failures tick, never "
+            "the run",
+        )
+        p.add_argument(
+            "--trace-sample", type=float, default=1.0, metavar="RATE",
+            help="head-sample collected traces at this rate in [0,1] "
+            "(decided once per trace from its id, so exported trees are "
+            "never torn; the always-on flight recorder ignores sampling). "
+            "Default 1.0",
+        )
 
     def add_store_flags(p):
         p.add_argument(
@@ -580,6 +741,8 @@ def main(argv=None) -> int:
     )
     gen.add_argument("-o", "--output", default=None)
     gen.add_argument("--metrics", action="store_true")
+    add_failover_flags(gen)
+    add_trace_export_flags(gen)
     gen.set_defaults(fn=_cmd_generate)
 
     ver = sub.add_parser("verify", help="verify a saved bundle offline")
@@ -668,6 +831,8 @@ def main(argv=None) -> int:
         help="trace generation with torch.profiler into DIR/trace.json "
         "(Chrome trace format; open at ui.perfetto.dev)",
     )
+    add_failover_flags(rng)
+    add_trace_export_flags(rng)
     rng.set_defaults(fn=_cmd_range)
 
     vec = sub.add_parser(
@@ -719,7 +884,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if getattr(args, "event_sig", None) and not getattr(args, "topic1", None):
         parser.error("--event-sig requires --topic1")
-    return args.fn(args)
+    with _traced(args):
+        return args.fn(args)
 
 
 if __name__ == "__main__":

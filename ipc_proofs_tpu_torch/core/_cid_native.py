@@ -10,8 +10,10 @@ Each source under ``backend/native/`` compiles with gcc into ``_build/``
 beside the package (git-ignored), named by a hash of the source, the flags
 and the host's CPU (`host_build_id`: a ``-march=native`` build moved to
 another host must rebuild, not die of SIGILL). The compiler writes a temp
-file that is then ``os.replace``d, so processes building the same library
-at once each load a whole one. A failed build raises RuntimeError with
+file that `publish_build` links into place only if no process got there
+first, so processes building the same library at once each load a whole
+one, and a library a process has mapped is never replaced under it (its
+mapping would turn into a deleted file's). A failed build raises RuntimeError with
 gcc's output; there is no pure-Python fallback except the one the user asks
 for with ``IPC_PROOFS_NO_NATIVE=1``, read once per process at the first
 load.
@@ -28,7 +30,10 @@ import sysconfig
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CFLAGS", "NATIVE_DIR", "build_cpython_ext", "host_build_id", "load"]
+__all__ = [
+    "BUILD_DIR", "CFLAGS", "NATIVE_DIR", "build_cpython_ext", "host_build_id", "load",
+    "publish_build",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 NATIVE_DIR = _PKG / "backend" / "native"
@@ -55,6 +60,21 @@ def host_build_id() -> str:
     return hashlib.sha256(f"{platform.machine()}|{model}".encode()).hexdigest()[:16]
 
 
+def publish_build(tmp: Path, path: Path) -> None:
+    """Move a finished build ``tmp`` to ``path`` unless ``path`` exists.
+
+    A hard link is atomic and fails on an existing name, so the first build
+    to finish wins and later ones are dropped: a concurrent loader never
+    sees a partial file, and a library already loaded somewhere keeps its
+    inode."""
+    try:
+        os.link(tmp, path)
+    except FileExistsError:
+        pass
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def build_cpython_ext(src: Path, mod_name: str, build_dir: Path = BUILD_DIR):
     """Compile ``src`` (unless this source, these flags and this host's
     build exist) and import it as the extension module ``mod_name``, whose
@@ -79,7 +99,7 @@ def build_cpython_ext(src: Path, mod_name: str, build_dir: Path = BUILD_DIR):
                 f"gcc failed building {src.name} (exit {proc.returncode}):\n"
                 f"{proc.stderr}{proc.stdout}"
             )
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
+        publish_build(tmp, so)
     spec = importlib.util.spec_from_file_location(mod_name, so)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)

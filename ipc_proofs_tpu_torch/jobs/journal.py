@@ -27,7 +27,8 @@ writes — the writer permanently degrades to in-memory (a half-written
 frame may sit at the tail; appending after it would corrupt mid-file),
 counts ``jobs.journal_failures`` per unpersisted record, and warns once.
 The job keeps its completed set in memory, so the run still finishes
-with a correct bundle — it just can't resume.
+with a correct bundle — it just can't resume. Each append is one trace
+span, ``journal.append`` (with its frame's byte count).
 
 Crash fault hook (the crash tests drive it): when
 ``IPC_JOURNAL_CRASH_AT=N`` is set, the writer SIGKILLs its own process
@@ -47,6 +48,7 @@ import struct
 import zlib
 from typing import Any, Optional
 
+from ipc_proofs_tpu_torch.obs.trace import span
 from ipc_proofs_tpu_torch.utils.log import get_logger
 
 __all__ = [
@@ -228,9 +230,12 @@ class JournalWriter:
             if self._metrics is not None:
                 self._metrics.count("jobs.journal_failures")
             return False
-        # the reference opens a "journal.append" trace span here; the
-        # port's obs/ is still to come (ROADMAP Queue 1 item 5)
+        with span("journal.append") as sp:
+            return self._append_framed(obj, sp)
+
+    def _append_framed(self, obj: Any, sp) -> bool:
         frame = _frame(encode_record(obj))
+        sp.set_attr("bytes", len(frame))
         if self._crash_at is not None and self._records == self._crash_at:
             self._crash(frame)
         self._records += 1

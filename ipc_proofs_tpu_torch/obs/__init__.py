@@ -1,0 +1,81 @@
+"""Observability of the port: the trace spine, its exporters, Prometheus
+text and the always-on flight recorder.
+
+The counterpart of ``ipc_proofs_tpu.obs`` without its fleet federation and
+SLO watchdog (``obs/fleet.py``, ``obs/slo.py``), which belong to the serve
+plane:
+
+- `obs/trace.py`  — contextvar-propagated `TraceContext` + `span()`,
+  bounded `SpanCollector` (opt-in via `enable_tracing()` / ``--trace-out``)
+- `obs/export.py` — Chrome trace-event JSON for ui.perfetto.dev, OTLP/JSON
+  for OpenTelemetry collectors (``--trace-otlp``) and its HTTP POST
+  (``--trace-otlp-url``)
+- `obs/prom.py`   — Prometheus text exposition over `Metrics` snapshots
+- `obs/flight.py` — bounded ring of recent spans + WARN/ERROR log records,
+  dumped to stderr on an unhandled error (`install_crash_dump`)
+"""
+
+from ipc_proofs_tpu_torch.obs.export import (
+    chrome_trace_events,
+    chrome_trace_obj,
+    otlp_trace_obj,
+    post_otlp_trace,
+    write_chrome_trace,
+    write_otlp_trace,
+)
+from ipc_proofs_tpu_torch.obs.flight import (
+    FlightLogHandler,
+    FlightRecorder,
+    get_flight_recorder,
+    install_crash_dump,
+)
+from ipc_proofs_tpu_torch.obs.prom import CONTENT_TYPE, render_prometheus
+from ipc_proofs_tpu_torch.obs.trace import (
+    Span,
+    SpanCollector,
+    TraceContext,
+    adopted_span,
+    carrier_from_context,
+    context_from_carrier,
+    current_context,
+    disable_tracing,
+    enable_tracing,
+    format_span_tree,
+    get_collector,
+    root_span,
+    span,
+    spans_for_trace,
+    tracing_enabled,
+    use_context,
+)
+
+__all__ = [
+    "CONTENT_TYPE",
+    "FlightLogHandler",
+    "FlightRecorder",
+    "Span",
+    "SpanCollector",
+    "TraceContext",
+    "adopted_span",
+    "carrier_from_context",
+    "chrome_trace_events",
+    "chrome_trace_obj",
+    "context_from_carrier",
+    "current_context",
+    "disable_tracing",
+    "enable_tracing",
+    "format_span_tree",
+    "get_collector",
+    "get_flight_recorder",
+    "install_crash_dump",
+    "otlp_trace_obj",
+    "post_otlp_trace",
+    "render_prometheus",
+    "root_span",
+    "span",
+    "spans_for_trace",
+    "tracing_enabled",
+    "use_context",
+    "write_chrome_trace",
+    "write_otlp_trace",
+]

@@ -7,8 +7,8 @@ returning ``[N, 8]`` int32 digest words ``[lo0, hi0, lo1, hi1, ...]``:
 =============================  =========================================  ================================
 wrapper                        replaces (TPU device function)             input
 =============================  =========================================  ================================
-`blake2b256_single_block`      ``ops/pallas_kernels.py:337`` (Pallas)     m_lo, m_hi [N,16]; lengths [N,1]
-`blake2b256_two_block`         ``ops/pallas_kernels.py:363`` (Pallas)     m_lo, m_hi [N,32]; lengths [N,1]
+`blake2b256_single_block`      ``ops/pallas_kernels.py:338`` (Pallas)     m_lo, m_hi [N,16]; lengths [N,1]
+`blake2b256_two_block`         ``ops/pallas_kernels.py:364`` (Pallas)     m_lo, m_hi [N,32]; lengths [N,1]
 `blake2b256_blocks`            ``ops/blake2b_jax.py:140`` (XLA scan)      blocks [N,B,32]; n_blocks, lengths [N]
 =============================  =========================================  ================================
 

@@ -34,6 +34,8 @@ from pathlib import Path
 
 import torch
 
+from ipc_proofs_tpu_torch.core._cid_native import publish_build
+
 __all__ = [
     "NVCC_FLAGS",
     "build_libraries",
@@ -107,7 +109,7 @@ def build_libraries(names) -> "dict[str, dict]":
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
-        os.replace(tmp, path)  # atomic: a concurrent loader never sees a partial file
+        publish_build(tmp, path)
         results[name] = {"path": path, "seconds": seconds, "log": log}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))

@@ -7,7 +7,7 @@ returning ``[N, 8]`` int32 digest words ``[lo0, hi0, lo1, hi1, ...]``:
 ==========================  =========================================  ===========================
 wrapper                     replaces (TPU device function)             input
 ==========================  =========================================  ===========================
-`keccak256_single_block`    ``ops/pallas_kernels.py:304`` (Pallas)     blocks_lo, blocks_hi [N,17]
+`keccak256_single_block`    ``ops/pallas_kernels.py:305`` (Pallas)     blocks_lo, blocks_hi [N,17]
 `keccak256_blocks`          ``ops/keccak_jax.py:123`` (XLA scan)       blocks [N,B,34]; n_blocks [N]
 ==========================  =========================================  ===========================
 

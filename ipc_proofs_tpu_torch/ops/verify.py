@@ -38,6 +38,7 @@ from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256, CID, DAG_CBOR, IDENTITY, 
 from ipc_proofs_tpu_torch.core.hashes import blake2b_256, keccak256
 
 __all__ = [
+    "VerifyLaneError",
     "verify_blocks_batch",
     "batch_min_bytes",
     "autotune_crossover",
@@ -63,6 +64,15 @@ _AUTOTUNE_VERSION = 1
 SCALAR_ONLY_MIN_BYTES = 1 << 62
 
 _tuned_min_bytes: "int | None" = None
+
+
+class VerifyLaneError(RuntimeError):
+    """A kernel or launch fault of the verify lane, raised by a reader
+    whose own fail-soft failover would otherwise take it for a store error
+    (`store.failover.EndpointPool`). The fault is the card's, not an
+    endpoint's: readers above the pool re-raise it or latch it, and never
+    retry it on another endpoint or on the scalar lane. The original
+    exception is its ``__cause__``."""
 
 
 def batch_min_bytes() -> int:

@@ -24,9 +24,10 @@ The counterpart of ``ipc_proofs_tpu.parallel.pipeline``:
    backpressure (``depth`` buffered results per inter-stage queue) so a
    fast scan can't balloon memory ahead of a slow record, and fail-fast
    cancellation: the first worker exception cancels all pending work and
-   re-raises in the caller. The caller's `utils.deadline.CancelScope` hops
-   to every stage worker; the reference's trace context waits for the
-   port's ``obs/`` (ROADMAP Queue 1 item 4).
+   re-raises in the caller. The caller's `utils.deadline.CancelScope` and
+   its `obs.trace.TraceContext` hop to every stage worker, so spans opened
+   inside stage fns (``metrics.stage``, RPC calls, journal appends) parent
+   into the caller's trace.
 3. `MatchCoalescer`: concurrent scan workers' fingerprint-mask calls on the
    unfused path combine into one call on the card.
 
@@ -44,6 +45,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ipc_proofs_tpu_torch.obs.trace import current_context, use_context
 from ipc_proofs_tpu_torch.ops.pack import to_int32
 from ipc_proofs_tpu_torch.utils.deadline import current_scope, use_scope
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
@@ -442,9 +444,10 @@ class _OrderedEmitter:
 
 
 def _stage_worker(
-    stage: PipelineStage, in_q, emit, cancel: _Cancel, metrics, cancel_scope=None,
+    stage: PipelineStage, in_q, emit, cancel: _Cancel, metrics, trace_ctx=None,
+    cancel_scope=None,
 ) -> None:
-    with use_scope(cancel_scope):
+    with use_context(trace_ctx), use_scope(cancel_scope):
         while True:
             task = _get(in_q, cancel)
             if task is _STOP:
@@ -501,9 +504,13 @@ def run_pipeline(
     cancel = _Cancel()
     queues: list[queue.Queue] = [queue.Queue(maxsize=depth) for _ in range(len(stages) + 1)]
 
-    # the caller's CancelScope hops the bounded queues with the work: every
-    # stage worker re-installs it and checks it at each stage boundary, so
-    # a cancelled/expired request tears the whole pipeline down typed
+    # the caller's TraceContext hops the bounded queues with the work:
+    # every stage worker re-installs it so spans opened inside stage fns
+    # (e.g. via metrics.stage) parent into the caller's trace
+    trace_ctx = current_context()
+    # the caller's CancelScope hops too: every stage worker re-installs it
+    # and checks it at each stage boundary, so a cancelled/expired request
+    # tears the whole pipeline down typed
     cancel_scope = current_scope()
 
     threads: list[threading.Thread] = []
@@ -516,7 +523,7 @@ def run_pipeline(
         for w in range(workers):
             t = threading.Thread(
                 target=_stage_worker,
-                args=(stage, queues[i], emitter.emit, cancel, metrics, cancel_scope),
+                args=(stage, queues[i], emitter.emit, cancel, metrics, trace_ctx, cancel_scope),
                 name=f"pipeline-{stage.name}-{w}",
                 daemon=True,
             )

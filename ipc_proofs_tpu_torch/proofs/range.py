@@ -92,7 +92,8 @@ from ipc_proofs_tpu_torch.proofs.storage_batch import (
 )
 from ipc_proofs_tpu_torch.proofs.witness import WitnessCollector
 from ipc_proofs_tpu_torch.store.blockstore import Blockstore, CachedBlockstore
-from ipc_proofs_tpu_torch.store.rpc import IntegrityError, RpcError
+from ipc_proofs_tpu_torch.store.failover import is_store_error
+from ipc_proofs_tpu_torch.store.rpc import RpcError
 from ipc_proofs_tpu_torch.utils.deadline import checkpoint, remaining_budget_s
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
 from ipc_proofs_tpu_torch.utils.log import get_logger
@@ -865,8 +866,11 @@ def generate_event_proofs_for_range_pipelined(
     digests): finished chunks load from disk in the record stage and new
     chunk bundles are written atomically. ``scan_retries`` bounds re-scans
     of a chunk after a transient store error (``ConnectionError``,
-    ``TimeoutError``, ``OSError``, `IntegrityError`; a scan is a pure
-    read). Anything else fails fast: an `RpcError`, and a kernel failure
+    ``TimeoutError``, ``OSError``, `IntegrityError`, an endpoint pool's
+    `DegradedError`, or a ``RuntimeError`` raised from one of them, as a
+    client's exhausted retries are: `store.failover.is_store_error`; a
+    scan is a pure read), after a backoff that spans the pool's breaker
+    window. Anything else fails fast: an `RpcError`, and a kernel failure
     (the ``RuntimeError`` of a refused launch or of PyTorch's CUDA calls)
     in the unfused scan's fingerprint mask.
 
@@ -953,9 +957,12 @@ def generate_event_proofs_for_range_pipelined(
                 )
             except RpcError:
                 raise  # a semantic protocol error: retrying re-asks the same question
-            except (ConnectionError, TimeoutError, OSError, IntegrityError) as exc:
-                # store errors only: a kernel failure on the card raises
-                # RuntimeError, which is not retried
+            except Exception as exc:  # not fail-soft: store errors retry below, anything else re-raises
+                # store errors only (a pool's lotus_down `DegradedError` and a
+                # client's exhausted retries included): a kernel failure on
+                # the card raises a RuntimeError of its own, not retried
+                if not is_store_error(exc):
+                    raise
                 attempt += 1
                 if attempt > max(0, scan_retries):
                     raise

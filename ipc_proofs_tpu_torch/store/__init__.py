@@ -1,8 +1,8 @@
 """Blockstores: the content-addressed storage boundary, the Lotus RPC
 client and the fetch plane.
 
-The counterpart of ``ipc_proofs_tpu.store`` (the endpoint pool of
-``store/failover.py`` is not ported yet).
+The counterpart of ``ipc_proofs_tpu.store``, with the endpoint pool
+(`EndpointPool`, ``store/failover.py``) and its `DegradedError`.
 """
 
 from ipc_proofs_tpu_torch.store.blockstore import (
@@ -12,6 +12,7 @@ from ipc_proofs_tpu_torch.store.blockstore import (
     MemoryBlockstore,
     RecordingBlockstore,
 )
+from ipc_proofs_tpu_torch.store.failover import DegradedError, EndpointPool
 from ipc_proofs_tpu_torch.store.faults import (
     FaultPlan,
     FaultyBlockstore,
@@ -38,6 +39,8 @@ __all__ = [
     "RpcError",
     "IntegrityError",
     "verify_block_bytes",
+    "DegradedError",
+    "EndpointPool",
     "FetchPlane",
     "PlaneBlockstore",
     "FaultPlan",

@@ -8,7 +8,12 @@ one-block and sub-crossover waves to hashlib with identical verdicts. A
 kernel or launch fault is not a fetch error: it latches the plane, fails
 every outstanding want with it, and is re-raised to every current and
 later caller (`get`, `fetch_into`), whether the wave was demanded,
-prefetched or speculative.
+prefetched or speculative. Over an `EndpointPool` the pool verifies each
+wave on the same lane and the plane skips its own check; the pool's lane
+fault (`ops.verify.VerifyLaneError`) latches the plane the same way. A
+dispatcher fetches each batch under the trace context of the batch's
+first want, so its ``pool.*`` and ``rpc.*`` spans join the wanting
+caller's trace.
 
 The cold path walks HAMT/AMT structures pointer-by-pointer — one
 `Filecoin.ChainReadObj` round-trip per IPLD edge, so cold latency is RPC
@@ -51,7 +56,8 @@ from typing import Iterable, Optional
 
 from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.core.dagcbor import decode as dagcbor_decode
-from ipc_proofs_tpu_torch.ops.verify import verify_blocks_batch
+from ipc_proofs_tpu_torch.obs.trace import current_context, use_context
+from ipc_proofs_tpu_torch.ops.verify import VerifyLaneError, verify_blocks_batch
 from ipc_proofs_tpu_torch.store.blockstore import BlockCache
 from ipc_proofs_tpu_torch.store.rpc import IntegrityError
 from ipc_proofs_tpu_torch.utils.deadline import checkpoint
@@ -95,11 +101,16 @@ def _child_links(data: bytes, cap: int = _MAX_LINKS_PER_BLOCK) -> "list[CID]":
 class _Want:
     """One block want: queue entry + completion slot its waiters poll."""
 
-    __slots__ = ("cid", "depth", "speculative", "done", "data", "error", "used", "waiters")
+    __slots__ = (
+        "cid", "depth", "speculative", "done", "data", "error", "used", "waiters", "trace_ctx",
+    )
 
     def __init__(self, cid: CID, speculative: bool, depth: int):
         self.cid = cid
         self.depth = depth
+        # the wanting thread's trace context: the dispatcher fetches a
+        # batch under its first want's context
+        self.trace_ctx = current_context()
         self.speculative = speculative  # guarded-by: FetchPlane._cond
         self.done = False  # guarded-by: FetchPlane._cond
         self.data: Optional[bytes] = None  # guarded-by: FetchPlane._cond
@@ -494,7 +505,8 @@ class FetchPlane:
             if not batch:
                 return
             try:
-                self._fulfil(batch)
+                with use_context(batch[0].trace_ctx):
+                    self._fulfil(batch)
             except Exception as exc:  # fail-soft: a dispatcher must outlive any single batch — fail the batch's wants, keep serving
                 self._fail_batch(batch, exc)
 
@@ -523,6 +535,9 @@ class FetchPlane:
         if reader is not None:
             try:
                 blocks = reader(subset)
+            except VerifyLaneError as exc:  # not fail-soft: the pool's lane faulted, which latches the plane
+                self._latch_fault(exc)
+                return
             except Exception:  # fail-soft: one poisoned batch must not fail unrelated wants — retry per-CID below for cid-precise typed errors
                 blocks = None
         if reader is None or blocks is None:

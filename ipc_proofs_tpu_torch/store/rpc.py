@@ -4,9 +4,11 @@ The counterpart of ``ipc_proofs_tpu.store.rpc``: `LotusClient` (JSON-RPC
 2.0, bearer auth, bounded retries with full-jitter backoff, retryable
 rate-limit codes, the JSON-RPC batch framing with its one-time capability
 probe) and `RpcBlockstore` (raw IPLD blocks via `Filecoin.ChainReadObj`,
-every block multihash-verified before anything observes it). Not ported
-yet: the per-call trace span (the port has no ``obs/``) and the endpoint
-pool's retry governor hook (``store/failover.py``).
+every block multihash-verified before anything observes it). Each call
+is one trace span, ``rpc.<method>`` (all its attempts) or ``rpc.batch``
+(one batch round-trip), parented by whatever context is ambient on the
+calling thread; the endpoint pool (``store/failover.py``) sets each
+client's ``retry_gate``, the pool-wide retry budget.
 
 ``requests`` is imported only when no session is injected, so the module
 imports without it; the hermetic path (`store.faults.LocalLotusSession`)
@@ -25,6 +27,8 @@ from typing import Any, Iterable, Optional
 
 from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256, CID, IDENTITY, KECCAK_256, SHA2_256
 from ipc_proofs_tpu_torch.core.hashes import blake2b_256, keccak256
+from ipc_proofs_tpu_torch.obs.trace import current_context, span, use_context
+from ipc_proofs_tpu_torch.ops.verify import VerifyLaneError
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
 from ipc_proofs_tpu_torch.utils.log import get_logger
 
@@ -134,6 +138,9 @@ class LotusClient:
         self.backoff_base_s = backoff_base_s
         self.backoff_max_s = backoff_max_s
         self.retryable_rpc_codes = retryable_rpc_codes
+        # optional pool-wide retry governor (EndpointPool.allow_retry):
+        # consulted before every retry sleep; None = retries unbudgeted
+        self.retry_gate = None
         self._rng = rng if rng is not None else random.Random()
         self._headers = {"Content-Type": "application/json"}
         if bearer_token:
@@ -167,30 +174,36 @@ class LotusClient:
         payload = {"jsonrpc": "2.0", "method": method, "params": params, "id": req_id}
         deadline = self.timeout_s if timeout_s is None else timeout_s
         last_err: Exception | None = None
-        for attempt in range(self.max_retries):
-            try:
-                resp = self._session.post(
-                    self.endpoint, data=json.dumps(payload), headers=self._headers, timeout=deadline
-                )
-                resp.raise_for_status()
-                body = resp.json()
-                if "error" in body and body["error"] is not None:
-                    err = body["error"]
-                    raise RpcError(err.get("code", -1), err.get("message", "unknown"))
-                return body.get("result")
-            except RpcError as exc:
-                if not self._rpc_error_retryable(exc):
-                    raise  # semantic protocol errors are not retryable
-                last_err = exc
-                if attempt + 1 >= self.max_retries:
-                    break
-                self._backoff(method, attempt, exc)
-            except Exception as exc:  # fail-soft: transport errors retry with backoff; exhausted retries re-raise below `from last_err`
-                last_err = exc
-                if attempt + 1 >= self.max_retries:
-                    break
-                self._backoff(method, attempt, exc)
-        self._metrics.count("rpc.failures")
+        # one span per RPC call (all attempts), parented by whatever
+        # request/stage context is ambient on the calling thread
+        with span(f"rpc.{method}", {"endpoint": self.endpoint}) as sp:
+            for attempt in range(self.max_retries):
+                try:
+                    resp = self._session.post(
+                        self.endpoint, data=json.dumps(payload), headers=self._headers, timeout=deadline
+                    )
+                    resp.raise_for_status()
+                    body = resp.json()
+                    if "error" in body and body["error"] is not None:
+                        err = body["error"]
+                        raise RpcError(err.get("code", -1), err.get("message", "unknown"))
+                    if attempt:
+                        sp.set_attr("retries", attempt)
+                    return body.get("result")
+                except RpcError as exc:
+                    if not self._rpc_error_retryable(exc):
+                        sp.set_attr("error", str(exc))
+                        raise  # semantic protocol errors are not retryable
+                    last_err = exc
+                    if attempt + 1 >= self.max_retries or not self._backoff(method, attempt, exc):
+                        break
+                except Exception as exc:  # fail-soft: transport errors retry with backoff; exhausted retries re-raise below `from last_err`
+                    last_err = exc
+                    if attempt + 1 >= self.max_retries or not self._backoff(method, attempt, exc):
+                        break
+            self._metrics.count("rpc.failures")
+            sp.set_attr("retries", self.max_retries - 1)
+            sp.set_attr("error", str(last_err))
         raise RuntimeError(f"RPC {method} failed after {self.max_retries} attempts") from last_err
 
     def _rpc_error_retryable(self, exc: RpcError) -> bool:
@@ -199,13 +212,18 @@ class LotusClient:
         message = (exc.message or "").lower()
         return any(marker in message for marker in _TRANSIENT_RPC_MARKERS)
 
-    def _backoff(self, method: str, attempt: int, exc: Exception) -> None:
-        """Sleep with full jitter before the next attempt. Raises a typed
-        `DeadlineError` when the ambient request budget cannot cover the
-        sleep."""
+    def _backoff(self, method: str, attempt: int, exc: Exception) -> bool:
+        """Sleep with full jitter before the next attempt. Returns False
+        (the retry ladder stops, the original error surfaces) when the
+        pool-wide retry budget is dry. Raises a typed `DeadlineError` when
+        the ambient request budget cannot cover the sleep."""
         from ipc_proofs_tpu_torch.utils.deadline import DeadlineError, checkpoint, remaining_budget_s
 
         checkpoint("rpc.retry")
+        gate = self.retry_gate
+        if gate is not None and not gate():
+            logger.warning("RPC %s retry stopped: pool retry budget exhausted", method)
+            return False
         bound = min(self.backoff_max_s, self.backoff_base_s * 2.0**attempt)
         sleep_s = self._rng.uniform(0.0, bound)
         remaining = remaining_budget_s()
@@ -220,6 +238,7 @@ class LotusClient:
         )
         self._metrics.count("rpc.retries")
         time.sleep(sleep_s)
+        return True
 
     def chain_read_obj(self, cid: CID) -> Optional[bytes]:
         """Fetch one raw IPLD block (`Filecoin.ChainReadObj`) under the
@@ -300,48 +319,53 @@ class LotusClient:
         # one round-trip = one rpc.calls tick, as for a single request
         self._metrics.count("rpc.calls")
         last_err: Exception | None = None
-        for attempt in range(self.max_retries):
-            try:
-                resp = self._session.post(
-                    self.endpoint, data=json.dumps(payload), headers=self._headers,
-                    timeout=self.block_timeout_s,
-                )
-                resp.raise_for_status()
-                body = resp.json()
-            except Exception as exc:  # fail-soft: a framing 4xx concludes the probe below; transport errors retry, exhausted retries re-raise `from last_err`
-                status = getattr(getattr(exc, "response", None), "status_code", None)
-                if status in _BATCH_REJECT_STATUSES and not batch_confirmed:
-                    self._mark_batch_unsupported()
-                    return None
-                last_err = exc
-                if attempt + 1 < self.max_retries:
-                    self._backoff("ChainReadObj[batch]", attempt, exc)
-                continue
-            if not isinstance(body, list):
-                if not batch_confirmed:
-                    # old gateways answer a batch array with one "invalid
-                    # request" object: the probe concludes negative
-                    self._mark_batch_unsupported()
-                    return None
-                # a batch-confirmed endpoint answered non-array: a proxy
-                # blip, retried like a transport failure
-                last_err = RuntimeError(f"non-array response to JSON-RPC batch from {self.endpoint}")
-                if attempt + 1 < self.max_retries:
-                    self._backoff("ChainReadObj[batch]", attempt, last_err)
-                continue
-            with self._id_lock:
-                self._batch_ok = True
-            self._metrics.count("rpc.batch_calls")
-            self._metrics.count("rpc.batched_reads", len(cids))
-            by_id = {e.get("id"): e for e in body if isinstance(e, dict)}
-            return [by_id.get(first_id + i) for i in range(len(cids))]
-        self._metrics.count("rpc.failures")
+        with span("rpc.batch", {"endpoint": self.endpoint, "n": len(cids)}) as sp:
+            for attempt in range(self.max_retries):
+                try:
+                    resp = self._session.post(
+                        self.endpoint, data=json.dumps(payload), headers=self._headers,
+                        timeout=self.block_timeout_s,
+                    )
+                    resp.raise_for_status()
+                    body = resp.json()
+                except Exception as exc:  # fail-soft: a framing 4xx concludes the probe below; transport errors retry, exhausted retries re-raise `from last_err`
+                    status = getattr(getattr(exc, "response", None), "status_code", None)
+                    if status in _BATCH_REJECT_STATUSES and not batch_confirmed:
+                        self._mark_batch_unsupported(sp)
+                        return None
+                    last_err = exc
+                    if attempt + 1 < self.max_retries:
+                        self._backoff("ChainReadObj[batch]", attempt, exc)
+                    continue
+                if not isinstance(body, list):
+                    if not batch_confirmed:
+                        # old gateways answer a batch array with one "invalid
+                        # request" object: the probe concludes negative
+                        self._mark_batch_unsupported(sp)
+                        return None
+                    # a batch-confirmed endpoint answered non-array: a proxy
+                    # blip, retried like a transport failure
+                    last_err = RuntimeError(f"non-array response to JSON-RPC batch from {self.endpoint}")
+                    if attempt + 1 < self.max_retries:
+                        self._backoff("ChainReadObj[batch]", attempt, last_err)
+                    continue
+                with self._id_lock:
+                    self._batch_ok = True
+                self._metrics.count("rpc.batch_calls")
+                self._metrics.count("rpc.batched_reads", len(cids))
+                if attempt:
+                    sp.set_attr("retries", attempt)
+                by_id = {e.get("id"): e for e in body if isinstance(e, dict)}
+                return [by_id.get(first_id + i) for i in range(len(cids))]
+            self._metrics.count("rpc.failures")
+            sp.set_attr("error", str(last_err))
         raise RuntimeError(f"RPC ChainReadObj[batch] failed after {self.max_retries} attempts") from last_err
 
-    def _mark_batch_unsupported(self) -> None:
+    def _mark_batch_unsupported(self, sp) -> None:
         with self._id_lock:
             already = self._batch_ok is False
             self._batch_ok = False
+        sp.set_attr("batch_unsupported", True)
         if not already:
             self._metrics.count("rpc.batch_unsupported")
             logger.info("endpoint %s rejects JSON-RPC batch framing — using sequential reads", self.endpoint)
@@ -460,6 +484,8 @@ class RpcBlockstore:
             chunk = todo[start : start + self._PREFETCH_BATCH]
             try:
                 blocks = self.get_many(chunk)
+            except VerifyLaneError:
+                raise  # the pool's lane faulted: the card's fault, not a fetch error
             except Exception:  # fail-soft: prefetch is advisory — retry the chunk per CID so one bad block only fails itself
                 blocks = None
             if blocks is not None:
@@ -479,13 +505,17 @@ class RpcBlockstore:
 
     def _prefetch_pooled(self, todo: "list[CID]", into: dict) -> "dict[CID, Exception]":
         """One call per block over a thread pool (clients without
-        `chain_read_obj_many`, e.g. bare test fakes)."""
+        `chain_read_obj_many`, e.g. bare test fakes). The caller's trace
+        context hops to the pool's threads, so their ``rpc.*`` spans stay
+        in the caller's tree."""
         lock = named_lock("rpc.prefetch_failures")
         failures: dict = {}
+        ctx = current_context()
 
         def fetch(cid: CID) -> None:
             try:
-                data = self.get(cid)
+                with use_context(ctx):
+                    data = self.get(cid)
             except Exception as exc:  # fail-soft: prefetch is advisory — collected, refetched on demand
                 with lock:
                     failures[cid] = exc

@@ -9,16 +9,24 @@ The counterpart of ``ipc_proofs_tpu.storex``: two storage tiers under one
   offset index rebuilt on open, and byte-capped LRU segment eviction. It
   survives restarts, and its files open in either package.
 
+`ChainFollower` tails finalized tipsets and pre-populates the spine
+blocks (headers, receipts-AMT root, state-HAMT root and the rings below
+them) before the first request asks, each landed wave verified on the
+card; `FollowLeaderLock` elects one follower per shared store directory.
+
 Every disk read is multihash re-verified, so disk corruption is an
 availability event (evict + refetch from the inner store), never a
-correctness one. The chain follower and the replication plane
-(``follower``, ``replica``) are not ported yet.
+correctness one. The replication plane (``replica``) belongs to the serve
+plane and is not ported yet.
 """
 
+from ipc_proofs_tpu_torch.storex.follower import ChainFollower, FollowLeaderLock
 from ipc_proofs_tpu_torch.storex.segments import SEGMENT_MAGIC, SegmentStore, SegmentStoreError
 from ipc_proofs_tpu_torch.storex.tiered import TieredBlockstore
 
 __all__ = [
+    "ChainFollower",
+    "FollowLeaderLock",
     "SEGMENT_MAGIC",
     "SegmentStore",
     "SegmentStoreError",

@@ -63,12 +63,18 @@ __all__ = [
     "named_condition",
     "named_lock",
     "named_rlock",
+    "note_flock_acquired",
     "order_graph",
     "reset",
     "violations",
 ]
 
-logger = get_logger(__name__)
+
+def _logger():
+    """This module's logger, resolved at first use: configuring logging
+    builds the flight recorder, whose lock this module makes."""
+    return get_logger(__name__)
+
 
 _MAX_VIOLATIONS = 256
 
@@ -136,7 +142,7 @@ class _State:
                 return
             self._reported.add(key)
             self._violations.append(rec)
-        logger.warning("lockdep %s: %s", kind, detail)
+        _logger().warning("lockdep %s: %s", kind, detail)
         if always_raise or self.strict:
             raise LockOrderError(detail)
 
@@ -202,6 +208,19 @@ class _State:
         # releasing something this thread never tracked (acquired before
         # enable(), or handed across threads): nothing to unwind
 
+    def touch(self, name: str) -> None:
+        """Witness a non-scoped acquisition (a lease held for the process
+        lifetime): edges from everything held, no stack entry."""
+        stack = self._stack()
+        if stack:
+            with self._glock:
+                missing = [h for h, _ in stack if (h, name) not in self._edges]
+            if missing:
+                site = _caller_site()
+                with self._glock:
+                    for h in missing:
+                        self._edges.setdefault((h, name), site)
+
 
 _state: Optional[_State] = None
 
@@ -213,7 +232,7 @@ def _env_hold_ms() -> float:
     try:
         return float(raw)
     except ValueError:
-        logger.warning("ignoring non-numeric IPC_LOCKDEP_HOLD_MS=%r", raw)
+        _logger().warning("ignoring non-numeric IPC_LOCKDEP_HOLD_MS=%r", raw)
         return 0.0
 
 
@@ -468,6 +487,16 @@ def flock_frame(path: str, name: str, exclusive: bool = True, blocking: bool = T
         if acquired and state is not None:
             state.note_release(lname)
         fh.close()  # closing the fd releases the flock
+
+
+def note_flock_acquired(name: str) -> None:
+    """Witness a non-scoped flock acquisition (a lifetime lease like the
+    follower's leader election): edges from currently held locks, no stack
+    entry, since the lease outlives the acquiring frame and may be released
+    by another thread."""
+    state = _state
+    if state is not None:
+        state.touch(f"flock:{name}")
 
 
 # read the env exactly once, at import: construction sites call the

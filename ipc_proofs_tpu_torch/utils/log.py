@@ -11,10 +11,13 @@ under its own root, ``ipc_proofs_torch``, so a process that imports both
 packages (the tests) gets one handler per package and no doubled lines.
 Level comes from ``IPC_LOG_LEVEL`` (DEBUG/INFO/WARNING/ERROR, default INFO);
 output is one stderr line per record with timestamp, level and logger name,
-or, with ``IPC_LOG_FORMAT=json``, one JSON object per line. The handler
-attaches once to the root, and not at all when the embedding application
-configured logging itself. The reference's trace ids and flight-recorder
-mirror wait for the port's ``obs/`` (ROADMAP Queue 1 item 5).
+or, with ``IPC_LOG_FORMAT=json``, one JSON object per line carrying the
+trace and span ids of the span open on the emitting thread
+(`obs.trace.current_context`), so log lines correlate with exported spans.
+The stderr handler attaches once to the root, and not at all when the
+embedding application configured logging itself; whatever formats stderr,
+WARN/ERROR records are mirrored into the always-on flight recorder
+(`obs.flight`).
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ _configured = False  # guarded-by: _configure_lock
 
 
 class JsonLineFormatter(logging.Formatter):
-    """One JSON object per record: ts/level/logger/msg and the exception
-    text."""
+    """One JSON object per record: ts/level/logger/msg, the active trace
+    and span ids when a span is open on the emitting thread, and the
+    exception text."""
 
     def format(self, record: logging.LogRecord) -> str:
         obj: dict = {
@@ -45,6 +49,15 @@ class JsonLineFormatter(logging.Formatter):
             "logger": record.name,
             "msg": record.getMessage(),
         }
+        try:  # lazy import: log is imported by everything, obs only here
+            from ipc_proofs_tpu_torch.obs.trace import current_context
+
+            ctx = current_context()
+            if ctx is not None:
+                obj["trace_id"] = ctx.trace_id
+                obj["span_id"] = ctx.span_id
+        except Exception:  # fail-soft: trace decoration is best-effort — a log line without trace_id beats no log line
+            pass
         if record.exc_info and record.exc_info[0] is not None:
             obj["exc"] = self.formatException(record.exc_info)
         return json.dumps(obj, separators=(",", ":"), default=str)
@@ -57,9 +70,15 @@ def _configure() -> None:
             return
         _configured = True
     root = logging.getLogger(_ROOT)
+    # the flight recorder mirrors WARN/ERROR records whatever handles
+    # stderr; it never writes to a stream, so it composes with any setup
+    from ipc_proofs_tpu_torch.obs.flight import FlightLogHandler
+
+    root.addHandler(FlightLogHandler())
     # an application that configured the package's root or the process
     # root logger keeps its own handlers; records propagate through them
-    if root.handlers or logging.getLogger().handlers:
+    app_handlers = [h for h in root.handlers if not isinstance(h, FlightLogHandler)]
+    if app_handlers or logging.getLogger().handlers:
         if "IPC_LOG_LEVEL" in os.environ:
             level = os.environ["IPC_LOG_LEVEL"].upper()
             root.setLevel(getattr(logging, level, logging.INFO))

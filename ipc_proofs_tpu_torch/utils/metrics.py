@@ -1,22 +1,25 @@
-"""Stage timers, counters and gauges for the range drivers and the cold
-read path.
+"""Stage timers, counters, gauges and latency histograms.
 
-The counterpart of ``ipc_proofs_tpu.utils.metrics.Metrics`` (its stage
-timers, counters, gauges, snapshot and process-global `get_metrics`; not
-its histograms or the trace span each stage opens there, which waits for
-the port's ``obs/``). The same ``stage()`` / ``count()`` calls and names
+The counterpart of ``ipc_proofs_tpu.utils.metrics``: the same ``stage()`` /
+``count()`` / ``set_gauge()`` / ``observe()`` calls and names
 (``range_scan``, ``range_match``, ``range_record``, ``range_merge``,
-``range_verify``; the ``rpc.*``, ``fetch.*``, ``storex.*`` and
-``verify.*`` counters of the cold read path, each a name the reference
+``range_verify``; the ``rpc.*``, ``pool.*``, ``fetch.*``, ``storex.*``,
+``follow.*``, ``trace.*`` and ``verify.*`` names, each one the reference
 declares in its vocabularies, as ``tests/test_torch_rpc.py`` checks), so a
-caller reads both packages alike.
-Times are host wall-clock seconds.
+caller reads both packages alike and `obs.prom.render_prometheus` renders
+the same text for both. Times are host wall-clock seconds.
 
 Each stage keeps its busy seconds (``total_s``: the sum over every entry,
 so 8 workers × 1 s is 8 s) and its wall seconds (``wall_s``: the union of
 its entry intervals, ~1 s for the same 8 overlapping workers). A union wall
 runs across all stages, and ``overlap_efficiency`` is busy over that union
-wall: 1.0 for serial code, towards N for N stages that overlap.
+wall: 1.0 for serial code, towards N for N stages that overlap. Every
+outermost stage entry is also a trace span (`obs.trace.span`), parented by
+the context ambient on the calling thread; a span times host work only and
+never synchronises the card.
+
+Histograms are bounded rings (the latest ``maxlen`` observations), so a
+long-lived process snapshots in O(maxlen).
 """
 
 from __future__ import annotations
@@ -30,10 +33,108 @@ from dataclasses import dataclass
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
 
 __all__ = [
+    "DEGRADED_COUNTERS",
+    "FOLLOW_COUNTERS",
+    "FOLLOW_GAUGES",
+    "Histogram",
     "Metrics",
+    "OBSERVABILITY_COUNTERS",
+    "RESILIENCE_COUNTERS",
     "StageTimer",
     "get_metrics",
 ]
+
+# Counter vocabulary of the fault-tolerance layer (store/failover.py,
+# store/rpc.py, proofs/range.py), the reference's names:
+#   rpc.calls               — JSON-RPC requests issued (all methods, before
+#                             retries); a disk-warm request shows a delta of 0
+#   rpc.retries             — transport/rate-limit retries inside LotusClient
+#   rpc.failures            — requests that exhausted their retry budget
+#   rpc.integrity_failures  — fetched block bytes failed CID verification
+#   rpc.prefetch_failures   — per-CID failures absorbed by fail-soft prefetch
+#   rpc.hedges              — hedged secondary fetches fired
+#   rpc.hedge_wins          — races the hedge answered first
+#   rpc.probe_suppressed    — half-open probes deferred while every breaker
+#                             is open and another endpoint holds the
+#                             pool-wide probe slot
+#   rpc.retry_budget_exhausted — retries skipped because the pool-wide
+#                             retry budget was dry
+#   failover.breaker_open   — circuit-breaker open transitions
+#   range_scan_retries      — chunk re-scans after transient store errors
+#   range_pipeline_serial_fallback — pipelined driver ran inline
+RESILIENCE_COUNTERS = (
+    "rpc.calls",
+    "rpc.retries",
+    "rpc.failures",
+    "rpc.integrity_failures",
+    "rpc.prefetch_failures",
+    "rpc.hedges",
+    "rpc.hedge_wins",
+    "rpc.probe_suppressed",
+    "rpc.retry_budget_exhausted",
+    "failover.breaker_open",
+    "range_scan_retries",
+    "range_pipeline_serial_fallback",
+)
+
+# Counter vocabulary of the trace spine and its exporters (obs/):
+#   trace.spans_recorded    — spans kept by the opt-in collector
+#   trace.spans_dropped     — spans dropped at the collector's capacity
+#   trace.spans_sampled_out — spans of traces that lost the head-sampling draw
+#   serve.slow_requests     — (serve plane, not ported yet)
+#   trace.otlp_posts        — OTLP/JSON batches POSTed to a collector
+#   trace.otlp_post_failures — collector POSTs that exhausted their retries
+OBSERVABILITY_COUNTERS = (
+    "trace.spans_recorded",
+    "trace.spans_dropped",
+    "trace.spans_sampled_out",
+    "serve.slow_requests",
+    "trace.otlp_posts",
+    "trace.otlp_post_failures",
+)
+
+# The chain follower's part of the reference's STOREX_COUNTERS
+# (storex/follower.py):
+#   follow.tipsets           — heights whose spine was warmed
+#   follow.blocks_prefetched — blocks verified and put into the local tiers
+#   follow.errors            — store errors, rejected blocks and raising
+#                              hooks, each absorbed and retried next poll
+#   follow.leader_elections  — leader-lock elections won
+#   follow.polls             — head polls
+FOLLOW_COUNTERS = (
+    "follow.tipsets",
+    "follow.blocks_prefetched",
+    "follow.errors",
+    "follow.leader_elections",
+    "follow.polls",
+)
+FOLLOW_GAUGES = ("follow.last_finalized_epoch",)  # the last height warmed
+
+# The endpoint pool's all-breakers-open posture (store/failover.py):
+#   degraded.entered / degraded.exited — transitions into and out of it
+#   degraded.warm_served    — (serve plane, not ported yet)
+#   degraded.fail_fast      — cold reads refused typed instead of retried
+DEGRADED_COUNTERS = (
+    "degraded.entered",
+    "degraded.exited",
+    "degraded.warm_served",
+    "degraded.fail_fast",
+)
+
+# `obs.trace.span`, bound at first use: obs imports this module (its
+# collector counts into a `Metrics`), so the import is deferred
+_span_factory = None
+
+
+def _stage_span(name: str):
+    """The trace span that an outermost `Metrics.stage` entry opens."""
+    global _span_factory
+    factory = _span_factory
+    if factory is None:
+        from ipc_proofs_tpu_torch.obs.trace import span as factory
+
+        _span_factory = factory
+    return factory(name)
 
 
 @dataclass
@@ -47,8 +148,51 @@ class StageTimer:
     _wall_start: float = 0.0  # perf_counter when _active went 0 -> 1
 
 
+class Histogram:
+    """Bounded reservoir of observations with percentile snapshots.
+
+    Keeps the most recent ``maxlen`` observations in a ring, so percentiles
+    describe recent behaviour. Not thread-safe on its own; `Metrics` and
+    `store.failover.EndpointPool` serialise access."""
+
+    __slots__ = ("_ring", "_maxlen", "_next", "count", "total")
+
+    def __init__(self, maxlen: int = 8192):
+        self._ring: "list[float]" = []
+        self._maxlen = maxlen
+        self._next = 0  # ring insertion cursor once full
+        self.count = 0  # lifetime observations
+        self.total = 0.0  # lifetime sum
+
+    def observe(self, value: float) -> None:
+        self.count += 1
+        self.total += value
+        if len(self._ring) < self._maxlen:
+            self._ring.append(value)
+        else:
+            self._ring[self._next] = value
+            self._next = (self._next + 1) % self._maxlen
+
+    def percentiles(self, qs=(0.5, 0.9, 0.99)) -> "dict[str, float]":
+        """Nearest-rank percentiles over the retained window ({} if empty)."""
+        if not self._ring:
+            return {}
+        ordered = sorted(self._ring)
+        n = len(ordered)
+        out = {}
+        for q in qs:
+            rank = min(n - 1, max(0, int(q * n + 0.5) - 1))
+            out[f"p{int(q * 100)}"] = ordered[rank]
+        return out
+
+    def snapshot(self) -> dict:
+        out = {"count": self.count, "mean": (self.total / self.count) if self.count else 0.0}
+        out.update(self.percentiles())
+        return out
+
+
 class Metrics:
-    """Thread-safe stage timers, counters and gauges.
+    """Thread-safe stage timers, counters, gauges and histograms.
 
     ``stage()`` is re-entrant per thread: nesting the SAME stage name on one
     thread counts only the outermost entry. Pipeline workers timing one
@@ -64,6 +208,8 @@ class Metrics:
         self.timers: "dict[str, StageTimer]" = {}  # guarded-by: _lock
         self.counters: "dict[str, int]" = {}  # guarded-by: _lock
         self.gauges: "dict[str, float]" = {}  # guarded-by: _lock
+        self.histograms: "dict[str, Histogram]" = {}  # guarded-by: _lock
+        self.created_at = time.time()
         self._union_active = 0  # guarded-by: _lock
         self._union_start = 0.0  # guarded-by: _lock
         self.union_wall_s = 0.0  # guarded-by: _lock
@@ -75,6 +221,7 @@ class Metrics:
             self.timers.clear()
             self.counters.clear()
             self.gauges.clear()
+            self.histograms.clear()
             self._union_active = 0
             self._union_start = 0.0
             self.union_wall_s = 0.0
@@ -100,28 +247,29 @@ class Metrics:
             return
         depths[name] = 1
         try:
-            start = time.perf_counter()
-            with self._lock:
-                timer = self.timers.setdefault(name, StageTimer())
-                if timer._active == 0:
-                    timer._wall_start = start
-                timer._active += 1
-                if self._union_active == 0:
-                    self._union_start = start
-                self._union_active += 1
-            try:
-                yield
-            finally:
-                end = time.perf_counter()
+            with _stage_span(name):
+                start = time.perf_counter()
                 with self._lock:
-                    timer.total_s += end - start
-                    timer.calls += 1
-                    timer._active -= 1
+                    timer = self.timers.setdefault(name, StageTimer())
                     if timer._active == 0:
-                        timer.wall_s += end - timer._wall_start
-                    self._union_active -= 1
+                        timer._wall_start = start
+                    timer._active += 1
                     if self._union_active == 0:
-                        self.union_wall_s += end - self._union_start
+                        self._union_start = start
+                    self._union_active += 1
+                try:
+                    yield
+                finally:
+                    end = time.perf_counter()
+                    with self._lock:
+                        timer.total_s += end - start
+                        timer.calls += 1
+                        timer._active -= 1
+                        if timer._active == 0:
+                            timer.wall_s += end - timer._wall_start
+                        self._union_active -= 1
+                        if self._union_active == 0:
+                            self.union_wall_s += end - self._union_start
         finally:
             depths[name] -= 1
             if not depths[name]:
@@ -148,6 +296,14 @@ class Metrics:
         with self._lock:
             self.gauges[name] = value
 
+    def observe(self, name: str, value: float) -> None:
+        """Record one histogram observation (latency ms, batch size, …)."""
+        with self._lock:
+            hist = self.histograms.get(name)
+            if hist is None:
+                hist = self.histograms[name] = Histogram()
+            hist.observe(value)
+
     def snapshot(self) -> dict:
         with self._lock:
             out = {
@@ -156,12 +312,21 @@ class Metrics:
                     for k, v in self.timers.items()
                 },
                 "counters": dict(self.counters),
+                "uptime_s": round(time.time() - self.created_at, 3),
             }
             busy = sum(t.total_s for t in self.timers.values())
             if self.union_wall_s > 0:
                 out["overlap_efficiency"] = round(busy / self.union_wall_s, 4)
             if self.gauges:
                 out["gauges"] = dict(self.gauges)
+            if self.histograms:
+                out["histograms"] = {
+                    k: {
+                        key: (round(val, 6) if isinstance(val, float) else val)
+                        for key, val in h.snapshot().items()
+                    }
+                    for k, h in self.histograms.items()
+                }
             return out
 
     def to_json(self) -> str:

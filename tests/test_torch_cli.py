@@ -472,3 +472,116 @@ def test_event_sig_needs_topic1_in_both():
         with pytest.raises(SystemExit) as exc:
             main(argv)
         assert exc.value.code == 2
+
+
+# --- the failover pool and the span exports (slice 8) ----------------------
+
+
+def _trace_files(tmp_path, label):
+    return tmp_path / f"{label}.trace.json", tmp_path / f"{label}.otlp.json"
+
+
+def _check_trace_files(chrome_path, otlp_path, one_trace: bool = True) -> "list[dict]":
+    """Both exports parse and hold the same spans; the port's form one
+    trace under the command's root span (the reference's CLI opens no
+    root, so its RPC calls outside a stage are traces of their own)."""
+    chrome = json.loads(chrome_path.read_text())
+    events = [e for e in chrome["traceEvents"] if e["ph"] == "X"]
+    otlp = json.loads(otlp_path.read_text())["resourceSpans"][0]["scopeSpans"][0]["spans"]
+    assert events and len(events) == len(otlp)
+    assert {e["args"]["span_id"] for e in events} == {s["spanId"].lstrip("0") for s in otlp}
+    assert len({e["args"]["trace_id"] for e in events}) == 1 or not one_trace
+    return events
+
+
+FAILOVER_FLAGS = ["--endpoints", "http://replica.invalid/rpc/v1", "--hedge-ms", "5", "--breaker-threshold", "3"]
+
+
+class _RefEndpoint:
+    """The reference's fake node as one pool endpoint: the pool passes
+    ``timeout_s``, which the fake does not take."""
+
+    def __init__(self, fake, endpoint):
+        self._fake, self.endpoint = fake, endpoint
+
+    def request(self, method, params, timeout_s=None):
+        return self._fake.request(method, params)
+
+    def chain_read_obj(self, cid):
+        return self._fake.chain_read_obj(cid)
+
+    def chain_get_parent_receipts(self, block_cid):
+        return self._fake.chain_get_parent_receipts(block_cid)
+
+
+@pytest.fixture
+def pool_nodes(nodes, monkeypatch):
+    ref_client, session = nodes
+    monkeypatch.setattr(ref_rpc, "LotusClient", lambda endpoint, **k: _RefEndpoint(ref_client, endpoint))
+    return nodes
+
+
+@pytest.mark.parametrize("flags", [[], ["--no-batch-rpc"]], ids=["plane", "rpc"])
+def test_range_with_endpoints_and_traces_is_byte_equal(worlds, pool_nodes, tmp_path, monkeypatch, flags):
+    """``range --endpoints … --hedge-ms 5 --breaker-threshold 3 --trace-out F
+    --trace-otlp G --job-dir J`` over the same node in both packages: the
+    bundle is the reference's and the run without the flags, byte for byte;
+    the port's F holds the command's root, ``rpc.*``, ``pool.*``, pipeline
+    stage and ``journal.append`` spans in one trace, and the pool's waves
+    went through the verify lane."""
+    from ipc_proofs_tpu_torch.utils.metrics import get_metrics
+
+    monkeypatch.setenv("IPC_VERIFY_MIN_BYTES", "0")
+    plain = tmp_path / "plain.json"
+    assert port_cli.main(_range_argv(worlds, *flags, "-o", str(plain))) == 0
+    outs = {}
+    for label, main in (("ref", ref_cli.main), ("port", port_cli.main)):
+        chrome, otlp = _trace_files(tmp_path, label)
+        get_metrics().reset()
+        argv = _range_argv(worlds, *flags, *FAILOVER_FLAGS, "--trace-out", str(chrome), "--trace-otlp", str(otlp),
+                           "--job-dir", str(tmp_path / f"{label}-job"), "-o", str(tmp_path / f"{label}.json"))
+        assert main(argv) == 0
+        outs[label] = (tmp_path / f"{label}.json").read_bytes()
+        _check_trace_files(chrome, otlp, one_trace=label == "port")
+    assert outs["port"] == outs["ref"] == plain.read_bytes()
+    events = _check_trace_files(*_trace_files(tmp_path, "port"))
+    names = {e["name"] for e in events}
+    assert "cli.range" in names and "journal.append" in names and "fetch_tipsets" in names
+    assert any(n.startswith("rpc.") for n in names)
+    assert names & {"pool.read", "pool.read_many"}
+    assert names & {"range_scan", "range_record", "range_match"}
+    if not flags:
+        assert get_metrics().counter_value("verify.device_blocks") > 0  # the pool's lane
+
+
+def test_generate_with_endpoints_and_trace_is_byte_equal(worlds, pool_nodes, tmp_path):
+    flags = ["--contract", ETH, "--slot-subnet", SUBNET, "--event-sig", SIG, "--topic1", SUBNET]
+    outs = {}
+    for label, main in (("ref", ref_cli.main), ("port", port_cli.main)):
+        chrome, otlp = _trace_files(tmp_path, label)
+        argv = ["generate", "--endpoint", "http://node.invalid/rpc/v1", "--height", str(BASE), "--backend", "cpu",
+                *flags, *FAILOVER_FLAGS, "--trace-out", str(chrome), "--trace-otlp", str(otlp),
+                "-o", str(tmp_path / f"{label}.json")]
+        assert main(argv) == 0
+        outs[label] = (tmp_path / f"{label}.json").read_bytes()
+    assert outs["port"] == outs["ref"]
+    events = _check_trace_files(*_trace_files(tmp_path, "port"))
+    names = {e["name"] for e in events}
+    assert {"cli.generate", "fetch_tipsets", "generate", "pool.read"} <= names
+
+
+def test_trace_sample_zero_exports_nothing(worlds, nodes, tmp_path):
+    chrome, otlp = _trace_files(tmp_path, "sampled")
+    argv = _range_argv(worlds, "--trace-out", str(chrome), "--trace-otlp", str(otlp), "--trace-sample", "0",
+                       "-o", str(tmp_path / "out.json"))
+    assert port_cli.main(argv) == 0
+    assert [e for e in json.loads(chrome.read_text())["traceEvents"] if e["ph"] == "X"] == []
+
+
+def test_endpoints_path_refuses_the_host_without_cuda(worlds, nodes, tmp_path, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in _range_argv(worlds, *FAILOVER_FLAGS, "-o", str(tmp_path / "x.json")) if a not in ("--backend", "cpu")]
+    with pytest.raises(SystemExit, match="CUDA"):
+        port_cli.main(argv)

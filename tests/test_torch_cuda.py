@@ -470,3 +470,108 @@ def test_dryrun_multichip_on_a_virtual_mesh(cuda_device):
     # leg 2: one multi-block launch per mesh device
     assert blake2b.LAUNCHES["blake2b256_blocks"] >= 4
     assert match.LAUNCHES["event_match_mask_fp_sharded"] > 0
+
+
+def _chain_node(store, pairs):
+    """A hermetic node answering the chain head and every height's tipset."""
+    from ipc_proofs_tpu_torch.store import LocalLotusSession
+
+    by_height = {p.parent.height: p.parent for p in pairs}
+    by_height.update({p.child.height: p.child for p in pairs})
+
+    def tipset_json(ts):
+        return {"Cids": [{"/": str(c)} for c in ts.cids], "Height": ts.height, "Blocks": [
+            {"Parents": [{"/": str(p)} for p in h.parents], "Height": h.height, "Timestamp": h.timestamp,
+             "ParentStateRoot": {"/": str(h.parent_state_root)}, "Messages": {"/": str(h.messages)},
+             "ParentMessageReceipts": {"/": str(h.parent_message_receipts)}} for h in ts.blocks]}
+
+    def session():
+        return LocalLotusSession(store, {
+            "Filecoin.ChainHead": {"Height": max(by_height)},
+            "Filecoin.ChainGetTipSetByHeight": lambda params: tipset_json(by_height[params[0]]),
+        })
+
+    return session, min(by_height), max(by_height)
+
+
+class _Tier(dict):
+    put_local = dict.__setitem__
+    has_local = dict.__contains__
+    get_local = dict.get
+
+
+def test_follower_waves_on_card_equal_the_plain_versions(cuda_device, monkeypatch):
+    """The follower's prefetch waves verify on the card's blake2b kernels:
+    the same blocks land as with the CPU plain versions, and the kernels
+    launched."""
+    from ipc_proofs_tpu_torch.store import LotusClient
+    from ipc_proofs_tpu_torch.storex import ChainFollower
+    from ipc_proofs_tpu_torch.utils.metrics import Metrics
+
+    monkeypatch.setenv("IPC_VERIFY_MIN_BYTES", "0")
+    store, pairs, _ = build_range_world(6, 8, 2, 0.25)
+    session, lo, hi = _chain_node(store, pairs)
+    tiers = {}
+    for name, backend in (("card", get_backend("gpu")), ("plain", get_backend("gpu", device="cpu"))):
+        blake2b.reset_launch_counts()
+        m, tier = Metrics(), _Tier()
+        follower = ChainFollower(LotusClient("http://node", session=session(), metrics=m), tier, metrics=m,
+                                 lag=0, start_height=lo, max_tipsets_per_poll=64, backend=backend)
+        assert follower.poll_once() == hi - lo + 1
+        assert m.counter_value("follow.errors") == 0
+        tiers[name] = (dict(tier), sum(blake2b.LAUNCHES.values()))
+    assert tiers["card"][0] == tiers["plain"][0]
+    assert tiers["card"][1] > 0 and tiers["plain"][1] == 0
+
+
+def test_pool_waves_on_card_equal_the_plain_versions(cuda_device, monkeypatch):
+    """A pool behind the fetch plane verifies its batch reads on the card:
+    the bundle equals the in-memory one and the plain-version run's, and a
+    lying endpoint is demoted by the card's verdicts."""
+    import base64
+    import json
+
+    from ipc_proofs_tpu_torch.store import EndpointPool, FetchPlane, LotusClient, PlaneBlockstore
+    from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range_pipelined
+    from ipc_proofs_tpu_torch.utils.metrics import Metrics
+
+    monkeypatch.setenv("IPC_VERIFY_MIN_BYTES", "0")
+    store, pairs, _ = build_range_world(6, 8, 2, 0.25)
+    spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
+    session, _, _ = _chain_node(store, pairs)
+    want = generate_event_proofs_for_range(store, pairs, spec, match_backend=get_backend("gpu")).to_json()
+
+    class Liar:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def post(self, url, data=None, headers=None, timeout=None):
+            resp = self.inner.post(url, data=data, headers=headers, timeout=timeout)
+            body = resp.json()  # the hermetic node's response: edited in place
+            for entry in body if isinstance(body, list) else [body]:
+                if isinstance(entry.get("result"), str):
+                    raw = bytearray(base64.b64decode(entry["result"]))
+                    raw[0] ^= 1
+                    entry["result"] = base64.b64encode(bytes(raw)).decode()
+            return resp
+
+    for name, backend in (("card", get_backend("gpu")), ("plain", get_backend("gpu", device="cpu"))):
+        blake2b.reset_launch_counts()
+        m = Metrics()
+        pool = EndpointPool([LotusClient("http://liar", session=Liar(session()), metrics=m),
+                             LotusClient("http://honest", session=session(), metrics=m)],
+                            backend=backend, metrics=m)
+        plane = FetchPlane(pool, backend=backend, metrics=m)
+        try:
+            got = generate_event_proofs_for_range_pipelined(
+                PlaneBlockstore(plane), pairs, spec, chunk_size=2, scan_threads=2, match_backend=backend,
+                force_pipeline=True,
+            ).to_json()
+        finally:
+            plane.close()
+            pool.close()
+        assert got == want, name
+        assert pool.health()["endpoints"][0]["integrity_demotions"] >= 1
+        launches = sum(blake2b.LAUNCHES.values())
+        assert (launches > 0) == (name == "card")
+    assert json.loads(want)["event_proofs"]

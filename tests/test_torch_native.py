@@ -183,6 +183,21 @@ def test_concurrent_builds_load_one_library(tmp_path):
     assert [p.name for p in tmp_path.iterdir()] == [Path(files.pop()).name]
 
 
+def test_a_published_library_is_never_replaced(tmp_path):
+    """A build that finishes second is dropped, so a library some process
+    has already mapped keeps its inode (a replaced one would map as a
+    deleted file)."""
+    target = tmp_path / "lib.so"
+    first, second = tmp_path / "a.tmp", tmp_path / "b.tmp"
+    first.write_bytes(b"first build")
+    second.write_bytes(b"second build")
+    _cid_native.publish_build(first, target)
+    inode = target.stat().st_ino
+    _cid_native.publish_build(second, target)
+    assert target.stat().st_ino == inode and target.read_bytes() == b"first build"
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["lib.so"]
+
+
 # --- the CID type and the codecs ---------------------------------------------
 
 

@@ -7,9 +7,11 @@
   of the port and runs the small range and storage paths, one journaled
   run of the overlapped driver and one cold read (hermetic Lotus node →
   client → fetch plane → tier over a segment store, the landed waves and
-  the disk sweep verified on the backend) on ``device="cpu"`` through the
-  native branches ends with neither (nor ``requests``) in ``sys.modules``
-  and no shared library of ``ipc_proofs_tpu/`` mapped.
+  the disk sweep verified on the backend), one traced pooled range (two
+  endpoints behind the fetch plane) and one follower poll on
+  ``device="cpu"`` through the native branches ends with neither (nor
+  ``requests``) in ``sys.modules`` and no shared library of
+  ``ipc_proofs_tpu/`` mapped.
 - Entry points default to the card: without CUDA, ``GpuBackend()``,
   ``generate_event_proofs_for_range``, its chunked, pipelined and
   overlapped drivers, ``hash_slot_specs``,
@@ -91,7 +93,8 @@ def test_port_files_exist():
         "crypto/rleplus.py", "proofs/gpbft.py", "proofs/cert.py", "proofs/cert_cbor.py",
         "proofs/trust.py", "proofs/address.py", "proofs/vectors.py", "utils/profiling.py",
         "parallel/mesh.py", "parallel/multihost.py", "utils/timing.py", "ops/cid_bench.py",
-        "entry.py",
+        "entry.py", "obs/__init__.py", "obs/trace.py", "obs/flight.py", "obs/prom.py",
+        "obs/export.py", "store/failover.py", "storex/follower.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
@@ -208,6 +211,48 @@ with tempfile.TemporaryDirectory() as store_dir:
 import torch
 from ipc_proofs_tpu_torch.entry import dryrun_multichip
 assert dryrun_multichip(2, devices=[torch.device("cpu")] * 2)["event_proofs"] > 0
+
+from ipc_proofs_tpu_torch.obs import enable_tracing, disable_tracing, root_span, write_otlp_trace
+from ipc_proofs_tpu_torch.store import EndpointPool
+from ipc_proofs_tpu_torch.storex import ChainFollower
+collector = enable_tracing()
+metrics = Metrics()
+by_height = {p.parent.height: p.parent for p in pairs}
+by_height.update({p.child.height: p.child for p in pairs})
+def tipset_json(ts):
+    return {"Cids": [{"/": str(c)} for c in ts.cids], "Height": ts.height, "Blocks": [
+        {"Parents": [{"/": str(p)} for p in h.parents], "Height": h.height, "Timestamp": h.timestamp,
+         "ParentStateRoot": {"/": str(h.parent_state_root)}, "Messages": {"/": str(h.messages)},
+         "ParentMessageReceipts": {"/": str(h.parent_message_receipts)}} for h in ts.blocks]}
+def node():
+    return LocalLotusSession(store, {
+        "Filecoin.ChainHead": {"Height": max(by_height)},
+        "Filecoin.ChainGetTipSetByHeight": lambda params: tipset_json(by_height[params[0]]),
+    })
+pool = EndpointPool([LotusClient("http://a", session=node(), metrics=metrics),
+                     LotusClient("http://b", session=node(), metrics=metrics)],
+                    hedge_ms=50.0, backend=backend, metrics=metrics)
+plane = FetchPlane(pool, backend=backend, metrics=metrics)
+with root_span("small.pool"):
+    try:
+        pooled = generate_event_proofs_for_range_pipelined(
+            PlaneBlockstore(plane), pairs, EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
+            chunk_size=3, match_backend=backend, force_pipeline=True,
+        )
+    finally:
+        plane.close()
+        pool.close()
+assert pooled.to_json() == event_bundle.to_json()
+class Tier(dict):
+    put_local = dict.__setitem__
+    has_local = dict.__contains__
+    get_local = dict.get
+follower = ChainFollower(LotusClient("http://c", session=node(), metrics=metrics), Tier(), lag=0,
+                         start_height=max(by_height), backend=backend, metrics=metrics)
+assert follower.poll_once() == 1 and metrics.counter_value("follow.errors") == 0
+with tempfile.TemporaryDirectory() as out:
+    assert write_otlp_trace(out + "/t.json", collector.snapshot()) > 0
+disable_tracing()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu", "requests"))
 print("LOADED", bad)

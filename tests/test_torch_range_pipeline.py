@@ -53,6 +53,7 @@ from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, hash_event_signature
 from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
 from ipc_proofs_tpu_torch.store.blockstore import MemoryBlockstore
+from ipc_proofs_tpu_torch.store.failover import DegradedError
 from ipc_proofs_tpu_torch.store.rpc import IntegrityError
 from ipc_proofs_tpu_torch.utils.metrics import Metrics
 
@@ -395,9 +396,18 @@ def test_scan_worker_exception_propagates(worlds, monkeypatch):
     _drive_with_deadline(run)
 
 
-@pytest.mark.parametrize("exc", [ConnectionError, TimeoutError, IntegrityError])
+def _exhausted_retries(message):
+    """A client's exhausted retries: a RuntimeError raised from a transport error."""
+    exc = RuntimeError(message)
+    exc.__cause__ = ConnectionError("injected")
+    return exc
+
+
+@pytest.mark.parametrize("exc", [ConnectionError, TimeoutError, IntegrityError, DegradedError, _exhausted_retries])
 def test_transient_scan_failure_is_retried(worlds, monkeypatch, exc):
-    """A store error is transient: the chunk re-scans."""
+    """A store error is transient: the chunk re-scans. So are an endpoint
+    pool's lotus_down posture and a client's exhausted retries, as the
+    reference retries them."""
     store, pairs, _, _, _ = worlds
     ref_json, _ = _reference(worlds, 1, False)
     calls = _flaky_scan(monkeypatch, {3}, exc)

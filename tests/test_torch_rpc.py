@@ -437,8 +437,9 @@ def test_faulty_blockstore_draws_as_the_reference(kinds):
 
 
 def test_counter_names_are_the_references():
-    """Every counter and gauge the port's cold read path emits is a name
-    the reference declares in its vocabularies."""
+    """Every counter and gauge the port's cold read path, endpoint pool,
+    chain follower and trace spine emit is a name the reference declares
+    in its vocabularies."""
     import ast
     from pathlib import Path
 
@@ -447,7 +448,8 @@ def test_counter_names_are_the_references():
 
     root = Path(ipc_proofs_tpu_torch.__file__).resolve().parent
     emitted = set()
-    for rel in ("store/rpc.py", "store/fetchplane.py", "storex/segments.py", "ops/verify.py"):
+    for rel in ("store/rpc.py", "store/fetchplane.py", "storex/segments.py", "ops/verify.py",
+                "store/failover.py", "storex/follower.py", "obs/trace.py", "obs/export.py"):
         for node in ast.walk(ast.parse((root / rel).read_text())):
             if (
                 isinstance(node, ast.Call)
@@ -455,8 +457,17 @@ def test_counter_names_are_the_references():
                 and node.func.attr in ("count", "set_gauge")
                 and node.args
                 and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)  # not itertools.count(1)
             ):
                 emitted.add(node.args[0].value)
-    vocab = ("RESILIENCE_COUNTERS", "ASYNCFETCH_COUNTERS", "STOREX_COUNTERS", "STOREX_GAUGES", "VERIFY_COUNTERS")
+    vocab = ("RESILIENCE_COUNTERS", "ASYNCFETCH_COUNTERS", "STOREX_COUNTERS", "STOREX_GAUGES", "VERIFY_COUNTERS",
+             "DEGRADED_COUNTERS", "OBSERVABILITY_COUNTERS")
     ref_names = {n for v in vocab for n in getattr(ref_metrics, v)}
     assert emitted and emitted <= ref_names, sorted(emitted - ref_names)
+    # the port's own vocabularies are the reference's names
+    import ipc_proofs_tpu_torch.utils.metrics as port_metrics
+
+    for name in ("RESILIENCE_COUNTERS", "OBSERVABILITY_COUNTERS", "DEGRADED_COUNTERS"):
+        assert getattr(port_metrics, name) == getattr(ref_metrics, name)
+    assert set(port_metrics.FOLLOW_COUNTERS) <= set(ref_metrics.STOREX_COUNTERS)
+    assert set(port_metrics.FOLLOW_GAUGES) <= set(ref_metrics.STOREX_GAUGES)
