@@ -240,8 +240,52 @@ Phases, none of which may fail:
    pipeline-stage and ``journal.append`` spans in one trace and G as many
    spans; the pool's lane launched blake2b;
 16. autotune — ``autotune_crossover(quick=False)`` on the card, its record
-   written as ``verify_autotune_cuda.json``; last, since the tuned crossover
-   applies to every later verify call of the process.
+   written as ``verify_autotune_cuda.json``; after every phase whose fetch
+   plane or disk tier verifies on the lane, since the tuned crossover
+   applies to every later lane call of the process (the phases below build
+   no ``store_dir`` and verify through ``verify_proof_bundle``, whose CID
+   batches do not take the lane);
+17. serve verify — the JAX ``bench.py`` serve leg at full size: the
+   768-event chain (one contract), its full bundle (996 witness blocks,
+   194,365 B) and 256 single-proof requests over it; the sequential
+   baseline (`sequential_verify_baseline` on the card), then 32 closed-loop
+   clients through ``ProofService`` (``max_batch=32``, ``max_wait_ms=4``,
+   2 workers) with ``verify_witness_cids`` off and on: the three runs'
+   verdicts equal and true; blake2b launched exactly once per merged batch
+   for its TxMeta batch, plus once per size class of the merged witness
+   with the CIDs on (``serve.batches.verify`` counts the merged batches);
+   a request with a flipped witness byte among 31 honest ones is rejected
+   in its own sub-merge and its neighbours verify; the card's digests of
+   the merged witness equal the plain versions' and the CIDs; prints
+   ``serve_batched_rps``, ``serve_sequential_rps``, the speedup,
+   ``serve_p99_latency_ms``, ``serve_mean_batch`` and the launches;
+18. serve generate — 32 closed-loop clients ask ``ProofService.generate``
+   for one pair each of the 4,096-pair event world (phase 4's): each
+   response's event proofs equal those of generating its pair alone, and
+   every batch's claims verify over the batch's shared witness on the card
+   (the window's launches); one batch of 32 pairs through a
+   ``range_job_dir`` (``journal_ms`` in each response's timing, the same
+   proofs); one ``submit_range_window`` with the topdown nonce slot over
+   the 64-pair mixed world (the slot keccak launched; the chunked driver's
+   bytes; every verdict true);
+19. witness diet — the JAX ``bench.py`` witness leg on the port: the
+   two-pass against the single-pass witness bytes over 64 pairs; on the
+   8-pair match-dense world the wire bytes per proof at K = 1, 16 and 256
+   aggregated claims, the delta ratio over 8 consecutive epochs (each
+   delta rebuilt byte for byte by ``apply_delta``) and the zlib frame
+   ratio (zstd too where ``zstandard`` imports; the encodings run are
+   printed); ``verify_aggregated`` of the 256 claims with the witness CIDs
+   on the card: one launch set (each size class once, one TxMeta batch),
+   each claim's verdict that of verifying it alone;
+20. registry — the JAX ``bench.py`` registry leg's in-process half: a
+   ``ProofService`` with ``registry_dir`` serves 96 generate requests, each
+   sealed (``encode_bundle_fields``, ``append_served`` with its CID set);
+   ``registry_append_overhead_pct`` is one append (2,048 timed) over one
+   served request; every record's inclusion proof verifies against the
+   head, a consistency proof between two heads verifies, the head is the
+   same after a reopen, and a 4-shard fleet directory resolves its
+   siblings' bases through ``FleetBaseCache`` (the HTTP endpoints are not
+   ported).
 
 Prints per-stage ms of every path with the scanner's thread count and the
 CPUs it may use; then, in order before the last line: one line per kernel,
@@ -253,8 +297,12 @@ event path for blake2b, the storage path for the single-block keccak, the
 mixed-multihash sweep for the multi-block keccak); ``launches_by_path``
 holds its count on each path (the unfused event run, the overlapped runs,
 the resumable range's two runs, the two pure-Python paths, the cold
-read path's phases, the CLI's runs, the mesh phases and slice 8's
-``traced``, ``pool``, ``follower`` and ``cli_pool`` included). The
+read path's phases, the CLI's runs, the mesh phases, slice 8's
+``traced``, ``pool``, ``follower`` and ``cli_pool``, and the serve
+plane's ``serve verify`` (CIDs off), ``serve verify, cids``, ``serve
+verify, sequential``, ``serve generate``, ``serve range window``,
+``witness diet``, ``witness aggregate verify`` and ``registry``
+included). The
 device match functions (PyTorch ops, not kernels of this repository)
 report their times in their phase's line.
 """
@@ -305,6 +353,7 @@ from ipc_proofs_tpu_torch.core.cid import (
 from ipc_proofs_tpu_torch.core.hashes import keccak256
 from ipc_proofs_tpu_torch.fixtures import (
     ContractFixture,
+    EventFixture,
     build_chain,
     build_range_world,
     certificate_json_obj,
@@ -347,7 +396,8 @@ from ipc_proofs_tpu_torch.proofs import range as range_mod
 from ipc_proofs_tpu_torch.proofs import verifier as verifier_mod
 from ipc_proofs_tpu_torch.proofs.bundle import EventProofBundle, ProofBlock, UnifiedProofBundle
 from ipc_proofs_tpu_torch.proofs.event_verifier import verify_event_proof
-from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
+from ipc_proofs_tpu_torch.proofs.event_generator import single_pass_witness_cids
+from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec, StorageProofSpec, generate_proof_bundle
 from ipc_proofs_tpu_torch.proofs.range import (
     TipsetPair,
     generate_and_verify_range_overlapped,
@@ -361,7 +411,10 @@ from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
 from ipc_proofs_tpu_torch.proofs.vectors import check_vectors, load_vectors
 from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
+from ipc_proofs_tpu_torch.registry import ProvenanceRegistry, verify_consistency, verify_inclusion
+from ipc_proofs_tpu_torch.serve import ProofService, ServiceConfig, sequential_verify_baseline
 from ipc_proofs_tpu_torch.state.address import Address
+from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, hash_event_signature, left_pad_32
 from ipc_proofs_tpu_torch.store import rpc as rpc_mod
 from ipc_proofs_tpu_torch.store import fetchplane as fetchplane_mod
@@ -377,6 +430,20 @@ from ipc_proofs_tpu_torch.storex import segments as segments_mod
 from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
+from ipc_proofs_tpu_torch.witness import (
+    WitnessBaseCache,
+    WitnessOptions,
+    aggregate_range_bundle,
+    apply_delta,
+    compress_blocks,
+    decompress_blocks,
+    encode_bundle_fields,
+    encode_delta,
+    pack_blocks,
+    supported_encodings,
+    verify_aggregated,
+)
+from ipc_proofs_tpu_torch.witness.bases import FleetBaseCache
 
 # Peak rates of one H100 SXM at its 700 W limit. Memory: HBM3 at 3.35 TB/s
 # (NVIDIA data sheet). Integer: the CUDA C++ Programming Guide's
@@ -3228,6 +3295,535 @@ def autotune_phase(root: str) -> dict:
     return {"record": record, "launches": launches}
 
 
+# -- the serve plane, the witness wire and the registry (slice 9) ----------
+
+SERVE_EVENTS = 768  # the JAX bench.py serve leg's chain: one contract, 768 events
+SERVE_REQUESTS = 256
+SERVE_CLIENTS = 32
+SERVE_WAIT_MS = 4.0
+DIET_PAIRS = 64  # the witness leg's two-pass comparison: min(64, tipsets)
+DIET_EPOCHS = 8  # the witness leg's delta run: 8 consecutive epochs
+REGISTRY_REQUESTS = 96
+REGISTRY_APPENDS = 2048
+REGISTRY_SHARDS = 4
+REGISTRY_T0 = 1_700_000_000.0
+
+
+def _service_device(device):
+    """ServiceConfig's device: None (the card) on the card, "cpu" for a
+    rehearsal of the phase on the CPU."""
+    return None if torch.device(device).type == "cuda" else "cpu"
+
+
+def _closed_loop(n_requests: int, clients: int, call) -> "tuple[list, float]":
+    """``clients`` threads take request indexes from one counter until
+    ``n_requests`` are served; returns (responses by index, wall seconds)."""
+    it = iter(range(n_requests))
+    lock = threading.Lock()
+    out: list = [None] * n_requests
+    errors: list = []
+
+    def client():
+        while True:
+            with lock:
+                i = next(it, None)
+            if i is None:
+                return
+            try:
+                out[i] = call(i)
+            except BaseException as exc:  # re-raised below, on the main thread
+                errors.append(exc)
+                return
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a serve client did not finish within 600 s")
+    if errors:
+        raise errors[0]
+    return out, wall
+
+
+def _serve_launch_set(present, batches: int, txmeta_batches: int) -> "dict[str, int]":
+    """The blake2b launches ``batches`` merged verify batches make: the
+    TxMeta batch (single-block) of each of ``txmeta_batches``, plus, with
+    the witness CIDs on, one launch per size class ``present`` in each."""
+    want = dict.fromkeys(SIZE_CLASSES, 0)
+    want["blake2b256_single_block"] = txmeta_batches
+    for name in present:
+        want[name] += batches
+    return want
+
+
+def _require_launch_set(label: str, launches: "dict[str, int]", want: "dict[str, int]") -> None:
+    got = {name: launches[name] for name in want}
+    if got != want:
+        raise AssertionError(f"{label}: blake2b launches {got}, expected {want}")
+
+
+def serve_chain():
+    """The JAX bench.py serve leg's world: one contract holding the topdown
+    nonce slot, 768 matching events, and its full bundle."""
+    slot = calculate_storage_slot(TOPIC1, 0)
+    world = build_chain(
+        [ContractFixture(actor_id=ACTOR_ID, storage={slot: (42).to_bytes(2, "big")})],
+        [
+            [EventFixture(emitter=ACTOR_ID, signature=SIGNATURE, topic1=TOPIC1, data=i.to_bytes(32, "big"))]
+            for i in range(SERVE_EVENTS)
+        ],
+    )
+    return world, slot
+
+
+def serve_verify_phase(device) -> dict:
+    """256 single-proof requests over the 768-event chain's full bundle:
+    the sequential baseline, then 32 closed-loop clients through
+    `ProofService` (max_batch 32, 4 ms window, 2 workers) with the witness
+    CIDs off and on. The verdicts of the three runs are equal; each merged
+    batch launches blake2b once per size class (the TxMeta batch, plus the
+    merged witness with CIDs on); a flipped witness byte in one request is
+    rejected without touching its neighbours; the card's digests of one
+    merged witness equal the plain versions' and the CIDs."""
+    backend = get_backend("gpu", device=device)
+    plain = get_backend("gpu", device="cpu")
+    world, slot = serve_chain()
+    full = generate_proof_bundle(
+        world.store, world.parent, world.child,
+        [StorageProofSpec(actor_id=ACTOR_ID, slot=slot)],
+        [EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)],
+        match_backend=backend,
+    )
+    if len(full.event_proofs) != SERVE_EVENTS:
+        raise AssertionError(f"serve verify: {len(full.event_proofs)} event proofs")
+    requests = [
+        UnifiedProofBundle([], [full.event_proofs[i % SERVE_EVENTS]], full.blocks)
+        for i in range(SERVE_REQUESTS)
+    ]
+    present = [name for name, rows in _classes(full.blocks).items() if rows]
+
+    sequential_verify_baseline(requests[:4], cid_backend=backend)  # warm
+    gc.collect()
+    _reset_counts()
+    t0 = time.perf_counter()
+    seq = sequential_verify_baseline(requests, cid_backend=backend)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    seq_launches = _counts()
+    verdicts = [(r.storage_results, r.event_results) for r in seq]
+    if verdicts != [([], [True])] * SERVE_REQUESTS:
+        raise AssertionError("serve verify: a sequential verdict is false")
+    _require_launch_set("serve verify, sequential", seq_launches, _serve_launch_set([], 0, SERVE_REQUESTS))
+
+    runs = {}
+    for cids in (False, True):
+        service = ProofService(config=ServiceConfig(
+            max_batch=SERVE_CLIENTS, max_wait_ms=SERVE_WAIT_MS, queue_capacity=max(512, 2 * SERVE_REQUESTS),
+            workers=2, verify_witness_cids=cids, device=_service_device(device),
+        ))
+        try:
+            gc.collect()
+            _reset_counts()
+            responses, wall = _closed_loop(SERVE_REQUESTS, SERVE_CLIENTS, lambda i: service.verify(requests[i]))
+            torch.cuda.synchronize()
+            launches = _counts()
+            snap = service.metrics_snapshot()
+        finally:
+            service.drain()
+        if [(r.storage_results, r.event_results) for r in responses] != verdicts:
+            raise AssertionError(f"serve verify (cids {cids}): verdicts differ from the sequential run")
+        batches = snap["counters"]["serve.batches.verify"]
+        label = "serve verify, cids" if cids else "serve verify"
+        _require_launch_set(label, launches, _serve_launch_set(present if cids else [], batches, batches))
+        hist = snap.get("histograms", {})
+        runs["cids" if cids else "plain"] = {
+            "rps": SERVE_REQUESTS / wall,
+            "wall_ms": wall * 1e3,
+            "p99_latency_ms": hist.get("serve.latency_ms.verify", {}).get("p99"),
+            "mean_batch": hist.get("serve.batch_size.verify", {}).get("mean"),
+            "batches": batches,
+            "launches": launches,
+        }
+
+    # one request with a flipped witness byte among 31 honest ones: its own
+    # sub-merge fails the CID recompute, the others verify
+    index = len(full.blocks) // 2
+    flipped = bytearray(full.blocks[index].data)
+    flipped[len(flipped) // 2] ^= 0x01
+    liar = UnifiedProofBundle(
+        [], [full.event_proofs[0]],
+        full.blocks[:index] + [ProofBlock(full.blocks[index].cid, bytes(flipped))] + full.blocks[index + 1 :],
+    )
+    with ProofService(config=ServiceConfig(
+        max_batch=SERVE_CLIENTS, max_wait_ms=200.0, verify_witness_cids=True, device=_service_device(device),
+    )) as service:
+        pendings = [service.submit_verify(liar if i == 7 else requests[i]) for i in range(SERVE_CLIENTS)]
+        outcomes = []
+        for p in pendings:
+            try:
+                outcomes.append(p.result(timeout=300).event_results)
+            except ValueError:
+                outcomes.append("rejected")
+        merges = service.metrics.snapshot()["timers"]["serve.verify_batch"]["calls"]
+    if outcomes != [[True]] * 7 + ["rejected"] + [[True]] * (SERVE_CLIENTS - 8) or merges != 2:
+        raise AssertionError(f"serve verify: the tampered request's outcomes {outcomes}, {merges} sub-merges")
+
+    # the card's digests of the merged witness against the plain versions
+    data = [b.data for b in full.blocks]
+    card = backend.blake2b256_batch(data)
+    if card != plain.blake2b256_batch(data) or card != [b.cid.digest for b in full.blocks]:
+        raise AssertionError("serve verify: the card's witness digests differ from the plain versions")
+    _check_witness_shapes(full.blocks, device)
+    plain_run, cid_run = runs["plain"], runs["cids"]
+    return {
+        "requests": SERVE_REQUESTS,
+        "clients": SERVE_CLIENTS,
+        "witness_blocks": len(full.blocks),
+        "witness_bytes": full.witness_bytes(),
+        "by_class": {name: len(rows) for name, rows in _classes(full.blocks).items()},
+        "serve_sequential_rps": SERVE_REQUESTS / seq_s,
+        "serve_batched_rps": plain_run["rps"],
+        "serve_batched_rps_cids": cid_run["rps"],
+        "serve_speedup_vs_sequential": plain_run["rps"] * seq_s / SERVE_REQUESTS,
+        "serve_p99_latency_ms": plain_run["p99_latency_ms"],
+        "serve_mean_batch": plain_run["mean_batch"],
+        "serve.batches.verify": plain_run["batches"],
+        "runs": runs,
+        "sequential_ms": seq_s * 1e3,
+        "tampered_sub_merges": merges,
+        "launches": plain_run["launches"],
+        "cids_launches": cid_run["launches"],
+        "sequential_launches": seq_launches,
+    }
+
+
+def _group_by_witness(responses) -> "list[UnifiedProofBundle]":
+    """The responses of each generate batch (they share one witness list)
+    merged into one bundle: verifying it verifies every response of the
+    batch, verdict for verdict."""
+    groups: "dict[int, UnifiedProofBundle]" = {}
+    for resp in responses:
+        key = id(resp.bundle.blocks)
+        if key not in groups:
+            groups[key] = UnifiedProofBundle([], [], resp.bundle.blocks)
+        groups[key].event_proofs.extend(resp.bundle.event_proofs)
+    return list(groups.values())
+
+
+def serve_generate_phase(world, device, root: str) -> dict:
+    """32 closed-loop clients ask `ProofService.generate` for one pair each
+    until every pair of the 4,096-pair event world is served: each
+    response's event proofs are those of generating its pair alone, and each
+    batch's shared witness verifies every claim of the batch on the card.
+    Then one batch through a ``range_job_dir`` (``journal_ms`` in its
+    timing), and one range window with the topdown nonce slot over the
+    64-pair mixed world (the slot keccak on the card)."""
+    store, pairs, n_matching = world
+    backend = get_backend("gpu", device=device)
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    svc_device = _service_device(device)
+    gc.collect()
+    service = ProofService(store=store, spec=spec, config=ServiceConfig(
+        max_batch=SERVE_CLIENTS, max_wait_ms=SERVE_WAIT_MS, queue_capacity=2 * len(pairs), workers=2,
+        device=svc_device,
+    ))
+    try:
+        _reset_counts()
+        responses, wall = _closed_loop(len(pairs), SERVE_CLIENTS, lambda i: service.generate(pairs[i]))
+        torch.cuda.synchronize()
+        generate_launches = _counts()
+        snap = service.metrics_snapshot()
+    finally:
+        service.drain()
+    t0 = time.perf_counter()
+    groups = _group_by_witness(responses)
+    for group in groups:
+        result = verify_proof_bundle(group, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend)
+        if not result.all_valid():
+            raise AssertionError("serve generate: a served claim does not verify over its batch's witness")
+    torch.cuda.synchronize()
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    _require_blake2b("serve generate", launches)
+    served = sum(len(r.bundle.event_proofs) for r in responses)
+    if served != n_matching:
+        raise AssertionError(f"serve generate: {served} proofs served for {n_matching} matching receipts")
+    t0 = time.perf_counter()
+    for pair, resp in zip(pairs, responses):
+        solo = generate_event_proofs_for_range(store, [pair], spec, match_backend=backend)
+        if [p.to_json_obj() for p in resp.bundle.event_proofs] != [p.to_json_obj() for p in solo.event_proofs]:
+            raise AssertionError("serve generate: a response differs from generating its pair alone")
+    solo_ms = (time.perf_counter() - t0) * 1e3
+    hist = snap.get("histograms", {})
+
+    # one batch through the write-ahead journal
+    job_dir = os.path.join(root, "serve-jobs")
+    with ProofService(store=store, spec=spec, config=ServiceConfig(
+        max_batch=SERVE_CLIENTS, max_wait_ms=200.0, workers=2, range_job_dir=job_dir, device=svc_device,
+    )) as journaled:
+        pendings = [journaled.submit_generate(p) for p in pairs[:SERVE_CLIENTS]]
+        jobbed = [p.result(timeout=300) for p in pendings]
+    journal_ms = [r.server_timing.get("journal_ms", 0) for r in jobbed]
+    if not all(ms > 0 for ms in journal_ms) or {r.batch_size for r in jobbed} != {SERVE_CLIENTS}:
+        raise AssertionError(f"serve generate: journal_ms {journal_ms}")
+    for resp, want in zip(jobbed, responses):
+        if resp.bundle.event_proofs != want.bundle.event_proofs:
+            raise AssertionError("serve generate: a journaled response differs")
+
+    # one range window with the topdown nonce slot (the slot keccak)
+    mixed_store, mixed_pairs, _ = build_range_world(64, 16, 4, 0.01)
+    slot_spec = MappingSlotSpec(ACTOR_ID, TOPIC1, 0)
+    with ProofService(store=mixed_store, spec=spec, config=ServiceConfig(device=svc_device)) as windows:
+        _reset_counts()
+        window = windows.submit_range_window(mixed_pairs, storage_specs=[slot_spec]).result(timeout=300)
+        torch.cuda.synchronize()
+        window_launches = _counts()
+    _require_launched("serve range window", window_launches, ["keccak256_single_block"])
+    want = generate_event_proofs_for_range_chunked(
+        mixed_store, mixed_pairs, spec, chunk_size=len(mixed_pairs), match_backend=backend,
+        storage_specs=[slot_spec],
+    )
+    if window.to_json() != want.to_json() or len(window.storage_proofs) != len(mixed_pairs):
+        raise AssertionError("serve range window: the window's bundle differs from the chunked driver's")
+    if not verify_proof_bundle(window, TrustPolicy.accept_all(), verify_witness_cids=True,
+                               cid_backend=backend).all_valid():
+        raise AssertionError("serve range window: a verdict is false")
+    _check_slot_keccak([slot_spec.key32() + slot_spec.slot_index.to_bytes(32, "big")], device)
+    _check_witness_shapes(groups[0].blocks, device)
+    return {
+        "pairs": len(pairs),
+        "proofs": served,
+        "proofs_per_s": served / wall,
+        "pairs_per_s": len(pairs) / wall,
+        "wall_ms": wall * 1e3,
+        "batches": snap["counters"]["serve.batches.generate"],
+        "mean_batch": hist.get("serve.batch_size.generate", {}).get("mean"),
+        "p99_latency_ms": hist.get("serve.latency_ms.generate", {}).get("p99"),
+        "verify_ms": verify_ms,
+        "solo_check_ms": solo_ms,
+        "journal_ms": journal_ms[0],
+        "window_storage_proofs": len(window.storage_proofs),
+        "generate_launches": generate_launches,
+        "launches": launches,
+        "window_launches": window_launches,
+    }
+
+
+def _wire_bytes(obj) -> int:
+    return len(json.dumps(obj, sort_keys=True, separators=(",", ":")))
+
+
+def witness_diet_phase(device) -> dict:
+    """The JAX bench.py witness leg on the port: the two-pass against the
+    single-pass witness over 64 pairs; then on the 8-pair match-dense world
+    the wire bytes per proof at K = 1, 16 and 256 aggregated claims, the
+    delta ratio over 8 consecutive epochs (each delta rebuilt byte for
+    byte), and the zlib (and zstd, where it imports) frame ratio; and
+    `verify_aggregated` of the K = 256 claims with the witness CIDs on the
+    card: one launch set, each claim's verdict that of verifying it alone."""
+    backend = get_backend("gpu", device=device)
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    _reset_counts()
+    store, pairs, _ = build_range_world(DIET_PAIRS, 16, 4, 0.01, base_height=30_000_000)
+    bundle = generate_event_proofs_for_range(store, pairs, spec, match_backend=backend)
+    two_pass = bundle.witness_bytes()
+    needed = set()
+    for pair in pairs:
+        needed |= single_pass_witness_cids(store, pair.parent, pair.child)
+    single_pass = sum(len(store.get(cid) or b"") for cid in needed)
+
+    dstore, dpairs, _ = build_range_world(DIET_EPOCHS, 16, 4, 0.5, base_height=30_000_000)
+    solo = generate_event_proofs_for_range(dstore, dpairs[:1], spec, match_backend=backend)
+    distinct = generate_event_proofs_for_range(dstore, dpairs[:4], spec, match_backend=backend)
+    bytes_per_proof = {}
+    for k in (1, 16, 256):
+        d = min(4, k)
+        bundle_k = solo if d == 1 else distinct
+        agg = aggregate_range_bundle(bundle_k, dpairs, list(range(d)), claim_indexes=[i % d for i in range(k)])
+        bytes_per_proof[k] = _wire_bytes({"bundle": bundle_k.to_json_obj(), "claims": agg.claims_json()}) / k
+
+    prefix = [
+        generate_event_proofs_for_range(dstore, dpairs[: i + 1], spec, match_backend=backend)
+        for i in range(DIET_EPOCHS)
+    ]
+    ratios = []
+    for base, nxt in zip(prefix, prefix[1:]):
+        dobj = encode_delta(nxt, base.cid_set(), base.digest())
+        if apply_delta(json.loads(json.dumps(dobj)), base).to_json() != nxt.to_json():
+            raise AssertionError("witness diet: a delta does not rebuild its bundle")
+        ratios.append(_wire_bytes({"bundle_delta": dobj}) / _wire_bytes({"bundle": nxt.to_json_obj()}))
+    packed = len(pack_blocks(distinct.blocks))
+    frame_ratio = {}
+    for encoding in ("zlib", "zstd"):
+        if encoding not in supported_encodings():
+            frame_ratio[encoding] = "does not import"
+            continue
+        frame = compress_blocks(distinct.blocks, encoding)
+        if [b.to_json_obj() for b in decompress_blocks(frame)] != distinct.to_json_obj()["blocks"]:
+            raise AssertionError(f"witness diet: the {encoding} frame does not expand to the blocks")
+        frame_ratio[encoding] = len(base64.b64decode(frame["frame"])) / packed
+    torch.cuda.synchronize()
+    launches = _counts()
+
+    agg = aggregate_range_bundle(distinct, dpairs, [0, 1, 2, 3], claim_indexes=[i % 4 for i in range(256)])
+    _reset_counts()
+    t0 = time.perf_counter()
+    verdicts = verify_aggregated(
+        agg, TrustPolicy.accept_all(), verify_witness_cids=True,
+        cid_backend=None if torch.device(device).type == "cuda" else backend,
+    )
+    torch.cuda.synchronize()
+    agg_ms = (time.perf_counter() - t0) * 1e3
+    agg_launches = _counts()
+    present = [name for name, rows in _classes(distinct.blocks).items() if rows]
+    _require_launch_set("witness aggregate verify", agg_launches, _serve_launch_set(present, 1, 1))
+    t0 = time.perf_counter()
+    for i, verdict in enumerate(verdicts):
+        alone = verify_proof_bundle(agg.split_claim(i), TrustPolicy.accept_all(), verify_witness_cids=True,
+                                    cid_backend=backend)
+        if (alone.storage_results, alone.event_results) != (verdict.storage_results, verdict.event_results):
+            raise AssertionError(f"witness aggregate verify: claim {i}'s verdict differs from verifying it alone")
+    torch.cuda.synchronize()
+    per_claim_ms = (time.perf_counter() - t0) * 1e3
+    if len(verdicts) != 256 or not all(v.all_valid() for v in verdicts):
+        raise AssertionError("witness aggregate verify: a claim's verdict is false")
+    _check_witness_shapes(distinct.blocks, device)
+    return {
+        "pairs": DIET_PAIRS,
+        "witness_two_pass_bytes": two_pass,
+        "witness_single_pass_bytes": single_pass,
+        "witness_reduction_pct": 100.0 * (1.0 - two_pass / single_pass),
+        "witness_bytes_per_proof": bytes_per_proof,
+        "witness_delta_ratio": sum(ratios) / len(ratios),
+        "delta_epochs": len(ratios),
+        "witness_compressed_ratio": frame_ratio,
+        "encodings": list(supported_encodings()),
+        "aggregate_claims": len(verdicts),
+        "aggregate_verify_ms": agg_ms,
+        "per_claim_verify_ms": per_claim_ms,
+        "launches": launches,
+        "aggregate_launches": agg_launches,
+    }
+
+
+def _inclusion_ok(proof) -> bool:
+    return verify_inclusion(
+        bytes.fromhex(proof["leaf"]), proof["seq"], proof["size"],
+        [bytes.fromhex(h) for h in proof["path"]], bytes.fromhex(proof["root"]),
+    )
+
+
+def registry_phase(device, root: str) -> dict:
+    """The JAX bench.py registry leg's in-process half: a `ProofService`
+    with ``registry_dir`` serves 96 generate requests, each response sealed
+    (`encode_bundle_fields`, then `append_served` with its CID set);
+    ``registry_append_overhead_pct`` is one append (2,048 timed) over one
+    served request. Every record's inclusion proof verifies against the
+    head, a consistency proof between two heads verifies, the head is the
+    same after a reopen, and a 4-shard fleet directory resolves a sibling's
+    base through `FleetBaseCache`."""
+    reg_dir = os.path.join(root, "registry")
+    store, pairs, _ = build_range_world(4, receipts_per_pair=12, events_per_receipt=2, match_rate=0.5)
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    service = ProofService(store=store, spec=spec, config=ServiceConfig(
+        max_batch=8, max_wait_ms=2.0, workers=2, registry_dir=reg_dir, registry_owner="bench",
+        device=_service_device(device),
+    ))
+    try:
+        def serve(i):
+            resp = service.generate(pairs[i % len(pairs)])
+            fields = encode_bundle_fields(resp.bundle, WitnessOptions(), bases=service.witness_bases,
+                                          metrics=service.metrics)
+            service.registry.append_served(
+                fields["digest"], verdict="served", key=f"pair:{i % len(pairs)}", trace=resp.trace_id,
+                cids=resp.bundle.cid_set(),
+            )
+            return fields
+
+        for i in range(len(pairs)):  # warm every pair through the batcher once
+            serve(i)
+        first = service.registry.head()
+        _reset_counts()
+        t0 = time.perf_counter()
+        for i in range(REGISTRY_REQUESTS):
+            serve(i)
+        serve_mean_s = (time.perf_counter() - t0) / REGISTRY_REQUESTS
+        launches = _counts()
+        head = service.registry.head()
+        if head["size"] != len(pairs) + REGISTRY_REQUESTS:
+            raise AssertionError(f"registry: {head['size']} records for {len(pairs) + REGISTRY_REQUESTS} responses")
+        proofs = [service.registry.inclusion_proof(seq) for seq in range(head["size"])]
+        if not all(_inclusion_ok(p) and p["root"] == head["root"] for p in proofs):
+            raise AssertionError("registry: an inclusion proof does not verify against the head")
+        cons = service.registry.consistency(first["size"])
+        if cons["old_root"] != first["root"] or not verify_consistency(
+            cons["old_size"], cons["size"], bytes.fromhex(cons["old_root"]), bytes.fromhex(cons["root"]),
+            [bytes.fromhex(h) for h in cons["path"]],
+        ):
+            raise AssertionError("registry: the consistency proof between two heads does not verify")
+        health = service.health()
+    finally:
+        service.drain()
+    reopened = ProvenanceRegistry(reg_dir, owner="bench")
+    try:
+        if reopened.head() != head:
+            raise AssertionError(f"registry: head after reopen {reopened.head()} != {head}")
+    finally:
+        reopened.close()
+
+    with tempfile.TemporaryDirectory(dir=root) as chain_dir:
+        reg = ProvenanceRegistry(chain_dir, owner="bench")
+        digests = [hashlib.sha256(f"append-{i}".encode()).hexdigest() for i in range(REGISTRY_APPENDS)]
+        cid_sets = [frozenset(hashlib.sha256(f"{d}-{j}".encode()).digest() for j in range(3)) for d in digests]
+        t0 = time.perf_counter()
+        for i, (digest, cids) in enumerate(zip(digests, cid_sets)):
+            reg.append_served(digest, trace=f"trace-{i}", tenant="bench", key=f"pair:{i % 8}",
+                              verdict="served", cids=cids)
+        append_mean_s = (time.perf_counter() - t0) / REGISTRY_APPENDS
+        rng = random.Random(20260807)
+        seqs = [rng.randrange(REGISTRY_APPENDS) for _ in range(200)]
+        t0 = time.perf_counter()
+        if not all(_inclusion_ok(reg.inclusion_proof(seq)) for seq in seqs):
+            raise AssertionError("registry: an inclusion proof of the append chain does not verify")
+        inclusion_ms = (time.perf_counter() - t0) * 1e3 / len(seqs)
+        reg.close()
+
+    with tempfile.TemporaryDirectory(dir=root) as fleet_dir:
+        shards = [ProvenanceRegistry(fleet_dir, owner=f"shard-{s}") for s in range(REGISTRY_SHARDS)]
+        try:
+            for s, reg in enumerate(shards):
+                reg.append_served(f"{s:064x}", key=f"filter:{s}", verdict="pushed",
+                                  cids=frozenset({bytes([s]) * 36}), t=REGISTRY_T0 + s)
+            metrics = Metrics()
+            fleet = FleetBaseCache(WitnessBaseCache(), shards[0], metrics=metrics)
+            # shard 0 served its own base (the local cache has it); the other
+            # three come from the siblings' logs
+            fleet.register(f"{0:064x}", frozenset({bytes([0]) * 36}))
+            hits = [fleet.lookup(f"{s:064x}") == frozenset({bytes([s]) * 36}) for s in range(REGISTRY_SHARDS)]
+            miss = fleet.lookup("ff" * 32)
+        finally:
+            for reg in shards:
+                reg.close()
+    if not all(hits) or miss is not None or metrics.counter_value("witness.fleet_base_hits") != REGISTRY_SHARDS - 1:
+        raise AssertionError(f"registry: fleet lookups {hits}, miss {miss}, {metrics.snapshot()['counters']}")
+    return {
+        "requests": REGISTRY_REQUESTS,
+        "records": head["size"],
+        "serve_ms_per_request": serve_mean_s * 1e3,
+        "registry_append_us": append_mean_s * 1e6,
+        "registry_append_overhead_pct": 100.0 * append_mean_s / serve_mean_s,
+        "registry_inclusion_proof_ms": inclusion_ms,
+        "registry_chain_records": REGISTRY_APPENDS,
+        "health": health["registry"],
+        "fleet_hits": sum(hits),
+        "launches": launches,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3298,7 +3894,7 @@ def main(argv=None) -> int:
         run("warm restart", warm_restart, cold_world, root)
         run("lying disk", lying_disk, cold_world, root, args.seed)
         run("pool", pool_path, world, args.seed)
-        del world, cold_world
+        del cold_world  # the event world stays for the serve generate phase
         run("storage path", storage_path, CONTRACTS, SLOTS_PER_CONTRACT, args.seed, device)
         run("mixed range", mixed_range, 64, device)
         run("resumable mixed range", resumable_mixed_range, 64, 16, device)
@@ -3316,8 +3912,15 @@ def main(argv=None) -> int:
         run("follower", follower_path, chain, root)
         run("cli_pool", cli_pool_range, chain, root)
         del chain
-        # last: the tuned crossover applies to every later verify call
+        # the tuned crossover applies to every later verify call of the
+        # process; the serve phases after it verify through
+        # verify_proof_bundle, whose CID batches do not go through the lane
         run("autotune", autotune_phase, root)
+        run("serve verify", serve_verify_phase, device)
+        run("serve generate", serve_generate_phase, world, device, root)
+        del world
+        run("witness diet", witness_diet_phase, device)
+        run("registry", registry_phase, device, root)
     cli_paths = paths.pop("cli generate, vectors, demo")
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
@@ -3333,6 +3936,10 @@ def main(argv=None) -> int:
     launch_counts["cli demo"] = cli_paths["demo"]["launches"]
     launch_counts["mesh range, mesh of 1"] = paths["mesh range"]["mesh of 1"]["launches"]
     launch_counts["mesh range, overlapped"] = paths["mesh range"]["overlapped"]["launches"]
+    launch_counts["serve verify, cids"] = paths["serve verify"]["cids_launches"]
+    launch_counts["serve verify, sequential"] = paths["serve verify"]["sequential_launches"]
+    launch_counts["serve range window"] = paths["serve generate"]["window_launches"]
+    launch_counts["witness aggregate verify"] = paths["witness diet"]["aggregate_launches"]
 
     rows = []
     for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
@@ -3475,6 +4082,36 @@ def main(argv=None) -> int:
     _log(
         f"cli range --endpoints on {smi}: wall ms {json.dumps(cli_pool['wall_ms'])}, {cli_pool['spans']} spans, "
         f"reads by endpoint {json.dumps(cli_pool['reads_by_endpoint'])}"
+    )
+    serve, served = paths["serve verify"], paths["serve generate"]
+    _log(
+        f"serve verify on {smi}: {serve['requests']} requests, {serve['clients']} clients: "
+        f"serve_batched_rps {serve['serve_batched_rps']} (CIDs on {serve['serve_batched_rps_cids']}), "
+        f"serve_sequential_rps {serve['serve_sequential_rps']}, speedup {serve['serve_speedup_vs_sequential']}, "
+        f"serve_p99_latency_ms {serve['serve_p99_latency_ms']}, serve_mean_batch {serve['serve_mean_batch']}, "
+        f"serve.batches.verify {serve['serve.batches.verify']} (CIDs on {serve['runs']['cids']['batches']}); "
+        f"blake2b launches {json.dumps(serve['launches'])}, CIDs on {json.dumps(serve['cids_launches'])}, "
+        f"sequential {json.dumps(serve['sequential_launches'])}"
+    )
+    _log(
+        f"serve generate on {smi}: {served['proofs']} proofs over {served['pairs']} pairs in "
+        f"{served['wall_ms']} ms, {served['proofs_per_s']} proofs/s ({served['pairs_per_s']} pairs/s), "
+        f"{served['batches']} batches (mean {served['mean_batch']}), p99 {served['p99_latency_ms']} ms, "
+        f"journal_ms {served['journal_ms']}; launches {json.dumps(served['launches'])}, range window "
+        f"{json.dumps(served['window_launches'])}"
+    )
+    diet, reg = paths["witness diet"], paths["registry"]
+    _log(
+        f"witness diet on {smi}: two-pass {diet['witness_two_pass_bytes']} B vs single-pass "
+        f"{diet['witness_single_pass_bytes']} B ({diet['witness_reduction_pct']} %), bytes/proof "
+        f"{json.dumps(diet['witness_bytes_per_proof'])}, delta ratio {diet['witness_delta_ratio']}, frame ratio "
+        f"{json.dumps(diet['witness_compressed_ratio'])}; verify_aggregated of {diet['aggregate_claims']} claims "
+        f"{diet['aggregate_verify_ms']} ms, launches {json.dumps(diet['aggregate_launches'])}"
+    )
+    _log(
+        f"registry on {smi}: registry_append_overhead_pct {reg['registry_append_overhead_pct']} "
+        f"({reg['registry_append_us']} us an append over {reg['serve_ms_per_request']} ms a request), "
+        f"inclusion proof {reg['registry_inclusion_proof_ms']} ms at {reg['registry_chain_records']} records"
     )
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -17,6 +17,10 @@ branches instead, as in the JAX package.
   (``csrc/``) with their plain PyTorch versions, and the event-match masks.
 - ``backend`` — ``GpuBackend``, the batch seam the drivers call, and the
   loaders of the host C extensions.
+- ``witness``, ``registry``, ``serve`` — the witness wire (deltas,
+  frames, aggregated claims, the chunk stream), the provenance registry,
+  and the in-process proof service that micro-batches requests onto the
+  card.
 - ``fixtures`` — the synthetic worlds the tests and smoke run use.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

@@ -25,7 +25,7 @@ from typing import Any
 from ipc_proofs_tpu_torch.core import _cid_native
 from ipc_proofs_tpu_torch.core.cid import CID, CID_TYPES
 
-__all__ = ["encode", "decode", "decode_py", "force_python_decoder"]
+__all__ = ["encode", "decode", "decode_prefix", "decode_py", "force_python_decoder"]
 
 _MAJOR_UINT = 0
 _MAJOR_NEGINT = 1
@@ -225,3 +225,9 @@ def force_python_decoder():
         yield
     finally:
         _native = saved
+
+
+def decode_prefix(data: bytes) -> tuple[Any, int]:
+    """Decode one item, returning ``(value, bytes_consumed)`` (no trailing
+    check)."""
+    return _decode_item(bytes(data), 0)

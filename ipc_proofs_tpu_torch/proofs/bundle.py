@@ -49,6 +49,17 @@ class ProofBlock:
     cid: CID
     data: bytes
 
+    @classmethod
+    def _make(cls, cid: CID, data: bytes) -> "ProofBlock":
+        """Fast constructor: the frozen-dataclass init pays one
+        ``object.__setattr__`` per field, which adds up across the thousands
+        of blocks a range witness materializes."""
+        out = object.__new__(cls)
+        d = out.__dict__
+        d["cid"] = cid
+        d["data"] = data
+        return out
+
     def to_json_obj(self) -> dict:
         return {"cid": str(self.cid), "data": base64.b64encode(self.data).decode("ascii")}
 
@@ -104,6 +115,14 @@ class EventData:
     topics: list[str]  # 0x-hex, 32 bytes each
     data: str  # 0x-hex
 
+    @classmethod
+    def _make(cls, **fields) -> "EventData":
+        """Fast constructor for bulk claim emission: the kwargs dict is the
+        instance dict."""
+        out = object.__new__(cls)
+        out.__dict__ = fields
+        return out
+
     def to_json_obj(self) -> dict:
         return dict(self.__dict__)
 
@@ -130,6 +149,13 @@ class EventProof:
     exec_index: int
     event_index: int
     event_data: EventData
+
+    @classmethod
+    def _make(cls, **fields) -> "EventProof":
+        """Fast constructor for bulk claim emission (see `EventData._make`)."""
+        out = object.__new__(cls)
+        out.__dict__ = fields
+        return out
 
     def to_json_obj(self) -> dict:
         obj = dict(self.__dict__)
@@ -204,6 +230,11 @@ class UnifiedProofBundle:
     def digest(self) -> str:
         """Canonical content digest (see `bundle_obj_digest`)."""
         return bundle_obj_digest(self.to_json_obj())
+
+    def cid_set(self) -> frozenset:
+        """The witness-block CID set as raw ``cid.to_bytes()`` keys: what a
+        delta against this bundle diffs against (`witness.delta`)."""
+        return frozenset(b.cid.to_bytes() for b in self.blocks)
 
 
 @dataclass

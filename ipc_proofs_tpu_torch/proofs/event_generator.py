@@ -43,7 +43,28 @@ __all__ = [
     "mask_receipt_indices",
     "record_matching_receipts",
     "generate_event_proof",
+    "collect_base_witness",
+    "single_pass_witness_cids",
 ]
+
+
+def single_pass_witness_cids(store: Blockstore, parent: Tipset, child: Tipset) -> "set[CID]":
+    """Every CID a one-pass generator would ship for (parent, child).
+
+    A generator without the pass-1 filter records while it scans, so its
+    witness holds every block the scan touches: the whole receipts AMT plus
+    the events AMT of every receipt, matching or not. The two-pass design
+    re-records only the matching receipts. This is the counterfactual that
+    the saving is measured against: sum the block sizes of this set and
+    compare with the two-pass bundle's witness. It returns the CID set
+    rather than a byte count so a range can union across pairs first, as
+    the two-pass bundle deduplicates its witness range-wide.
+    """
+    recorder = RecordingBlockstore(store)
+    collector = WitnessCollector(recorder)
+    collect_base_witness_and_exec_order(collector, recorder, parent, child)
+    scan_receipt_events(recorder, child.blocks[0].parent_message_receipts)
+    return collector.needed_cids() | recorder.take_seen()
 
 
 class EventMatcher:
@@ -59,6 +80,14 @@ class EventMatcher:
             and log.topics[0] == self.topic0
             and log.topics[1] == self.topic1
         )
+
+
+def collect_base_witness(
+    collector: WitnessCollector, store: Blockstore, parent: Tipset, child: Tipset
+) -> None:
+    """Seed the witness: headers, receipts root, TxMeta CIDs, and the full
+    TxMeta AMT walks needed to reconstruct execution order offline."""
+    collect_base_witness_and_exec_order(collector, store, parent, child)
 
 
 def collect_base_witness_and_exec_order(

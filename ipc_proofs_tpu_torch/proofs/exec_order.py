@@ -28,6 +28,7 @@ from ipc_proofs_tpu_torch.state.header import BlockHeader, LiteHeader, decode_he
 from ipc_proofs_tpu_torch.store.blockstore import Blockstore
 
 __all__ = [
+    "build_execution_order",
     "reconstruct_execution_order",
     "reconstruct_execution_orders_batch",
     "collect_exec_orders_for_pairs",
@@ -51,7 +52,9 @@ def decode_txmeta(raw: bytes) -> tuple[CID, CID]:
     return obj[0], obj[1]
 
 
-def _collect_exec_list(store: Blockstore, txmeta_cids: list[CID]) -> list[CID]:
+def _collect_exec_list(
+    store: Blockstore, txmeta_cids: list[CID], verify_txmeta: bool = True
+) -> list[CID]:
     out: list[CID] = []
     seen: set[CID] = set()
 
@@ -60,9 +63,10 @@ def _collect_exec_list(store: Blockstore, txmeta_cids: list[CID]) -> list[CID]:
         if raw is None:
             raise KeyError(f"missing TxMeta {tx_cid}")
         bls_root, secp_root = decode_txmeta(raw)
-        recomputed = CID.hash_of(cbor_encode([bls_root, secp_root]))
-        if recomputed != tx_cid:
-            raise ValueError(f"TxMeta mismatch: header {tx_cid} vs recomputed {recomputed}")
+        if verify_txmeta:
+            recomputed = CID.hash_of(cbor_encode([bls_root, secp_root]))
+            if recomputed != tx_cid:
+                raise ValueError(f"TxMeta mismatch: header {tx_cid} vs recomputed {recomputed}")
 
         for root in (bls_root, secp_root):
             amt = AMT.load(store, root, expected_version=0)
@@ -73,6 +77,14 @@ def _collect_exec_list(store: Blockstore, txmeta_cids: list[CID]) -> list[CID]:
                     seen.add(msg_cid)
                     out.append(msg_cid)
     return out
+
+
+def build_execution_order(store: Blockstore, parent: "object") -> list[CID]:
+    """Online variant: TxMeta CIDs straight from the tipset's headers (the
+    generator trusts its own store, so nothing is recomputed)."""
+    return _collect_exec_list(
+        store, [header.messages for header in parent.blocks], verify_txmeta=False
+    )
 
 
 def reconstruct_execution_order(store: Blockstore, parent_header_cids: list[CID]) -> list[CID]:

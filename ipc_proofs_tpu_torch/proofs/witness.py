@@ -18,7 +18,13 @@ from ipc_proofs_tpu_torch.store.blockstore import (
     RecordingBlockstore,
 )
 
-__all__ = ["WitnessCollector", "load_witness_store"]
+__all__ = ["WitnessCollector", "block_cid_set", "load_witness_store"]
+
+
+def block_cid_set(blocks: Iterable[ProofBlock]) -> frozenset:
+    """Raw ``cid.to_bytes()`` keys for a block list: the canonical-set
+    identity the delta witnesses diff against (`witness.delta`)."""
+    return frozenset(b.cid.to_bytes() for b in blocks)
 
 
 class WitnessCollector:

@@ -9,7 +9,8 @@ The counterpart of ``ipc_proofs_tpu.store.blockstore``:
 - `RecordingBlockstore` — the witness mechanism: records every CID fetched
   through it.
 - `CachedBlockstore` — memoizing wrapper; lock-protected so it may be
-  shared across threads.
+  shared across threads, over a dict or a `BlockCache`, with the local-tier
+  surface (`get_local` / `has_local` / `put_local`) of the fetch plane.
 - `BlockCache` — size-capped, TTL-evicting LRU block cache, the memory
   tier of `storex.TieredBlockstore` and a local tier of the fetch plane.
 
@@ -179,52 +180,99 @@ class RecordingBlockstore:
 
 
 class CachedBlockstore:
-    """Memoizing wrapper over any blockstore (one pipeline run's cache: it
-    grows for the run and dies with it). Several wrappers may share one
-    cache dict (`shared_cache` / `with_shared_cache`), as the unified
-    generator's per-spec views do."""
+    """Memoizing wrapper over any blockstore. Several wrappers may share one
+    cache (`shared_cache` / `with_shared_cache`), as the unified generator's
+    per-spec views do.
 
-    def __init__(self, inner: Blockstore, shared_cache: "Optional[dict[CID, bytes]]" = None):
+    ``shared_cache`` may be a plain dict (one pipeline run's cache: it grows
+    for the run and dies with it) or a `BlockCache` (the serve plane's:
+    size-capped + TTL). A `BlockCache` carries its own lock, so the wrapper
+    skips its dict lock for it. ``hits`` / ``misses`` count cache lookups
+    (unlocked increments: observability, not accounting)."""
+
+    def __init__(
+        self,
+        inner: Blockstore,
+        shared_cache: "Optional[dict[CID, bytes] | BlockCache]" = None,
+    ):
         self._inner = inner
-        self._cache: dict[CID, bytes] = (  # guarded-by: _lock
-            shared_cache if shared_cache is not None else {}
-        )
+        self._cache = shared_cache if shared_cache is not None else {}  # guarded-by: _lock
+        self._evicting = isinstance(self._cache, BlockCache)
         self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
 
     @classmethod
     def with_shared_cache(cls, inner: Blockstore, cache: "dict[CID, bytes]") -> "CachedBlockstore":
         return cls(inner, shared_cache=cache)
 
-    def shared_cache(self) -> "dict[CID, bytes]":
+    def shared_cache(self) -> "dict[CID, bytes] | BlockCache":
         return self._cache
 
-    def get(self, cid: CID) -> Optional[bytes]:
+    def _cache_get(self, cid: CID) -> Optional[bytes]:
+        if self._evicting:
+            return self._cache.get(cid)
         with self._lock:
-            cached = self._cache.get(cid)
-        if cached is not None:
-            return cached
-        data = self._inner.get(cid)
-        if data is not None:
+            return self._cache.get(cid)
+
+    def _cache_put(self, cid: CID, data: bytes) -> None:
+        if self._evicting:
+            self._cache.put(cid, data)
+        else:
             with self._lock:
                 self._cache[cid] = data
+
+    def get(self, cid: CID) -> Optional[bytes]:
+        cached = self._cache_get(cid)
+        if cached is not None:
+            self.hits += 1
+            return cached
+        self.misses += 1
+        data = self._inner.get(cid)
+        if data is not None:
+            self._cache_put(cid, data)
         return data
 
     def put_keyed(self, cid: CID, data: bytes) -> None:
-        with self._lock:
-            self._cache[cid] = bytes(data)
+        self._cache_put(cid, bytes(data))
         self._inner.put_keyed(cid, data)
 
     def has(self, cid: CID) -> bool:
-        with self._lock:
-            if cid in self._cache:
-                return True
-        return self._inner.has(cid)
+        return self.has_local(cid) or self._inner.has(cid)
 
     def offer_links(self, links) -> None:
         """Forward walker speculation to the fetch plane below, if any."""
         offer = getattr(self._inner, "offer_links", None)
         if offer is not None:
             offer(links)
+
+    # -- local-tier surface (`storex.TieredBlockstore` parity) ------------
+    # The fetch plane's short-circuit binds the store above it as its local
+    # tiers; these read and populate the memory cache only and never touch
+    # the inner store, which may itself sit over the plane.
+
+    def get_local(self, cid: CID) -> Optional[bytes]:
+        cached = self._cache_get(cid)
+        if cached is not None:
+            self.hits += 1
+        return cached
+
+    def has_local(self, cid: CID) -> bool:
+        if self._evicting:
+            return cid in self._cache
+        with self._lock:
+            return cid in self._cache
+
+    def put_local(self, cid: CID, data: bytes) -> None:
+        self._cache_put(cid, bytes(data))
+
+    def cache_stats(self) -> "tuple[int, int]":
+        """(entries, total bytes)."""
+        if self._evicting:
+            stats = self._cache.stats()
+            return stats["entries"], stats["bytes"]
+        with self._lock:
+            return len(self._cache), sum(len(v) for v in self._cache.values())
 
 
 class BlockCache:

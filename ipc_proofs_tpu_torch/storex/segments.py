@@ -5,10 +5,10 @@ the two packages open each other's segment directories. The multihash
 half of `get_many` and of the sweep at open (``verify_scan=True``) runs
 through `ops.verify.verify_blocks_batch` on ``backend`` (default the card),
 whose routing sends one-block and sub-crossover batches to hashlib with
-identical verdicts; a kernel or launch fault raises. Not ported
-yet: the zero-copy `read_frame_slice` of the streaming wire and the
-replication surface (`segment_files`, `segment_path`,
-`ingest_segment_file`, `drop_segment`), which wait for the serve plane and
+identical verdicts; a kernel or launch fault raises. `read_frame_slice`
+is the streaming wire's zero-copy read (CRC-checked on the mapped bytes).
+Not ported yet: the replication surface (`segment_files`, `segment_path`,
+`ingest_segment_file`, `drop_segment`), which waits for
 `storex/replica.py`.
 
 Layout (``<root>/seg-00000001.blk``, ``seg-00000002.blk``, …; in shared
@@ -64,6 +64,7 @@ counted as ``storex.write_failures``.
 
 from __future__ import annotations
 
+import mmap
 import os
 import struct
 import zlib
@@ -478,6 +479,55 @@ class SegmentStore:
         if payload[_CID_LEN.size : _CID_LEN.size + cid_len] != cid_raw:
             return None
         return payload[_CID_LEN.size + cid_len :]
+
+    def read_frame_slice(self, cid: CID) -> "Optional[memoryview]":
+        """Zero-copy read: a CRC-verified ``memoryview`` over the block's
+        bytes inside an mmap of its segment file, or None (the caller
+        falls back to the copying ``get`` path — availability, never
+        correctness).
+
+        Eviction-safe without holding any lock across the read: the
+        mapping is established while the segment file still exists (an
+        open/mmap racing a foreign eviction fails and reports a miss), and
+        once mapped the pages stay valid even after the file is unlinked;
+        the returned memoryview pins the mmap object through the buffer
+        protocol. The frame CRC is verified against the mapped bytes
+        BEFORE the slice is returned, so a reader never observes torn
+        bytes: the whole committed frame or a miss. The multihash is not
+        re-run here: every ingest path already verified the bytes against
+        the CID, and re-hashing would force the copy this read avoids.
+        """
+        cid_raw = cid.to_bytes()
+        entry, path = self._lookup_entry(cid_raw)
+        metrics = self._metrics
+        if entry is None:
+            if metrics is not None:
+                metrics.count("storex.slice_misses")
+            return None
+        _key, off, frame_len = entry
+        try:
+            with open(path, "rb") as fh:
+                mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+        except (OSError, ValueError):
+            # vanished (foreign eviction) or empty under us: plain miss
+            if metrics is not None:
+                metrics.count("storex.slice_misses")
+            return None
+        view = memoryview(mm)
+        payload = None
+        if off + frame_len <= len(mm):
+            payload = self._frame_payload(cid_raw, view[off : off + frame_len], frame_len)
+        if payload is None:
+            view.release()
+            mm.close()
+            self._drop_entry(cid_raw, entry)
+            if metrics is not None:
+                metrics.count("storex.integrity_evictions")
+                metrics.count("storex.slice_misses")
+            return None
+        if metrics is not None:
+            metrics.count("storex.slice_hits")
+        return payload
 
     def _read_verified(
         self, cid: CID, cid_raw: bytes, path: str, off: int, frame_len: int

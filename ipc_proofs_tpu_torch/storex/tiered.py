@@ -1,8 +1,7 @@
 """`TieredBlockstore`: tier-1 memory cache over tier-2 disk segments.
 
 The counterpart of ``ipc_proofs_tpu.storex.tiered``, without the replica
-read-repair (``storex/replica.py`` is not ported yet) and the zero-copy
-frame slices of the streaming wire.
+read-repair (``storex/replica.py`` is not ported yet).
 
 Drop-in where `CachedBlockstore` sits today — same `Blockstore` protocol
 and the same observability surface (`hits`/`misses` ints,
@@ -142,6 +141,13 @@ class TieredBlockstore:
                 if cid in self._cache:
                     return True
         return self._disk.contains(cid)
+
+    def read_frame_slice(self, cid: CID) -> "Optional[memoryview]":
+        """Zero-copy disk-tier read for the streaming wire: a CRC-verified
+        ``memoryview`` straight out of the segment frame, or None. Goes
+        directly to tier 2, skipping the tier-1 promotion a `get` would
+        do: promoting would materialize the copy this read avoids."""
+        return self._disk.read_frame_slice(cid)
 
     def has(self, cid: CID) -> bool:
         return self.has_local(cid) or self._inner.has(cid)

@@ -575,3 +575,86 @@ def test_pool_waves_on_card_equal_the_plain_versions(cuda_device, monkeypatch):
         launches = sum(blake2b.LAUNCHES.values())
         assert (launches > 0) == (name == "card")
     assert json.loads(want)["event_proofs"]
+
+
+def _serve_chain(n_events=16):
+    from ipc_proofs_tpu_torch.fixtures import EventFixture
+
+    sig, subnet = "NewTopDownMessage(bytes32,uint256)", "calib-subnet-1"
+    world = build_chain(
+        [ContractFixture(1001)],
+        [[EventFixture(emitter=1001, signature=sig, topic1=subnet, data=i.to_bytes(32, "big"))]
+         for i in range(n_events)],
+    )
+    from ipc_proofs_tpu_torch.proofs.generator import generate_proof_bundle
+
+    return generate_proof_bundle(
+        world.store, world.parent, world.child, [], [EventProofSpec(sig, subnet, 1001)],
+        match_backend=get_backend("gpu"),
+    )
+
+
+def _classes_present(blocks):
+    from ipc_proofs_tpu_torch.backend.gpu import size_class
+
+    return {size_class(len(b.data)) for b in blocks}
+
+
+@pytest.mark.parametrize("cids", [False, True], ids=["cids-off", "cids-on"])
+def test_service_verify_on_card_equals_cpu(cuda_device, cids):
+    """The serve plane's verify micro-batches on the card: the CPU's
+    verdicts, and the blake2b kernels launched once per merged batch (the
+    TxMeta batch, plus each size class of the merged witness with CIDs on)."""
+    from ipc_proofs_tpu_torch.proofs.bundle import UnifiedProofBundle
+    from ipc_proofs_tpu_torch.serve import ProofService, ServiceConfig, sequential_verify_baseline
+
+    full = _serve_chain()
+    reqs = [UnifiedProofBundle([], [full.event_proofs[i % 16]], full.blocks) for i in range(32)]
+    expected = [r.event_results for r in sequential_verify_baseline(reqs, cid_backend=get_backend("gpu", device="cpu"))]
+    blake2b.reset_launch_counts()
+    got = [None] * len(reqs)
+    with ProofService(config=ServiceConfig(max_batch=8, max_wait_ms=50.0, verify_witness_cids=cids)) as svc:
+        def client(i):
+            got[i] = svc.verify(reqs[i]).event_results
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        batches = svc.metrics.counter_value("serve.batches.verify")
+    assert got == expected == [[True]] * len(reqs)
+    assert 0 < batches < len(reqs)
+    want = dict.fromkeys(blake2b.LAUNCHES, 0)
+    want["blake2b256_single_block"] = batches  # the TxMeta batch
+    if cids:
+        for name in _classes_present(full.blocks):
+            want[name] += batches
+    assert blake2b.LAUNCHES == want
+
+
+def test_verify_aggregated_on_card_equals_cpu(cuda_device):
+    from ipc_proofs_tpu_torch.witness import aggregate_range_bundle, verify_aggregated
+
+    store, pairs, n_matching = build_range_world(8, 8, 4, 0.25)
+    spec = EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001)
+    bundle = generate_event_proofs_for_range(store, pairs, spec)
+    idxs = list(range(8))
+    agg = aggregate_range_bundle(bundle, pairs, idxs, claim_indexes=[idxs[i % 8] for i in range(64)])
+    blake2b.reset_launch_counts()
+    card = verify_aggregated(agg, TrustPolicy.accept_all(), verify_witness_cids=True)
+    launches = dict(blake2b.LAUNCHES)
+    cpu = verify_aggregated(
+        agg, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=get_backend("gpu", device="cpu")
+    )
+    assert [(r.storage_results, r.event_results) for r in card] == [
+        (r.storage_results, r.event_results) for r in cpu
+    ]
+    assert len(card) == 64 and all(r.all_valid() for r in card) and n_matching > 0
+    # one launch set for all 64 claims: each size class of the witness once,
+    # plus the one TxMeta batch
+    want = dict.fromkeys(launches, 0)
+    for name in _classes_present(bundle.blocks):
+        want[name] += 1
+    want["blake2b256_single_block"] += 1
+    assert launches == want

@@ -1,14 +1,17 @@
 """Boundaries of the PyTorch port: what it may import, where it runs.
 
 - No module of ``ipc_proofs_tpu_torch`` (``parallel/``, ``jobs/``,
-  ``utils/``, ``ops/verify.py``, ``store/`` and ``storex/`` included) and no
+  ``utils/``, ``ops/verify.py``, ``store/``, ``storex/``, ``witness/``,
+  ``registry/`` and ``serve/`` included) and no
   line of ``chip_smoke.py`` imports ``jax`` or anything of
   ``ipc_proofs_tpu`` (an AST walk), and a process that imports every module
   of the port and runs the small range and storage paths, one journaled
   run of the overlapped driver and one cold read (hermetic Lotus node →
   client → fetch plane → tier over a segment store, the landed waves and
   the disk sweep verified on the backend), one traced pooled range (two
-  endpoints behind the fetch plane) and one follower poll on
+  endpoints behind the fetch plane), one served, witness-encoded, sealed
+  and re-verified request through the serve plane, one aggregated verify and
+  one follower poll on
   ``device="cpu"`` through the native branches ends with neither (nor
   ``requests``) in ``sys.modules`` and no shared library of
   ``ipc_proofs_tpu/`` mapped.
@@ -95,6 +98,10 @@ def test_port_files_exist():
         "parallel/mesh.py", "parallel/multihost.py", "utils/timing.py", "ops/cid_bench.py",
         "entry.py", "obs/__init__.py", "obs/trace.py", "obs/flight.py", "obs/prom.py",
         "obs/export.py", "store/failover.py", "storex/follower.py",
+        "witness/__init__.py", "witness/errors.py", "witness/framing.py", "witness/bases.py",
+        "witness/delta.py", "witness/wire.py", "witness/aggregate.py", "witness/stream.py",
+        "registry/__init__.py", "registry/mmr.py", "registry/log.py", "registry/registry.py",
+        "serve/__init__.py", "serve/qos.py", "serve/batcher.py", "serve/service.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
@@ -183,6 +190,23 @@ with tempfile.TemporaryDirectory() as job_dir:
     )
 assert merged.to_json() == event_bundle.to_json()
 assert [v for chunk in verdicts for v in chunk] == [True] * n_matching
+
+from ipc_proofs_tpu_torch.serve import ProofService, ServiceConfig
+from ipc_proofs_tpu_torch.witness import (
+    WitnessOptions, aggregate_range_bundle, encode_bundle_fields, expand_response_fields, verify_aggregated,
+)
+with tempfile.TemporaryDirectory() as reg_dir:
+    with ProofService(store=store, spec=EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
+                      config=ServiceConfig(device="cpu", verify_witness_cids=True, max_wait_ms=1.0,
+                                           registry_dir=reg_dir)) as svc:
+        served = svc.generate(pairs[0]).bundle
+        fields = encode_bundle_fields(served, WitnessOptions(encoding="zlib"), bases=svc.witness_bases)
+        assert expand_response_fields(fields).to_json() == served.to_json()
+        assert svc.registry.append_served(fields["digest"], cids=served.cid_set()) == 0
+        assert svc.verify(served).all_valid()
+agg = aggregate_range_bundle(event_bundle, pairs, list(range(len(pairs))))
+assert all(r.all_valid() for r in verify_aggregated(
+    agg, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend))
 
 import os
 os.environ["IPC_VERIFY_MIN_BYTES"] = "0"

@@ -45,6 +45,7 @@ from ipc_proofs_tpu_torch.proofs.chain import Tipset, receipt_from_api_json  # n
 from ipc_proofs_tpu_torch.proofs.event_generator import generate_event_proof  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec  # noqa: E402
 from ipc_proofs_tpu_torch.proofs.range import generate_event_proofs_for_range_chunked  # noqa: E402
+from ipc_proofs_tpu_torch.store.blockstore import MemoryBlockstore  # noqa: E402
 from ipc_proofs_tpu_torch.store.faults import LocalLotusSession  # noqa: E402
 from ipc_proofs_tpu_torch.store.rpc import LotusClient, RpcBlockstore  # noqa: E402
 from ipc_proofs_tpu_torch.store.testing import FakeLotusClient  # noqa: E402
@@ -469,6 +470,58 @@ class TestCrossPackageFiles:
         assert views["port"]["evictions"] == 2
         assert views["port"]["contains"] == [i not in (3, 11) for i in range(24)]
         assert views["port"]["get"] == [None if i in (3, 11) else d for i, (_, d) in enumerate(blocks)]
+
+    @pytest.mark.parametrize("writer", ["jax", "port"])
+    def test_frame_slices_equal_the_references(self, tmp_path, writer):
+        """`read_frame_slice`: the block's bytes as a view of the mapped
+        segment, the frame CRC checked on the mapped bytes first; a frame
+        that fails it is a miss and an eviction, in both packages."""
+        from ipc_proofs_tpu.utils.metrics import Metrics as RefMetrics
+
+        store_cls, cid_cls, kw = (RefSegmentStore, RefCID, {}) if writer == "jax" else (SegmentStore, CID, {"backend": CPU})
+        blocks = _populate(str(tmp_path / "w"), store_cls, cid_cls, 24, forged=(), **kw)
+        views = {}
+        for reader in ("jax", "port"):
+            root = tmp_path / reader
+            root.mkdir()
+            for name in os.listdir(tmp_path / "w"):
+                (root / name).write_bytes((tmp_path / "w" / name).read_bytes())
+            m = RefMetrics() if reader == "jax" else Metrics()
+            store = RefSegmentStore(str(root), metrics=m) if reader == "jax" else SegmentStore(
+                str(root), metrics=m, backend=CPU
+            )
+            cls = RefCID if reader == "jax" else CID
+            with store:
+                # corrupt two frames under the open store (the open-time scan
+                # would truncate them): a payload byte, so the CRC fails
+                frames = [(p, f) for p in _seg_paths(str(root)) for f in _scan_frames(p)]
+                for k in (2, 9):
+                    path, (off, frame_len) = frames[k]
+                    _flip(path, off + frame_len - 1)
+                got = []
+                for raw, _ in blocks:
+                    view = store.read_frame_slice(cls.from_bytes(raw))
+                    got.append(None if view is None else (type(view).__name__, bytes(view)))
+                    if view is not None:
+                        view.release()
+                counters = m.snapshot()["counters"]
+                views[reader] = (got, {k: v for k, v in counters.items() if k.startswith("storex.")},
+                                 [store.contains(cls.from_bytes(raw)) for raw, _ in blocks])
+        assert views["port"] == views["jax"]
+        got, counters, contains = views["port"]
+        assert got == [None if i in (2, 9) else ("memoryview", d) for i, (_, d) in enumerate(blocks)]
+        assert counters["storex.slice_hits"] == 22 and counters["storex.slice_misses"] == 2
+        assert counters["storex.integrity_evictions"] == 2 and contains.count(False) == 2
+
+    def test_tier_slices_skip_the_memory_tier(self, tmp_path):
+        cid, data = _block(5)
+        with SegmentStore(str(tmp_path), backend=CPU) as disk:
+            tier = TieredBlockstore(MemoryBlockstore(), disk)
+            assert tier.read_frame_slice(cid) is None
+            disk.put(cid, data)
+            view = tier.read_frame_slice(cid)
+            assert bytes(view) == data and tier.cache_stats()[0] == 0
+            view.release()
 
     def test_port_appends_to_a_jax_written_store(self, tmp_path):
         blocks = _populate(str(tmp_path), RefSegmentStore, RefCID, 24, forged=())
