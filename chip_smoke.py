@@ -284,8 +284,58 @@ Phases, none of which may fail:
    served request; every record's inclusion proof verifies against the
    head, a consistency proof between two heads verifies, the head is the
    same after a reopen, and a 4-shard fleet directory resolves its
-   siblings' bases through ``FleetBaseCache`` (the HTTP endpoints are not
-   ported).
+   siblings' bases through ``FleetBaseCache``;
+21. http verify — phase 17's stack behind ``ProofHTTPServer`` on
+   loopback (32 keep-alive client threads in a child process, so client
+   and daemon do not share one GIL): the 256
+   requests in process first (their verdicts), then over
+   ``POST /v1/verify`` with the CIDs off and on: every answer a 200 with
+   those verdicts and a ``Server-Timing`` header, blake2b one launch set a
+   merged batch; one ``blocks_frame`` (zlib) request and one with a
+   256-claim ``claims`` table, each one launch set and the in-process
+   verdicts; prints HTTP req/s beside the in-process req/s of this run
+   (one shared witness object, and one parsed a request), the body parse
+   ms on one thread, ms a request and p99;
+22. http generate — the event world's first 1,024 pairs (cut from 4,096
+   to keep the script inside 600 s) through
+   ``/v1/generate``, one pair a request from 32 clients in a child
+   process, against a daemon
+   with a disk tier: buffered JSON (it warms the disk), then the IPBS
+   stream: each answer's event proofs those of generating its pair alone,
+   one flat event mask a chunk (the scan over a tier is the Python walk),
+   no block byte copied on the warm stream
+   (``warm_block_bytes_copied_per_resp`` 0, the JAX ``zerocopy`` leg's
+   rule), ``stream_ttfb_ms``; each batch's witness verifies its claims on
+   the card (one launch set a batch); one aggregated
+   ``/v1/generate_range`` over repeated pair indexes equals the in-process
+   service's fields;
+23. http overload — the JAX ``overload`` leg's stack, uncut, with
+   ``admit_gradient``: capacity at 4 clients, then 4 s at 8 with a light
+   tenant and tight deadlines; every answer a 200 or a typed 429 / 504,
+   generation launching nothing (the fused C scan); prints
+   ``goodput_ratio_at_2x``, ``shed_rate``, ``light_tenant_p99_ms_overload``
+   and ``cancel_reclaim_pct`` (recorded, not gated);
+24. durable — 32 requests (16 generate, 16 verify with the CIDs on)
+   admitted through ``DurableAdmission`` while the batcher holds them; the
+   server aborted and the journal closed with them pending; a fresh
+   service over the same directory replays all 32 (``resumed_jobs``) on
+   the card, one launch set a replayed verify, each result that of a clean
+   run; an ``idempotency_key`` retry over HTTP comes back ``cached``;
+25. replication — daemons ``s0`` and ``s1`` with disk tiers; ``s0`` warmed
+   over HTTP with the cold read's 1,024 pairs; ``POST /v1/replicate`` on
+   ``s1``; every ingested block read back through ``get_many`` in one lane
+   call on the card; one forged frame on ``s1`` repaired from ``s0``
+   (``storex.replica_repairs`` 1) and a generate on ``s1`` after it reads
+   nothing from its inner store;
+26. cli serve — ``python -m ipc_proofs_tpu_torch.cli serve --demo-world
+   256 --check-cids`` with ``--store-dir``, ``--queue-dir`` and
+   ``--registry-dir`` in a child process: every pair generated, the world's
+   proofs verified one a request, ``/metrics``, ``/metrics.prom``,
+   ``/healthz`` read, an inclusion proof checked against the head; SIGTERM
+   exits 0 with a done record for every admit; its launches are the
+   daemon's own counts, which it logs at start and after the drain: their
+   difference one blake2b launch set a merged verify batch
+   (``serve.batches.verify``) and one event mask a generate chunk.
 
 Prints per-stage ms of every path with the scanner's thread count and the
 CPUs it may use; then, in order before the last line: one line per kernel,
@@ -301,8 +351,11 @@ read path's phases, the CLI's runs, the mesh phases, slice 8's
 ``traced``, ``pool``, ``follower`` and ``cli_pool``, and the serve
 plane's ``serve verify`` (CIDs off), ``serve verify, cids``, ``serve
 verify, sequential``, ``serve generate``, ``serve range window``,
-``witness diet``, ``witness aggregate verify`` and ``registry``
-included). The
+``witness diet``, ``witness aggregate verify`` and ``registry``, and
+the HTTP plane's ``http verify`` (and ``, cids``, ``, blocks_frame``,
+``, claims``), ``http generate`` (and ``, stream``, ``, verify``),
+``http overload``, ``durable`` (the replay), ``replication`` (the
+``get_many``) and ``cli serve`` included). The
 device match functions (PyTorch ops, not kernels of this repository)
 report their times in their phase's line.
 """
@@ -316,14 +369,17 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import http.client
 import http.server
 import io
 import json
 import multiprocessing
 import os
+import pickle
 import random
 import re
 import shutil
+import signal
 import struct
 import socket
 import subprocess
@@ -375,7 +431,7 @@ from ipc_proofs_tpu_torch.parallel.pipeline import (
     synthetic_event_batch,
 )
 from ipc_proofs_tpu_torch.proofs.scan_native import topic_fingerprint
-from ipc_proofs_tpu_torch.jobs.journal import FRAME_HEADER
+from ipc_proofs_tpu_torch.jobs.journal import FRAME_HEADER, read_journal
 from ipc_proofs_tpu_torch.obs import (
     disable_tracing,
     enable_tracing,
@@ -412,7 +468,14 @@ from ipc_proofs_tpu_torch.proofs.vectors import check_vectors, load_vectors
 from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
 from ipc_proofs_tpu_torch.registry import ProvenanceRegistry, verify_consistency, verify_inclusion
-from ipc_proofs_tpu_torch.serve import ProofService, ServiceConfig, sequential_verify_baseline
+from ipc_proofs_tpu_torch.serve import (
+    DurableAdmission,
+    ProofHTTPServer,
+    ProofService,
+    ServiceConfig,
+    sequential_verify_baseline,
+)
+from ipc_proofs_tpu_torch.serve.durable import QUEUE_JOURNAL_NAME
 from ipc_proofs_tpu_torch.state.address import Address
 from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, hash_event_signature, left_pad_32
@@ -440,10 +503,12 @@ from ipc_proofs_tpu_torch.witness import (
     encode_bundle_fields,
     encode_delta,
     pack_blocks,
+    parse_bundle_obj,
     supported_encodings,
     verify_aggregated,
 )
 from ipc_proofs_tpu_torch.witness.bases import FleetBaseCache
+from ipc_proofs_tpu_torch.witness.stream import decode_bundle_stream
 
 # Peak rates of one H100 SXM at its 700 W limit. Memory: HBM3 at 3.35 TB/s
 # (NVIDIA data sheet). Integer: the CUDA C++ Programming Guide's
@@ -3824,6 +3889,860 @@ def registry_phase(device, root: str) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# the HTTP plane: ProofHTTPServer, durable admission,
+# replication, and `cli serve`, over loopback on the card
+# --------------------------------------------------------------------------
+
+# http generate reads the event world's first 1,024 pairs, cut from 4,096 to
+# keep the script inside 600 s (the 4,096-pair phase took 61.8 s alone on
+# one H100 80GB HBM3 at 700 W)
+HTTP_GENERATE_PAIRS = 1024
+REPLICA_PAIRS = COLD_PAIRS  # the cold read's 1,024 pairs
+HTTP_AGG_PAIRS = 16  # distinct pairs of the aggregated generate_range
+HTTP_AGG_CLAIMS = 64  # claims over them (each pair claimed 4 times)
+OVERLOAD_PAIRS = 4  # the JAX bench.py overload leg's world, uncut
+OVERLOAD_RECEIPTS = 12
+OVERLOAD_CAP_THREADS = 4
+OVERLOAD_CAP_REQUESTS = 128
+OVERLOAD_SECONDS = 4.0
+DURABLE_GENERATES = 16
+DURABLE_VERIFIES = 16
+REPLICA_SEGMENT_BYTES = 1 << 16  # s0's segments roll often, so most of them replicate
+CLI_SERVE_PAIRS = 256
+CLI_SERVE_RANGE = CLI_SERVE_PAIRS  # the one bundle whose proofs the CLI daemon verifies
+
+
+class _Clients:
+    """HTTP/1.1 keep-alive connections to one daemon, one per calling
+    thread; every connection is closed by `close`."""
+
+    def __init__(self, port: int):
+        self.port = port
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._all: list = []
+
+    def request(self, method: str, path: str, body=None, headers=None):
+        """(status, headers, raw body, ms to the response headers, ms to the
+        last byte)."""
+        hdrs = {"Content-Type": "application/json"}
+        hdrs.update(headers or {})
+        if isinstance(body, dict):
+            body = json.dumps(body).encode()
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = self._local.conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=600)
+            with self._lock:
+                self._all.append(conn)
+        t0 = time.perf_counter()
+        conn.request(method, path, body, hdrs)
+        resp = conn.getresponse()
+        ttfb = time.perf_counter() - t0
+        raw = resp.read()
+        wall = time.perf_counter() - t0
+        if resp.will_close or resp.getheader("Transfer-Encoding") == "chunked":
+            # the daemon closes a connection after a stream (one stream a
+            # connection) without saying so in a header
+            conn.close()
+            self._local.conn = None
+        return resp.status, dict(resp.getheaders()), raw, ttfb * 1e3, wall * 1e3
+
+    def close(self) -> None:
+        with self._lock:
+            for conn in self._all:
+                conn.close()
+            self._all.clear()
+
+
+def _p99(values) -> "float | None":
+    ordered = sorted(values)
+    return ordered[max(0, int(len(ordered) * 0.99) - 1)] if ordered else None
+
+
+def _ok_json(label: str, status: int, raw: bytes) -> dict:
+    if status != 200:
+        raise AssertionError(f"{label}: HTTP {status}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _remote_closed_loop(port: int, requests, clients: int) -> "tuple[list, float]":
+    """`_closed_loop` of ``clients`` keep-alive threads over ``requests``
+    ((method, path, body bytes) each) run from a child process, so the
+    clients do not share the daemon's interpreter and GIL: (answers by
+    index as `_Clients.request` gives them, wall seconds of the loop in
+    the child)."""
+    with tempfile.TemporaryDirectory() as work:
+        spec, out = os.path.join(work, "requests.pickle"), os.path.join(work, "answers.pickle")
+        with open(spec, "wb") as fh:
+            pickle.dump({"port": port, "clients": clients, "requests": list(requests), "out": out}, fh)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--http-clients", spec],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"the HTTP client process exited {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(out, "rb") as fh:
+            return pickle.load(fh)
+
+
+def _http_clients_child(spec_path: str) -> None:
+    """The child of `_remote_closed_loop`."""
+    with open(spec_path, "rb") as fh:
+        spec = pickle.load(fh)
+    clients = _Clients(spec["port"])
+    requests = spec["requests"]
+    try:
+        result = _closed_loop(len(requests), spec["clients"], lambda i: clients.request(*requests[i]))
+    finally:
+        clients.close()
+    with open(spec["out"], "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def _blake2b_set(bundles) -> "dict[str, int]":
+    """The blake2b launches of verifying each bundle with the witness CIDs
+    on: one TxMeta batch each, plus one launch per size class present."""
+    want = dict.fromkeys(SIZE_CLASSES, 0)
+    for bundle in bundles:
+        want["blake2b256_single_block"] += 1
+        for name, rows in _classes(bundle.blocks).items():
+            if rows:
+                want[name] += 1
+    return want
+
+
+def http_verify_phase(device) -> dict:
+    """Phase 17's stack behind `ProofHTTPServer`: 256 single-proof requests
+    over the 768-event chain's bundle (996 blocks) from 32 clients in a
+    child process, ``max_batch=32``, 4 ms window, 2 workers, CIDs off and on. Every answer
+    is a 200 with the in-process service's verdicts for the same requests,
+    and blake2b launches exactly one set a merged batch. Then one
+    ``blocks_frame`` (zlib) request and one with a 256-claim ``claims``
+    table, each one launch set and the in-process verdicts. Beside the HTTP
+    rate: the handler's body parse alone on one thread, and the in-process
+    rate over bundles parsed one a request."""
+    backend = get_backend("gpu", device=device)
+    svc_device = _service_device(device)
+    world, slot = serve_chain()
+    full = generate_proof_bundle(
+        world.store, world.parent, world.child,
+        [StorageProofSpec(actor_id=ACTOR_ID, slot=slot)],
+        [EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)],
+        match_backend=backend,
+    )
+    requests = [
+        UnifiedProofBundle([], [full.event_proofs[i % SERVE_EVENTS]], full.blocks)
+        for i in range(SERVE_REQUESTS)
+    ]
+    bodies = [json.dumps({"bundle": r.to_json_obj()}).encode() for r in requests]
+    present = [name for name, rows in _classes(full.blocks).items() if rows]
+    config = dict(max_batch=SERVE_CLIENTS, max_wait_ms=SERVE_WAIT_MS, queue_capacity=max(512, 2 * SERVE_REQUESTS),
+                  workers=2, device=svc_device)
+
+    # the in-process service on the same requests: the verdicts to match
+    with ProofService(config=ServiceConfig(**config)) as service:
+        for request in requests[:SERVE_CLIENTS]:  # warm
+            service.verify(request)
+        gc.collect()
+        responses, inproc_wall = _closed_loop(SERVE_REQUESTS, SERVE_CLIENTS, lambda i: service.verify(requests[i]))
+        inproc_batches = service.metrics.counter_value("serve.batches.verify")
+    verdicts = [(r.storage_results, r.event_results) for r in responses]
+    if verdicts != [([], [True])] * SERVE_REQUESTS:
+        raise AssertionError("http verify: an in-process verdict is false")
+
+    # the front end's share, taken apart: the handler's body parse alone
+    # (json.loads + parse_bundle_obj, one thread), and the in-process
+    # service over bundles parsed one a request, as the handler hands them
+    # over (the loop above shares one witness object between requests)
+    gc.collect()
+    t0 = time.perf_counter()
+    parsed = [parse_bundle_obj(json.loads(body)["bundle"]) for body in bodies]
+    parse_ms = (time.perf_counter() - t0) * 1e3 / len(bodies)
+    with ProofService(config=ServiceConfig(**config)) as service:
+        for request in parsed[:SERVE_CLIENTS]:  # warm
+            service.verify(request)
+        gc.collect()
+        responses, parsed_wall = _closed_loop(SERVE_REQUESTS, SERVE_CLIENTS, lambda i: service.verify(parsed[i]))
+    if [(r.storage_results, r.event_results) for r in responses] != verdicts:
+        raise AssertionError("http verify: the parsed bundles' in-process verdicts differ")
+    del parsed
+
+    runs = {}
+    for cids in (False, True):
+        label = "http verify, cids" if cids else "http verify"
+        service = ProofService(config=ServiceConfig(verify_witness_cids=cids, **config))
+        httpd = ProofHTTPServer(service).start()
+        try:
+            gc.collect()
+            _reset_counts()
+            answers, wall = _remote_closed_loop(
+                httpd.port, [("POST", "/v1/verify", body) for body in bodies], SERVE_CLIENTS
+            )
+            torch.cuda.synchronize()
+            launches = _counts()
+            snap = service.metrics_snapshot()
+        finally:
+            httpd.shutdown(timeout=120)
+        got = []
+        for status, headers, raw, _, _ in answers:
+            out = _ok_json(label, status, raw)
+            if not headers.get("Server-Timing", "").startswith("queue;dur="):
+                raise AssertionError(f"{label}: Server-Timing {headers.get('Server-Timing')}")
+            got.append((out["storage_results"], out["event_results"]))
+        if got != verdicts:
+            raise AssertionError(f"{label}: verdicts differ from the in-process service's")
+        batches = snap["counters"]["serve.batches.verify"]
+        _require_launch_set(label, launches, _serve_launch_set(present if cids else [], batches, batches))
+        latencies = [a[4] for a in answers]
+        runs["cids" if cids else "plain"] = {
+            "http_rps": SERVE_REQUESTS / wall,
+            "wall_ms": wall * 1e3,
+            "http_ms_per_request": sum(latencies) / len(latencies),
+            "http_p99_ms": _p99(latencies),
+            "server_p99_ms": snap.get("histograms", {}).get("serve.latency_ms.verify", {}).get("p99"),
+            "mean_batch": snap.get("histograms", {}).get("serve.batch_size.verify", {}).get("mean"),
+            "batches": batches,
+            "launches": launches,
+        }
+
+    # one compressed-frame request and one 256-claim table, CIDs on
+    agg = aggregate_range_bundle(
+        full, [TipsetPair(world.parent, world.child)], [0], claim_indexes=[0] * SERVE_REQUESTS
+    )
+    framed = encode_bundle_fields(requests[1], WitnessOptions(encoding="zlib"))["bundle"]
+    service = ProofService(config=ServiceConfig(verify_witness_cids=True, **dict(config, max_wait_ms=1.0)))
+    httpd = ProofHTTPServer(service).start()
+    clients = _Clients(httpd.port)
+    extra = {}
+    try:
+        for name, body, bundle in (
+            ("blocks_frame", {"bundle": framed}, requests[1]),
+            ("claims", {"bundle": agg.bundle.to_json_obj(), "claims": agg.claims_json()}, agg.bundle),
+        ):
+            want = service.verify(bundle)
+            _reset_counts()
+            status, _, raw, _, ms = clients.request("POST", "/v1/verify", body)
+            torch.cuda.synchronize()
+            launches = _counts()
+            out = _ok_json(f"http verify, {name}", status, raw)
+            if (out["storage_results"], out["event_results"]) != (want.storage_results, want.event_results):
+                raise AssertionError(f"http verify, {name}: verdicts differ from the in-process service's")
+            if name == "claims":
+                claims = out["claim_results"]
+                if len(claims) != SERVE_REQUESTS or not all(c["all_valid"] for c in claims):
+                    raise AssertionError("http verify, claims: a claim's verdict is false")
+            _require_launch_set(f"http verify, {name}", launches, _serve_launch_set(present, 1, 1))
+            extra[name] = {"ms": ms, "launches": launches, "all_valid": out["all_valid"]}
+    finally:
+        clients.close()
+        httpd.shutdown(timeout=120)
+    plain, cid_run = runs["plain"], runs["cids"]
+    return {
+        "requests": SERVE_REQUESTS,
+        "clients": SERVE_CLIENTS,
+        "witness_blocks": len(full.blocks),
+        "inprocess_rps": SERVE_REQUESTS / inproc_wall,
+        "inprocess_batches": inproc_batches,
+        "parse_ms_per_request": parse_ms,
+        "inprocess_parsed_rps": SERVE_REQUESTS / parsed_wall,
+        "http_rps": plain["http_rps"],
+        "http_rps_cids": cid_run["http_rps"],
+        "http_ms_per_request": plain["http_ms_per_request"],
+        "http_p99_ms": plain["http_p99_ms"],
+        "runs": runs,
+        "extra": extra,
+        "launches": plain["launches"],
+        "cids_launches": cid_run["launches"],
+    }
+
+
+def _witness_key(bundle) -> tuple:
+    return tuple(b.cid.to_bytes() for b in bundle.blocks)
+
+
+def http_generate_phase(world, device, root: str) -> dict:
+    """The event world's first 1,024 pairs through ``/v1/generate``, one pair a
+    request from 32 clients, against a daemon with a disk tier: buffered
+    JSON first (it warms the disk), then the IPBS stream, whose blocks must
+    all go out as frame slices (``warm_block_bytes_copied_per_resp`` 0).
+    Each answer's event proofs equal generating its pair alone; each
+    batch's witness verifies its claims on the card (one launch set a
+    batch); one aggregated ``/v1/generate_range`` over repeated pair indexes
+    equals the in-process service's fields."""
+    store, pairs, _ = world
+    pairs = pairs[:HTTP_GENERATE_PAIRS]
+    backend = get_backend("gpu", device=device)
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+    # each pair's proofs alone: the range's proofs grouped by parent epoch
+    # (every pair has its own parent height)
+    solo = {pair.parent.height: [] for pair in pairs}
+    for proof in generate_event_proofs_for_range(store, pairs, spec, match_backend=backend).event_proofs:
+        solo[proof.parent_epoch].append(proof.to_json_obj())
+    solo = [solo[pair.parent.height] for pair in pairs]
+    service = ProofService(store=store, spec=spec, config=ServiceConfig(
+        max_batch=SERVE_CLIENTS, max_wait_ms=SERVE_WAIT_MS, queue_capacity=2 * len(pairs), workers=2,
+        store_dir=os.path.join(root, "http-generate"), device=_service_device(device),
+    ))
+    httpd = ProofHTTPServer(service, pairs=pairs).start()
+    clients = _Clients(httpd.port)
+    runs = {}
+    try:
+        for mode in ("buffered", "stream"):
+            body = {"stream": True} if mode == "stream" else {}
+            snap0 = service.metrics_snapshot()
+            gc.collect()
+            _reset_counts()
+            answers, wall = _remote_closed_loop(httpd.port, [
+                ("POST", "/v1/generate", json.dumps(dict(body, pair_index=i)).encode()) for i in range(len(pairs))
+            ], SERVE_CLIENTS)
+            torch.cuda.synchronize()
+            launches = _counts()
+            snap1 = service.metrics_snapshot()
+            c0, c1 = snap0["counters"], snap1["counters"]
+            bundles = []
+            for i, (status, headers, raw, _, _) in enumerate(answers):
+                if status != 200:
+                    raise AssertionError(f"http generate ({mode}): HTTP {status}: {raw[:300]!r}")
+                if mode == "stream":
+                    if headers.get("Content-Type") != "application/x-ipc-bundle-stream":
+                        raise AssertionError(f"http generate (stream): Content-Type {headers.get('Content-Type')}")
+                    doc = decode_bundle_stream(raw)
+                else:
+                    doc = json.loads(raw)
+                if headers.get("Witness-Encoding") != "identity" or doc["n_event_proofs"] != len(solo[i]):
+                    raise AssertionError(f"http generate ({mode}): pair {i}'s header or count")
+                bundle = UnifiedProofBundle.from_json_obj(doc["bundle"])
+                if [p.to_json_obj() for p in bundle.event_proofs] != solo[i]:
+                    raise AssertionError(f"http generate ({mode}): pair {i} differs from generating it alone")
+                bundles.append(bundle)
+            delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in (
+                "serve.batches.generate", "serve.stream.zero_copy_bytes", "serve.stream.copied_bytes",
+                "serve.stream.responses", "storex.slice_hits",
+            )}
+            # over the disk tier the scan is the Python walk: one flat event
+            # mask a chunk of a batch (range_chunk_size pairs), no other kernel
+            chunks = (snap1["timers"]["range_match"]["calls"]
+                      - snap0.get("timers", {}).get("range_match", {}).get("calls", 0))
+            delta["chunks"] = chunks
+            want = dict.fromkeys(launches, 0)
+            want["event_match_mask"] = chunks
+            if launches != want:
+                raise AssertionError(f"http generate ({mode}): launches {launches}, expected {want}")
+            runs[mode] = {
+                "pairs_per_s": len(pairs) / wall,
+                "wall_ms": wall * 1e3,
+                "http_ms_per_request": sum(a[4] for a in answers) / len(answers),
+                "http_p99_ms": _p99([a[4] for a in answers]),
+                "ttfb_ms": sum(a[3] for a in answers) / len(answers),
+                "bytes_per_response": sum(len(a[2]) for a in answers) / len(answers),
+                "counters": delta,
+                "launches": launches,
+                "bundles": bundles,
+            }
+        stream = runs["stream"]["counters"]
+        copied_per_resp = stream["serve.stream.copied_bytes"] / len(pairs)
+        if stream["serve.stream.responses"] != len(pairs) or copied_per_resp != 0 or not stream[
+            "serve.stream.zero_copy_bytes"
+        ]:
+            raise AssertionError(f"http generate (stream): warm responses copied block bytes: {stream}")
+
+        # an aggregated range over repeated pair indexes
+        idxs = [i % HTTP_AGG_PAIRS for i in range(HTTP_AGG_CLAIMS)]
+        status, _, raw, _, agg_ms = clients.request(
+            "POST", "/v1/generate_range", {"pair_indexes": idxs, "aggregate": True}
+        )
+        got = _ok_json("http generate_range, aggregate", status, raw)
+        distinct = service.generate_range([pairs[i] for i in range(HTTP_AGG_PAIRS)])
+        claims = aggregate_range_bundle(distinct, pairs, list(range(HTTP_AGG_PAIRS)), claim_indexes=idxs).claims_json()
+        want = dict(encode_bundle_fields(distinct, WitnessOptions(), claims=claims),
+                    n_event_proofs=len(distinct.event_proofs), n_pairs=HTTP_AGG_PAIRS)
+        if got != want:
+            raise AssertionError("http generate_range, aggregate: the answer differs from the in-process fields")
+    finally:
+        clients.close()
+        httpd.shutdown(timeout=120)
+
+    # each batch's shared witness verifies its claims on the card
+    groups: "dict[tuple, UnifiedProofBundle]" = {}
+    for bundle in runs["buffered"].pop("bundles") + runs["stream"].pop("bundles"):
+        group = groups.setdefault(_witness_key(bundle), UnifiedProofBundle([], [], bundle.blocks))
+        group.event_proofs.extend(bundle.event_proofs)
+    verified = [g for g in groups.values() if g.event_proofs]
+    gc.collect()
+    _reset_counts()
+    for group in verified:
+        if not verify_proof_bundle(group, TrustPolicy.accept_all(), verify_witness_cids=True,
+                                   cid_backend=backend).all_valid():
+            raise AssertionError("http generate: a served claim does not verify over its batch's witness")
+    torch.cuda.synchronize()
+    verify_launches = _counts()
+    _require_launch_set("http generate, verify", verify_launches, _blake2b_set(verified))
+    served = sum(len(g.event_proofs) for g in verified)
+    if served != 2 * sum(len(proofs) for proofs in solo):
+        raise AssertionError(f"http generate: {served} proofs served twice over for {len(solo)} pairs")
+    return {
+        "pairs": len(pairs),
+        "runs": runs,
+        "warm_block_bytes_copied_per_resp": copied_per_resp,
+        "stream_ttfb_ms": runs["stream"]["ttfb_ms"],
+        "aggregate_ms": agg_ms,
+        "verified_batches": len(verified),
+        "launches": runs["buffered"]["launches"],
+        "stream_launches": runs["stream"]["launches"],
+        "verify_launches": verify_launches,
+    }
+
+
+def http_overload_phase(device) -> dict:
+    """The JAX bench.py overload leg's stack, uncut, on the card: a daemon
+    with ``admit_gradient`` (initial limit 8, 75 ms delay budget, tenant
+    weight interactive=4) over the 4-pair world; capacity from 4 closed-loop
+    clients over 128 requests, then 4 s at twice the clients with a light
+    named tenant and a stream of tight-deadline requests. Every answer is a
+    200, a typed 429 or a typed 504; the four meters are recorded, not
+    gated."""
+    store, pairs, _ = build_range_world(
+        OVERLOAD_PAIRS, receipts_per_pair=OVERLOAD_RECEIPTS, events_per_receipt=2, match_rate=0.5,
+        signature=SIGNATURE, topic1=TOPIC1, actor_id=ACTOR_ID,
+    )
+    service = ProofService(store=store, spec=EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID), config=ServiceConfig(
+        max_batch=8, max_wait_ms=2.0, workers=2, admit_gradient=True, admit_initial=8,
+        admit_delay_budget_ms=75.0, tenant_weights={"interactive": 4}, device=_service_device(device),
+    ))
+    httpd = ProofHTTPServer(service, pairs=pairs).start()
+    clients = _Clients(httpd.port)
+    untyped: list = []
+
+    def post(obj, headers=None):
+        status, _, raw, _, ms = clients.request("POST", "/v1/generate", obj, headers)
+        if status not in (200, 429, 504):
+            untyped.append((status, raw[:200]))
+        elif status != 200 and json.loads(raw).get("error_type") not in ("admit_rejected", "tenant_throttled",
+                                                                          "deadline", "cancelled"):
+            untyped.append((status, raw[:200]))
+        return status, raw, ms
+
+    try:
+        for i in range(OVERLOAD_PAIRS):
+            if post({"pair_index": i})[0] != 200:
+                raise AssertionError("http overload: a warm request failed")
+        _reset_counts()
+        _, cap_wall = _closed_loop(OVERLOAD_CAP_REQUESTS, OVERLOAD_CAP_THREADS,
+                                   lambda i: post({"pair_index": i % OVERLOAD_PAIRS}))
+        capacity_rps = OVERLOAD_CAP_REQUESTS / cap_wall
+        c0 = service.metrics_snapshot()["counters"]
+        stop = threading.Event()
+        tally = {200: 0, 429: 0, "other": 0}
+        lock = threading.Lock()
+        light_ms: list = []
+        doomed = [0]
+
+        def heavy():
+            while not stop.is_set():
+                status, raw, _ = post({"pair_index": 0})
+                with lock:
+                    tally[status if status in tally else "other"] += 1
+                if status == 429:
+                    stop.wait(min(float(json.loads(raw).get("retry_after_s", 0.05)), 0.05))
+
+        def light():
+            while not stop.is_set():
+                status, _, ms = post({"pair_index": 1 % OVERLOAD_PAIRS}, {"X-IPC-Tenant": "interactive"})
+                if status == 200:
+                    light_ms.append(ms)
+                stop.wait(0.02)
+
+        def doomed_client():
+            n = 0
+            while not stop.is_set():
+                post({"pair_index": 0, "deadline_ms": 1 if n % 2 == 0 else 15})
+                doomed[0] += 1
+                n += 1
+                stop.wait(0.03)
+
+        threads = [threading.Thread(target=heavy) for _ in range(2 * OVERLOAD_CAP_THREADS)]
+        threads += [threading.Thread(target=light), threading.Thread(target=doomed_client)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(OVERLOAD_SECONDS)
+        stop.set()
+        for t in threads:
+            t.join(120)
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _counts()
+        snap = service.metrics_snapshot()
+    finally:
+        clients.close()
+        httpd.shutdown(timeout=120)
+    if untyped or any(t.is_alive() for t in threads):
+        raise AssertionError(f"http overload: untyped answers {untyped[:5]}")
+    if any(launches.values()):  # the fused C scan over the in-memory world matches on the host
+        raise AssertionError(f"http overload: generation launched {launches}")
+    if not light_ms:
+        raise AssertionError("http overload: the light tenant got no answer")
+    c1 = snap["counters"]
+    answered = sum(tally.values())
+    reclaimed = (c1.get("serve.deadline_rejects", 0) - c0.get("serve.deadline_rejects", 0)
+                 + c1.get("serve.cancelled_inflight", 0) - c0.get("serve.cancelled_inflight", 0))
+    return {
+        "capacity_rps": capacity_rps,
+        "goodput_rps": tally[200] / elapsed,
+        "goodput_ratio_at_2x": tally[200] / elapsed / capacity_rps,
+        "shed_rate": tally[429] / answered if answered else None,
+        "light_tenant_p99_ms_overload": _p99(light_ms),
+        "cancel_reclaim_pct": 100.0 * min(1.0, reclaimed / doomed[0]) if doomed[0] else None,
+        "answers": {str(k): v for k, v in tally.items()},
+        "admit_limit": snap.get("gauges", {}).get("admit.limit"),
+        "batches": c1.get("serve.batches.generate", 0),
+        "launches": launches,
+    }
+
+
+def durable_phase(world, device, root: str) -> dict:
+    """`DurableAdmission` behind the daemon, as ``serve --queue-dir`` wires
+    it, CIDs on: 16 generate and 16 verify requests are admitted (their
+    admit records fsync'd) while the batcher holds them; the server is
+    aborted and the queue's journal closed with that work pending. A fresh
+    service reopens the same directory: every pending admit re-executes on
+    the card (its verify launch sets counted), and each result equals a
+    clean run of the same request; an ``idempotency_key`` retry over HTTP
+    comes back ``cached``."""
+    store, pairs, _ = world
+    chain, slot = serve_chain()
+    full = generate_proof_bundle(
+        chain.store, chain.parent, chain.child, [StorageProofSpec(actor_id=ACTOR_ID, slot=slot)],
+        [EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)], match_backend=get_backend("gpu", device=device),
+    )
+    verifies = [UnifiedProofBundle([], [full.event_proofs[i]], full.blocks) for i in range(DURABLE_VERIFIES)]
+    work = [("generate", i * 97 % len(pairs)) for i in range(DURABLE_GENERATES)]
+    work += [("verify", b.to_json_obj()) for b in verifies]
+    queue_dir = os.path.join(root, "queue")
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+
+    def service(wait_ms):
+        return ProofService(store=store, spec=spec, config=ServiceConfig(
+            max_batch=4 * len(work), max_wait_ms=wait_ms, workers=2, verify_witness_cids=True,
+            queue_capacity=4 * len(work), device=_service_device(device),
+        ))
+
+    # admit everything while a 60 s window holds the batch, then crash
+    held = service(60_000.0)
+    durable = DurableAdmission(held, queue_dir, pairs=pairs)
+    httpd = ProofHTTPServer(held, pairs=pairs, durable=durable).start()
+    clients = _Clients(httpd.port)
+    answers: list = []
+
+    def client(i):
+        kind, payload = work[i]
+        body = {"pair_index": payload} if kind == "generate" else {"bundle": payload}
+        try:
+            answers.append(clients.request("POST", f"/v1/{kind}", dict(body, idempotency_key=f"k{i}"))[0])
+        except (OSError, http.client.HTTPException) as exc:  # the crash may cut a connection
+            answers.append(type(exc).__name__)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(work))]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 120
+    admits = 0
+    while time.monotonic() < deadline:
+        records, _, _ = read_journal(os.path.join(queue_dir, QUEUE_JOURNAL_NAME))
+        admits = sum(1 for r in records if r["t"] == "admit")
+        if admits == len(work):
+            break
+        time.sleep(0.01)
+    httpd.abort()
+    durable.close()  # the process dies: nothing it does later reaches the journal
+    held.drain(timeout=300)
+    for t in threads:
+        t.join(120)
+    clients.close()
+    records, _, _ = read_journal(os.path.join(queue_dir, QUEUE_JOURNAL_NAME))
+    done_before = sum(1 for r in records if r["t"] == "done")
+    if admits != len(work) or done_before:
+        raise AssertionError(f"durable: {admits} admits and {done_before} done records at the crash")
+
+    # a clean run of the same requests, one at a time (a replay runs each
+    # admit alone, so its batches are of one)
+    with tempfile.TemporaryDirectory(dir=root) as clean_dir:
+        clean_svc = service(1.0)
+        clean = DurableAdmission(clean_svc, clean_dir, pairs=pairs)
+        try:
+            expected = [clean.submit(kind, payload)[1] for kind, payload in work]
+        finally:
+            clean.close()
+            clean_svc.drain()
+
+    fresh = service(1.0)
+    gc.collect()
+    _reset_counts()
+    t0 = time.perf_counter()
+    reopened = DurableAdmission(fresh, queue_dir, pairs=pairs)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    httpd = ProofHTTPServer(fresh, pairs=pairs, durable=reopened).start()
+    clients = _Clients(httpd.port)
+    try:
+        if reopened.resumed_jobs != len(work):
+            raise AssertionError(f"durable: resumed_jobs {reopened.resumed_jobs}, expected {len(work)}")
+        _require_launch_set("durable replay", launches, _blake2b_set(verifies))
+        drop = ("trace_id", "server_timing")
+        for i, ((kind, payload), want) in enumerate(zip(work, expected)):
+            _, got, cached = reopened.submit(kind, payload, idempotency_key=f"k{i}")
+            if not cached or {k: v for k, v in got["result"].items() if k not in drop} != {
+                k: v for k, v in want["result"].items() if k not in drop
+            }:
+                raise AssertionError(f"durable: request {i} ({kind}) differs from a clean run")
+        kind, payload = work[-1]
+        status, _, raw, _, _ = clients.request("POST", "/v1/verify", {"bundle": payload, "idempotency_key": f"k{len(work) - 1}"})
+        retry = _ok_json("durable retry", status, raw)
+        if retry["cached"] is not True or retry["result"]["all_valid"] is not True:
+            raise AssertionError(f"durable: the idempotent retry came back {retry.get('cached')}")
+        status, _, raw, _, _ = clients.request("GET", "/healthz")
+        health = _ok_json("durable healthz", status, raw)
+    finally:
+        clients.close()
+        httpd.shutdown(timeout=120)
+    return {
+        "admitted": admits,
+        "answers_before_crash": {str(a): answers.count(a) for a in set(answers)},
+        "resumed_jobs": reopened.resumed_jobs,
+        "replay_ms": replay_ms,
+        "journal_bytes": health["journal_bytes"],
+        "launches": launches,
+    }
+
+
+def replication_phase(world, device, root: str) -> dict:
+    """Two daemons with disk tiers, owners ``s0`` and ``s1``. ``s0`` is
+    warmed over HTTP with generate over the cold read's 1,024 pairs; ``POST
+    /v1/replicate`` on ``s1`` pulls s0's rolled segments; every ingested
+    block is read back on ``s1`` through ``get_many``: one lane call on the
+    card (``IPC_VERIFY_MIN_BYTES=0``). A forged frame on ``s1`` repairs from
+    ``s0`` (``storex.replica_repairs`` 1), and a generate on ``s1`` then
+    reads nothing from its inner store."""
+    store, pairs, _ = world
+    pairs = pairs[:REPLICA_PAIRS]
+    spec = EventProofSpec(SIGNATURE, TOPIC1, ACTOR_ID)
+
+    class Counted:
+        """The inner store, counting reads (a read-repair that reaches it,
+        or a generate on s1 that does, is the failure)."""
+
+        def __init__(self, inner):
+            self.inner, self.gets = inner, 0
+
+        def get(self, cid):
+            self.gets += 1
+            return self.inner.get(cid)
+
+        def put_keyed(self, cid, data):
+            self.inner.put_keyed(cid, data)
+
+        def has(self, cid):
+            return self.inner.has(cid)
+
+    shards = {}
+    for owner in ("s0", "s1"):
+        inner = Counted(store)
+        svc = ProofService(store=inner, spec=spec, config=ServiceConfig(
+            max_batch=SERVE_CLIENTS, max_wait_ms=SERVE_WAIT_MS, workers=2, store_dir=os.path.join(root, owner),
+            store_owner=owner, store_segment_max_bytes=REPLICA_SEGMENT_BYTES, device=_service_device(device),
+        ))
+        shards[owner] = (ProofHTTPServer(svc, pairs=pairs).start(), svc, inner)
+    (s0, svc0, _), (s1, svc1, inner1) = shards["s0"], shards["s1"]
+    clients0, clients1 = _Clients(s0.port), _Clients(s1.port)
+    try:
+        t0 = time.perf_counter()
+        answers, _ = _closed_loop(len(pairs), SERVE_CLIENTS,
+                                  lambda i: clients0.request("POST", "/v1/generate", {"pair_index": i}))
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        for status, _, raw, _, _ in answers:
+            _ok_json("replication warm", status, raw)
+        source = {"name": "s0", "url": s0.address}
+        t0 = time.perf_counter()
+        status, _, raw, _, _ = clients1.request("POST", "/v1/replicate", {"sources": [source]})
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        pulled = _ok_json("replicate", status, raw)
+        if not pulled["pulled"] or pulled["errors"]:
+            raise AssertionError(f"replication: pulled {pulled}")
+        status, _, raw, _, _ = clients1.request("POST", "/v1/replica_peers", {"peers": [source]})
+        _ok_json("replica_peers", status, raw)
+
+        disk1 = svc1.disk_store
+        ingested = [s["name"] for s in disk1.segment_files() if s["owner"] == "s0"]
+        frames = [f for f in _frames(os.path.join(root, "s1")) if os.path.basename(f[0]) in ingested]
+        cids = [CID.from_bytes(raw_cid) for _, _, _, raw_cid in frames]
+        with _env("IPC_VERIFY_MIN_BYTES", "0"), _verify_calls(segments_mod) as calls:
+            gc.collect()
+            _reset_counts()
+            t0 = time.perf_counter()
+            got = disk1.get_many(cids)
+            torch.cuda.synchronize()
+            get_many_ms = (time.perf_counter() - t0) * 1e3
+            get_many_launches = _counts()
+        if len(got) != len(cids) or len(calls) != 1:
+            raise AssertionError(f"replication: get_many gave {len(got)} of {len(cids)} in {len(calls)} lane calls")
+        present = {size_class(len(data)) for data in got.values()}
+        _require_launch_set("replica get_many", get_many_launches,
+                            {name: int(name in present) for name in SIZE_CLASSES})
+        if any(got[c] != store.get(c) for c in cids):
+            raise AssertionError("replication: an ingested block differs from the world's")
+
+        # forge one ingested frame of pair 0's witness; its read repairs from s0
+        witness = {b.cid.to_bytes() for b in generate_event_proofs_for_range(
+            store, pairs[:1], spec, match_backend=get_backend("gpu", device=device)).blocks}
+        victim = next(f for f in frames if f[3] in witness)
+        _forge(*victim[:3])
+        repairs0 = svc1.metrics.counter_value("storex.replica_repairs")
+        cid = CID.from_bytes(victim[3])
+        if svc1.blockstore.get(cid) != store.get(cid):
+            raise AssertionError("replication: the forged frame did not read back repaired")
+        repairs = svc1.metrics.counter_value("storex.replica_repairs") - repairs0
+        gets0 = inner1.gets
+        status, _, raw, _, _ = clients1.request("POST", "/v1/generate", {"pair_index": 0})
+        out = _ok_json("replication generate on s1", status, raw)
+        inner_reads = inner1.gets - gets0
+        if repairs != 1 or inner_reads:
+            raise AssertionError(f"replication: {repairs} repairs, {inner_reads} inner-store reads")
+        if [p["event_data"] for p in out["bundle"]["event_proofs"]] != [
+            p.event_data.to_json_obj() for p in generate_event_proofs_for_range(
+                store, pairs[:1], spec, match_backend=get_backend("gpu", device=device)).event_proofs
+        ]:
+            raise AssertionError("replication: s1's generate differs from the in-memory one")
+    finally:
+        clients0.close()
+        clients1.close()
+        for httpd, _, _ in shards.values():
+            httpd.shutdown(timeout=120)
+    return {
+        "pairs": len(pairs),
+        "warm_ms": warm_ms,
+        "segments_pulled": pulled["pulled"],
+        "bytes_pulled": pulled["bytes"],
+        "blocks_pulled": pulled["blocks"],
+        "pending": pulled["pending"],
+        "pull_ms": pull_ms,
+        "get_many_blocks": len(cids),
+        "get_many_ms": get_many_ms,
+        "replica_repairs": repairs,
+        "inner_reads_after_repair": inner_reads,
+        "launches": get_many_launches,
+    }
+
+
+def cli_serve_phase(device, root: str) -> dict:
+    """``python -m ipc_proofs_tpu_torch.cli serve --demo-world 256
+    --check-cids`` with a disk tier, a durable queue and a registry, as a
+    user starts it: every pair generated, then the whole world's bundle's proofs
+    verified one a request from 32 clients; ``/metrics``, ``/metrics.prom``
+    and ``/healthz`` read; an inclusion proof checked against the head.
+    SIGTERM: exit 0, and every admitted request has its done record. The
+    kernel launches are the daemon's own: its wrappers' counts, which it
+    logs once serving starts and again after the drain. Their difference
+    must be one TxMeta batch a merged verify batch plus one launch a size
+    class of the witness (blake2b), and one flat event mask a chunk of a
+    generate batch (the ``range_match`` timer's calls), nothing else."""
+    work = os.path.join(root, "cli-serve")
+    os.makedirs(work, exist_ok=True)
+    port_file = os.path.join(work, "port")
+    argv = [sys.executable, "-m", "ipc_proofs_tpu_torch.cli", "serve", "--demo-world", str(CLI_SERVE_PAIRS),
+            "--check-cids", "--port", "0", "--port-file", port_file, "--store-dir", os.path.join(work, "seg"),
+            "--queue-dir", os.path.join(work, "queue"), "--registry-dir", os.path.join(work, "reg")]
+    if torch.device(device).type != "cuda":  # a run of the phase on the CPU
+        argv += ["--backend", "cpu"]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    clients = None
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(port_file) and proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not os.path.exists(port_file):
+            raise AssertionError(f"cli serve did not come up: {proc.poll()}")
+        start_ms = (time.perf_counter() - t0) * 1e3
+        with open(port_file) as fh:
+            clients = _Clients(int(fh.read()))
+        t0 = time.perf_counter()
+        answers, gen_wall = _closed_loop(CLI_SERVE_PAIRS, SERVE_CLIENTS,
+                                         lambda i: clients.request("POST", "/v1/generate", {"pair_index": i}))
+        for status, _, raw, _, _ in answers:
+            if not _ok_json("cli serve generate", status, raw)["ok"]:
+                raise AssertionError(f"cli serve generate: {raw[:300]!r}")
+        status, _, raw, _, _ = clients.request("POST", "/v1/generate_range",
+                                               {"pair_indexes": list(range(CLI_SERVE_RANGE))})
+        bundle = UnifiedProofBundle.from_json_obj(_ok_json("cli serve range", status, raw)["result"]["bundle"])
+        requests = [UnifiedProofBundle([], [p], bundle.blocks).to_json_obj() for p in bundle.event_proofs]
+        answers, verify_wall = _closed_loop(len(requests), SERVE_CLIENTS,
+                                            lambda i: clients.request("POST", "/v1/verify", {"bundle": requests[i]}))
+        for status, _, raw, _, _ in answers:
+            if _ok_json("cli serve verify", status, raw)["result"]["all_valid"] is not True:
+                raise AssertionError("cli serve verify: a verdict is false")
+        status, _, raw, _, _ = clients.request("GET", "/metrics")
+        snap = _ok_json("cli serve metrics", status, raw)
+        status, headers, prom, _, _ = clients.request("GET", "/metrics.prom")
+        if status != 200 or b"ipc_serve_batches_verify_total" not in prom:
+            raise AssertionError(f"cli serve metrics.prom: HTTP {status}")
+        status, _, raw, _, _ = clients.request("GET", "/healthz")
+        health = _ok_json("cli serve healthz", status, raw)
+        status, _, raw, _, _ = clients.request("GET", "/v1/registry/head")
+        head = _ok_json("cli serve registry head", status, raw)
+        status, _, raw, _, _ = clients.request("GET", f"/v1/registry/proof?seq={head['size'] // 2}")
+        proof = _ok_json("cli serve registry proof", status, raw)
+        if proof["root"] != head["root"] or not _inclusion_ok(proof):
+            raise AssertionError("cli serve: the registry's inclusion proof does not verify against its head")
+    finally:
+        if clients is not None:
+            clients.close()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"cli serve exited {proc.returncode}: {err[-3000:]}")
+    records, _, torn = read_journal(os.path.join(work, "queue", QUEUE_JOURNAL_NAME))
+    admitted = {r["key"] for r in records if r["t"] == "admit"}
+    finished = {r["key"] for r in records if r["t"] == "done"}
+    if torn or admitted != finished or len(admitted) != CLI_SERVE_PAIRS + 1 + len(requests):
+        raise AssertionError(f"cli serve: {len(admitted)} admitted, {len(admitted - finished)} without a result")
+    logged = [json.loads(line.split("kernel launches: ", 1)[1]) for line in err.splitlines()
+              if "kernel launches: " in line]
+    if len(logged) != 2:
+        raise AssertionError(f"cli serve logged {len(logged)} kernel launch lines, expected 2: {err[-3000:]}")
+    started, drained = logged
+    launches = {name: drained[name] - started[name] for name in drained}
+    counters = snap["counters"]
+    batches = counters["serve.batches.verify"]
+    present = [name for name, rows in _classes(bundle.blocks).items() if rows]
+    want = dict.fromkeys(launches, 0)
+    if torch.device(device).type == "cuda":  # `--backend cpu` launches nothing
+        want.update(_serve_launch_set(present, batches, batches))
+        want["event_match_mask"] = snap["timers"]["range_match"]["calls"]
+    if launches != want:
+        raise AssertionError(f"cli serve: the daemon launched {launches}, expected {want}")
+    return {
+        "pairs": CLI_SERVE_PAIRS,
+        "start_ms": start_ms,
+        "generate_rps": CLI_SERVE_PAIRS / gen_wall,
+        "verify_requests": len(requests),
+        "verify_rps": len(requests) / verify_wall,
+        "serve.batches.verify": batches,
+        "serve.batches.generate": counters.get("serve.batches.generate"),
+        "registry_size": head["size"],
+        "health": health["status"],
+        "exit": proc.returncode,
+        "startup_launches": started,
+        "launches": launches,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3833,10 +4752,15 @@ def main(argv=None) -> int:
     parser.add_argument("--pure-contracts", type=int, default=16)
     # the child process of the pure-Python phase
     parser.add_argument("--pure-python-paths", action="store_true", help=argparse.SUPPRESS)
+    # the child of the HTTP phases' client load (no device)
+    parser.add_argument("--http-clients", help=argparse.SUPPRESS)
     parser.add_argument("--contracts", type=int, default=CONTRACTS, help=argparse.SUPPRESS)
     parser.add_argument("--slots", type=int, default=SLOTS_PER_CONTRACT, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
+    if args.http_clients:
+        _http_clients_child(args.http_clients)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 1
@@ -3874,11 +4798,13 @@ def main(argv=None) -> int:
         )
     )
     paths: dict = {}
+    seconds: dict = {}
 
     def run(label, fn, *fn_args):
         t0 = time.perf_counter()
         paths[label] = fn(*fn_args)
-        _log(f"{label} ({time.perf_counter() - t0:.1f} s): {json.dumps(paths[label])}")
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        _log(f"{label} ({seconds[label]} s): {json.dumps(paths[label])}")
 
     run("device match pipeline", device_match_phase, device, smi)
     run("cid bench", cid_bench_phase, args.seed, smi, per_compression)
@@ -3918,9 +4844,15 @@ def main(argv=None) -> int:
         run("autotune", autotune_phase, root)
         run("serve verify", serve_verify_phase, device)
         run("serve generate", serve_generate_phase, world, device, root)
+        run("http verify", http_verify_phase, device)
+        run("http generate", http_generate_phase, world, device, root)
+        run("durable", durable_phase, world, device, root)
+        run("replication", replication_phase, world, device, root)
         del world
         run("witness diet", witness_diet_phase, device)
         run("registry", registry_phase, device, root)
+        run("http overload", http_overload_phase, device)
+        run("cli serve", cli_serve_phase, device, root)
     cli_paths = paths.pop("cli generate, vectors, demo")
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
@@ -3940,6 +4872,11 @@ def main(argv=None) -> int:
     launch_counts["serve verify, sequential"] = paths["serve verify"]["sequential_launches"]
     launch_counts["serve range window"] = paths["serve generate"]["window_launches"]
     launch_counts["witness aggregate verify"] = paths["witness diet"]["aggregate_launches"]
+    launch_counts["http verify, cids"] = paths["http verify"]["cids_launches"]
+    launch_counts["http verify, blocks_frame"] = paths["http verify"]["extra"]["blocks_frame"]["launches"]
+    launch_counts["http verify, claims"] = paths["http verify"]["extra"]["claims"]["launches"]
+    launch_counts["http generate, stream"] = paths["http generate"]["stream_launches"]
+    launch_counts["http generate, verify"] = paths["http generate"]["verify_launches"]
 
     rows = []
     for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
@@ -4113,6 +5050,44 @@ def main(argv=None) -> int:
         f"({reg['registry_append_us']} us an append over {reg['serve_ms_per_request']} ms a request), "
         f"inclusion proof {reg['registry_inclusion_proof_ms']} ms at {reg['registry_chain_records']} records"
     )
+    hv, hg, ho = paths["http verify"], paths["http generate"], paths["http overload"]
+    dur, repl, cs = paths["durable"], paths["replication"], paths["cli serve"]
+    _log(
+        f"http verify on {smi}: {hv['requests']} requests, {hv['clients']} clients: HTTP {hv['http_rps']} req/s "
+        f"(CIDs on {hv['http_rps_cids']}) against in-process {hv['inprocess_rps']} req/s in this run; "
+        f"{hv['http_ms_per_request']} ms a request, p99 {hv['http_p99_ms']} ms; batches "
+        f"{hv['runs']['plain']['batches']} / {hv['runs']['cids']['batches']}; blocks_frame "
+        f"{hv['extra']['blocks_frame']['ms']} ms, 256 claims {hv['extra']['claims']['ms']} ms"
+    )
+    _log(
+        f"http generate on {smi}: buffered {hg['runs']['buffered']['pairs_per_s']} pairs/s "
+        f"({hg['runs']['buffered']['http_ms_per_request']} ms a request), stream "
+        f"{hg['runs']['stream']['pairs_per_s']} pairs/s, stream_ttfb_ms {hg['stream_ttfb_ms']}, "
+        f"warm_block_bytes_copied_per_resp {hg['warm_block_bytes_copied_per_resp']}, counters "
+        f"{json.dumps(hg['runs']['stream']['counters'])}; launches {json.dumps(hg['launches'])}, "
+        f"verify {json.dumps(hg['verify_launches'])}"
+    )
+    _log(
+        f"http overload on {smi}: capacity {ho['capacity_rps']} req/s, goodput_ratio_at_2x "
+        f"{ho['goodput_ratio_at_2x']}, shed_rate {ho['shed_rate']}, light_tenant_p99_ms_overload "
+        f"{ho['light_tenant_p99_ms_overload']}, cancel_reclaim_pct {ho['cancel_reclaim_pct']}, answers "
+        f"{json.dumps(ho['answers'])}"
+    )
+    _log(
+        f"durable on {smi}: {dur['admitted']} admitted, resumed_jobs {dur['resumed_jobs']} in {dur['replay_ms']} ms, "
+        f"launches {json.dumps(dur['launches'])}"
+    )
+    _log(
+        f"replication on {smi}: {repl['segments_pulled']} segments, {repl['bytes_pulled']} bytes, "
+        f"{repl['blocks_pulled']} blocks in {repl['pull_ms']} ms; get_many of {repl['get_many_blocks']} blocks "
+        f"{repl['get_many_ms']} ms, launches {json.dumps(repl['launches'])}; replica_repairs "
+        f"{repl['replica_repairs']}, inner reads after {repl['inner_reads_after_repair']}"
+    )
+    _log(
+        f"cli serve on {smi}: up in {cs['start_ms']} ms, generate {cs['generate_rps']} req/s, verify "
+        f"{cs['verify_rps']} req/s, serve.batches.verify {cs['serve.batches.verify']}, exit {cs['exit']}"
+    )
+    _log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({

@@ -1,4 +1,4 @@
-"""Command-line interface: generate / verify / range / vectors / cert / demo.
+"""Command-line interface: generate / verify / range / vectors / cert / demo / serve.
 
 The counterpart of ``ipc_proofs_tpu.cli`` for the PyTorch/CUDA port, with
 the reference's flags and exit codes:
@@ -15,6 +15,9 @@ the reference's flags and exit codes:
     python -m ipc_proofs_tpu_torch.cli cert cert.json [--power-table t.json \
         --verify-signatures] [--emit-cbor out.cbor]
     python -m ipc_proofs_tpu_torch.cli demo      # hermetic synthetic-chain run
+    python -m ipc_proofs_tpu_torch.cli serve --demo-world 256 --port 0 \
+        --port-file port.txt [--check-cids] [--store-dir D] [--queue-dir Q] \
+        [--registry-dir R]   # the proof daemon over JSON-HTTP
 
 ``--backend`` picks where the kernels run: ``gpu`` (the default, the card:
 the event mask, the slot keccaks, the witness CID and TxMeta recomputes;
@@ -45,11 +48,23 @@ pipeline stages and journal appends nest under it. ``--profile`` traces the
 card with torch.profiler beside them. An unhandled error dumps the flight
 recorder's recent spans and warnings to stderr.
 
-Not ported yet: the ``backfill``, ``serve`` and ``cluster`` subcommands
-(each takes ``--mesh-devices`` with its slice) and their retry budget
-(``--retry-budget``). ``--batch-verify`` has no counterpart: every
-fetch-plane wave, pool batch read and disk read of the port goes through
-the verify lane.
+``serve`` runs `serve.ProofHTTPServer` over one `serve.ProofService`
+whose one backend (``--backend``, default the card; ``--mesh-devices N``
+its mesh) runs every kernel: the verify batches' TxMeta and witness CIDs
+(``--check-cids``), the range drivers' masks, the fetch plane's and disk
+tier's lanes. It takes the reference's store modes (``--demo-world N``, or
+``--endpoint``/``--endpoints`` with ``--from-height``/``--to-height``), the
+store, fetch-plane, witness, registry, durable-queue (``--queue-dir``,
+``--results-cache-bytes``), follower (``--follow``), tenant QoS, adaptive
+admission, deadline-floor, retry-budget and trace flags, ``--port-file``,
+and drains every accepted request on SIGTERM before it exits 0.
+
+Not ported yet: the ``backfill`` and ``cluster`` subcommands, and on
+``serve`` the standing queries (``--subs-dir`` and its delivery flags,
+``--subs-fleet``), the SLO watchdog (``--slo*``) and ``--backfill-jobs-dir``;
+they come with the subscription, backfill and cluster plane.
+``--batch-verify`` has no counterpart: every fetch-plane wave, pool batch
+read and disk read of the port goes through the verify lane.
 """
 
 from __future__ import annotations
@@ -112,6 +127,8 @@ def _make_rpc_client(args, metrics=None, backend=None):
         clients,
         breaker_threshold=args.breaker_threshold,
         hedge_ms=args.hedge_ms,
+        # serve only: generate/range runs have no --retry-budget
+        retry_budget_per_s=getattr(args, "retry_budget", None),
         metrics=metrics,
         backend=backend,
     )
@@ -606,6 +623,255 @@ def _cmd_demo(args) -> int:
     return 0 if result.all_valid() else 1
 
 
+def _parse_tenant_weights(specs) -> "dict | None":
+    """Parse repeated ``--tenant-weight name=N`` into ``{name: N}``.
+    Returns None when no weights were given (the FairQueue default —
+    every tenant weighs 1). Bad specs abort with exit code 2."""
+    if not specs:
+        return None
+    out: "dict[str, int]" = {}
+    for spec in specs:
+        name, sep, num = str(spec).partition("=")
+        try:
+            weight = int(num)
+        except ValueError:
+            weight = 0
+        if not sep or not name or weight < 1:
+            raise SystemExit(
+                f"--tenant-weight must be name=N with N >= 1 (got {spec!r})"
+            )
+        out[name] = weight
+    return out
+
+
+def _cmd_serve(args) -> int:
+    """Long-running proof service: micro-batched verify/generate over HTTP.
+
+    Three store modes:
+    - default: verify-only (``POST /v1/verify`` + ``/metrics``/``/healthz``);
+    - ``--demo-world N``: hermetic synthetic range world with N tipset
+      pairs — enables ``POST /v1/generate {"pair_index": i}`` with no
+      network egress (the serving analogue of ``demo``);
+    - ``--endpoint`` + ``--from-height/--to-height``: RPC-backed store,
+      pair table fetched from the chain (requires ``--event-sig/--topic1``).
+
+    Every kernel runs on the ``--backend`` (the card by default; without
+    CUDA the command exits with the backend's error before it binds).
+    """
+    import os
+    import signal
+
+    from ipc_proofs_tpu_torch.obs.fleet import TenantLedger
+    from ipc_proofs_tpu_torch.proofs.event_verifier import create_event_filter
+    from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
+    from ipc_proofs_tpu_torch.proofs.range import TipsetPair
+    from ipc_proofs_tpu_torch.proofs.trust import TrustPolicy
+    from ipc_proofs_tpu_torch.serve import ProofHTTPServer, ProofService, ServiceConfig
+    from ipc_proofs_tpu_torch.utils.metrics import Metrics
+
+    # the card (or the plain versions) first: a host without CUDA fails here
+    backend = _backend(args.backend, args.mesh_devices)
+    # the service owns its metrics registry (not the process-global one) so
+    # /metrics reflects exactly this server; the RPC client/pool feed it too
+    metrics = Metrics()
+
+    store, pairs, spec = None, [], None
+    if args.demo_world:
+        from ipc_proofs_tpu_torch.fixtures import build_range_world
+
+        sig = args.event_sig or "NewTopDownMessage(bytes32,uint256)"
+        topic1 = args.topic1 or "calib-subnet-1"
+        store, pairs, n_matching = build_range_world(
+            args.demo_world,
+            receipts_per_pair=args.demo_receipts,
+            match_rate=args.demo_match_rate,
+            signature=sig,
+            topic1=topic1,
+        )
+        spec = EventProofSpec(event_signature=sig, topic_1=topic1)
+        log.info("demo world: %d pairs, %d matching events", len(pairs), n_matching)
+    endpoint_pool = None
+    client = None
+    if not args.demo_world and (args.endpoint or args.endpoints):
+        from ipc_proofs_tpu_torch.proofs.chain import Tipset
+        from ipc_proofs_tpu_torch.store.failover import EndpointPool
+        from ipc_proofs_tpu_torch.store.rpc import RpcBlockstore
+
+        if args.from_height is None or args.to_height is None:
+            log.error("--endpoint requires --from-height and --to-height")
+            return 2
+        if not (args.event_sig and args.topic1):
+            log.error("--endpoint requires --event-sig and --topic1")
+            return 2
+        client = _make_rpc_client(args, metrics=metrics, backend=backend)
+        if isinstance(client, EndpointPool):
+            endpoint_pool = client  # /healthz reports per-endpoint breakers
+        tipsets = [Tipset.fetch(client, h) for h in range(args.from_height, args.to_height + 2)]
+        pairs = [
+            TipsetPair(parent=tipsets[i], child=tipsets[i + 1])
+            for i in range(len(tipsets) - 1)
+        ]
+        store = RpcBlockstore(client)
+        spec = EventProofSpec(event_signature=args.event_sig, topic_1=args.topic1)
+
+    if args.f3_cert:
+        from ipc_proofs_tpu_torch.proofs.cert import FinalityCertificate
+
+        with open(args.f3_cert) as fh:
+            cert = FinalityCertificate.from_json_obj(json.load(fh))
+        policy = TrustPolicy.with_f3_certificate(cert)
+    else:
+        log.warning("no F3 certificate — accept-all trust (testing only)")
+        policy = TrustPolicy.accept_all()
+
+    service = ProofService(
+        store=store,
+        spec=spec,
+        trust_policy=policy,
+        event_filter=(
+            create_event_filter(args.event_sig, args.topic1)
+            if args.event_sig and args.topic1
+            else None
+        ),
+        config=ServiceConfig(
+            max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms,
+            queue_capacity=args.queue_capacity,
+            workers=args.workers,
+            cache_max_bytes=args.cache_max_bytes,
+            cache_ttl_s=args.cache_ttl_s,
+            verify_witness_cids=args.check_cids,
+            range_scan_threads=args.scan_threads,
+            range_pipeline_depth=args.pipeline_depth,
+            threads=args.threads,
+            slow_request_ms=args.slow_ms,
+            store_dir=args.store_dir,
+            store_cap_bytes=args.store_cap_bytes,
+            store_segment_max_bytes=args.store_segment_max_bytes,
+            store_owner=args.store_owner,
+            batch_rpc=args.batch_rpc,
+            speculate_depth=args.speculate_depth,
+            match_backend="gpu",
+            device=None if args.backend == "gpu" else "cpu",
+            mesh_devices=args.mesh_devices,
+            witness_delta=(args.witness_delta == "on"),
+            witness_compress=(args.witness_compress == "on"),
+            witness_agg_max=args.witness_agg_max,
+            witness_base_cache=args.witness_base_cache,
+            tenant_rate=args.tenant_rate,
+            tenant_burst=args.tenant_burst,
+            tenant_weights=_parse_tenant_weights(args.tenant_weight),
+            admit_gradient=args.admit_gradient,
+            admit_delay_budget_ms=args.admit_delay_budget_ms,
+            deadline_floor_ms=args.deadline_floor_ms,
+            retry_budget=args.retry_budget,
+            registry_dir=args.registry_dir,
+            registry_owner=args.registry_owner,
+            registry_fsync=(args.registry_fsync == "on"),
+        ),
+        endpoint_pool=endpoint_pool,
+        metrics=metrics,
+    )
+    follower = None
+    leader_lock = None
+    if args.follow:
+        if client is None or service.blockstore is None:
+            log.error("--follow requires --endpoint (a chain to follow)")
+            service.drain()
+            return 2
+        from ipc_proofs_tpu_torch.storex import ChainFollower, FollowLeaderLock
+
+        lead = True
+        if args.store_dir:
+            # shared disk tier → exactly one follower per cluster: the
+            # flock winner tails the chain for everyone, losers serve only
+            # (and the kernel hands the lock to a successor if we die)
+            leader_lock = FollowLeaderLock(args.store_dir)
+            lead = leader_lock.try_acquire(metrics=metrics)
+        if lead:
+            follower = ChainFollower(
+                client,
+                service.blockstore,
+                metrics=metrics,
+                poll_s=args.follow_poll_s,
+                backend=service.match_backend,
+            )
+            follower.start()
+            log.info(
+                "chain follower: tailing finalized tipsets every %.1fs%s",
+                args.follow_poll_s,
+                " (elected leader)" if args.store_dir else "",
+            )
+        else:
+            log.info("chain follower: another shard leads (%s) — serving only", leader_lock.path)
+    durable = None
+    if args.queue_dir:
+        from ipc_proofs_tpu_torch.serve.durable import DurableAdmission
+
+        durable = DurableAdmission(
+            service,
+            args.queue_dir,
+            pairs=pairs,
+            results_max_bytes=args.results_cache_bytes,
+        )
+        if durable.resumed_jobs:
+            log.info(
+                "durable queue: re-executed %d admitted-but-unfinished "
+                "request(s) from %s", durable.resumed_jobs, args.queue_dir,
+            )
+
+    httpd = ProofHTTPServer(
+        service, host=args.host, port=args.port, pairs=pairs, durable=durable,
+        tenants=TenantLedger(metrics=metrics, top_k=args.tenant_top_k),
+    )
+    if args.port_file:
+        # atomic write: a polling parent never reads a half-written port
+        tmp = args.port_file + ".tmp"
+        with open(tmp, "w") as fh:
+            fh.write(str(httpd.port))
+        os.replace(tmp, args.port_file)
+    log.info(
+        "serving on %s (verify%s; max_batch=%d max_wait=%.1fms capacity=%d "
+        "workers=%d; kernels on %s)",
+        httpd.address,
+        " + generate" if spec is not None and store is not None else " only",
+        args.max_batch, args.max_wait_ms, args.queue_capacity, args.workers,
+        backend.device,
+    )
+    # the launches of start-up (the lane's crossover measurement over a new
+    # --store-dir); the drain's line less this one is what serving launched
+    log.info("kernel launches: %s", json.dumps(_kernel_launches()))
+
+    def _sigterm(_signum, _frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        log.info("draining (flushing accepted requests)…")
+    finally:
+        if follower is not None:
+            follower.stop()
+        httpd.shutdown()
+        if leader_lock is not None:
+            leader_lock.release()
+        if client is not None:
+            _close_client(client)
+    log.info("drained; final metrics:\n%s", json.dumps(service.metrics_snapshot()))
+    log.info("kernel launches: %s", json.dumps(_kernel_launches()))
+    return 0
+
+
+def _kernel_launches() -> dict:
+    """Every kernel wrapper's launch count in this process (a wrapper
+    counts its launches on the card, never a CPU tensor's plain version)."""
+    from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
+    from ipc_proofs_tpu_torch.parallel import pipeline
+
+    return {**blake2b.LAUNCHES, **keccak.LAUNCHES, **match.LAUNCHES, **pipeline.LAUNCHES}
+
+
 def speculate_depth_arg(value):
     # "auto" → adaptive backoff (FetchPlane lowers the depth when the
     # speculation waste ratio spikes); anything else must parse as int
@@ -717,6 +983,117 @@ def main(argv=None) -> int:
             "only, no speculation; default 1). 'auto' starts at 2 and "
             "backs off one level whenever a 64-fetch speculation window "
             "wastes more than 60%% of what it fetched",
+        )
+
+    def add_witness_flags(p):
+        p.add_argument(
+            "--witness-delta", choices=["on", "off"], default="on",
+            help="delta witnesses: honor If-Witness-Base / base_digest on "
+            "requests (ship only blocks the client's base bundle lacks). "
+            "Base mismatches fall back to full bundles "
+            "(witness.delta_fallbacks) — never a wrong delta (default on)",
+        )
+        p.add_argument(
+            "--witness-compress", choices=["on", "off"], default="on",
+            help="compressed witness framing: honor witness_encoding / "
+            "Accept-Witness-Encoding zlib (and zstd when importable) — "
+            "canonical-order block frame + uncompressed digest; 'off' "
+            "rejects compressed encodings with a typed 400 (default on)",
+        )
+        p.add_argument(
+            "--witness-agg-max", type=int, default=1024, metavar="K",
+            help="cap on claims per aggregated generate_range request "
+            "(aggregate: true) — one merged witness + per-claim span "
+            "table; beyond K the request gets a typed 400 (default 1024)",
+        )
+        p.add_argument(
+            "--witness-base-cache", type=int, default=64, metavar="N",
+            help="server-side LRU of witness base digests → CID sets used "
+            "to answer delta requests (default 64 bases)",
+        )
+
+    def add_registry_flags(p):
+        p.add_argument(
+            "--registry-dir", default=None, metavar="DIR",
+            help="proof provenance registry: seal every served bundle "
+            "into a hash-linked IPR1 audit log (reg-<owner>.log) under "
+            "DIR, mount GET /v1/registry/{head,entry,proof,consistency}, "
+            "and use DIR as the fleet-wide delta base directory (shards "
+            "sharing DIR see each other's serve records). Appends are "
+            "fail-soft: registry trouble degrades /healthz, never serving",
+        )
+        p.add_argument(
+            "--registry-owner", default="main", metavar="TOKEN",
+            help="writer token naming this process's registry log file "
+            "(each process sharing --registry-dir needs its own; default "
+            "main)",
+        )
+        p.add_argument(
+            "--registry-fsync", choices=["on", "off"], default="off",
+            help="fsync each registry frame (durable audit contract) "
+            "instead of riding the page cache; 'off' keeps append "
+            "overhead under the 1%% serve-wall budget (default off)",
+        )
+
+    def add_tenant_admission_flags(p):
+        p.add_argument(
+            "--tenant-top-k", type=int, default=8, metavar="K",
+            help="track per-tenant request/byte counters for the first K "
+            "distinct tenants; later tenants aggregate into the 'other' "
+            "bucket (bounds metric cardinality; default 8)",
+        )
+        p.add_argument(
+            "--tenant-rate", type=float, default=None, metavar="R",
+            help="per-tenant QoS: admit at most R proof requests/second "
+            "per tenant (token bucket; sustained excess gets a typed 429 "
+            "with Retry-After). Also arms the batcher's weighted-fair "
+            "tenant ordering. Default off (no throttling)",
+        )
+        p.add_argument(
+            "--tenant-burst", type=float, default=None, metavar="B",
+            help="token-bucket burst depth per tenant (default 2×R): "
+            "short spikes up to B requests admit immediately, then the "
+            "bucket refills at --tenant-rate",
+        )
+        p.add_argument(
+            "--tenant-weight", action="append", default=None,
+            metavar="NAME=N",
+            help="deficit weight for one tenant in the batcher's fair "
+            "interactive lane (repeatable): a weight-N tenant drains up "
+            "to N queued requests per round-robin turn; unlisted tenants "
+            "weigh 1",
+        )
+        p.add_argument(
+            "--admit-gradient", action="store_true",
+            help="adaptive admission: replace the static queue bound as "
+            "the effective concurrency gate with an AIMD limit driven by "
+            "observed queue delay (grows +1 while p99 delay is well under "
+            "budget, shrinks ×0.8 past it). Overload sheds with a typed "
+            "429 + honest Retry-After from the drain estimate; unnamed "
+            "('other') tenants shed before --tenant-weight tenants. "
+            "Default off (static --queue-capacity only)",
+        )
+        p.add_argument(
+            "--admit-delay-budget-ms", type=float, default=250.0,
+            metavar="MS",
+            help="queue-delay p99 budget steering --admit-gradient "
+            "(default 250)",
+        )
+        p.add_argument(
+            "--deadline-floor-ms", type=float, default=5.0, metavar="MS",
+            help="deadline propagation floor: a request whose remaining "
+            "budget (X-IPC-Deadline-Ms header / deadline_ms body field) "
+            "is at/below this refuses typed (504, error_type=deadline) at "
+            "each hop instead of burning a worker on an answer nobody "
+            "can use (default 5)",
+        )
+        p.add_argument(
+            "--retry-budget", type=float, default=None, metavar="R",
+            help="pool-wide client retry budget in retries/second across "
+            "ALL endpoints (token bucket, burst 2×R): during a broad "
+            "outage retries stop amplifying load once the budget is dry "
+            "(rpc.retry_budget_exhausted) and requests surface their "
+            "error instead. Default off (per-request backoff only)",
         )
 
     gen = sub.add_parser("generate", help="generate a proof bundle from a live chain")
@@ -880,6 +1257,135 @@ def main(argv=None) -> int:
     demo = sub.add_parser("demo", help="hermetic end-to-end demo on a synthetic chain")
     _add_backend_flag(demo)
     demo.set_defaults(fn=_cmd_demo)
+
+    srv = sub.add_parser(
+        "serve",
+        help="long-running proof service: micro-batched verify/generate "
+        "over JSON-HTTP with backpressure, deadlines, and /metrics",
+    )
+    srv.add_argument("--host", default="127.0.0.1")
+    srv.add_argument("--port", type=int, default=8411)
+    srv.add_argument(
+        "--port-file", default=None, metavar="PATH",
+        help="write the bound port to PATH once listening (atomic rename) — "
+        "how a parent that spawned this daemon on --port 0 learns where it "
+        "landed",
+    )
+    srv.add_argument(
+        "--demo-world", type=int, default=0, metavar="N_PAIRS",
+        help="serve a hermetic synthetic range world with N tipset pairs "
+        "(enables /v1/generate with zero egress)",
+    )
+    srv.add_argument(
+        "--demo-receipts", type=int, default=16, metavar="N",
+        help="receipts per pair in the --demo-world (default 16)",
+    )
+    srv.add_argument(
+        "--demo-match-rate", type=float, default=0.01,
+        help="fraction of demo-world events matching the spec (default 0.01)",
+    )
+    srv.add_argument("--endpoint", default=None, help="Lotus JSON-RPC endpoint URL")
+    srv.add_argument("--token", default=None)
+    srv.add_argument("--timeout", type=float, default=250.0)
+    add_failover_flags(srv)
+    srv.add_argument("--from-height", type=int, default=None)
+    srv.add_argument("--to-height", type=int, default=None)
+    srv.add_argument("--event-sig", default=None)
+    srv.add_argument("--topic1", default=None)
+    srv.add_argument("--f3-cert", default=None, help="F3 finality certificate JSON")
+    srv.add_argument("--check-cids", action="store_true")
+    srv.add_argument(
+        "--max-batch", type=int, default=32,
+        help="flush a micro-batch at this many requests",
+    )
+    srv.add_argument(
+        "--max-wait-ms", type=float, default=4.0,
+        help="…or when the oldest queued request has waited this long",
+    )
+    srv.add_argument(
+        "--queue-capacity", type=int, default=256,
+        help="bounded admission queue; beyond this requests get 503 + Retry-After",
+    )
+    srv.add_argument("--workers", type=int, default=2, help="batch-execution threads")
+    srv.add_argument(
+        "--cache-max-bytes", type=int, default=256 * 1024 * 1024,
+        help="shared block-cache budget (LRU-evicting)",
+    )
+    srv.add_argument(
+        "--cache-ttl-s", type=float, default=None,
+        help="optional TTL on cached blocks",
+    )
+    srv.add_argument(
+        "--threads", type=int, default=None,
+        help="ONE thread budget for multi-pair generate batches "
+        "(stage-overlapped range engine): partitioned over "
+        "scan/record/verify workers + native scan fan-out "
+        "(flag > IPC_THREADS > --scan-threads > IPC_SCAN_THREADS > "
+        "CPU affinity)",
+    )
+    srv.add_argument(
+        "--scan-threads", type=int, default=None,
+        help="legacy: pin the scan+match stage worker count for "
+        "multi-pair generate batches",
+    )
+    srv.add_argument(
+        "--pipeline-depth", type=int, default=2,
+        help="chunks buffered between range-pipeline stages",
+    )
+    add_store_flags(srv)
+    add_fetch_plane_flags(srv)
+    add_witness_flags(srv)
+    add_registry_flags(srv)
+    _add_backend_flag(srv)
+    srv.add_argument(
+        "--mesh-devices", type=int, default=None, metavar="N",
+        help="shard the generate batches' event masks across a mesh of N "
+        "devices: the first N cards (0 = all) with --backend gpu, N "
+        "virtual CPU devices with --backend cpu. Results are "
+        "bit-identical to the single-device path",
+    )
+    srv.add_argument(
+        "--store-owner", default=None, metavar="TOKEN",
+        help="join a SHARED --store-dir under this owner token (cluster "
+        "shards): this process appends only to its own seg-TOKEN.* "
+        "segments, reads everyone's, and eviction coordinates through a "
+        "directory flock. Omit for an exclusive single-writer store",
+    )
+    srv.add_argument(
+        "--follow", action="store_true",
+        help="chain-follow prefetch: a daemon thread tails finalized "
+        "tipsets (ChainHead minus a finality lag) and pre-warms the "
+        "tiered store with headers, receipts-AMT and state-HAMT spine "
+        "blocks — requests about recent tipsets then complete with zero "
+        "upstream block fetches (requires --endpoint; best with "
+        "--store-dir)",
+    )
+    srv.add_argument(
+        "--follow-poll-s", type=float, default=15.0,
+        help="chain-follower poll interval in seconds (default 15)",
+    )
+    srv.add_argument(
+        "--queue-dir", default=None, metavar="DIR",
+        help="durable admission queue: requests are journaled (fsync) to "
+        "DIR/queue.bin before execution, idempotency_key dedupes client "
+        "retries, and admitted-but-unfinished requests re-execute on "
+        "restart (/healthz reports resumed_jobs / journal_bytes)",
+    )
+    srv.add_argument(
+        "--results-cache-bytes", type=int, default=64 * 1024 * 1024,
+        help="byte cap on the in-memory completed-request result cache "
+        "(with --queue-dir): colder results spill to their journal frame "
+        "and are re-read (CRC-verified) on an idempotent retry "
+        "(default 64 MiB)",
+    )
+    srv.add_argument(
+        "--slow-ms", type=float, default=1000.0,
+        help="log a WARNING with the request's full span tree when a "
+        "request takes longer than this end-to-end (default 1000)",
+    )
+    add_trace_export_flags(srv)
+    add_tenant_admission_flags(srv)
+    srv.set_defaults(fn=_cmd_serve)
 
     args = parser.parse_args(argv)
     if getattr(args, "event_sig", None) and not getattr(args, "topic1", None):

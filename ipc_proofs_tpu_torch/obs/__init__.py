@@ -1,9 +1,8 @@
 """Observability of the port: the trace spine, its exporters, Prometheus
 text and the always-on flight recorder.
 
-The counterpart of ``ipc_proofs_tpu.obs`` without its fleet federation and
-SLO watchdog (``obs/fleet.py``, ``obs/slo.py``), which belong to the serve
-plane:
+The counterpart of ``ipc_proofs_tpu.obs`` without its SLO watchdog
+(``obs/slo.py``, which comes with the subscription and cluster plane):
 
 - `obs/trace.py`  — contextvar-propagated `TraceContext` + `span()`,
   bounded `SpanCollector` (opt-in via `enable_tracing()` / ``--trace-out``)
@@ -12,7 +11,10 @@ plane:
   (``--trace-otlp-url``)
 - `obs/prom.py`   — Prometheus text exposition over `Metrics` snapshots
 - `obs/flight.py` — bounded ring of recent spans + WARN/ERROR log records,
-  dumped to stderr on an unhandled error (`install_crash_dump`)
+  served at ``/debug/flight``, dumped to stderr on an unhandled error
+  (`install_crash_dump`)
+- `obs/fleet.py`  — per-tenant accounting, metrics federation, flight-ring
+  merging and cross-process span grafting
 """
 
 from ipc_proofs_tpu_torch.obs.export import (
@@ -22,6 +24,18 @@ from ipc_proofs_tpu_torch.obs.export import (
     post_otlp_trace,
     write_chrome_trace,
     write_otlp_trace,
+)
+from ipc_proofs_tpu_torch.obs.fleet import (
+    FleetFederation,
+    TenantLedger,
+    extract_tenant,
+    graft_spans,
+    merge_counters,
+    merge_flight_snapshots,
+    merge_gauges,
+    merge_histograms,
+    render_fleet_prometheus,
+    subtree_for_response,
 )
 from ipc_proofs_tpu_torch.obs.flight import (
     FlightLogHandler,
@@ -51,10 +65,12 @@ from ipc_proofs_tpu_torch.obs.trace import (
 
 __all__ = [
     "CONTENT_TYPE",
+    "FleetFederation",
     "FlightLogHandler",
     "FlightRecorder",
     "Span",
     "SpanCollector",
+    "TenantLedger",
     "TraceContext",
     "adopted_span",
     "carrier_from_context",
@@ -64,16 +80,24 @@ __all__ = [
     "current_context",
     "disable_tracing",
     "enable_tracing",
+    "extract_tenant",
     "format_span_tree",
     "get_collector",
     "get_flight_recorder",
+    "graft_spans",
     "install_crash_dump",
+    "merge_counters",
+    "merge_flight_snapshots",
+    "merge_gauges",
+    "merge_histograms",
     "otlp_trace_obj",
     "post_otlp_trace",
+    "render_fleet_prometheus",
     "render_prometheus",
     "root_span",
     "span",
     "spans_for_trace",
+    "subtree_for_response",
     "tracing_enabled",
     "use_context",
     "write_chrome_trace",

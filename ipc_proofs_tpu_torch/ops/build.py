@@ -19,6 +19,12 @@ each C entry is bound once (its ctypes signature set under the same lock,
 never per call), every launch goes to the calling thread's current stream
 and allocates its own output, and counts update under a lock.
 `load_libraries` builds several sources at once, before such threads start.
+
+A kernel that cannot be built or launched raises `DeviceFaultError`.
+`is_device_fault` names every fault of the card (that error, the verify
+lane's `VerifyLaneError`, PyTorch's CUDA out-of-memory and accelerator
+errors): the serve plane answers them as the server's failure, never as a
+client's bad request, and never journals them as a request's result.
 """
 
 from __future__ import annotations
@@ -37,10 +43,12 @@ import torch
 from ipc_proofs_tpu_torch.core._cid_native import publish_build
 
 __all__ = [
+    "DeviceFaultError",
     "NVCC_FLAGS",
     "build_libraries",
     "check_words",
     "cuda_tool",
+    "is_device_fault",
     "launch",
     "load_libraries",
     "load_library",
@@ -64,6 +72,38 @@ _entries: "dict[tuple[str, str], object]" = {}  # guarded-by: _lock; bound C ent
 _count_lock = threading.Lock()  # guards every wrapper module's LAUNCHES
 
 
+class DeviceFaultError(RuntimeError):
+    """A kernel the card could not build, load or launch."""
+
+
+# the messages PyTorch builds without a type of their own (a kernel fault
+# surfacing at a later synchronisation, a refused allocation)
+_CUDA_MESSAGES = ("CUDA error", "CUDA out of memory", "CUBLAS_STATUS", "cudaError")
+
+
+def is_device_fault(exc: "BaseException | None") -> bool:
+    """True when ``exc``, or an exception it was raised from, is a fault of
+    the card: `DeviceFaultError`, the verify lane's `VerifyLaneError`,
+    ``torch.OutOfMemoryError``, ``torch.AcceleratorError`` where PyTorch
+    has it, or a `RuntimeError` carrying a CUDA error message. A client's
+    malformed request is none of these."""
+    from ipc_proofs_tpu_torch.ops.verify import VerifyLaneError
+
+    kinds = (DeviceFaultError, VerifyLaneError, torch.OutOfMemoryError)
+    accelerator = getattr(torch, "AcceleratorError", None)
+    if accelerator is not None:
+        kinds += (accelerator,)
+    for _ in range(16):
+        if exc is None:
+            return False
+        if isinstance(exc, kinds):
+            return True
+        if isinstance(exc, RuntimeError) and any(m in str(exc) for m in _CUDA_MESSAGES):
+            return True
+        exc = exc.__cause__
+    return False
+
+
 def cuda_tool(name: str) -> str:
     """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     candidates = []
@@ -73,7 +113,7 @@ def cuda_tool(name: str) -> str:
     for path in candidates:
         if path and os.path.exists(path):
             return path
-    raise RuntimeError(f"{name} not found (set CUDA_HOME)")
+    raise DeviceFaultError(f"{name} not found (set CUDA_HOME)")
 
 
 def _library_path(name: str) -> Path:
@@ -87,7 +127,7 @@ def build_libraries(names) -> "dict[str, dict]":
     source, all started together — and return, per name, ``{"path",
     "seconds", "log"}`` (``log`` holds ptxas's register report; ``seconds``
     is 0.0 for a library already built). Raises RuntimeError with the
-    compiler's output if any build fails."""
+    compiler's output (a `DeviceFaultError`) if any build fails."""
     _BUILD.mkdir(parents=True, exist_ok=True)
     results: "dict[str, dict]" = {}
     running = []
@@ -112,7 +152,7 @@ def build_libraries(names) -> "dict[str, dict]":
         publish_build(tmp, path)
         results[name] = {"path": path, "seconds": seconds, "log": log}
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise DeviceFaultError("kernel build failed:\n" + "\n".join(failures))
     return results
 
 
@@ -196,5 +236,5 @@ def launch(
     with _count_lock:
         launches[name] += 1
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        raise DeviceFaultError(f"{name}: CUDA launch failed with error {rc}")
     return out

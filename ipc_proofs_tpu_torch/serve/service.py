@@ -1,7 +1,8 @@
 """Long-running proof service: micro-batched verify/generate with drain.
 
 The counterpart of ``ipc_proofs_tpu.serve.service``. `ProofService` is the
-in-process API. Two independent `MicroBatcher`s feed the batch engines,
+in-process API (the HTTP front end in `serve/httpd.py` is a thin shim over
+it). Two independent `MicroBatcher`s feed the batch engines,
 which run their kernels on the card: the service builds ONE `GpuBackend`
 (``get_backend("gpu", device=config.device, mesh_devices=...)``) and hands
 it to the range drivers, the fetch plane, the segment store and
@@ -52,6 +53,7 @@ from time import monotonic
 from typing import Optional, Sequence
 
 from ipc_proofs_tpu_torch.backend import get_backend
+from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.proofs.bundle import ProofBlock, UnifiedProofBundle
 from ipc_proofs_tpu_torch.proofs.range import (
     TipsetPair,
@@ -596,10 +598,69 @@ class ProofService:
             return None
         return self._disk_store.read_frame_slice(cid)
 
+    # --- replication plane (storex.replica) --------------------------------
+
     @property
     def disk_store(self):
-        """The tier-2 `SegmentStore` (None without ``store_dir``)."""
+        """The tier-2 `SegmentStore` (None without ``store_dir``) — the
+        replication plane's unit of transfer is its segment files."""
         return self._disk_store
+
+    def set_replica_peers(self, peers: "Sequence[dict]") -> None:
+        """Install/replace the read-repair peer set (the router's
+        ``POST /v1/replica_peers`` body: ``[{"name", "url"}, ...]``).
+        From then on a local frame that fails CRC/multihash repairs from
+        a peer before the inner store is ever consulted."""
+        from ipc_proofs_tpu_torch.storex import ReplicaClient, ReplicaSet
+
+        if self._disk_store is None:
+            raise RuntimeError("replication needs a disk tier (--store-dir)")
+        clients = [ReplicaClient(p["name"], p["url"]) for p in peers]
+        # self._store is a TieredBlockstore whenever a disk tier exists
+        self._store.set_replicas(ReplicaSet(clients, metrics=self.metrics))
+
+    def replicate_from(
+        self, sources: "Sequence[dict]", owners=None
+    ) -> dict:
+        """Pull-sync segment files from peer shards (the router's
+        ``POST /v1/replicate``). ``sources`` is ``[{"name", "url"}, ...]``;
+        ``owners`` optionally restricts the pull to those owner tokens
+        (the ring arcs this shard is replica for). Per-source failure is
+        fail-soft — the error string lands in ``errors`` and the other
+        sources still sync."""
+        from ipc_proofs_tpu_torch.storex import ReplicaClient, ReplicaError, Replicator
+
+        if self._disk_store is None:
+            raise RuntimeError("replication needs a disk tier (--store-dir)")
+        rep = Replicator(self._disk_store, metrics=self.metrics)
+        out = {"pulled": 0, "bytes": 0, "blocks": 0, "pending": 0, "errors": []}
+        for src in sources:
+            try:
+                r = rep.sync_from(
+                    ReplicaClient(src["name"], src["url"]), owners=owners
+                )
+            except (ReplicaError, KeyError, TypeError) as exc:
+                out["errors"].append(str(exc))
+                continue
+            for k in ("pulled", "bytes", "blocks", "pending"):
+                out[k] += r[k]
+        return out
+
+    def read_block_local(self, cid_str: str) -> "Optional[bytes]":
+        """One block from the LOCAL tiers only (``GET /v1/blocks/<cid>``):
+        never consults the inner store, so a peer's read-repair can never
+        launder an upstream (Lotus) fetch through this shard. None = 404
+        (unparseable CID included — an address we can't hold bytes for)."""
+        if self._store is None:
+            return None
+        try:
+            cid = CID.parse(cid_str)
+        except (ValueError, KeyError, TypeError):
+            return None
+        get_local = getattr(self._store, "get_local", None)
+        if get_local is None:
+            return None
+        return get_local(cid)
 
     @property
     def match_backend(self):

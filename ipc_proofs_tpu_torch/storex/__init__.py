@@ -16,17 +16,29 @@ card; `FollowLeaderLock` elects one follower per shared store directory.
 
 Every disk read is multihash re-verified, so disk corruption is an
 availability event (evict + refetch from the inner store), never a
-correctness one. The replication plane (``replica``) belongs to the serve
-plane and is not ported yet.
+correctness one. The replication plane (``replica``) copies whole segment
+files between shards and repairs a corrupt frame from a peer.
 """
 
 from ipc_proofs_tpu_torch.storex.follower import ChainFollower, FollowLeaderLock
 from ipc_proofs_tpu_torch.storex.segments import SEGMENT_MAGIC, SegmentStore, SegmentStoreError
+from ipc_proofs_tpu_torch.storex.replica import (
+    RebalanceJob,
+    ReplicaClient,
+    ReplicaError,
+    ReplicaSet,
+    Replicator,
+)
 from ipc_proofs_tpu_torch.storex.tiered import TieredBlockstore
 
 __all__ = [
     "ChainFollower",
     "FollowLeaderLock",
+    "RebalanceJob",
+    "ReplicaClient",
+    "ReplicaError",
+    "ReplicaSet",
+    "Replicator",
     "SEGMENT_MAGIC",
     "SegmentStore",
     "SegmentStoreError",

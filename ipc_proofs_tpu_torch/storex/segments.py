@@ -7,9 +7,11 @@ through `ops.verify.verify_blocks_batch` on ``backend`` (default the card),
 whose routing sends one-block and sub-crossover batches to hashlib with
 identical verdicts; a kernel or launch fault raises. `read_frame_slice`
 is the streaming wire's zero-copy read (CRC-checked on the mapped bytes).
-Not ported yet: the replication surface (`segment_files`, `segment_path`,
-`ingest_segment_file`, `drop_segment`), which waits for
-`storex/replica.py`.
+The replication surface (`segment_files`, `segment_path`,
+`ingest_segment_file`, `drop_segment`) moves whole segment files between
+stores for `storex/replica.py`: an ingest CRC-scans the frames only, and
+the multihash half of each ingested block is checked when it is read, a
+batch read through one `verify_blocks_batch` call on ``backend``.
 
 Layout (``<root>/seg-00000001.blk``, ``seg-00000002.blk``, …; in shared
 mode ``seg-<owner>.00000001.blk`` — see below)::
@@ -428,13 +430,22 @@ class SegmentStore:
         """Verified read: frame CRC + multihash (scalar lane), or a counted
         miss; a corrupt frame is evicted so the caller's refetch repopulates
         a clean copy."""
+        return self.get2(cid)[0]
+
+    def get2(self, cid: CID) -> "tuple[Optional[bytes], str]":
+        """`get` plus the miss reason: ``(data, "hit")``, ``(None, "miss")``
+        (never indexed, or evicted under us) or ``(None, "corrupt")`` (the
+        frame was here, failed CRC or multihash and was just evicted). The
+        tiered store tries a replica repair on ``"corrupt"`` only: a plain
+        miss has no reason to exist on a peer, a corrupt frame's bytes
+        almost certainly do."""
         cid_raw = cid.to_bytes()
         entry, path = self._lookup_entry(cid_raw)
         metrics = self._metrics
         if entry is None:
             if metrics is not None:
                 metrics.count("storex.disk_misses")
-            return None
+            return None, "miss"
         _key, off, frame_len = entry
         data = self._read_verified(cid, cid_raw, path, off, frame_len)
         if data is None:
@@ -442,10 +453,10 @@ class SegmentStore:
             if metrics is not None:
                 metrics.count("storex.integrity_evictions")
                 metrics.count("storex.disk_misses")
-            return None
+            return None, "corrupt"
         if metrics is not None:
             metrics.count("storex.disk_hits")
-        return data
+        return data, "hit"
 
     def _read_frame(
         self, cid_raw: bytes, path: str, off: int, frame_len: int
@@ -739,3 +750,116 @@ class SegmentStore:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    # -- replication surface ---------------------------------------------
+    #
+    # Segments are append-only CRC-framed files, so replicating one is a
+    # whole-file copy plus an index scan — no re-serialization. These are
+    # the primitives `storex.replica` and the shard HTTP pull route build
+    # on: list what exists, hand out raw file bytes, ingest a peer's file.
+
+    def segment_files(self) -> "list[dict]":
+        """The current segment inventory: ``{name, owner, size, active}``
+        per segment, sorted by name. ``active`` marks a tail some process
+        may still be appending to — replication pulls skip those (their
+        bytes move once they roll)."""
+        with self._lock:
+            active_key = self._active.key if self._active is not None else None
+            out = []
+            for key, seg in self._segments.items():
+                out.append({
+                    "name": key,
+                    "owner": seg.owner or None,
+                    "size": seg.size,
+                    "active": key == active_key,
+                })
+        out.sort(key=lambda d: d["name"])
+        return out
+
+    def segment_path(self, name: str) -> Optional[str]:
+        """Absolute path of a segment this store currently indexes, or
+        None. Validates the name shape so a traversal-y request string
+        can never address outside the root."""
+        if _parse_segment_name(name) is None:
+            return None
+        with self._lock:
+            seg = self._segments.get(name)
+            if seg is None:
+                return None
+            if (
+                self._active is not None
+                and name == self._active.key
+                and self._active_fh is not None
+            ):
+                self._active_fh.flush()  # serve committed tail bytes
+            return seg.path
+
+    def ingest_segment_file(self, name: str, data: bytes) -> int:
+        """Adopt a peer's whole segment file: atomic tmp-write +
+        ``os.replace`` into the root, then index its frames. Returns the
+        number of blocks newly indexed (frames whose CID we already hold
+        index nowhere — content-addressed, the bytes are identical).
+
+        The file keeps its origin name, so the owner token stays truthful
+        (``seg-s0.*`` on s1's disk is visibly a replica of s0's data) and
+        a re-ingest of the same name is a no-op. Ingesting under our OWN
+        owner token is refused — it would collide with our append id
+        space."""
+        parsed = _parse_segment_name(name)
+        if parsed is None:
+            raise SegmentStoreError(f"{name!r} is not a segment file name")
+        if parsed[0] == self._owner:
+            raise SegmentStoreError(
+                f"refusing to ingest {name!r} under our own owner token"
+            )
+        path = os.path.join(self.root, name)
+        tmp = path + ".ingest.tmp"
+        with self._lock:
+            if name in self._segments:
+                return 0  # already replicated (or raced another pull)
+            if self.degraded:
+                return 0
+            try:
+                with open(tmp, "wb") as fh:
+                    fh.write(data)
+                    fh.flush()
+                entries, good_size, _dirty = _scan_segment(tmp)
+                os.replace(tmp, path)
+            except OSError as exc:
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
+                logger.warning("segment ingest of %s failed: %s", name, exc)
+                return 0
+            seg = _Segment(name, parsed[0], parsed[1], path, good_size)
+            fresh = 0
+            for cid_raw, off, frame_len in entries:
+                if cid_raw in self._index:
+                    continue
+                self._index[cid_raw] = (name, off, frame_len)
+                seg.raws.append(cid_raw)
+                fresh += 1
+            self._segments[name] = seg
+            self._total_bytes += seg.size
+            self._evict_locked()
+            self._gauge_locked()
+        return fresh
+
+    def drop_segment(self, name: str) -> bool:
+        """Forget + delete one non-active segment (the post-handoff half
+        of a rebalance: once the new owner holds the bytes, the old
+        owner's copy is just cap pressure). Never drops the active tail."""
+        with self._lock:
+            if self._active is not None and name == self._active.key:
+                return False
+            seg = self._segments.get(name)
+            if seg is None:
+                return False
+            self._forget_segment_locked(name)
+            try:
+                os.remove(seg.path)
+            except OSError:
+                pass  # fail-soft: the index entry is gone either way
+            self._gauge_locked()
+        return True

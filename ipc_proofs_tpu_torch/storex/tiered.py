@@ -1,7 +1,6 @@
 """`TieredBlockstore`: tier-1 memory cache over tier-2 disk segments.
 
-The counterpart of ``ipc_proofs_tpu.storex.tiered``, without the replica
-read-repair (``storex/replica.py`` is not ported yet).
+The counterpart of ``ipc_proofs_tpu.storex.tiered``.
 
 Drop-in where `CachedBlockstore` sits today — same `Blockstore` protocol
 and the same observability surface (`hits`/`misses` ints,
@@ -12,8 +11,10 @@ tier. Read path::
 
 A disk hit promotes into tier 1; an inner-store hit populates BOTH tiers
 so the next restart (fresh process, same ``--store-dir``) starts warm.
-Disk reads are multihash-verified inside `SegmentStore.get`, so a
-corrupt frame reads as a miss and the refetched clean bytes re-spill.
+Disk reads are multihash-verified inside `SegmentStore.get2`, so a
+corrupt frame reads as a miss and the refetched clean bytes re-spill. With
+read-repair peers (`set_replicas`, a `storex.replica.ReplicaSet`) a corrupt
+frame is first refetched from a replica, before the inner store is asked.
 
 `put_local` / `get_local` / `has_local` touch the two local tiers only,
 never the inner store: the fetch plane binds this store as its local tiers
@@ -47,15 +48,40 @@ class TieredBlockstore:
         disk: SegmentStore,
         cache: "Optional[dict[CID, bytes] | BlockCache]" = None,
         metrics=None,
+        replicas=None,
     ):
         self._inner = inner
         self._disk = disk
+        # read-repair peers (storex.replica.ReplicaSet): consulted ONLY
+        # when the disk tier reports a frame as corrupt — a plain miss
+        # has no reason to exist on a peer, but a corrupt frame's bytes
+        # almost certainly do, and repairing there keeps the upstream
+        # (Lotus) out of the loop entirely
+        self._replicas = replicas
         self._cache = cache if cache is not None else {}
         self._evicting = isinstance(self._cache, BlockCache)
         self._lock = named_lock("TieredBlockstore._lock")
         self._metrics = metrics
         self.hits = 0  # tier-1 hits, same meaning as CachedBlockstore.hits
         self.misses = 0
+
+    def set_replicas(self, replicas) -> None:
+        """Install/replace the read-repair `ReplicaSet` (peers are only
+        known after the whole cluster is up, so this arrives late)."""
+        self._replicas = replicas
+
+    def _disk_get_repaired(self, cid: CID) -> Optional[bytes]:
+        """Tier-2 read with read-repair: a corrupt frame (integrity
+        eviction) refetches from a replica peer BEFORE the caller ever
+        considers the inner store; repaired bytes re-spill to disk."""
+        data, status = self._disk.get2(cid)
+        if data is not None:
+            return data
+        if status == "corrupt" and self._replicas is not None and len(self._replicas):
+            data = self._replicas.repair(cid)  # verified inside
+            if data is not None:
+                self._disk.put(cid, data)
+        return data
 
     # -- tier-1 plumbing (CachedBlockstore-compatible) --------------------
 
@@ -94,7 +120,7 @@ class TieredBlockstore:
             self.hits += 1
             return cached
         self.misses += 1
-        data = self._disk.get(cid)  # verified; a corrupt frame reads as a miss
+        data = self._disk_get_repaired(cid)  # verified; corrupt frames try replicas
         if data is not None:
             self._cache_put(cid, data)
             return data
@@ -125,7 +151,7 @@ class TieredBlockstore:
         if cached is not None:
             self.hits += 1
             return cached
-        data = self._disk.get(cid)  # verified; a corrupt frame reads as a miss
+        data = self._disk_get_repaired(cid)  # verified; corrupt frames try replicas
         if data is not None:
             self._cache_put(cid, data)
         return data

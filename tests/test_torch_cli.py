@@ -585,3 +585,152 @@ def test_endpoints_path_refuses_the_host_without_cuda(worlds, nodes, tmp_path, m
     argv = [a for a in _range_argv(worlds, *FAILOVER_FLAGS, "-o", str(tmp_path / "x.json")) if a not in ("--backend", "cpu")]
     with pytest.raises(SystemExit, match="CUDA"):
         port_cli.main(argv)
+
+
+# --------------------------------------------------------------------------
+# serve: both packages' daemons over the same demo world
+# --------------------------------------------------------------------------
+
+
+def _spawn_serve(module, root, extra=()):
+    """One ``<module> serve`` daemon over a 6-pair demo world with the durable
+    queue, disk tier and registry under ``root``; returns (proc, base URL)."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    port_file = root / "port"
+    if port_file.exists():
+        port_file.unlink()  # a restart writes its own
+    argv = [sys.executable, "-m", module, "serve", "--demo-world", "6", "--check-cids", "--port", "0",
+            "--port-file", str(port_file), "--store-dir", str(root / "seg"), "--queue-dir", str(root / "q"),
+            "--registry-dir", str(root / "reg"), "--tenant-weight", "acme=2", "--tenant-rate", "1000",
+            "--max-wait-ms", "1", *extra]
+    env = dict(os.environ, PYTHONPATH=str(repo), JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(argv, cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    deadline = time.monotonic() + 120
+    while not port_file.exists() and proc.poll() is None and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if not port_file.exists():
+        proc.kill()
+        raise AssertionError(proc.communicate(timeout=30))
+    return proc, f"http://127.0.0.1:{port_file.read_text()}"
+
+
+def _http(base, path, body=None):
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            raw, status, ctype = resp.read(), resp.status, resp.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as exc:
+        raw, status, ctype = exc.read(), exc.code, exc.headers.get("Content-Type", "")
+    return status, (json.loads(raw) if "json" in ctype else raw.decode())
+
+
+def _stop(proc):
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    out, err = proc.communicate(timeout=120)
+    return proc.returncode, err
+
+
+_VOLATILE = ("trace_id", "server_timing", "journal_ms")
+
+
+def _strip(obj):
+    if isinstance(obj, dict):
+        return {k: _strip(v) for k, v in obj.items() if k not in _VOLATILE}
+    if isinstance(obj, list):
+        return [_strip(v) for v in obj]
+    return obj
+
+
+def test_serve_daemons_answer_alike_and_drain_on_sigterm(tmp_path):
+    """``serve`` of both packages (the port with ``--backend cpu``) over the
+    same demo world: equal answers to generate, verify and aggregated
+    range requests, equal health; an inclusion proof from
+    ``/v1/registry/proof`` checks against ``/v1/registry/head``; SIGTERM
+    drains and exits 0, and a restart over the same queue directory serves
+    every accepted request from its journal."""
+    from ipc_proofs_tpu_torch.registry.mmr import verify_inclusion
+
+    daemons = {}
+    try:
+        daemons["port"] = _spawn_serve("ipc_proofs_tpu_torch.cli", tmp_path / "p", ["--backend", "cpu"])
+        daemons["ref"] = _spawn_serve("ipc_proofs_tpu.cli", tmp_path / "r")
+        answers = {}
+        for name, (_, base) in daemons.items():
+            got = []
+            for i in range(3):
+                got.append(_http(base, "/v1/generate", {"pair_index": i, "idempotency_key": f"g{i}", "tenant": "acme"}))
+            bundle = got[0][1]["result"]["bundle"]
+            got.append(_http(base, "/v1/verify", {"bundle": bundle, "idempotency_key": "v"}))
+            got.append(_http(base, "/v1/generate_range", {"pair_indexes": [4, 4, 5], "aggregate": True}))
+            got.append(_http(base, "/v1/generate", {"pair_index": 0, "idempotency_key": "g0"}))
+            got.append(_http(base, "/v1/generate", {"pair_index": 9}))
+            answers[name] = got
+            status, health = _http(base, "/healthz")
+            assert status == 200 and health["status"] == "ok" and health["durable_queue"] is True
+            status, snap = _http(base, "/metrics")
+            assert status == 200 and snap["counters"]["tenant.requests.acme"] == 3
+            status, prom = _http(base, "/metrics.prom")
+            assert status == 200 and "ipc_serve" in prom
+            status, head = _http(base, "/v1/registry/head")
+            status, proof = _http(base, "/v1/registry/proof?seq=1")
+            assert status == 200 and proof["size"] == head["size"] and proof["root"] == head["root"]
+            assert verify_inclusion(
+                bytes.fromhex(proof["leaf"]), 1, proof["size"], [bytes.fromhex(h) for h in proof["path"]],
+                bytes.fromhex(head["root"]),
+            )
+        assert [s for s, _ in answers["port"]] == [s for s, _ in answers["ref"]] == [200] * 6 + [400]
+        p = [_strip(dict(b, idempotency_key=None) if "auto-" in str(b.get("idempotency_key")) else b) for _, b in answers["port"]]
+        r = [_strip(dict(b, idempotency_key=None) if "auto-" in str(b.get("idempotency_key")) else b) for _, b in answers["ref"]]
+        assert p == r
+        assert answers["port"][5][1]["cached"] is True
+        assert answers["port"][3][1]["result"]["all_valid"] is True
+    finally:
+        codes = {name: _stop(proc) for name, (proc, _) in daemons.items()}
+    for name, (rc, err) in codes.items():
+        assert rc == 0, (name, err[-2000:])
+    # the port's daemon logs every kernel wrapper's launches at start and at
+    # drain; with --backend cpu the plain versions ran and nothing launched
+    launch_lines = [line.split("kernel launches: ", 1)[1] for line in codes["port"][1].splitlines()
+                    if "kernel launches: " in line]
+    assert len(launch_lines) == 2, codes["port"][1][-2000:]
+    for line in launch_lines:
+        counts = json.loads(line)
+        assert "blake2b256_single_block" in counts and "event_match_mask" in counts
+        assert set(counts.values()) == {0}, counts
+    proc, base = _spawn_serve("ipc_proofs_tpu_torch.cli", tmp_path / "p", ["--backend", "cpu"])
+    try:
+        for i in range(3):
+            status, out = _http(base, "/v1/generate", {"pair_index": i, "idempotency_key": f"g{i}"})
+            assert status == 200 and out["cached"] is True
+            assert out["result"]["bundle"] == answers["port"][i][1]["result"]["bundle"]
+        assert _http(base, "/healthz")[1]["resumed_jobs"] == 0
+    finally:
+        rc, err = _stop(proc)
+    assert rc == 0, err[-2000:]
+
+
+@pytest.mark.parametrize(
+    "specs",
+    [None, [], ["acme=2"], ["acme=2", "beta=5", "acme=3"], ["acme"], ["=2"], ["acme=0"], ["acme=x"]],
+    ids=["none", "empty", "one", "repeat", "no-weight", "no-name", "zero", "not-a-number"],
+)
+def test_tenant_weight_parsing_matches(specs):
+    def run(parse):
+        try:
+            return parse(specs)
+        except SystemExit as exc:
+            return ("exit", str(exc))
+
+    assert run(port_cli._parse_tenant_weights) == run(ref_cli._parse_tenant_weights)

@@ -658,3 +658,80 @@ def test_verify_aggregated_on_card_equals_cpu(cuda_device):
         want[name] += 1
     want["blake2b256_single_block"] += 1
     assert launches == want
+
+
+def test_http_verify_with_cids_launches_one_set_a_batch(cuda_device):
+    """`ProofHTTPServer` over a card service with CIDs on: 32 concurrent HTTP
+    verify requests get the CPU's verdicts, and the blake2b launches are
+    exactly one set per merged batch (`serve.batches.verify`)."""
+    import json
+    import urllib.request
+
+    from ipc_proofs_tpu_torch.proofs.bundle import UnifiedProofBundle
+    from ipc_proofs_tpu_torch.serve import ProofHTTPServer, ProofService, ServiceConfig
+
+    full = _serve_chain()
+    reqs = [UnifiedProofBundle([], [full.event_proofs[i % 16]], full.blocks).to_json_obj() for i in range(32)]
+    blake2b.reset_launch_counts()
+    got = [None] * len(reqs)
+    svc = ProofService(config=ServiceConfig(max_batch=8, max_wait_ms=50.0, verify_witness_cids=True))
+    httpd = ProofHTTPServer(svc).start()
+    try:
+        def client(i):
+            req = urllib.request.Request(httpd.address + "/v1/verify", data=json.dumps({"bundle": reqs[i]}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                got[i] = (resp.status, json.loads(resp.read())["event_results"])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        batches = svc.metrics.counter_value("serve.batches.verify")
+    finally:
+        httpd.shutdown(timeout=60)
+    assert got == [(200, [True])] * len(reqs)
+    assert 0 < batches < len(reqs)
+    want = dict.fromkeys(blake2b.LAUNCHES, 0)
+    want["blake2b256_single_block"] = batches
+    for name in _classes_present(full.blocks):
+        want[name] += batches
+    assert blake2b.LAUNCHES == want
+
+
+def test_ingested_segments_read_in_one_lane_call_on_card(cuda_device, tmp_path, monkeypatch):
+    """A replica's `get_many` over segment files ingested from a peer: one
+    `verify_blocks_batch` call, whose kernels run on the card, with the
+    plain versions' verdicts (a lying frame rejected)."""
+    from ipc_proofs_tpu_torch.backend.gpu import size_class
+    from ipc_proofs_tpu_torch.core.cid import CID
+    from ipc_proofs_tpu_torch.storex import SegmentStore
+    from ipc_proofs_tpu_torch.utils.metrics import Metrics
+
+    monkeypatch.setenv("IPC_VERIFY_MIN_BYTES", "0")
+    cpu = get_backend("gpu", device="cpu")
+    src = SegmentStore(str(tmp_path / "src"), owner="s0", segment_max_bytes=4096, backend=cpu)
+    blocks = [(CID.hash_of(m), m) for m in _messages([100 + (i * 37) % 400 for i in range(64)], seed=5)]
+    liar = CID.hash_of(b"honest bytes")
+    for cid, data in blocks:
+        src.put(cid, data)
+    src.put(liar, b"lying bytes")
+    files = {s["name"]: Path(src.segment_path(s["name"])).read_bytes() for s in src.segment_files()}
+    src.close()
+    m = Metrics()
+    card = SegmentStore(str(tmp_path / "dst"), owner="s1", metrics=m, backend=get_backend("gpu"))
+    try:
+        assert sum(card.ingest_segment_file(n, raw) for n, raw in sorted(files.items())) == 65
+        blake2b.reset_launch_counts()
+        got = card.get_many([cid for cid, _ in blocks] + [liar])
+        launches = dict(blake2b.LAUNCHES)
+    finally:
+        card.close()
+    assert got == dict(blocks)
+    assert m.counter_value("verify.device_blocks") == 65
+    assert m.counter_value("storex.integrity_evictions") == 1
+    want = dict.fromkeys(launches, 0)
+    for name in {size_class(len(d)) for _, d in blocks + [(liar, b"lying bytes")]}:
+        want[name] = 1
+    assert launches == want

@@ -10,8 +10,9 @@
   client → fetch plane → tier over a segment store, the landed waves and
   the disk sweep verified on the backend), one traced pooled range (two
   endpoints behind the fetch plane), one served, witness-encoded, sealed
-  and re-verified request through the serve plane, one aggregated verify and
-  one follower poll on
+  and re-verified request through the serve plane, one durable HTTP
+  generate and verify through ``ProofHTTPServer`` (with the disk tier's
+  replication inventory), one aggregated verify and one follower poll on
   ``device="cpu"`` through the native branches ends with neither (nor
   ``requests``) in ``sys.modules`` and no shared library of
   ``ipc_proofs_tpu/`` mapped.
@@ -25,8 +26,10 @@
   raise instead of running on the CPU; the
   scalar replay of the ``IPC_PROOFS_NO_NATIVE=1`` universe runs no kernel.
 - The CLI (``python -m ipc_proofs_tpu_torch.cli``) defaults to the card:
-  without CUDA its ``demo``, ``verify`` and ``range`` exit with the
-  backend's error before any work, and ``--backend cpu`` runs.
+  without CUDA its ``demo``, ``verify``, ``range`` and ``serve`` exit with
+  the backend's error before any work, and ``--backend cpu`` runs. A
+  ``serve --backend cpu`` daemon, driven over HTTP and stopped with
+  SIGTERM, loads neither ``jax`` nor the reference.
 """
 
 import ast
@@ -102,6 +105,7 @@ def test_port_files_exist():
         "witness/delta.py", "witness/wire.py", "witness/aggregate.py", "witness/stream.py",
         "registry/__init__.py", "registry/mmr.py", "registry/log.py", "registry/registry.py",
         "serve/__init__.py", "serve/qos.py", "serve/batcher.py", "serve/service.py",
+        "serve/httpd.py", "serve/durable.py", "storex/replica.py", "obs/fleet.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
@@ -204,6 +208,28 @@ with tempfile.TemporaryDirectory() as reg_dir:
         assert expand_response_fields(fields).to_json() == served.to_json()
         assert svc.registry.append_served(fields["digest"], cids=served.cid_set()) == 0
         assert svc.verify(served).all_valid()
+import json, urllib.request
+from ipc_proofs_tpu_torch.serve import DurableAdmission, ProofHTTPServer
+from ipc_proofs_tpu_torch.storex import ReplicaClient
+with tempfile.TemporaryDirectory() as root:
+    svc = ProofService(store=store, spec=EventProofSpec("NewTopDownMessage(bytes32,uint256)", "calib-subnet-1", 1001),
+                       config=ServiceConfig(device="cpu", max_wait_ms=1.0, store_dir=root + "/seg",
+                                            registry_dir=root + "/reg"))
+    httpd = ProofHTTPServer(svc, pairs=pairs, durable=DurableAdmission(svc, root + "/q", pairs=pairs)).start()
+    try:
+        def call(path, body):
+            req = urllib.request.Request(httpd.address + path, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return json.loads(resp.read())
+        gen = call("/v1/generate", {"pair_index": 0, "idempotency_key": "k", "witness_encoding": "zlib"})
+        assert gen["ok"] and gen["result"]["witness_encoding"] == "zlib"
+        assert call("/v1/verify", {"bundle": event_bundle.to_json_obj()})["result"]["all_valid"]
+        assert ReplicaClient("self", httpd.address).list_segments()
+        with urllib.request.urlopen(httpd.address + "/metrics.prom", timeout=60) as resp:
+            assert b"ipc_serve" in resp.read()
+    finally:
+        httpd.shutdown(timeout=60)
 agg = aggregate_range_bundle(event_bundle, pairs, list(range(len(pairs))))
 assert all(r.all_valid() for r in verify_aggregated(
     agg, TrustPolicy.accept_all(), verify_witness_cids=True, cid_backend=backend))
@@ -320,7 +346,7 @@ def test_range_drivers_default_to_the_card(monkeypatch, small_range, driver):
         call()
 
 
-@pytest.mark.parametrize("command", ["demo", "verify", "range"])
+@pytest.mark.parametrize("command", ["demo", "verify", "range", "serve"])
 def test_cli_refuses_the_host_without_cuda(monkeypatch, tmp_path, small_range, command):
     """With CUDA reported absent, the CLI's default ``--backend gpu`` exits
     with the backend's error before any work, and ``--backend cpu`` runs."""
@@ -332,13 +358,16 @@ def test_cli_refuses_the_host_without_cuda(monkeypatch, tmp_path, small_range, c
         "verify": ["verify", str(path), "--check-cids"],
         "range": ["range", "--endpoint", "http://node.invalid/rpc/v1", "--from-height", "0",
                   "--to-height", "1", "--event-sig", SPEC.event_signature, "--topic1", "x"],
+        "serve": ["serve", "--demo-world", "2", "--port", "0"],
     }[command]
     from ipc_proofs_tpu_torch import cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         cli.main(argv)
-    if command != "range":  # range's host run needs a node (tests/test_torch_cli.py)
+    # range's host run needs a node, and serve's never returns on its own
+    # (both in tests/test_torch_cli.py)
+    if command not in ("range", "serve"):
         assert cli.main(argv + ["--backend", "cpu"]) == 0
 
 
@@ -552,3 +581,53 @@ def test_cold_read_path_defaults_to_the_card(monkeypatch, tmp_path):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+_SERVE_CHILD = """
+import runpy, sys
+sys.argv = ["ipc_proofs_tpu_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("ipc_proofs_tpu_torch.cli", run_name="__main__")
+finally:
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu"))
+    print("LOADED", bad, flush=True)
+"""
+
+
+def test_cli_serve_loads_no_jax_or_reference(tmp_path):
+    """``cli serve`` over a demo world with the durable queue, disk tier
+    and registry: it answers generate and verify over HTTP, exits 0 on
+    SIGTERM, and never loads ``jax`` or ``ipc_proofs_tpu``."""
+    import json
+    import signal
+    import time
+    import urllib.request
+
+    port_file = tmp_path / "port"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SERVE_CHILD, "serve", "--backend", "cpu", "--demo-world", "4", "--check-cids",
+         "--port", "0", "--port-file", str(port_file), "--store-dir", str(tmp_path / "seg"),
+         "--queue-dir", str(tmp_path / "q"), "--registry-dir", str(tmp_path / "reg")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.monotonic() + 90
+        while not port_file.exists() and proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert port_file.exists(), proc.communicate(timeout=30)
+        base = f"http://127.0.0.1:{port_file.read_text()}"
+
+        def call(path, body):
+            req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return json.loads(resp.read())
+
+        gen = call("/v1/generate", {"pair_index": 1})
+        assert gen["ok"] and call("/v1/verify", {"bundle": gen["result"]["bundle"]})["result"]["all_valid"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    assert proc.returncode == 0, err[-2000:]
+    assert "LOADED []" in out, out
