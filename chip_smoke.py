@@ -335,7 +335,32 @@ Phases, none of which may fail:
    exits 0 with a done record for every admit; its launches are the
    daemon's own counts, which it logs at start and after the drain: their
    difference one blake2b launch set a merged verify batch
-   (``serve.batches.verify``) and one event mask a generate chunk.
+   (``serve.batches.verify``) and one event mask a generate chunk;
+27. standing queries — `ProofHTTPServer` with `StandingQueries` and the SLO
+   watchdog over the event world (kept alive until then), the service's
+   scan unfused (the event mask on the card): 64 subscriptions over 12
+   distinct filters posted over HTTP (webhooks to a receiver child process,
+   one endpoint down in the first life, long-poll subscribers, 8 with a
+   storage leg), delta delivery on; a `ChainFollower` over the hermetic
+   node finalizes 256 tipsets (the first 128 pairs): one generation per
+   distinct (pair, filter) on the PUSH lane, the storage-leg filters
+   failing as the reference's do (``subs.errors``: the reference hands the
+   chunked driver a pre-hashed `StorageProofSpec`), every push's digest and
+   bundle bytes (a delta expanded) equal to the chunked driver's for its
+   pair and filter, the long-poll cursors in order and acked by the next
+   poll, every delivered bundle verified on the card, ``/healthz`` with the
+   subs fields and the ``slo`` block; a restart over the same directory
+   replays the registry and re-pushes every refused delivery, the same
+   bytes; prints deliveries/s, generations/s and ms a tipset;
+28. backfill — a `BackfillEngine` on the service's LOW lane over all 4,096
+   pairs at window size 8 (the scan unfused): closed after 128 windows
+   commit, resumed from the journal by a second engine (the committed
+   windows replayed), the sealed bundle ``range``'s bytes and verified on
+   the card; ``POST /v1/backfill`` over HTTP and ``GET
+   /v1/backfill/<id>/chunks`` streamed to the end, folded with
+   `BundleFold` into the same bytes (``stream_ttfb_ms``); ``python -m
+   ipc_proofs_tpu_torch.cli backfill --endpoint`` over the hermetic node at
+   64 pairs, every landed wave verified on the card: ``range``'s bytes.
 
 Prints per-stage ms of every path with the scanner's thread count and the
 CPUs it may use; then, in order before the last line: one line per kernel,
@@ -355,7 +380,9 @@ verify, sequential``, ``serve generate``, ``serve range window``,
 the HTTP plane's ``http verify`` (and ``, cids``, ``, blocks_frame``,
 ``, claims``), ``http generate`` (and ``, stream``, ``, verify``),
 ``http overload``, ``durable`` (the replay), ``replication`` (the
-``get_many``) and ``cli serve`` included). The
+``get_many``) and ``cli serve``, and ``subs push``, ``subs verify``,
+``backfill`` (the resumed job and its verification), ``backfill stream``
+and ``cli backfill`` included). The
 device match functions (PyTorch ops, not kernels of this repository)
 report their times in their phase's line.
 """
@@ -450,7 +477,7 @@ from ipc_proofs_tpu_torch.ops.pack import (
 from ipc_proofs_tpu_torch.proofs import event_verifier as event_verifier_mod
 from ipc_proofs_tpu_torch.proofs import range as range_mod
 from ipc_proofs_tpu_torch.proofs import verifier as verifier_mod
-from ipc_proofs_tpu_torch.proofs.bundle import EventProofBundle, ProofBlock, UnifiedProofBundle
+from ipc_proofs_tpu_torch.proofs.bundle import EventProofBundle, ProofBlock, UnifiedProofBundle, bundle_obj_digest
 from ipc_proofs_tpu_torch.proofs.event_verifier import verify_event_proof
 from ipc_proofs_tpu_torch.proofs.event_generator import single_pass_witness_cids
 from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec, StorageProofSpec, generate_proof_bundle
@@ -4743,6 +4770,524 @@ def cli_serve_phase(device, root: str) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# standing queries, the SLO watchdog and backfill, over the event world
+# --------------------------------------------------------------------------
+
+SUBS_TIPSETS = 256  # finalized by the follower: the first 128 pairs' two heights each
+SUBS_RETRY = (3, 0.002, 0.008)  # webhook attempts, backoff base and cap (s)
+BACKFILL_WINDOW = 8
+BACKFILL_KILL_AT = 128  # windows committed before the first engine is closed
+CLI_BACKFILL_PAIRS = 64
+CLI_BACKFILL_WINDOW = 8
+
+
+def _subscriptions() -> "list[dict]":
+    """64 subscriptions over 12 distinct filters: 24 on (signature, topic1)
+    (16 webhooks, 8 long-poll), 16 on the contract's events (8 webhooks, 4
+    webhooks whose endpoint is down in the first life, 4 long-poll), 16 on
+    eight actor filters nothing in the world emits (webhooks), and 8 with
+    a storage leg: the contract's topdown nonce slot or a slot it does not
+    hold (webhooks)."""
+    base = {"signature": SIGNATURE, "topic1": TOPIC1}
+    subs = []
+
+    def add(filt, mode):
+        i = len(subs)
+        body = {"filter": filt, "sub_id": f"sub-{i:02d}"}
+        if mode != "poll":
+            body["target"] = {"url": f"WEBHOOK/{mode}/{i:02d}"}
+        subs.append(body)
+
+    for i in range(24):
+        add(dict(base), "up" if i < 16 else "poll")
+    for i in range(16):
+        add(dict(base, actor_id=ACTOR_ID), "up" if i < 8 else ("down" if i < 12 else "poll"))
+    for i in range(16):
+        add(dict(base, actor_id=2001 + i // 2), "up")
+    for i in range(8):
+        slot = calculate_storage_slot(TOPIC1, 0) if i < 4 else b"\x5a" * 32
+        add(dict(base, actor_id=ACTOR_ID, slot=slot.hex()), "up")
+    return subs
+
+
+class _WebhookHandler(http.server.BaseHTTPRequestHandler):
+    def log_message(self, fmt, *args):
+        pass
+
+    def do_POST(self):
+        body = self.rfile.read(int(self.headers.get("Content-Length", "0")))
+        down = self.path.startswith("/down/") and os.path.exists(self.server.down_flag)
+        status = 503 if down else 200
+        with self.server.lock:
+            with open(self.server.log_path, "a") as fh:
+                fh.write(json.dumps({"path": self.path, "status": status, "body": body.decode()}) + "\n")
+        self.send_response(status)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+
+def _webhook_receiver_child(work: str) -> None:
+    """The webhook endpoint of the standing-query phase, in a process of
+    its own: every POST is logged to ``work/posts.jsonl``; a path under
+    ``/down/`` answers 503 while ``work/down`` exists, anything else 200."""
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _WebhookHandler)
+    server.lock = threading.Lock()
+    server.log_path = os.path.join(work, "posts.jsonl")
+    server.down_flag = os.path.join(work, "down")
+    signal.signal(signal.SIGTERM, lambda *_: threading.Thread(target=server.shutdown).start())
+    with open(os.path.join(work, "port.tmp"), "w") as fh:
+        fh.write(str(server.server_address[1]))
+    os.replace(os.path.join(work, "port.tmp"), os.path.join(work, "port"))
+    server.serve_forever()
+    server.server_close()
+
+
+@contextlib.contextmanager
+def _webhook_receiver(work: str):
+    """(base URL, posts reader) of a receiver child; stopped on exit."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--webhook-receiver", work])
+    try:
+        deadline = time.monotonic() + 120
+        while not os.path.exists(os.path.join(work, "port")):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"the webhook receiver did not start (exit {proc.poll()})")
+            time.sleep(0.05)
+        with open(os.path.join(work, "port")) as fh:
+            port = int(fh.read())
+
+        def posts() -> "list[dict]":
+            path = os.path.join(work, "posts.jsonl")
+            if not os.path.exists(path):
+                return []
+            with open(path) as fh:
+                return [json.loads(line) for line in fh if line.endswith("\n")]
+
+        yield f"http://127.0.0.1:{port}", posts
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _call_json(clients, label: str, method: str, path: str, body=None) -> dict:
+    """One request through ``clients``; the parsed JSON of a 200, else a
+    failure naming ``label``."""
+    status, _, raw, _, _ = clients.request(method, path, body)
+    return _ok_json(label, status, raw)
+
+
+def _wait_for(label: str, cond, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: timed out")
+        time.sleep(0.01)
+
+
+def _standing(root: str, service):
+    """`StandingQueries` over ``root/subs`` riding ``service``'s PUSH lane
+    (delta on; webhook backoff in milliseconds)."""
+    from ipc_proofs_tpu_torch.subs import StandingQueries
+
+    attempts, base_s, max_s = SUBS_RETRY
+    return StandingQueries(
+        os.path.join(root, "subs"), store=service.blockstore, metrics=service.metrics, chunk_size=8,
+        match_backend=service.match_backend, retry_attempts=attempts, retry_base_s=base_s, retry_max_s=max_s,
+        delta=True, service=service, provenance=service.registry,
+    )
+
+
+def subs_phase(world, device, root: str) -> dict:
+    """Standing queries over the 4,096-pair event world, behind
+    `ProofHTTPServer` with the SLO watchdog on: 64 subscriptions posted
+    over HTTP (`_subscriptions`), webhooks to a receiver child process; a
+    `ChainFollower` over the hermetic node finalizes 256 tipsets, each
+    matched on the service's PUSH lane with the scan unfused (the event
+    mask on the card): one generation per distinct (pair, filter), every
+    push's digest and bundle (expanded when it is a delta) equal to the
+    chunked driver's for its pair and filter, the storage-leg filters
+    failing as in the reference (``subs.errors``, nothing delivered); the
+    long-poll cursors and acks; every delivered bundle verified on the card;
+    ``/healthz`` with the subs fields and the ``slo`` block; then a restart
+    over the same directory replays the registry and re-pushes every
+    delivery the down endpoint refused, the same bytes."""
+    from ipc_proofs_tpu_torch.obs.slo import SloWatchdog
+    from ipc_proofs_tpu_torch.subs import filter_key, normalize_filter
+
+    store, pairs, _ = world
+    backend = get_backend("gpu", device=device)
+    spec = EventProofSpec(SIGNATURE, TOPIC1)
+    subs = _subscriptions()
+    fed_pairs = pairs[: SUBS_TIPSETS // 2]
+    tipsets = [ts for pair in fed_pairs for ts in (pair.parent, pair.child)]
+    work = os.path.join(root, "webhook")
+    os.makedirs(work)
+    open(os.path.join(work, "down"), "w").close()
+    svc_cfg = dict(max_batch=SERVE_CLIENTS, max_wait_ms=SERVE_WAIT_MS, workers=2, device=_service_device(device))
+    with _webhook_receiver(work) as (hook, posts), _env("IPC_SCAN_FUSED_MATCH", "0"):
+        for body in subs:
+            if "target" in body:
+                body["target"]["url"] = body["target"]["url"].replace("WEBHOOK", hook)
+        service = ProofService(store=store, spec=spec, config=ServiceConfig(**svc_cfg))
+        sq = _standing(root, service)
+        slo = SloWatchdog(metrics=service.metrics, interval_s=0.25)
+        slo.start()
+        httpd = ProofHTTPServer(service, pairs=pairs, subs=sq, slo=slo).start()
+        clients = _Clients(httpd.port)
+        follower = None
+        try:
+            for body in subs:
+                created = _call_json(clients, "subscribe", "POST", "/v1/subscribe", body)
+                if created != {"sub_id": body["sub_id"], "created": True}:
+                    raise AssertionError(f"subscribe: {created}")
+            listing = _call_json(clients, "subscriptions", "GET", "/v1/subscriptions")
+            if listing["count"] != len(subs):
+                raise AssertionError(f"subscriptions: {listing['count']}")
+            session = _NodeSession(store, tipsets)
+            follower = ChainFollower(LotusClient(CLI_ENDPOINT, session=session, metrics=service.metrics),
+                                     service.blockstore, metrics=service.metrics, lag=0,
+                                     start_height=tipsets[0].height, backend=service.match_backend)
+            follower.add_finalized_hook(sq.on_tipset)
+            webhook_up = [b["sub_id"] for b in subs if "/up/" in b.get("target", {}).get("url", "")]
+            gc.collect()
+            _reset_counts()
+            t0 = time.perf_counter()
+            finalized = 0
+            while finalized < len(tipsets):
+                finalized += follower.poll_once()
+            feed_s = time.perf_counter() - t0
+            _wait_for("subs push", lambda: all(not sq.log.pending(s) for s in webhook_up))
+            push_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            push_launches = _counts()
+            snap = service.metrics_snapshot()
+            counters = snap["counters"]
+            # the long-poll subscribers: every cursor once, in order; asking
+            # from the last cursor acks them all
+            polled = {}
+            for body in subs:
+                if "target" in body:
+                    continue
+                sub_id = body["sub_id"]
+                got = _call_json(clients, "deliveries", "GET", f"/v1/deliveries?sub={sub_id}&cursor=0")
+                cursors = [d["cursor"] for d in got["deliveries"]]
+                if cursors != list(range(1, len(cursors) + 1)) or not cursors:
+                    raise AssertionError(f"deliveries {sub_id}: cursors {cursors}")
+                again = _call_json(clients, "deliveries", "GET", f"/v1/deliveries?sub={sub_id}&cursor={cursors[-1]}")
+                if again["deliveries"] or sq.log.pending(sub_id):
+                    raise AssertionError(f"deliveries {sub_id}: the cursor did not ack")
+                polled[sub_id] = got["deliveries"]
+            health = _call_json(clients, "healthz", "GET", "/healthz")
+            down_pending = {b["sub_id"]: [d.to_json_obj() for d in sq.log.pending(b["sub_id"])]
+                            for b in subs if "/down/" in b.get("target", {}).get("url", "")}
+        finally:
+            clients.close()
+            httpd.shutdown(timeout=120)
+        if health.get("subscriptions") != len(subs) or health.get("subs_degraded") is not False \
+                or health.get("pending_deliveries") != sum(len(v) for v in down_pending.values()) \
+                or "slo" not in health or health["slo"]["status"] not in ("ok", "warn", "burning"):
+            raise AssertionError(f"healthz: {json.dumps({k: health.get(k) for k in ('subscriptions', 'pending_deliveries', 'subs_degraded', 'slo')})}")
+
+        # generate once per distinct (pair, filter); the storage leg fails
+        filters = {filter_key(normalize_filter(b["filter"])): normalize_filter(b["filter"]) for b in subs}
+        event_filters = {k: f for k, f in filters.items() if "slot" not in f}
+        matched = len(tipsets) - 1
+        windows = snap["timers"].get("serve.backfill_window", {}).get("calls", 0)
+        if counters.get("subs.tipsets_matched") != matched \
+                or counters.get("subs.generations") != len(event_filters) * matched \
+                or counters.get("subs.errors") != (len(filters) - len(event_filters)) * matched \
+                or windows != len(filters) * matched:
+            raise AssertionError(f"subs: generations {counters.get('subs.generations')}, errors "
+                                 f"{counters.get('subs.errors')}, lane windows {windows} over {matched} pairs")
+        _require_launched("subs push", push_launches, ["event_match_mask_fp"])
+
+        # every push and every polled delivery against the chunked driver
+        by_height = {pair.child.height: pair for pair in fed_pairs}
+        expected: dict = {}
+
+        def want(sub_id: str, height: int):
+            filt = normalize_filter(next(b["filter"] for b in subs if b["sub_id"] == sub_id))
+            key = (height, filter_key(filt))
+            if key not in expected:
+                obj = generate_event_proofs_for_range_chunked(
+                    store, [by_height[height]], EventProofSpec(SIGNATURE, filt["topic1"], filt.get("actor_id")),
+                    chunk_size=8, match_backend=backend,
+                ).to_json_obj()
+                expected[key] = (obj, bundle_obj_digest(obj))
+            return expected[key]
+
+        by_digest: dict = {}
+        first_life = [p for p in posts() if p["status"] == 200]
+        deliveries = 0
+        for post_ in first_life:
+            env = json.loads(post_["body"])
+            obj, digest = want(env["sub_id"], env["tipset"])
+            if env["digest"] != digest:
+                raise AssertionError(f"subs push {env['sub_id']}@{env['tipset']}: digest differs")
+            by_digest[digest] = obj
+            if "bundle" in env:
+                if not post_["body"].endswith(', "bundle": ' + json.dumps(obj, sort_keys=True) + "}"):
+                    raise AssertionError(f"subs push {env['sub_id']}@{env['tipset']}: bundle bytes differ")
+            deliveries += 1
+        n_delta = 0
+        for post_ in first_life:
+            env = json.loads(post_["body"])
+            if "bundle_delta" in env:
+                base = UnifiedProofBundle.from_json_obj(by_digest[env["bundle_delta"]["base_digest"]])
+                if apply_delta(env["bundle_delta"], base).to_json_obj() != want(env["sub_id"], env["tipset"])[0]:
+                    raise AssertionError(f"subs push {env['sub_id']}@{env['tipset']}: the delta expands wrong")
+                n_delta += 1
+        for sub_id, entries in polled.items():
+            for entry in entries:
+                obj, digest = want(sub_id, entry["tipset"])
+                if entry["digest"] != digest or ("bundle" in entry["payload"] and entry["payload"]["bundle"] != obj):
+                    raise AssertionError(f"deliveries {sub_id}@{entry['tipset']}: differs from the chunked driver")
+        if not deliveries or counters.get("subs.pushes") != deliveries:
+            raise AssertionError(f"subs push: {deliveries} pushes landed, subs.pushes {counters.get('subs.pushes')}")
+
+        # every delivered bundle verified on the card
+        gc.collect()
+        _reset_counts()
+        t0 = time.perf_counter()
+        for obj in by_digest.values():
+            bundle = UnifiedProofBundle.from_json_obj(obj)
+            if not verify_proof_bundle(bundle, TrustPolicy.accept_all(), verify_witness_cids=True,
+                                       cid_backend=backend).all_valid():
+                raise AssertionError("subs verify: a delivered bundle does not verify")
+        torch.cuda.synchronize()
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        verify_launches = _counts()
+        _require_blake2b("subs verify", verify_launches)
+
+        # restart: the registry replays, the refused deliveries re-push
+        os.unlink(os.path.join(work, "down"))
+        refused = {(json.loads(p["body"])["sub_id"], json.loads(p["body"])["cursor"]): p["body"]
+                   for p in posts() if p["status"] == 503}
+        n_before = len(posts())
+        t0 = time.perf_counter()
+        service = ProofService(store=store, spec=spec, config=ServiceConfig(**svc_cfg))
+        sq = _standing(root, service)
+        try:
+            _wait_for("subs restart", lambda: not any(sq.log.pending(s) for s in down_pending))
+            restart_ms = (time.perf_counter() - t0) * 1e3
+            replayed = len(sq.registry)
+        finally:
+            sq.drain()
+            service.drain()
+        repushed = {(json.loads(p["body"])["sub_id"], json.loads(p["body"])["cursor"]): p["body"]
+                    for p in posts()[n_before:] if p["status"] == 200}
+        want_repush = {(s, d["cursor"]) for s, ds in down_pending.items() for d in ds}
+        if replayed != len(subs) or set(repushed) != want_repush or not want_repush \
+                or any(repushed[k] != refused[k] for k in want_repush):
+            raise AssertionError(f"subs restart: {replayed} subscriptions, re-pushed {len(repushed)} of "
+                                 f"{len(want_repush)} refused deliveries")
+    return {
+        "subscriptions": len(subs),
+        "distinct_filters": len(filters),
+        "tipsets": len(tipsets),
+        "pairs_matched": matched,
+        "generations": counters["subs.generations"],
+        "generations_per_s": counters["subs.generations"] / feed_s,
+        "webhook_deliveries": deliveries,
+        "delta_deliveries": n_delta,
+        "push_deliveries_per_s": deliveries / push_s,
+        "feed_ms": feed_s * 1e3,
+        "push_ms": push_s * 1e3,
+        "ms_per_tipset": feed_s * 1e3 / len(tipsets),
+        "polled_deliveries": sum(len(v) for v in polled.values()),
+        "refused_then_repushed": len(want_repush),
+        "restart_ms": restart_ms,
+        "verify_ms": verify_ms,
+        "bundles_verified": len(by_digest),
+        "counters": {k: v for k, v in counters.items() if k.startswith(("subs.", "witness.delta", "follow."))},
+        "stages": _stages(snap),
+        "slo": health["slo"],
+        "launches": push_launches,
+        "verify_launches": verify_launches,
+    }
+
+
+def _stages(snap) -> dict:
+    """Busy ms and calls of each timed stage in a metrics snapshot."""
+    return {k: [round(v["total_s"] * 1e3, 1), v["calls"]] for k, v in snap["timers"].items()}
+
+
+def _fold_stream(clients, job_id: str, pairs):
+    """Poll ``GET /v1/backfill/<id>/chunks`` as an IPBS stream until the
+    job ends, folding every chunk document: (sealed bundle, chunks, ms to
+    the first response's headers, stream polls)."""
+    from ipc_proofs_tpu_torch.cluster import BundleFold
+    from ipc_proofs_tpu_torch.witness.stream import STREAM_CONTENT_TYPE, decode_bundle_stream_docs
+
+    fold = BundleFold(pairs, range(len(pairs)))
+    cursor, chunks, polls, ttfb = 0, 0, 0, None
+    while True:
+        status, _, raw, t_head, _ = clients.request(
+            "GET", f"/v1/backfill/{job_id}/chunks?cursor={cursor}&wait_s=10",
+            headers={"Accept": STREAM_CONTENT_TYPE},
+        )
+        if status != 200:
+            raise AssertionError(f"backfill stream: HTTP {status}: {raw[:300]!r}")
+        ttfb = t_head if ttfb is None else ttfb
+        polls += 1
+        docs = decode_bundle_stream_docs(raw)
+        envelope = docs[-1]
+        for doc in docs[:-1]:
+            fold.fold(UnifiedProofBundle.from_json_obj(doc["bundle"]))
+            chunks += 1
+        cursor = envelope["cursor"]
+        if envelope["state"] != "running" and len(docs) == 1:
+            if envelope["state"] != "complete":
+                raise AssertionError(f"backfill stream: the job ended {envelope['state']}")
+            return fold.seal(), chunks, ttfb, polls
+
+
+def backfill_phase(world, device, root: str) -> dict:
+    """Backfill over all 4,096 pairs of the event world at window size 8 on
+    the service's LOW lane (the scan unfused: the event mask on the card):
+    the engine is closed after 128 windows committed, a second engine
+    resumes from the journal, and the sealed bundle is ``range``'s bytes and
+    verifies on the card; then ``POST /v1/backfill`` over HTTP, its
+    ``GET /v1/backfill/<id>/chunks`` streamed to the end and folded with
+    `BundleFold`: the same bytes; then ``python -m ipc_proofs_tpu_torch.cli
+    backfill --endpoint`` over the hermetic node at 64 pairs, every landed
+    wave verified on the card (``IPC_VERIFY_MIN_BYTES=0``)."""
+    from ipc_proofs_tpu_torch.backfill import BackfillEngine, BackfillError
+
+    store, pairs, _ = world
+    backend = get_backend("gpu", device=device)
+    spec = EventProofSpec(SIGNATURE, TOPIC1)
+    expected = generate_event_proofs_for_range(store, pairs, spec, match_backend=backend).to_json()
+    jobs = os.path.join(root, "backfill-jobs")
+    service = ProofService(store=store, spec=spec, config=ServiceConfig(workers=2, device=_service_device(device)))
+
+    def engine(jobs_dir):
+        return BackfillEngine(pairs, spec, lambda w, wpairs: service.submit_range_window(wpairs).result(),
+                              jobs_dir=jobs_dir, window_size=BACKFILL_WINDOW, plane=service.fetch_plane,
+                              metrics=service.metrics)
+
+    try:
+        with _env("IPC_SCAN_FUSED_MATCH", "0"):
+            gc.collect()
+            _reset_counts()
+            first = engine(jobs)
+            t0 = time.perf_counter()
+            job = first.submit(0, len(pairs))
+            cursor = 0
+            while cursor < BACKFILL_KILL_AT:
+                cursor = job.chunks_after(cursor, wait_s=10)["cursor"]
+            first.close(timeout=120)
+            killed_s = time.perf_counter() - t0
+            try:
+                job.result(timeout=0)
+                raise AssertionError("backfill: the closed engine's job completed")
+            except BackfillError:
+                pass
+            committed = job.status()["windows_done"]
+            second = engine(jobs)
+            t0 = time.perf_counter()
+            resumed = second.submit(0, len(pairs))
+            sealed = resumed.result(timeout=900)
+            resume_s = time.perf_counter() - t0
+            status = resumed.status()
+            second.close(timeout=60)
+            gen_stages = _stages(service.metrics.snapshot())
+            torch.cuda.synchronize()
+            gen_launches = _counts()
+            if resumed.job_id != job.job_id or status["windows_replayed"] != committed:
+                raise AssertionError(f"backfill resume: {status['windows_replayed']} replayed, {committed} committed")
+            if sealed.to_json() != expected:
+                raise AssertionError("backfill: the sealed bundle differs from range over the same pairs")
+            t0 = time.perf_counter()
+            if not verify_proof_bundle(sealed, TrustPolicy.accept_all(), verify_witness_cids=True,
+                                       cid_backend=backend).all_valid():
+                raise AssertionError("backfill: the sealed bundle does not verify")
+            torch.cuda.synchronize()
+            verify_ms = (time.perf_counter() - t0) * 1e3
+            launches = _counts()
+            _require_launched("backfill", launches, ["event_match_mask_fp"])
+            _require_blake2b("backfill", launches)
+
+            # the HTTP door: submit, stream to the end, fold
+            http_engine = engine(os.path.join(root, "backfill-http"))
+            httpd = ProofHTTPServer(service, pairs=pairs, backfill=http_engine).start()
+            clients = _Clients(httpd.port)
+            try:
+                gc.collect()
+                _reset_counts()
+                t0 = time.perf_counter()
+                submitted = _call_json(clients, "backfill submit", "POST", "/v1/backfill",
+                                       {"pair_start": 0, "pair_end": len(pairs)})
+                folded, chunks, ttfb_ms, polls = _fold_stream(clients, submitted["job_id"], pairs)
+                http_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                stream_launches = _counts()
+                http_status = _call_json(clients, "backfill status", "GET", f"/v1/backfill/{submitted['job_id']}")
+            finally:
+                clients.close()
+                httpd.shutdown(timeout=120)
+            service = None  # drained by the server's shutdown
+    finally:
+        if service is not None:
+            service.drain()
+    if folded.to_json() != expected or chunks != http_status["windows_total"] or http_status["state"] != "complete":
+        raise AssertionError(f"backfill stream: {chunks} chunks folded, status {http_status['state']}")
+    _require_launched("backfill stream", stream_launches, ["event_match_mask_fp"])
+
+    # the CLI over the hermetic node, the verify lane on the card
+    store_c, pairs_c, n_matching = build_range_world(CLI_BACKFILL_PAIRS, 16, 4, 0.01, chained=True)
+    tipsets = [pairs_c[0].parent] + [pair.child for pair in pairs_c]
+    cli_expected = generate_event_proofs_for_range(store_c, pairs_c, spec, match_backend=backend).to_json()
+    session = _NodeSession(store_c, tipsets)
+    recording = _RecordingBackend(get_backend("gpu", device=device))
+    path = os.path.join(root, "cli-backfill.json")
+    argv = [
+        "backfill", "--endpoint", CLI_ENDPOINT,
+        "--from-height", str(tipsets[0].height), "--to-height", str(tipsets[-2].height),
+        "--event-sig", SIGNATURE, "--topic1", TOPIC1, "--window-size", str(CLI_BACKFILL_WINDOW),
+        "--jobs-dir", os.path.join(root, "cli-backfill-jobs"), "--backend", "gpu", "--metrics", "-o", path,
+    ]
+    gc.collect()
+    with _cli_node(session, recording), _env("IPC_VERIFY_MIN_BYTES", "0"):
+        _, cli_ms, cli_launches, cli_snap = _cli("cli backfill", argv)
+    with open(path) as fh:
+        if fh.read() != cli_expected:
+            raise AssertionError("cli backfill: the bundle differs from range over the same pairs")
+    _require_launched("cli backfill", cli_launches, ["event_match_mask"])
+    _require_blake2b("cli backfill", cli_launches)
+    checked = _check_recorded("cli backfill", recording, {})
+    fresh = len(pairs) - committed * BACKFILL_WINDOW
+    return {
+        "pairs": len(pairs),
+        "window_size": BACKFILL_WINDOW,
+        "windows": status["windows_total"],
+        "committed_before_close": committed,
+        "killed_ms": killed_s * 1e3,
+        "resume_ms": resume_s * 1e3,
+        "resume_first_chunk_ms": (status["first_chunk_s"] or 0.0) * 1e3,
+        "backfill_pairs_per_s": len(pairs) / (killed_s + resume_s),
+        "resumed_fresh_pairs_per_s": fresh / resume_s,
+        "proofs": len(sealed.event_proofs),
+        "verify_ms": verify_ms,
+        "http_pairs_per_s": len(pairs) / http_s,
+        "http_ms": http_s * 1e3,
+        "stream_ttfb_ms": ttfb_ms,
+        "stream_polls": polls,
+        "stream_chunks": chunks,
+        "cli": {"pairs": len(pairs_c), "proofs": n_matching, "wall_ms": cli_ms,
+                "rpc_calls": cli_snap["counters"].get("rpc.calls", 0), "checked": checked},
+        "stages": gen_stages,
+        "generate_launches": gen_launches,
+        "launches": launches,
+        "stream_launches": stream_launches,
+        "cli_launches": cli_launches,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4754,12 +5299,17 @@ def main(argv=None) -> int:
     parser.add_argument("--pure-python-paths", action="store_true", help=argparse.SUPPRESS)
     # the child of the HTTP phases' client load (no device)
     parser.add_argument("--http-clients", help=argparse.SUPPRESS)
+    # the child of the standing-query phase's webhook endpoint (no device)
+    parser.add_argument("--webhook-receiver", help=argparse.SUPPRESS)
     parser.add_argument("--contracts", type=int, default=CONTRACTS, help=argparse.SUPPRESS)
     parser.add_argument("--slots", type=int, default=SLOTS_PER_CONTRACT, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if args.http_clients:
         _http_clients_child(args.http_clients)
+        return 0
+    if args.webhook_receiver:
+        _webhook_receiver_child(args.webhook_receiver)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -4848,11 +5398,13 @@ def main(argv=None) -> int:
         run("http generate", http_generate_phase, world, device, root)
         run("durable", durable_phase, world, device, root)
         run("replication", replication_phase, world, device, root)
-        del world
         run("witness diet", witness_diet_phase, device)
         run("registry", registry_phase, device, root)
         run("http overload", http_overload_phase, device)
         run("cli serve", cli_serve_phase, device, root)
+        run("standing queries", subs_phase, world, device, root)
+        run("backfill", backfill_phase, world, device, root)
+        del world
     cli_paths = paths.pop("cli generate, vectors, demo")
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
@@ -4877,6 +5429,10 @@ def main(argv=None) -> int:
     launch_counts["http verify, claims"] = paths["http verify"]["extra"]["claims"]["launches"]
     launch_counts["http generate, stream"] = paths["http generate"]["stream_launches"]
     launch_counts["http generate, verify"] = paths["http generate"]["verify_launches"]
+    launch_counts["subs push"] = launch_counts.pop("standing queries")
+    launch_counts["subs verify"] = paths["standing queries"]["verify_launches"]
+    launch_counts["backfill stream"] = paths["backfill"]["stream_launches"]
+    launch_counts["cli backfill"] = paths["backfill"]["cli_launches"]
 
     rows = []
     for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
@@ -5086,6 +5642,25 @@ def main(argv=None) -> int:
     _log(
         f"cli serve on {smi}: up in {cs['start_ms']} ms, generate {cs['generate_rps']} req/s, verify "
         f"{cs['verify_rps']} req/s, serve.batches.verify {cs['serve.batches.verify']}, exit {cs['exit']}"
+    )
+    sqp, bf = paths["standing queries"], paths["backfill"]
+    _log(
+        f"standing queries on {smi}: {sqp['subscriptions']} subscriptions over {sqp['distinct_filters']} filters, "
+        f"{sqp['tipsets']} tipsets finalized in {sqp['feed_ms']} ms ({sqp['ms_per_tipset']} ms a tipset); "
+        f"{sqp['generations']} generations, {sqp['generations_per_s']} generations/s; "
+        f"{sqp['webhook_deliveries']} webhook deliveries ({sqp['delta_deliveries']} deltas) in {sqp['push_ms']} ms, "
+        f"{sqp['push_deliveries_per_s']} deliveries/s; {sqp['polled_deliveries']} polled; restart re-pushed "
+        f"{sqp['refused_then_repushed']} in {sqp['restart_ms']} ms; verify of {sqp['bundles_verified']} bundles "
+        f"{sqp['verify_ms']} ms; slo {json.dumps(sqp['slo'])}; counters {json.dumps(sqp['counters'])}; "
+        f"stage busy ms, calls {json.dumps(sqp['stages'])}"
+    )
+    _log(
+        f"backfill on {smi}: {bf['pairs']} pairs in {bf['windows']} windows of {bf['window_size']}: closed after "
+        f"{bf['committed_before_close']} windows ({bf['killed_ms']} ms), resumed in {bf['resume_ms']} ms (first "
+        f"chunk {bf['resume_first_chunk_ms']} ms), {bf['backfill_pairs_per_s']} pairs/s over both runs, "
+        f"{bf['resumed_fresh_pairs_per_s']} pairs/s resumed; http {bf['http_pairs_per_s']} pairs/s, "
+        f"stream_ttfb_ms {bf['stream_ttfb_ms']}, {bf['stream_chunks']} chunks in {bf['stream_polls']} polls; "
+        f"cli {json.dumps(bf['cli'])}; stage busy ms, calls {json.dumps(bf['stages'])}"
     )
     _log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": rows}))

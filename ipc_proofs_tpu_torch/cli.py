@@ -1,4 +1,4 @@
-"""Command-line interface: generate / verify / range / vectors / cert / demo / serve.
+"""Command-line interface: generate / verify / range / backfill / vectors / cert / demo / serve.
 
 The counterpart of ``ipc_proofs_tpu.cli`` for the PyTorch/CUDA port, with
 the reference's flags and exit codes:
@@ -11,13 +11,16 @@ the reference's flags and exit codes:
         [--event-sig ... --topic1 ...] [--check-cids]
     python -m ipc_proofs_tpu_torch.cli range --endpoint URL --from-height A \
         --to-height B --event-sig ... --topic1 ... [--storage-slot KEY]
+    python -m ipc_proofs_tpu_torch.cli backfill --demo-world 256 \
+        --jobs-dir jobs [--window-size 8]   # durable, resumable, streamed
     python -m ipc_proofs_tpu_torch.cli vectors --endpoint URL --height H
     python -m ipc_proofs_tpu_torch.cli cert cert.json [--power-table t.json \
         --verify-signatures] [--emit-cbor out.cbor]
     python -m ipc_proofs_tpu_torch.cli demo      # hermetic synthetic-chain run
     python -m ipc_proofs_tpu_torch.cli serve --demo-world 256 --port 0 \
         --port-file port.txt [--check-cids] [--store-dir D] [--queue-dir Q] \
-        [--registry-dir R]   # the proof daemon over JSON-HTTP
+        [--registry-dir R] [--subs-dir S] [--slo on] \
+        [--backfill-jobs-dir B]   # the proof daemon over JSON-HTTP
 
 ``--backend`` picks where the kernels run: ``gpu`` (the default, the card:
 the event mask, the slot keccaks, the witness CID and TxMeta recomputes;
@@ -57,13 +60,29 @@ tier's lanes. It takes the reference's store modes (``--demo-world N``, or
 store, fetch-plane, witness, registry, durable-queue (``--queue-dir``,
 ``--results-cache-bytes``), follower (``--follow``), tenant QoS, adaptive
 admission, deadline-floor, retry-budget and trace flags, ``--port-file``,
-and drains every accepted request on SIGTERM before it exits 0.
+and drains every accepted request on SIGTERM before it exits 0. With
+``--subs-dir`` it mounts the standing queries (webhook push with
+``--push-max-inflight`` / ``--delivery-retry-*``, the delivery log's
+``--subs-log-cap-bytes``, ``--subs-fleet``), fed by the follower's
+finalized tipsets; each push generates on the service's PUSH lane. With
+``--slo on`` the burn-rate watchdog (``--slo-*``) adds an ``slo`` block to
+``/healthz``; with ``--backfill-jobs-dir`` it mounts ``/v1/backfill``,
+whose windows run on the service's LOW lane. SIGTERM stops the watchdog,
+then closes the backfill engine, then drains the standing queries, then the
+service.
 
-Not ported yet: the ``backfill`` and ``cluster`` subcommands, and on
-``serve`` the standing queries (``--subs-dir`` and its delivery flags,
-``--subs-fleet``), the SLO watchdog (``--slo*``) and ``--backfill-jobs-dir``;
-they come with the subscription, backfill and cluster plane.
-``--batch-verify`` has no counterpart: every fetch-plane wave, pool batch
+``backfill`` proves a pair range as a durable job
+(`backfill.BackfillEngine`): ``--window-size`` windows, journalled under
+``--jobs-dir`` (the identical command resumes), streamed chunk by chunk,
+the sealed bundle byte-identical to ``range`` over the same pairs. Its store
+is ``--demo-world N`` or ``--endpoint`` (with the failover flags) through
+the fetch plane (``--batch-rpc``, verifying every wave on the
+``--backend`` lane) and the disk tier (``--store-dir``); ``--mesh-devices``
+shards its masks as ``range``'s does. A fault of the card stops the job
+(``faulted``, not failed; exit 1) with its windows journalled.
+
+Not ported yet: the ``cluster`` subcommand, which comes with the cluster
+router. ``--batch-verify`` has no counterpart: every fetch-plane wave, pool batch
 read and disk read of the port goes through the verify lane.
 """
 
@@ -203,6 +222,23 @@ def _traced(args):
     finally:
         if tracing:
             _finish_tracing(args)
+
+
+def _build_slo_watchdog(args, metrics):
+    """`--slo on` → a configured (not yet started) burn-rate watchdog."""
+    from ipc_proofs_tpu_torch.obs.slo import SloWatchdog, default_targets
+
+    return SloWatchdog(
+        metrics=metrics,
+        targets=default_targets(
+            availability=args.slo_availability,
+            generate_p99_ms=args.slo_generate_p99_ms,
+            delivery_lag_p99_ms=args.slo_delivery_lag_p99_ms,
+        ),
+        fast_window_s=args.slo_fast_window_s,
+        slow_window_s=args.slo_slow_window_s,
+        interval_s=args.slo_interval_s,
+    )
 
 
 def _cmd_generate(args) -> int:
@@ -458,6 +494,173 @@ def _cmd_range(args) -> int:
     if args.metrics:
         print(metrics.to_json(), file=sys.stderr)
     return 0
+
+
+def _cmd_backfill(args) -> int:
+    """Prove deep history as a durable batch job (`backfill`).
+
+    Two store modes mirroring ``range``/``serve``:
+    - ``--demo-world N``: hermetic synthetic range world (tests, CI);
+    - ``--endpoint`` + ``--from-height/--to-height``: live chain.
+
+    The range splits into ``--window-size`` epoch windows; each committed
+    window journals under ``--jobs-dir`` (re-running the identical
+    command resumes instead of re-proving) and streams as one log line
+    the moment it lands — long before the job completes. The sealed
+    bundle is byte-identical to the ``range`` command over the same pairs.
+    Every window's mask, and the fetch plane's and disk tier's lanes, run
+    on the ``--backend``.
+    """
+    from ipc_proofs_tpu_torch.backfill import BackfillEngine, local_window_runner
+    from ipc_proofs_tpu_torch.ops.build import is_device_fault
+    from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec
+    from ipc_proofs_tpu_torch.proofs.range import TipsetPair
+    from ipc_proofs_tpu_torch.utils.metrics import get_metrics
+
+    backend = _backend(args.backend, args.mesh_devices)
+    metrics = get_metrics()
+
+    plane = None
+    disk = None
+    client = None
+    if args.demo_world:
+        from ipc_proofs_tpu_torch.fixtures import build_range_world
+
+        sig = args.event_sig or "NewTopDownMessage(bytes32,uint256)"
+        topic1 = args.topic1 or "calib-subnet-1"
+        store, pairs, n_matching = build_range_world(
+            args.demo_world,
+            receipts_per_pair=args.demo_receipts,
+            match_rate=args.demo_match_rate,
+            signature=sig,
+            topic1=topic1,
+        )
+        spec = EventProofSpec(event_signature=sig, topic_1=topic1)
+        log.info("demo world: %d pairs, %d matching events", len(pairs), n_matching)
+    else:
+        from ipc_proofs_tpu_torch.proofs.address import resolve_eth_address_to_actor_id
+        from ipc_proofs_tpu_torch.proofs.chain import Tipset
+        from ipc_proofs_tpu_torch.store.rpc import RpcBlockstore
+
+        if not args.endpoint:
+            log.error("backfill needs --demo-world or --endpoint")
+            return 2
+        if args.from_height is None or args.to_height is None:
+            log.error("--endpoint requires --from-height and --to-height")
+            return 2
+        if not (args.event_sig and args.topic1):
+            log.error("--endpoint requires --event-sig and --topic1")
+            return 2
+        client = _make_rpc_client(args, metrics=metrics, backend=backend)
+        actor_id = None
+        if args.contract:
+            actor_id = resolve_eth_address_to_actor_id(client, args.contract)
+            log.info("actor id: %d", actor_id)
+        with metrics.stage("fetch_tipsets"):
+            tipsets = [
+                Tipset.fetch(client, h) for h in range(args.from_height, args.to_height + 2)
+            ]
+        pairs = [
+            TipsetPair(parent=tipsets[i], child=tipsets[i + 1])
+            for i in range(len(tipsets) - 1)
+        ]
+        spec = EventProofSpec(
+            event_signature=args.event_sig, topic_1=args.topic1, actor_id_filter=actor_id
+        )
+        if args.batch_rpc:
+            from ipc_proofs_tpu_torch.store.fetchplane import FetchPlane, PlaneBlockstore
+
+            plane = FetchPlane(
+                client, speculate_depth=args.speculate_depth, metrics=metrics, backend=backend
+            )
+            store = PlaneBlockstore(plane)
+        else:
+            store = RpcBlockstore(client, metrics=metrics)
+        if args.store_dir:
+            from ipc_proofs_tpu_torch.storex import SegmentStore, TieredBlockstore
+
+            disk = SegmentStore(
+                args.store_dir,
+                cap_bytes=args.store_cap_bytes,
+                segment_max_bytes=args.store_segment_max_bytes,
+                metrics=metrics,
+                backend=backend,
+            )
+            store = TieredBlockstore(store, disk, metrics=metrics)
+            if plane is not None:
+                plane.set_local(store)
+
+    start = args.pair_start
+    end = args.pair_end if args.pair_end is not None else len(pairs)
+    if not (0 <= start < end <= len(pairs)):
+        log.error("pair range [%d, %d) out of bounds for %d pairs", start, end, len(pairs))
+        return 2
+
+    engine = BackfillEngine(
+        pairs,
+        spec,
+        local_window_runner(
+            store, spec, chunk_size=args.chunk_size, match_backend=backend, metrics=metrics,
+        ),
+        jobs_dir=args.jobs_dir,
+        window_size=args.window_size,
+        work_ahead=args.work_ahead,
+        window_parallelism=args.window_parallelism,
+        plane=plane,
+        metrics=metrics,
+    )
+    rc = 0
+    try:
+        job = engine.submit(start, end)
+        log.info(
+            "backfill %s: %d epochs in %d windows of %d (jobs dir: %s)",
+            job.job_id, end - start, len(job.windows), job.window_size,
+            args.jobs_dir or "none — not resumable",
+        )
+        cursor = 0
+        while True:
+            resp = job.chunks_after(cursor, wait_s=5.0)
+            for chunk in resp["chunks"]:
+                w = chunk["window"]
+                log.info(
+                    "chunk %d/%d: window %d pairs [%d, %d) — %d proofs (%s)",
+                    chunk["cursor"], len(job.windows), w["index"],
+                    w["lo"], w["hi"], chunk["n_event_proofs"], chunk["digest"],
+                )
+                cursor = chunk["cursor"]
+            if resp["state"] != "running" and not resp["chunks"]:
+                break
+        bundle = job.result(timeout=0)
+        output = args.output or "backfill_bundle.json"
+        with open(output, "w") as fh:
+            fh.write(bundle.to_json())
+        status = job.status()
+        log.info(
+            "backfill %s complete: %d event proofs, %d witness blocks → %s "
+            "(%d/%d windows replayed from journal, first chunk %.2fs, "
+            "total %.2fs)",
+            job.job_id, len(bundle.event_proofs), len(bundle.blocks), output,
+            status["windows_replayed"], status["windows_total"],
+            status["first_chunk_s"] or 0.0, status["wall_s"],
+        )
+    except Exception as exc:  # fail-soft: CLI exit path — report + rc 1
+        if is_device_fault(exc):
+            log.error("backfill stopped on a device fault (windows journalled): %s", exc)
+        else:
+            log.error("backfill failed: %s", exc)
+        rc = 1
+    finally:
+        engine.close()
+        if plane is not None:
+            plane.close()
+            log.info("fetch plane: %s", plane.stats())
+        if disk is not None:
+            disk.close()
+        if client is not None:
+            _close_client(client)
+    if args.metrics:
+        print(metrics.to_json(), file=sys.stderr)
+    return rc
 
 
 def _cmd_vectors(args) -> int:
@@ -819,10 +1022,89 @@ def _cmd_serve(args) -> int:
                 "durable queue: re-executed %d admitted-but-unfinished "
                 "request(s) from %s", durable.resumed_jobs, args.queue_dir,
             )
+    subs = None
+    if args.subs_dir:
+        from ipc_proofs_tpu_torch.subs import StandingQueries
+
+        if service.blockstore is None:
+            log.error("--subs-dir needs a store (--demo-world or --endpoint)")
+            service.drain()
+            return 2
+        subs = StandingQueries(
+            args.subs_dir,
+            store=service.blockstore,
+            metrics=metrics,
+            chunk_size=service.config.range_chunk_size,
+            match_backend=service.match_backend,
+            log_cap_bytes=args.subs_log_cap_bytes,
+            push_max_inflight=args.push_max_inflight,
+            retry_attempts=args.delivery_retry_attempts,
+            retry_base_s=args.delivery_retry_base_s,
+            retry_max_s=args.delivery_retry_max_s,
+            delta=(args.witness_delta == "on"),
+            # generate-capable service → standing-query generations ride
+            # the batcher's PUSH lane (one priority order with
+            # interactive requests and backfill windows)
+            service=(service if spec is not None and store is not None else None),
+            # fleet base directory: pushed bundles + acked bases seal into
+            # the provenance chain so deltas survive failover fleet-wide
+            provenance=service.registry,
+            fleet=args.subs_fleet,
+        )
+        if subs.registry.replayed:
+            log.info(
+                "standing queries: %d subscription(s) active after replay, "
+                "%d unacked delivery(ies) re-pushing",
+                len(subs.registry), subs.log.pending_total(),
+            )
+        if follower is not None:
+            # the streaming plane: each finalized tipset the (leader)
+            # follower warms also drives match → generate-once → fan-out
+            follower.add_finalized_hook(subs.on_tipset)
+    slo = None
+    if args.slo == "on":
+        slo = _build_slo_watchdog(args, metrics)
+        slo.start()
+    backfill = None
+    if args.backfill_jobs_dir:
+        if spec is None or store is None or not pairs:
+            log.error(
+                "--backfill-jobs-dir needs a generate-capable service "
+                "(--demo-world or --endpoint)"
+            )
+            if slo is not None:
+                slo.stop()
+            if subs is not None:
+                subs.drain()
+            service.drain()
+            return 2
+        from ipc_proofs_tpu_torch.backfill import BackfillEngine
+
+        def _run_backfill_window(window, wpairs):
+            # LOW lane: a backfill window only dispatches when the
+            # interactive verify/generate queue is empty
+            return service.submit_range_window(wpairs).result()
+
+        backfill = BackfillEngine(
+            pairs,
+            spec,
+            _run_backfill_window,
+            jobs_dir=args.backfill_jobs_dir,
+            window_size=args.backfill_window_size,
+            plane=service.fetch_plane,
+            metrics=metrics,
+            delivery=(subs.log if subs is not None else None),
+        )
+        log.info(
+            "backfill: /v1/backfill mounted (jobs dir %s, window %d)",
+            args.backfill_jobs_dir, args.backfill_window_size,
+        )
 
     httpd = ProofHTTPServer(
         service, host=args.host, port=args.port, pairs=pairs, durable=durable,
+        subs=subs, slo=slo,
         tenants=TenantLedger(metrics=metrics, top_k=args.tenant_top_k),
+        backfill=backfill,
     )
     if args.port_file:
         # atomic write: a polling parent never reads a half-written port
@@ -1034,6 +1316,85 @@ def main(argv=None) -> int:
             "instead of riding the page cache; 'off' keeps append "
             "overhead under the 1%% serve-wall budget (default off)",
         )
+        p.add_argument(
+            "--subs-fleet", default="default", metavar="NAME",
+            help="subscriber-fleet label for registry base records: acked "
+            "delta bases are keyed (fleet, filter key) so any shard can "
+            "find the newest base the whole fleet acked (default default)",
+        )
+
+    def add_subs_flags(p):
+        p.add_argument(
+            "--subs-dir", default=None, metavar="DIR",
+            help="standing queries: durable subscription registry + "
+            "delivery log under DIR (IPJ1 journals — registrations and "
+            "unacked deliveries survive restart). Mounts /v1/subscribe, "
+            "/v1/unsubscribe, /v1/subscriptions and the long-poll "
+            "/v1/deliveries; with --follow, each finalized tipset "
+            "generates once per distinct filter and fans out to every "
+            "subscriber (webhook push or long-poll)",
+        )
+        p.add_argument(
+            "--push-max-inflight", type=int, default=4, metavar="N",
+            help="webhook push worker threads (bounded fan-out; default 4)",
+        )
+        p.add_argument(
+            "--delivery-retry-attempts", type=int, default=4, metavar="N",
+            help="webhook attempts per delivery before leaving it unacked "
+            "for long-poll / next-cycle re-push (default 4)",
+        )
+        p.add_argument(
+            "--delivery-retry-base-s", type=float, default=0.25,
+            help="full-jitter backoff base delay between webhook attempts "
+            "(default 0.25)",
+        )
+        p.add_argument(
+            "--delivery-retry-max-s", type=float, default=4.0,
+            help="full-jitter backoff delay cap (default 4.0)",
+        )
+        p.add_argument(
+            "--subs-log-cap-bytes", type=int, default=64 * 1024 * 1024,
+            help="compact the delivery journal above this size — only "
+            "acked history is dropped, unacked deliveries always survive "
+            "(default 64 MiB)",
+        )
+
+    def add_slo_flags(p):
+        p.add_argument(
+            "--slo", default="off", choices=["on", "off"],
+            help="run the SLO burn-rate watchdog: multi-window "
+            "(fast/slow) burn rates per declarative target, an 'slo' "
+            "block in /healthz, WARN records into the flight ring, and "
+            "anomaly signatures (breaker flap storms, eviction storms, "
+            "speculation-waste spikes). Default off",
+        )
+        p.add_argument(
+            "--slo-availability", type=float, default=0.999,
+            help="availability objective (fraction of requests that must "
+            "not be rejected/failed; default 0.999)",
+        )
+        p.add_argument(
+            "--slo-generate-p99-ms", type=float, default=2000.0,
+            help="generate latency target: p99 must stay under this "
+            "(default 2000)",
+        )
+        p.add_argument(
+            "--slo-delivery-lag-p99-ms", type=float, default=5000.0,
+            help="standing-query delivery lag target: p99 append→ack lag "
+            "must stay under this (default 5000)",
+        )
+        p.add_argument(
+            "--slo-interval-s", type=float, default=5.0,
+            help="watchdog evaluation interval (default 5)",
+        )
+        p.add_argument(
+            "--slo-fast-window-s", type=float, default=300.0,
+            help="fast burn-rate window (default 300 = 5 min)",
+        )
+        p.add_argument(
+            "--slo-slow-window-s", type=float, default=3600.0,
+            help="slow burn-rate window (default 3600 = 1 h)",
+        )
 
     def add_tenant_admission_flags(p):
         p.add_argument(
@@ -1212,6 +1573,83 @@ def main(argv=None) -> int:
     add_trace_export_flags(rng)
     rng.set_defaults(fn=_cmd_range)
 
+    bf = sub.add_parser(
+        "backfill",
+        help="prove deep history as a durable batch job: windowed, "
+        "journal-resumable, streamed chunk by chunk",
+    )
+    bf.add_argument("--endpoint", default=None)
+    bf.add_argument("--token", default=None)
+    bf.add_argument("--timeout", type=float, default=250.0)
+    add_failover_flags(bf)
+    bf.add_argument("--from-height", type=int, default=None)
+    bf.add_argument("--to-height", type=int, default=None)
+    bf.add_argument("--contract", default=None)
+    bf.add_argument("--event-sig", default=None)
+    bf.add_argument("--topic1", default=None)
+    bf.add_argument(
+        "--demo-world", type=int, default=0, metavar="N_PAIRS",
+        help="hermetic synthetic range world with N tipset pairs instead "
+        "of a live endpoint (the batch analogue of `serve --demo-world`)",
+    )
+    bf.add_argument(
+        "--demo-receipts", type=int, default=16, metavar="N",
+        help="receipts per pair in the --demo-world (default 16)",
+    )
+    bf.add_argument(
+        "--demo-match-rate", type=float, default=0.01,
+        help="fraction of demo-world events matching the spec (default 0.01)",
+    )
+    bf.add_argument(
+        "--pair-start", type=int, default=0, metavar="I",
+        help="first pair-table index to prove (default 0)",
+    )
+    bf.add_argument(
+        "--pair-end", type=int, default=None, metavar="J",
+        help="one past the last pair-table index (default: whole table)",
+    )
+    bf.add_argument(
+        "--window-size", type=int, default=8, metavar="N",
+        help="epochs per schedulable window — the journal's commit and "
+        "the stream's chunk granularity (default 8)",
+    )
+    bf.add_argument(
+        "--work-ahead", type=int, default=2, metavar="N",
+        help="future windows whose tipset headers prime the fetch "
+        "plane's speculative lanes when a window starts (default 2)",
+    )
+    bf.add_argument(
+        "--window-parallelism", type=int, default=1, metavar="N",
+        help="windows proving concurrently (default 1 — the whole job "
+        "occupies a single lane)",
+    )
+    bf.add_argument(
+        "--jobs-dir", default=None, metavar="DIR",
+        help="durable job root: each job journals committed windows "
+        "under DIR/<job-id>/ (IPJ1, fsync'd). Re-running the identical "
+        "command resumes from the journal — a SIGKILL loses at most the "
+        "in-flight windows. Without it the job is not resumable",
+    )
+    bf.add_argument(
+        "--chunk-size", type=int, default=None, metavar="N",
+        help="chunk size within one window's driver run (default: the "
+        "whole window as one chunk)",
+    )
+    _add_backend_flag(bf)
+    bf.add_argument(
+        "--mesh-devices", type=int, default=None, metavar="N",
+        help="shard each window's event masks across a mesh of N devices: "
+        "the first N cards (0 = all) with --backend gpu, N virtual CPU "
+        "devices with --backend cpu. Results are bit-identical to the "
+        "single-device path",
+    )
+    add_store_flags(bf)
+    add_fetch_plane_flags(bf)
+    bf.add_argument("-o", "--output", default=None)
+    bf.add_argument("--metrics", action="store_true")
+    add_trace_export_flags(bf)
+    bf.set_defaults(fn=_cmd_backfill)
+
     vec = sub.add_parser(
         "vectors", help="capture live-chain byte-compat vectors to a fixtures JSON"
     )
@@ -1336,6 +1774,8 @@ def main(argv=None) -> int:
     add_fetch_plane_flags(srv)
     add_witness_flags(srv)
     add_registry_flags(srv)
+    add_subs_flags(srv)
+    add_slo_flags(srv)
     _add_backend_flag(srv)
     srv.add_argument(
         "--mesh-devices", type=int, default=None, metavar="N",
@@ -1363,6 +1803,23 @@ def main(argv=None) -> int:
     srv.add_argument(
         "--follow-poll-s", type=float, default=15.0,
         help="chain-follower poll interval in seconds (default 15)",
+    )
+    srv.add_argument(
+        "--backfill-jobs-dir", default=None, metavar="DIR",
+        help="mount /v1/backfill: durable deep-history batch jobs, "
+        "journaled under DIR (IPJ1, one subdirectory per deterministic "
+        "job id — SIGKILL-resumable, identical re-submits dedup). "
+        "Windows execute on the generate micro-batcher's LOW-priority "
+        "lane, so a saturating backfill never starves interactive "
+        "/v1/verify or /v1/generate; chunks stream incrementally via the "
+        "long-poll cursor protocol (GET /v1/backfill/<id>/chunks"
+        "?cursor=N). Needs a generate-capable service (--demo-world or "
+        "--endpoint)",
+    )
+    srv.add_argument(
+        "--backfill-window-size", type=int, default=8, metavar="N",
+        help="epochs (tipset pairs) per backfill window — the journal "
+        "commit and streaming granularity (default 8)",
     )
     srv.add_argument(
         "--queue-dir", default=None, metavar="DIR",

@@ -198,6 +198,17 @@ class CID:
             raise ValueError(f"non-canonical CID byte encoding in {text!r}")
         return out
 
+    @classmethod
+    def parse(cls, value: "CID | str | bytes") -> "CID":
+        # CID_TYPES (module-bottom) covers both implementations, so a native
+        # CID handed to PurePythonCID.parse passes through unchanged, just as
+        # the native parse accepts a pure instance
+        if isinstance(value, CID_TYPES):
+            return value
+        if isinstance(value, bytes):
+            return cls.from_bytes(value)
+        return cls.from_string(value)
+
     # --- serialization -----------------------------------------------------
 
     # precomputed varint prefixes for the canonical 32-byte-digest forms

@@ -1,8 +1,7 @@
 """Observability of the port: the trace spine, its exporters, Prometheus
 text and the always-on flight recorder.
 
-The counterpart of ``ipc_proofs_tpu.obs`` without its SLO watchdog
-(``obs/slo.py``, which comes with the subscription and cluster plane):
+The counterpart of ``ipc_proofs_tpu.obs``:
 
 - `obs/trace.py`  — contextvar-propagated `TraceContext` + `span()`,
   bounded `SpanCollector` (opt-in via `enable_tracing()` / ``--trace-out``)
@@ -15,6 +14,8 @@ The counterpart of ``ipc_proofs_tpu.obs`` without its SLO watchdog
   (`install_crash_dump`)
 - `obs/fleet.py`  — per-tenant accounting, metrics federation, flight-ring
   merging and cross-process span grafting
+- `obs/slo.py`    — the multi-window burn-rate watchdog (``--slo on``) and
+  its anomaly signatures
 """
 
 from ipc_proofs_tpu_torch.obs.export import (
@@ -44,6 +45,7 @@ from ipc_proofs_tpu_torch.obs.flight import (
     install_crash_dump,
 )
 from ipc_proofs_tpu_torch.obs.prom import CONTENT_TYPE, render_prometheus
+from ipc_proofs_tpu_torch.obs.slo import SloTarget, SloWatchdog, default_targets
 from ipc_proofs_tpu_torch.obs.trace import (
     Span,
     SpanCollector,
@@ -69,6 +71,8 @@ __all__ = [
     "FlightLogHandler",
     "FlightRecorder",
     "Span",
+    "SloTarget",
+    "SloWatchdog",
     "SpanCollector",
     "TenantLedger",
     "TraceContext",
@@ -78,6 +82,7 @@ __all__ = [
     "chrome_trace_obj",
     "context_from_carrier",
     "current_context",
+    "default_targets",
     "disable_tracing",
     "enable_tracing",
     "extract_tenant",

@@ -47,7 +47,8 @@ application/x-ipc-bundle-stream``) to receive the chunked binary IPBS
 stream (`witness/stream.py`) instead of a buffered JSON body — on a
 disk-warm daemon the block section is ``memoryview`` slices straight out
 of `SegmentStore` segments, handed to ``socket.sendmsg`` without copying
-through Python. Per-tenant QoS
+through Python. ``GET /v1/backfill/<id>/chunks`` under the same Accept
+header streams one document per result chunk. Per-tenant QoS
 (``--tenant-rate`` / ``--tenant-burst``) throttles at admission with a
 typed 429 + ``Retry-After`` (`serve/qos.py`); response bytes charge the
 tenant ledger at send time, streamed chunks included.
@@ -62,13 +63,19 @@ tenant ledger at send time, streamed chunks included.
   breaker is open/half-open and the body carries per-endpoint breaker
   state (still HTTP 200 — the service itself serves from what remains;
   draining stays 503). With a follower attached the body carries
-  ``last_finalized_epoch``.
+  ``last_finalized_epoch``; with standing queries, subscription/delivery
+  gauges; with ``slo=``, the watchdog's ``slo`` block.
 - ``POST /v1/subscribe`` / ``POST /v1/unsubscribe`` /
-  ``GET /v1/subscriptions`` / ``GET /v1/deliveries`` and ``/v1/backfill``
-  (GET, POST and ``/v1/backfill/<id>...``) → the reference's 404s for a
-  server built without ``subs=`` / ``backfill=``. The standing-query,
-  backfill and SLO engines are not ported yet, so the constructor refuses
-  ``subs=``, ``slo=`` and ``backfill=`` other than None.
+  ``GET /v1/subscriptions`` / ``GET /v1/deliveries?sub=<id>&cursor=<n>``
+  → the standing-query plane (`subs/`), mounted when the server is built
+  with ``subs=`` (``serve --subs-dir``). Deliveries is the long-poll
+  fallback to webhook push; asking from cursor N acks everything ≤ N.
+- ``POST /v1/backfill`` / ``GET /v1/backfill[/<id>[/chunks]]`` → the
+  backfill engine (`backfill/`), mounted with ``backfill=``
+  (``serve --backfill-jobs-dir``). A job the card's fault stopped
+  (``faulted``) answers 500 ``error_type: device``; its chunk stream ends
+  in a ``device`` abort chunk. Without ``subs=`` / ``backfill=`` these
+  routes answer the reference's 404s.
 
 Every POST opens a trace root span (`obs/trace.py`) on the handler thread
 before admission, so batching/execution spans parent into the request's
@@ -144,6 +151,7 @@ from ipc_proofs_tpu_torch.witness.stream import (
     BundleStreamWriter,
     negotiate_stream,
     send_buffers,
+    stream_backfill_chunks,
     stream_bundle_doc,
 )
 
@@ -154,10 +162,8 @@ _MAX_BODY_BYTES = 64 * 1024 * 1024  # one bundle; far above any sane request
 # client hung up (EOF on the socket) — the window between a disconnect and
 # the in-flight work being cancelled
 _DISCONNECT_POLL_S = 0.1
-# the standing-query and backfill routes, answered as the reference answers
-# them on a server built without ``subs=`` / ``backfill=``
-_SUBS_GET_ROUTES = ("/v1/subscriptions", "/v1/deliveries")
-_SUBS_POST_ROUTES = ("/v1/subscribe", "/v1/unsubscribe")
+# what the standing-query and backfill routes answer on a server built
+# without ``subs=`` / ``backfill=`` (the reference's 404 bodies)
 _SUBS_DISABLED = {"error": "standing queries disabled"}
 _BACKFILL_DISABLED = {"error": "backfill disabled"}
 
@@ -172,6 +178,9 @@ class _Handler(BaseHTTPRequestHandler):
     service: ProofService
     pairs: Sequence[TipsetPair]
     durable = None  # Optional[DurableAdmission]
+    subs = None  # Optional[subs.StandingQueries]
+    slo = None  # Optional[obs.slo.SloWatchdog]
+    backfill = None  # Optional[backfill.BackfillEngine]
     tenants = None  # Optional[obs.fleet.TenantLedger]
     qos = None  # Optional[serve.qos.TenantQoS]
     admit = None  # Optional[serve.qos.GradientLimiter] (--admit-gradient)
@@ -344,18 +353,32 @@ class _Handler(BaseHTTPRequestHandler):
             health = self.service.health()
             if self.durable is not None:
                 health.update(self.durable.health_fields())
+            if self.subs is not None:
+                health.update(self.subs.health_fields())
             epoch = self.service.metrics.snapshot().get("gauges", {}).get(
                 "follow.last_finalized_epoch"
             )
             if epoch is not None:
                 health["last_finalized_epoch"] = int(epoch)
+            if self.slo is not None:
+                health["slo"] = self.slo.status()
             # draining = stop routing here (503); degraded = still serving
             # from healthy endpoints, breaker detail in the body (200)
             self._send_json(503 if health["status"] == "draining" else 200, health)
-        elif path in _SUBS_GET_ROUTES:
-            self._send_json(404, _SUBS_DISABLED)
-        elif path == "/v1/backfill" or path.startswith("/v1/backfill/"):
-            self._send_json(404, _BACKFILL_DISABLED)
+        elif path == "/v1/subscriptions":
+            if self.subs is None:
+                self._send_json(404, _SUBS_DISABLED)
+            else:
+                self._send_json(200, self.subs.subscriptions())
+        elif path == "/v1/deliveries":
+            self._handle_deliveries()
+        elif path == "/v1/backfill":
+            if self.backfill is None:
+                self._send_json(404, _BACKFILL_DISABLED)
+            else:
+                self._send_json(200, {"jobs": self.backfill.jobs()})
+        elif path.startswith("/v1/backfill/"):
+            self._handle_backfill_get(path)
         elif path == "/v1/segments":
             self._handle_segments_list()
         elif path.startswith("/v1/segments/"):
@@ -606,6 +629,91 @@ class _Handler(BaseHTTPRequestHandler):
             return
         self._send_json(200, out)
 
+    def _handle_backfill_get(self, path: str):
+        """``GET /v1/backfill/<id>`` — job status/cursor;
+        ``GET /v1/backfill/<id>/chunks?cursor=<n>[&wait_s=<s>]`` — the
+        long-poll chunk fetch, `subs/delivery.py` cursor semantics: a
+        poll from cursor N acks everything ≤ N (streamed payloads drop
+        from memory; the journal keeps the bytes) and blocks up to
+        ``wait_s`` for the first chunk above it. A job the card's fault
+        stopped answers 500 ``error_type: device`` (its stream: the fresh
+        chunks, then a ``device`` abort chunk in place of the envelope)."""
+        if self.backfill is None:
+            self._send_json(404, _BACKFILL_DISABLED)
+            return
+        rest = path[len("/v1/backfill/") :]
+        job_id, _, tail = rest.partition("/")
+        job = self.backfill.job(job_id)
+        if job is None:
+            self._send_json(404, {"error": f"no such backfill job: {job_id}"})
+            return
+        if tail == "":
+            status = job.status()
+            if status.get("error_type") == "device":
+                self._send_json(500, {"error": status["error"], "error_type": "device"})
+            else:
+                self._send_json(200, status)
+        elif tail == "chunks":
+            q = parse_qs(urlsplit(self.path).query)
+            try:
+                cursor = int((q.get("cursor") or ["0"])[0])
+                wait_s = min(30.0, max(0.0, float((q.get("wait_s") or ["0"])[0])))
+            except ValueError:
+                self._send_json(400, {"error": "cursor/wait_s must be numeric"})
+                return
+            out = job.chunks_after(cursor, wait_s=wait_s)
+            if negotiate_stream({}, headers=self.headers):
+                self._stream_backfill_chunks(out, job.fault)
+            elif job.fault is not None:
+                self._send_runtime_error(job.fault)
+            else:
+                self._send_json(200, out)
+        else:
+            self._send_json(404, {"error": f"no such path: {self.path}"})
+
+    def _stream_backfill_chunks(self, out: dict, fault=None) -> None:
+        """``GET /v1/backfill/<id>/chunks`` with
+        ``Accept: application/x-ipc-bundle-stream`` — the multi-document
+        stream form: one IPBS document per result chunk (block payloads
+        sliced zero-copy out of the segment tier when warm), closed by a
+        metadata-only envelope document carrying the poll fields
+        (``job_id`` / ``state`` / ``cursor`` / ``acked``) — or, for a job
+        the card's fault stopped, by the ``device`` abort chunk."""
+
+        def emit(writer) -> None:
+            stream_backfill_chunks(
+                writer, out, slicer=self.service.read_block_slice,
+                envelope=fault is None,
+            )
+            if fault is not None:
+                raise fault
+
+        self._stream_ok(emit, "identity")
+
+    def _handle_deliveries(self):
+        """``GET /v1/deliveries?sub=<id>&cursor=<n>[&wait_s=<s>]`` — the
+        long-poll fallback: acks everything ≤ cursor, returns what's
+        above it (blocking up to ``wait_s``, capped server-side)."""
+        if self.subs is None:
+            self._send_json(404, _SUBS_DISABLED)
+            return
+        q = parse_qs(urlsplit(self.path).query)
+        sub_id = (q.get("sub") or [""])[0]
+        if not sub_id:
+            self._send_json(400, {"error": "sub query parameter required"})
+            return
+        try:
+            cursor = int((q.get("cursor") or ["0"])[0])
+            wait_s = min(30.0, max(0.0, float((q.get("wait_s") or ["0"])[0])))
+        except ValueError:
+            self._send_json(400, {"error": "cursor/wait_s must be numeric"})
+            return
+        out = self.subs.deliveries(sub_id, cursor=cursor, wait_s=wait_s)
+        if out is None:
+            self._send_json(404, {"error": f"no such subscription: {sub_id}"})
+        else:
+            self._send_json(200, out)
+
     def do_POST(self):
         # segment ingest carries a RAW octet-stream body (a whole segment
         # file) — route it before the JSON body parse below
@@ -708,16 +816,81 @@ class _Handler(BaseHTTPRequestHandler):
                 if carrier is not None:
                     self._active_span = sp
                 self._handle_generate_range(body)
-        elif self.path in _SUBS_POST_ROUTES:
-            self._send_json(404, _SUBS_DISABLED)
+        elif self.path == "/v1/subscribe":
+            self._handle_subscribe(body)
+        elif self.path == "/v1/unsubscribe":
+            self._handle_unsubscribe(body)
         elif self.path == "/v1/backfill":
-            self._send_json(404, _BACKFILL_DISABLED)
+            self._handle_backfill_submit(body)
         elif self.path == "/v1/replica_peers":
             self._handle_replica_peers(body)
         elif self.path == "/v1/replicate":
             self._handle_replicate(body)
         else:
             self._send_json(404, {"error": f"no such path: {self.path}"})
+
+    def _handle_backfill_submit(self, body: dict):
+        """``POST /v1/backfill`` — submit one durable backfill job over
+        rows ``[pair_start, pair_end)`` of the server pair table (the
+        service's event filter is the job's filter; the pair table IS the
+        epoch range). Idempotent: an identical range re-submit returns
+        the running job, or resumes its journal after a crash."""
+        if self.backfill is None:
+            self._send_json(404, _BACKFILL_DISABLED)
+            return
+        n = len(self.pairs)
+        start = body.get("pair_start")
+        end = body.get("pair_end")
+
+        def _row(v) -> bool:
+            return isinstance(v, int) and not isinstance(v, bool)
+
+        if not (_row(start) and _row(end) and 0 <= start < end <= n):
+            self._send_json(
+                400,
+                {
+                    "error": "pair_start/pair_end must be ints with "
+                    f"0 <= start < end <= {n} (server pair table)"
+                },
+            )
+            return
+        wsize = body.get("window_size")
+        if wsize is not None and (not _row(wsize) or wsize < 1):
+            self._send_json(400, {"error": "window_size must be a positive int"})
+            return
+        sub_id = body.get("sub_id")
+        if sub_id is not None and not isinstance(sub_id, str):
+            self._send_json(400, {"error": "sub_id must be a string"})
+            return
+        try:
+            job = self.backfill.submit(
+                start, end, window_size=wsize, sub_id=sub_id
+            )
+        except ValueError as exc:
+            self._send_json(400, {"error": str(exc)})
+            return
+        except RuntimeError as exc:
+            self._send_runtime_error(exc)
+            return
+        self._send_json(200, job.status())
+
+    def _handle_subscribe(self, body: dict):
+        if self.subs is None:
+            self._send_json(404, _SUBS_DISABLED)
+            return
+        try:
+            self._send_json(200, self.subs.subscribe(body))
+        except ValueError as exc:
+            self._send_json(400, {"error": str(exc)})
+
+    def _handle_unsubscribe(self, body: dict):
+        if self.subs is None:
+            self._send_json(404, _SUBS_DISABLED)
+            return
+        try:
+            self._send_json(200, self.subs.unsubscribe(body))
+        except ValueError as exc:
+            self._send_json(400, {"error": str(exc)})
 
     @staticmethod
     def _claim_results(claims, storage_results, event_results) -> list:
@@ -1373,12 +1546,11 @@ class ProofHTTPServer:
         backfill=None,
         qos=None,
     ):
-        if subs is not None or slo is not None or backfill is not None:
-            raise NotImplementedError(
-                "the standing-query, SLO and backfill engines are not ported yet"
-            )
         self.service = service
         self.durable = durable
+        self.subs = subs
+        self.slo = slo
+        self.backfill = backfill  # backfill.BackfillEngine (or None)
         # tenant accounting is always on (bounded top-K, so it's safe);
         # pass an explicit ledger to share one across servers or set top_k
         self.tenants = (
@@ -1418,7 +1590,10 @@ class ProofHTTPServer:
                 "service": service,
                 "pairs": list(pairs or []),
                 "durable": durable,
+                "subs": subs,
+                "slo": slo,
                 "tenants": self.tenants,
+                "backfill": backfill,
                 "qos": self.qos,
                 "admit": self.admit,
             },
@@ -1450,11 +1625,26 @@ class ProofHTTPServer:
 
     def shutdown(self, timeout: Optional[float] = None) -> None:
         """Stop the accept loop, then drain the service (flushes all
-        accepted work before returning)."""
+        accepted work before returning).
+
+        Order matters: the standing-query plane drains FIRST — its push
+        workers read proof payloads and its matcher reads the blockstore,
+        so they must finish before `service.drain()` closes the fetch
+        plane and the tiered store underneath them (a SIGTERM mid-push
+        must never make a delivery read from a closed tier)."""
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout)
+        if self.slo is not None:
+            self.slo.stop()
+        # backfill aborts at its next window boundary BEFORE the service
+        # drains — its window runner submits into the service's batcher,
+        # which must still be accepting while running jobs wind down
+        if self.backfill is not None:
+            self.backfill.close(timeout=timeout)
+        if self.subs is not None:
+            self.subs.drain()
         self.service.drain(timeout=timeout)
         if self.durable is not None:
             self.durable.close()

@@ -34,7 +34,8 @@ exhausted retries are) and a rejected block are counted as
 ``follow.errors`` and retried on the next poll. A fault of the verify lane
 or the backend (a `RuntimeError` of its own) is not a store error: it
 raises out of `poll_once`, and stops the daemon thread (`fault`), rather
-than being retried for ever. Hooks stay fail-soft.
+than being retried for ever. Hooks stay fail-soft but for a fault of the
+card, which stops the thread the same way.
 
 Works against anything with ``request``/``chain_read_obj`` — a
 `LotusClient`, an `EndpointPool`, or a test fake over a fixture world.
@@ -54,6 +55,7 @@ except ImportError:  # pragma: no cover - non-POSIX: leader election degrades to
 
 from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.core.dagcbor import decode as dagcbor_decode
+from ipc_proofs_tpu_torch.ops.build import is_device_fault
 from ipc_proofs_tpu_torch.ops.verify import verify_blocks_batch
 from ipc_proofs_tpu_torch.proofs.chain import Tipset
 from ipc_proofs_tpu_torch.store.failover import is_store_error
@@ -186,7 +188,10 @@ class ChainFollower:
     Finalized-tipset hooks (`add_finalized_hook`) fire once per newly
     finalized height, after its spine is warmed — the standing-query
     matcher rides this. A raising hook is fail-soft (``follow.errors``):
-    it never stalls the follow loop or blocks later heights.
+    it never stalls the follow loop or blocks later heights — unless what
+    it raised is a fault of the card (`ops.build.is_device_fault`), which
+    raises out of `poll_once` with the height not advanced and stops the
+    daemon thread like a lane fault.
     """
 
     def __init__(
@@ -333,6 +338,8 @@ class ChainFollower:
             try:
                 hook(tipset)
             except Exception as exc:  # fail-soft: a broken subscriber plane must not stall chain following
+                if is_device_fault(exc):
+                    raise  # the card's fault (a push's kernels): the follower stops on it
                 self._metrics.count("follow.errors")
                 logger.warning(
                     "chain follower: finalized hook failed at height %d (%s)",

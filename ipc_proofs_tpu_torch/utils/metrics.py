@@ -33,6 +33,8 @@ from dataclasses import dataclass
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
 
 __all__ = [
+    "BACKFILL_COUNTERS",
+    "BACKFILL_GAUGES",
     "DEGRADED_COUNTERS",
     "FOLLOW_COUNTERS",
     "FOLLOW_GAUGES",
@@ -40,6 +42,10 @@ __all__ = [
     "Metrics",
     "OBSERVABILITY_COUNTERS",
     "RESILIENCE_COUNTERS",
+    "SLO_COUNTERS",
+    "SUBS_COUNTERS",
+    "SUBS_GAUGES",
+    "SUBS_HISTOGRAMS",
     "StageTimer",
     "get_metrics",
 ]
@@ -81,7 +87,8 @@ RESILIENCE_COUNTERS = (
 #   trace.spans_recorded    — spans kept by the opt-in collector
 #   trace.spans_dropped     — spans dropped at the collector's capacity
 #   trace.spans_sampled_out — spans of traces that lost the head-sampling draw
-#   serve.slow_requests     — (serve plane, not ported yet)
+#   serve.slow_requests     — requests over the service's slow-request
+#                             threshold, logged with their span tree
 #   trace.otlp_posts        — OTLP/JSON batches POSTed to a collector
 #   trace.otlp_post_failures — collector POSTs that exhausted their retries
 OBSERVABILITY_COUNTERS = (
@@ -112,13 +119,133 @@ FOLLOW_GAUGES = ("follow.last_finalized_epoch",)  # the last height warmed
 
 # The endpoint pool's all-breakers-open posture (store/failover.py):
 #   degraded.entered / degraded.exited — transitions into and out of it
-#   degraded.warm_served    — (serve plane, not ported yet)
+#   degraded.warm_served    — requests the service answered from the warm
+#                             tiers alone while degraded
 #   degraded.fail_fast      — cold reads refused typed instead of retried
 DEGRADED_COUNTERS = (
     "degraded.entered",
     "degraded.exited",
     "degraded.warm_served",
     "degraded.fail_fast",
+)
+
+# Counter vocabulary of the standing-query subsystem (subs/):
+#   subs.registered        — subscriptions accepted into the registry
+#   subs.unsubscribed      — subscriptions removed
+#   subs.replays_absorbed  — duplicate subscribe(sub_id) calls absorbed
+#                            idempotently (journal replays, cluster
+#                            failover re-registration)
+#   subs.tipsets_matched   — finalized tipset pairs the matcher compiled
+#                            the active filter set against
+#   subs.generations       — proof generations run, one per distinct
+#                            (pair, filter) — the fan-out amortization
+#                            counter (≤ distinct filters per tipset,
+#                            NEVER per subscriber)
+#   subs.notifications     — deliveries fanned out to subscribers
+#   subs.empty_matches     — (pair, filter) generations with zero proofs
+#                            (nothing to deliver — not an error)
+#   subs.errors            — per-filter generation failures absorbed
+#                            fail-soft (other filters still deliver)
+#   subs.deliveries        — delivery-log appends (monotonic cursors)
+#   subs.delivery_dedup    — appends absorbed by an already-seen
+#                            idempotency key (matcher replays)
+#   subs.acks              — deliveries acked (push 2xx or long-poll
+#                            cursor advance)
+#   subs.duplicate_acks    — ack attempts for unknown/already-acked
+#                            cursors, refused (the no-duplicate-ack guard)
+#   subs.pushes            — webhook pushes that landed (2xx)
+#   subs.push_retries      — webhook attempts after the first (full-jitter
+#                            backoff)
+#   subs.push_failures     — pushes that exhausted retries (delivery stays
+#                            unacked for long-poll / next-cycle re-push)
+#   subs.log_failures      — registry/delivery journal writes or
+#                            compactions that failed (ENOSPC/EROFS
+#                            fail-soft: the run completes in-memory)
+#   subs.log_compactions   — delivery-journal rewrites under the byte cap
+#                            (drops only acked history)
+SUBS_COUNTERS = (
+    "subs.registered",
+    "subs.unsubscribed",
+    "subs.replays_absorbed",
+    "subs.tipsets_matched",
+    "subs.generations",
+    "subs.notifications",
+    "subs.empty_matches",
+    "subs.errors",
+    "subs.deliveries",
+    "subs.delivery_dedup",
+    "subs.acks",
+    "subs.duplicate_acks",
+    "subs.pushes",
+    "subs.push_retries",
+    "subs.push_failures",
+    "subs.log_failures",
+    "subs.log_compactions",
+)
+
+SUBS_GAUGES = (
+    "subs.active",  # registered subscriptions
+    "subs.pending_deliveries",  # unacked deliveries across all subscriptions
+    "subs.push_inflight",  # webhook pushes currently in flight
+    "subs.log_bytes",  # bytes in the delivery journal (cap trigger)
+)
+
+SUBS_HISTOGRAMS = (
+    "subs.delivery_lag_ms",  # append→ack latency of webhook/long-poll acks
+)
+
+# Counter vocabulary of the bulk backfill engine (backfill/):
+#   backfill.jobs            — jobs submitted (fresh threads launched; an
+#                              idempotent resubmit of a RUNNING job does
+#                              not count)
+#   backfill.jobs_resumed    — submits that replayed ≥1 committed window
+#                              from the job's IPJ1 journal
+#   backfill.windows         — windows proved fresh and committed
+#   backfill.windows_replayed— windows satisfied from the journal on resume
+#   backfill.epochs          — epochs covered by emitted windows (fresh +
+#                              replayed; the epochs/s numerator)
+#   backfill.chunks_streamed — chunks entered into jobs' cursor logs
+#   backfill.catchup_deliveries — windows landed on a standing-query
+#                              delivery log (sub_id catch-up; dedup
+#                              absorbs resume replays without a count)
+#   backfill.window_failures — jobs failed by a window-runner error or
+#                              engine shutdown (journal keeps committed
+#                              windows for resume)
+#   backfill.device_faults   — jobs stopped by a fault of the card (state
+#                              "faulted", never counted as a failure;
+#                              the port's own, the reference has none)
+BACKFILL_COUNTERS = (
+    "backfill.jobs",
+    "backfill.jobs_resumed",
+    "backfill.windows",
+    "backfill.windows_replayed",
+    "backfill.epochs",
+    "backfill.chunks_streamed",
+    "backfill.catchup_deliveries",
+    "backfill.window_failures",
+    "backfill.device_faults",
+)
+
+BACKFILL_GAUGES = (
+    "backfill.active_jobs",  # jobs currently in the running state
+)
+
+# SLO burn-rate watchdog (obs/slo.py): multi-window availability/latency/
+# integrity targets evaluated from periodic metric snapshots.
+#   slo.evaluations      — watchdog sample passes (manual or timed)
+#   slo.warn_transitions — target entered `warn` (fast or slow window hot)
+#   slo.burn_transitions — target entered `burning` (both windows over page
+#                          rate, or an integrity zero-tolerance tick)
+#   slo.recoveries       — target stepped back to `ok` after the hysteresis
+#                          window of consecutive clean evaluations
+#   slo.anomalies        — anomaly signatures observed (breaker flap storm,
+#                          eviction storm, speculation-waste spike)
+SLO_COUNTERS = (
+    "slo.evaluations",
+    "slo.warn_transitions",
+    "slo.burn_transitions",
+    "slo.recoveries",
+    "slo.anomalies",
 )
 
 # `obs.trace.span`, bound at first use: obs imports this module (its

@@ -314,7 +314,10 @@ def stream_bundle_doc(
 
 
 def stream_backfill_chunks(
-    writer: BundleStreamWriter, out: dict, slicer: Optional[Callable] = None
+    writer: BundleStreamWriter,
+    out: dict,
+    slicer: Optional[Callable] = None,
+    envelope: bool = True,
 ) -> None:
     """The multi-document form of a backfill chunk poll: one identity
     document per result chunk, closed by a metadata-only envelope
@@ -322,13 +325,15 @@ def stream_backfill_chunks(
     ``cursor`` / ``acked``). Shared by the single-daemon and router
     backfill doors — the only difference is the ``slicer`` (a daemon
     with a warm segment tier slices block payloads zero-copy; a router
-    re-emits the journal bytes, counted as copied)."""
+    re-emits the journal bytes, counted as copied). ``envelope=False``
+    leaves the closing envelope out (the caller ends the stream with an
+    abort chunk instead)."""
     chunks = out.get("chunks") or []
-    envelope = {k: v for k, v in out.items() if k != "chunks"}
+    meta = {k: v for k, v in out.items() if k != "chunks"}
     for c in chunks:
         obj = c.get("bundle")
         head = {k: v for k, v in c.items() if k != "bundle"}
-        head["job_id"] = envelope.get("job_id")
+        head["job_id"] = meta.get("job_id")
         if obj is None:
             # payload already dropped from memory (the journal keeps the
             # bytes) — ship the metadata document only
@@ -356,8 +361,9 @@ def stream_backfill_chunks(
                 "event_proofs": obj["event_proofs"],
             }
         )
-    writer.begin(envelope)
-    writer.end({})
+    if envelope:
+        writer.begin(meta)
+        writer.end({})
 
 
 # -- decoding (the client half) -------------------------------------------

@@ -734,3 +734,71 @@ def test_tenant_weight_parsing_matches(specs):
             return ("exit", str(exc))
 
     assert run(port_cli._parse_tenant_weights) == run(ref_cli._parse_tenant_weights)
+
+
+def _backfill_argv(worlds, *extra) -> list:
+    return [
+        "backfill", "--endpoint", "http://node.invalid/rpc/v1",
+        "--from-height", str(worlds.lo), "--to-height", str(worlds.hi - 1),
+        "--event-sig", SIG, "--topic1", SUBNET, "--window-size", "3", "--backend", "cpu", *extra,
+    ]
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [[], ["--no-batch-rpc"], ["--store-dir", "STORE"], ["--mesh-devices", "2"], ["--window-parallelism", "2"]],
+    ids=["plane", "rpc", "plane-tier", "mesh2", "parallel"],
+)
+def test_backfill_bundle_is_byte_equal_and_equals_range(worlds, nodes, tmp_path, flags):
+    """``backfill --endpoint`` through the hermetic node (the fetch plane
+    verifying on the ``--backend`` lane, the disk tier, a mesh): the sealed
+    bundle is the reference CLI's and ``range``'s over the same heights."""
+    flags = [str(tmp_path / "store") if f == "STORE" else f for f in flags]
+    if "--mesh-devices" in flags:
+        ref_rc, ref_out, rc, out = _both(tmp_path, _backfill_argv(worlds), "plain.json")
+        meshed = tmp_path / "meshed.json"
+        assert port_cli.main(_backfill_argv(worlds, *flags, "-o", str(meshed))) == 0
+        out = meshed.read_bytes()
+    else:
+        ref_rc, ref_out, rc, out = _both(tmp_path, _backfill_argv(worlds, *flags), "bf.json")
+    assert ref_rc == rc == 0 and out == ref_out
+    rng_out = tmp_path / "range.json"
+    argv = ["range", "--endpoint", "http://node.invalid/rpc/v1", "--from-height", str(worlds.lo),
+            "--to-height", str(worlds.hi - 1), "--event-sig", SIG, "--topic1", SUBNET, "--backend", "cpu",
+            "-o", str(rng_out)]
+    assert port_cli.main(argv) == 0
+    assert rng_out.read_bytes() == out
+
+
+def test_jax_written_backfill_journal_resumes_under_the_port(worlds, nodes, tmp_path, caplog):
+    """The JAX CLI journals the job; the port's CLI replays every window
+    from it: identical bytes, no block read."""
+    import logging
+
+    _, session = nodes
+    argv = _backfill_argv(worlds, "--jobs-dir", str(tmp_path / "jobs"))
+    assert ref_cli.main(argv + ["-o", str(tmp_path / "ref.json")]) == 0
+    session.methods.clear()
+    with caplog.at_level(logging.INFO):
+        assert port_cli.main(argv + ["-o", str(tmp_path / "port.json")]) == 0
+    assert (tmp_path / "port.json").read_bytes() == (tmp_path / "ref.json").read_bytes()
+    assert "Filecoin.ChainReadObj" not in session.methods
+    assert "windows replayed from journal" in caplog.text
+
+
+@pytest.mark.parametrize("argv", [
+    ["backfill", "--backend", "cpu"],
+    ["backfill", "--backend", "cpu", "--endpoint", "http://node.invalid/rpc/v1"],
+    ["backfill", "--backend", "cpu", "--endpoint", "http://node.invalid/rpc/v1", "--from-height", "1",
+     "--to-height", "2"],
+    ["backfill", "--backend", "cpu", "--demo-world", "4", "--pair-start", "3", "--pair-end", "9"],
+], ids=["no-store", "no-heights", "no-filter", "range-out-of-bounds"])
+def test_backfill_refusals_match(argv, tmp_path):
+    assert port_cli.main(argv + ["-o", str(tmp_path / "p.json")]) == ref_cli.main(argv + ["-o", str(tmp_path / "r.json")]) == 2
+    assert not (tmp_path / "p.json").exists()
+
+
+def test_backfill_demo_world_is_byte_equal(tmp_path):
+    ref_rc, ref_out, rc, out = _both(tmp_path, ["backfill", "--demo-world", "12", "--window-size", "5",
+                                                "--backend", "cpu"], "demo.json")
+    assert ref_rc == rc == 0 and out == ref_out and json.loads(out)["event_proofs"]

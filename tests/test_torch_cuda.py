@@ -735,3 +735,84 @@ def test_ingested_segments_read_in_one_lane_call_on_card(cuda_device, tmp_path, 
     for name in {size_class(len(d)) for _, d in blocks + [(liar, b"lying bytes")]}:
         want[name] = 1
     assert launches == want
+
+
+def test_push_on_card_launches_a_mask_a_generation_and_verifies(cuda_device, tmp_path, monkeypatch):
+    """Standing queries on a card service (unfused scan: the mask runs on
+    the card): one fingerprint-mask launch per generation (distinct filter
+    and pair), the pushed bundles equal the CPU's, and the pushed witness's
+    CIDs recomputed by the kernels equal hashlib's."""
+    import json as _json
+    import random
+    import time
+
+    from ipc_proofs_tpu_torch.core.cid import CID
+    from ipc_proofs_tpu_torch.proofs.bundle import UnifiedProofBundle
+    from ipc_proofs_tpu_torch.serve import ProofService, ServiceConfig
+    from ipc_proofs_tpu_torch.subs import StandingQueries
+
+    monkeypatch.setenv("IPC_SCAN_FUSED_MATCH", "0")
+    sig, topic = "NewTopDownMessage(bytes32,uint256)", "calib-subnet-1"
+    store, pairs, _ = build_range_world(4, 6, 3, 0.5, signature=sig, topic1=topic)
+    bodies = []
+    svc = ProofService(store=store, spec=EventProofSpec(sig, topic), config=ServiceConfig())
+    sq = StandingQueries(str(tmp_path), store=store, metrics=svc.metrics, fsync=False, service=svc, delta=False,
+                         opener=lambda url, body, t: bodies.append(_json.loads(body)) or 200,
+                         sleep=lambda s: None, rng=random.Random(0))
+    try:
+        for i, filt in enumerate(({"signature": sig, "topic1": topic},
+                                  {"signature": sig, "topic1": topic, "actor_id": 1001})):
+            sq.subscribe({"filter": filt, "sub_id": f"w{i}", "target": {"url": f"http://hooks/{i}"}})
+        match.LAUNCHES.update(dict.fromkeys(match.LAUNCHES, 0))
+        for ts in (pairs[0].parent, pairs[0].child):
+            sq.on_tipset(ts)
+        torch.cuda.synchronize()
+        launches = dict(match.LAUNCHES)
+        deadline = time.monotonic() + 60
+        while len(bodies) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+    finally:
+        sq.drain()
+        svc.drain()
+    assert launches["event_match_mask_fp"] == 2  # two filters, one pair
+    cpu = get_backend("gpu", device="cpu")
+    for env in bodies:
+        filt = EventProofSpec(sig, topic, 1001 if env["sub_id"] == "w1" else None)
+        want = generate_event_proofs_for_range_chunked(store, [pairs[0]], filt, chunk_size=8, match_backend=cpu)
+        assert env["bundle"] == want.to_json_obj()
+        bundle = UnifiedProofBundle.from_json_obj(env["bundle"])
+        blake2b.reset_launch_counts()
+        recomputed = get_backend("gpu").blake2b256_batch([b.data for b in bundle.blocks])
+        assert sum(blake2b.LAUNCHES.values()) >= 1
+        assert recomputed == [hashlib.blake2b(b.data, digest_size=32).digest() for b in bundle.blocks]
+        assert all(CID.hash_of(b.data) == b.cid for b in bundle.blocks)
+
+
+def test_backfill_window_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch):
+    """A backfill job on a card service's LOW lane: one mask launch per
+    window (unfused scan), the sealed bundle equal to the CPU's range, and
+    the card's witness verification launching blake2b."""
+    from ipc_proofs_tpu_torch.backfill import BackfillEngine
+    from ipc_proofs_tpu_torch.serve import ProofService, ServiceConfig
+
+    monkeypatch.setenv("IPC_SCAN_FUSED_MATCH", "0")
+    sig, topic = "NewTopDownMessage(bytes32,uint256)", "calib-subnet-1"
+    store, pairs, _ = build_range_world(16, 6, 3, 0.3, signature=sig, topic1=topic)
+    spec = EventProofSpec(sig, topic)
+    svc = ProofService(store=store, spec=spec, config=ServiceConfig())
+    engine = BackfillEngine(pairs, spec, lambda w, p: svc.submit_range_window(p).result(),
+                            jobs_dir=str(tmp_path), window_size=4, metrics=svc.metrics)
+    try:
+        match.LAUNCHES.update(dict.fromkeys(match.LAUNCHES, 0))
+        sealed = engine.submit(0, 16).result(timeout=300)
+        torch.cuda.synchronize()
+        launches = dict(match.LAUNCHES)
+    finally:
+        engine.close(timeout=60)
+        svc.drain()
+    assert launches["event_match_mask_fp"] == 4
+    want = generate_event_proofs_for_range(store, pairs, spec, match_backend=get_backend("gpu", device="cpu"))
+    assert sealed.to_json() == want.to_json()
+    blake2b.reset_launch_counts()
+    result = verify_proof_bundle(sealed, TrustPolicy.accept_all(), verify_witness_cids=True)
+    assert result.all_valid() and sum(blake2b.LAUNCHES.values()) >= 1

@@ -233,14 +233,30 @@ def test_route_equals_reference(daemons, served, both_worlds, case):
 
 @pytest.mark.parametrize("engine", ["subs", "slo", "backfill"])
 def test_unported_engines_are_refused(engine):
-    """The standing-query, SLO and backfill engines are not in the port:
-    a server is never built that would answer their routes half-way."""
+    """The standing-query, SLO and backfill engines mount on the server as
+    in the reference: built with one, its routes answer from the engine
+    (not the 404 of a server without it) and shutdown stops it."""
+    from types import SimpleNamespace
+
+    calls = []
+    engines = {
+        "subs": SimpleNamespace(subscriptions=lambda: {"count": 0, "subscriptions": []},
+                                health_fields=lambda: {"subscriptions": 0}, drain=lambda: calls.append("subs")),
+        "slo": SimpleNamespace(status=lambda: {"status": "ok", "targets": {}, "anomalies": []},
+                               stop=lambda: calls.append("slo")),
+        "backfill": SimpleNamespace(jobs=lambda: [], close=lambda timeout=None: calls.append("backfill")),
+    }
+    path = {"subs": "/v1/subscriptions", "slo": "/healthz", "backfill": "/v1/backfill"}[engine]
     service = ProofService(config=ServiceConfig(device="cpu"))
+    httpd = ProofHTTPServer(service, **{engine: engines[engine]}).start()
     try:
-        with pytest.raises(NotImplementedError):
-            ProofHTTPServer(service, **{engine: object()})
+        status, _, body = get(httpd.port, path)
     finally:
-        service.drain()
+        httpd.shutdown(timeout=30)
+    assert status == 200, body
+    assert calls == [engine]
+    if engine == "slo":
+        assert body["slo"]["status"] == "ok"
 
 
 def test_verify_verdicts_and_claims(daemons, served, both_worlds):

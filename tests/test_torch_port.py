@@ -26,10 +26,12 @@
   raise instead of running on the CPU; the
   scalar replay of the ``IPC_PROOFS_NO_NATIVE=1`` universe runs no kernel.
 - The CLI (``python -m ipc_proofs_tpu_torch.cli``) defaults to the card:
-  without CUDA its ``demo``, ``verify``, ``range`` and ``serve`` exit with
-  the backend's error before any work, and ``--backend cpu`` runs. A
-  ``serve --backend cpu`` daemon, driven over HTTP and stopped with
-  SIGTERM, loads neither ``jax`` nor the reference.
+  without CUDA its ``demo``, ``verify``, ``range``, ``backfill`` and
+  ``serve`` exit with the backend's error before any work, and ``--backend
+  cpu`` runs. A ``serve --backend cpu`` daemon (also with standing queries,
+  the SLO watchdog and backfill mounted), driven over HTTP and stopped with
+  SIGTERM, and a ``backfill --backend cpu`` run load neither ``jax`` nor
+  the reference.
 """
 
 import ast
@@ -106,6 +108,9 @@ def test_port_files_exist():
         "registry/__init__.py", "registry/mmr.py", "registry/log.py", "registry/registry.py",
         "serve/__init__.py", "serve/qos.py", "serve/batcher.py", "serve/service.py",
         "serve/httpd.py", "serve/durable.py", "storex/replica.py", "obs/fleet.py",
+        "obs/slo.py", "cluster/__init__.py", "cluster/hashring.py", "cluster/gather.py",
+        "backfill/__init__.py", "backfill/scheduler.py", "backfill/engine.py", "subs/__init__.py",
+        "subs/registry.py", "subs/matcher.py", "subs/delivery.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
@@ -346,7 +351,7 @@ def test_range_drivers_default_to_the_card(monkeypatch, small_range, driver):
         call()
 
 
-@pytest.mark.parametrize("command", ["demo", "verify", "range", "serve"])
+@pytest.mark.parametrize("command", ["demo", "verify", "range", "serve", "backfill"])
 def test_cli_refuses_the_host_without_cuda(monkeypatch, tmp_path, small_range, command):
     """With CUDA reported absent, the CLI's default ``--backend gpu`` exits
     with the backend's error before any work, and ``--backend cpu`` runs."""
@@ -359,6 +364,7 @@ def test_cli_refuses_the_host_without_cuda(monkeypatch, tmp_path, small_range, c
         "range": ["range", "--endpoint", "http://node.invalid/rpc/v1", "--from-height", "0",
                   "--to-height", "1", "--event-sig", SPEC.event_signature, "--topic1", "x"],
         "serve": ["serve", "--demo-world", "2", "--port", "0"],
+        "backfill": ["backfill", "--demo-world", "2", "-o", str(tmp_path / "bf.json")],
     }[command]
     from ipc_proofs_tpu_torch import cli
 
@@ -626,6 +632,63 @@ def test_cli_serve_loads_no_jax_or_reference(tmp_path):
 
         gen = call("/v1/generate", {"pair_index": 1})
         assert gen["ok"] and call("/v1/verify", {"bundle": gen["result"]["bundle"]})["result"]["all_valid"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    assert proc.returncode == 0, err[-2000:]
+    assert "LOADED []" in out, out
+
+
+def test_cli_backfill_and_serve_engines_load_no_jax_or_reference(tmp_path):
+    """``cli backfill`` over a demo world writes its bundle, and ``cli
+    serve`` with ``--subs-dir``, ``--slo on`` and ``--backfill-jobs-dir``
+    answers a subscription, a backfill job to its end and a ``/healthz``
+    with the ``slo`` block, exits 0 on SIGTERM; neither loads ``jax`` or
+    ``ipc_proofs_tpu``."""
+    import json
+    import signal
+    import time
+    import urllib.request
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    done = subprocess.run(
+        [sys.executable, "-c", _SERVE_CHILD, "backfill", "--backend", "cpu", "--demo-world", "6",
+         "--window-size", "2", "--jobs-dir", str(tmp_path / "jobs"), "-o", str(tmp_path / "bf.json")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert "LOADED []" in done.stdout and json.loads((tmp_path / "bf.json").read_text())["blocks"]
+    port_file = tmp_path / "port"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SERVE_CHILD, "serve", "--backend", "cpu", "--demo-world", "6",
+         "--port", "0", "--port-file", str(port_file), "--subs-dir", str(tmp_path / "subs"),
+         "--slo", "on", "--slo-interval-s", "0.05", "--backfill-jobs-dir", str(tmp_path / "bfjobs"),
+         "--backfill-window-size", "2"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        deadline = time.monotonic() + 90
+        while not port_file.exists() and proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert port_file.exists(), proc.communicate(timeout=30)
+        base = f"http://127.0.0.1:{port_file.read_text()}"
+
+        def call(path, body=None):
+            data = None if body is None else json.dumps(body).encode()
+            req = urllib.request.Request(base + path, data=data, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return json.loads(resp.read())
+
+        sub = call("/v1/subscribe", {"filter": {"signature": "NewTopDownMessage(bytes32,uint256)",
+                                                "topic1": "calib-subnet-1"}, "sub_id": "s1"})
+        assert sub == {"sub_id": "s1", "created": True}
+        job = call("/v1/backfill", {"pair_start": 0, "pair_end": 6})
+        while job["state"] == "running" and time.monotonic() < deadline + 60:
+            time.sleep(0.05)
+            job = call(f"/v1/backfill/{job['job_id']}")
+        assert job["state"] == "complete" and job["windows_done"] == 3
+        health = call("/healthz")
+        assert health["subscriptions"] == 1 and health["slo"]["status"] == "ok"
     finally:
         proc.send_signal(signal.SIGTERM)
         out, err = proc.communicate(timeout=60)
