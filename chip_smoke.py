@@ -360,7 +360,31 @@ Phases, none of which may fail:
    /v1/backfill/<id>/chunks`` streamed to the end, folded with
    `BundleFold` into the same bytes (``stream_ttfb_ms``); ``python -m
    ipc_proofs_tpu_torch.cli backfill --endpoint`` over the hermetic node at
-   64 pairs, every landed wave verified on the card: ``range``'s bytes.
+   64 pairs, every landed wave verified on the card: ``range``'s bytes;
+29. cluster — `ClusterRouter` over 1, 2 and 4 in-process `LocalShard`s on
+   the card over the event world (kept alive until then), the scan
+   unfused: ``generate_range`` over all 4,096 pairs at chunk 1,024,
+   buffered and streamed cut-through over `RouterHTTPServer`, each the
+   chunked driver's bytes with exactly one fingerprint mask a chunk of
+   each group the router formed; each bundle through the router's
+   ``/v1/verify`` (witness CIDs on), all true, one blake2b launch set; at
+   4 shards 512 single-pair generates from 8 clients (steal threshold 2);
+   the JAX ``hostkill`` leg's shape (2 shards with disk tiers, R=2, every
+   rolled frame of one corrupted: ``replica_repair_hit_rate``; one killed
+   under a closed loop: ``kill_recovery_ms``); ``POST /v1/backfill`` over
+   256 pairs through the router, folded into the driver's bytes; prints
+   proofs/s by shard count and ``steal_events``;
+30. cli cluster — ``python -m ipc_proofs_tpu_torch.cli cluster --shards 4
+   --demo-world 256`` (4 shard processes on the one card, the kernels
+   already built) with ``--store-dir`` and ``--queue-dir``, then
+   ``--shards 1``: 1,024 ``/v1/generate`` from 8 closed-loop clients in a
+   child process, each answer's proofs the driver's for its pair, then
+   each pair's bundle verified through the router (all true);
+   ``/healthz``, ``/v1/cluster/status`` and the fleet ``/metrics.prom``;
+   SIGTERM exits 0 with every admit done; each shard's launches read from
+   its log: exactly one flat mask a generate chunk and one TxMeta blake2b
+   batch a merged verify batch; prints
+   ``aggregate_proofs_per_sec`` and ``cluster_linearity_4shard``.
 
 Prints per-stage ms of every path with the scanner's thread count and the
 CPUs it may use; then, in order before the last line: one line per kernel,
@@ -382,7 +406,11 @@ the HTTP plane's ``http verify`` (and ``, cids``, ``, blocks_frame``,
 ``http overload``, ``durable`` (the replay), ``replication`` (the
 ``get_many``) and ``cli serve``, and ``subs push``, ``subs verify``,
 ``backfill`` (the resumed job and its verification), ``backfill stream``
-and ``cli backfill`` included). The
+and ``cli backfill``, and ``cluster`` (the buffered scatters at 1, 2 and
+4 shards), ``cluster, stream``, ``cluster verify``, ``cluster load``,
+``cluster hostkill``, ``cluster backfill``, ``cli cluster`` (the 4
+shards' served launches, from their logs) and ``cli cluster, 1 shard``
+included). The
 device match functions (PyTorch ops, not kernels of this repository)
 report their times in their phase's line.
 """
@@ -5288,6 +5316,510 @@ def backfill_phase(world, device, root: str) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# the cluster router and its shards
+# --------------------------------------------------------------------------
+
+CLUSTER_SHARDS = (1, 2, 4)
+CLUSTER_CHUNK = 1024
+CLUSTER_LOAD_REQUESTS = 512  # single-pair generates through the 4-shard router
+CLUSTER_LOAD_CLIENTS = 8
+CLUSTER_STEAL_THRESHOLD = 2  # the JAX bench.py cluster leg's
+HOSTKILL_WORLD = (16, 8, 0.25)  # the JAX bench.py hostkill leg's world, uncut: pairs, receipts, match rate
+HOSTKILL_REQUESTS = 64
+HOSTKILL_CLIENTS = 4
+CLUSTER_BACKFILL_PAIRS = 256
+CLI_CLUSTER_WORLD = (256, 8, 0.25)  # --demo-world, --demo-receipts, --demo-match-rate
+CLI_CLUSTER_REQUESTS = 1024
+CLI_CLUSTER_CLIENTS = 8
+
+
+def _scatter_masks(router, pairs, chunk: int) -> int:
+    """The fingerprint masks a scatter launches on its shards (the scan
+    unfused): one a chunk of each group the router forms from its ring."""
+    from ipc_proofs_tpu_torch.cluster import pair_ring_key
+
+    with router._lock:
+        owners = [router._affinity_locked(pair_ring_key(pair)) for pair in pairs]
+    return sum(-(-owners.count(name) // chunk) for name in set(owners))
+
+
+def _require_only(label: str, launches: "dict[str, int]", **want) -> None:
+    """``launches`` must be exactly ``want``, every other kernel at 0."""
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"{label}: launches {launches}, expected {full}")
+
+
+def _pair_proofs(bundle) -> "dict[tuple[int, int], list]":
+    """A range bundle's event proofs by (parent epoch, child epoch)."""
+    out: dict = {}
+    for proof in bundle.to_json_obj()["event_proofs"]:
+        out.setdefault((proof["parent_epoch"], proof["child_epoch"]), []).append(proof)
+    return out
+
+
+def _hostkill(device, root: str) -> dict:
+    """The JAX ``hostkill`` leg's shape on the card: two `LocalShard`s with
+    their own disk tiers (every spill a rolled segment, a 1-byte cache so
+    reads hit the disk), ``replication_factor=2``. Warm, replicate, corrupt
+    every rolled frame on ``s0``: the scatter stays byte-identical and
+    ``replica_repair_hit_rate`` is the share of integrity evictions the
+    peer refetched. Then a closed loop of single-pair generates, ``s1``
+    killed a quarter of the way in: ``kill_recovery_ms`` runs from the
+    kill until a full scatter over every pair completes byte-identical on
+    the survivor."""
+    from ipc_proofs_tpu_torch.cluster import ClusterRouter, LocalShard
+
+    n_pairs, receipts, match_rate = HOSTKILL_WORLD
+    store, pairs, _ = build_range_world(n_pairs, receipts_per_pair=receipts, match_rate=match_rate,
+                                        signature=SIGNATURE, topic1=TOPIC1)
+    spec = EventProofSpec(SIGNATURE, TOPIC1)
+    expected = json.dumps(generate_event_proofs_for_range_chunked(
+        store, pairs, spec, chunk_size=8, match_backend=get_backend("gpu", device=device)).to_json_obj(), sort_keys=True)
+    idxs = list(range(n_pairs))
+    work = os.path.join(root, "hostkill")
+    shard_metrics = [Metrics() for _ in range(2)]
+    shards = [
+        LocalShard(f"s{k}", store, pairs, spec, metrics=shard_metrics[k], config=ServiceConfig(
+            max_batch=8, max_wait_ms=5.0, workers=1, store_dir=os.path.join(work, f"s{k}"), store_owner=f"s{k}",
+            store_segment_max_bytes=1, cache_max_bytes=1, device=_service_device(device),
+        )).start()
+        for k in range(2)
+    ]
+    metrics = Metrics()
+    router = ClusterRouter({s.name: s.url for s in shards}, pairs, replication_factor=2, metrics=metrics,
+                           scrape_interval_s=60.0)
+    try:
+        gc.collect()
+        _reset_counts()
+        status, obj = router.generate_range(idxs, chunk_size=8)
+        if status != 200 or json.dumps(obj["bundle"], sort_keys=True) != expected:
+            raise AssertionError(f"hostkill warm scatter: HTTP {status}")
+        summary = router.replicate_now()
+        if summary["errors"] or summary["under_replicated"]:
+            raise AssertionError(f"hostkill replication: {summary}")
+        flipped = 0
+        s0_dir = os.path.join(work, "s0")
+        for name in sorted(os.listdir(s0_dir)):
+            if name.endswith(".blk"):
+                path = os.path.join(s0_dir, name)
+                with open(path, "r+b") as fh:
+                    fh.seek(os.path.getsize(path) - 1)
+                    byte = fh.read(1)
+                    fh.seek(os.path.getsize(path) - 1)
+                    fh.write(bytes([byte[0] ^ 0x40]))
+                flipped += 1
+        status, obj = router.generate_range(idxs, chunk_size=8)
+        if status != 200 or json.dumps(obj["bundle"], sort_keys=True) != expected:
+            raise AssertionError(f"hostkill: the scatter after corruption differs (HTTP {status})")
+        c0 = shard_metrics[0].snapshot()["counters"]
+        repairs, misses = c0.get("storex.replica_repairs", 0), c0.get("storex.replica_repair_misses", 0)
+        if not flipped or not repairs:
+            raise AssertionError(f"hostkill: {flipped} frames flipped, {repairs} repaired, {misses} missed")
+
+        def load():
+            answers, wall = _closed_loop(HOSTKILL_REQUESTS, HOSTKILL_CLIENTS,
+                                         lambda i: router.generate(i % n_pairs))
+            bad = [obj for status, obj in answers if status != 200]
+            if bad:
+                raise AssertionError(f"hostkill load: {len(bad)} failed answers: {bad[0]}")
+            return sum(obj["n_event_proofs"] for _, obj in answers), wall
+
+        proofs, wall = load()
+        killer = threading.Timer(wall * 0.25, shards[1].kill)
+        outcome: dict = {}
+
+        def second_load():
+            try:
+                outcome["load"] = load()
+            except BaseException as exc:  # re-raised below, on the main thread
+                outcome["error"] = exc
+
+        killer.start()
+        loader = threading.Thread(target=second_load)
+        loader.start()
+        killer.join()
+        t_kill = time.perf_counter()
+        recovery_ms = None
+        while time.perf_counter() < t_kill + 60.0:
+            status, obj = router.generate_range(idxs, chunk_size=8)
+            if status == 200 and json.dumps(obj["bundle"], sort_keys=True) == expected:
+                recovery_ms = (time.perf_counter() - t_kill) * 1e3
+                break
+        loader.join(300)
+        torch.cuda.synchronize()
+        launches = _counts()
+        if "error" in outcome:
+            raise outcome["error"]
+        if recovery_ms is None:
+            raise AssertionError("hostkill: no byte-identical scatter within 60 s of the kill")
+        if router.alive_shards() != ["s0"]:
+            raise AssertionError(f"hostkill: alive {router.alive_shards()} after killing s1")
+        _require_launched("cluster hostkill", launches, ["event_match_mask"])
+        return {
+            "pairs": n_pairs,
+            "frames_flipped": flipped,
+            "replica_repairs": repairs,
+            "replica_repair_misses": misses,
+            "replica_repair_hit_rate": repairs / (repairs + misses),
+            "aggregate_proofs_per_sec_2host": proofs / wall,
+            "kill_recovery_ms": recovery_ms,
+            "shard_failovers": metrics.counter_value("cluster.shard_failovers"),
+            "launches": launches,
+        }
+    finally:
+        router.close()
+        for s in shards:
+            s.stop(timeout=120)
+
+
+def cluster_phase(world, device, root: str) -> dict:
+    """`ClusterRouter` over 1, 2 and 4 `LocalShard`s on the card (the shards
+    share this process's backend and launch counters), the event world
+    (kept alive until then) with the scan unfused: ``generate_range`` over
+    all 4,096 pairs at chunk 1,024, buffered in process and streamed
+    cut-through over `RouterHTTPServer`, each the chunked driver's bytes
+    with one fingerprint mask a chunk of each group the router formed and
+    nothing else; each bundle through the router's ``/v1/verify`` with the
+    witness CIDs on, all true, one blake2b launch set; at 4 shards a closed
+    loop of single-pair generates from 8 clients (steal threshold 2), each
+    answer's proofs those of its pair; the ``hostkill`` shape
+    (`_hostkill`); ``POST /v1/backfill`` over 256 pairs through the
+    router, its chunk stream folded into the chunked driver's bytes."""
+    from ipc_proofs_tpu_torch.cluster import ClusterRouter, LocalShard, RouterHTTPServer
+    from ipc_proofs_tpu_torch.witness.stream import STREAM_CONTENT_TYPE
+
+    store, pairs, _ = world
+    spec = EventProofSpec(SIGNATURE, TOPIC1)
+    backend = get_backend("gpu", device=device)
+    expected = generate_event_proofs_for_range_chunked(store, pairs, spec, chunk_size=CLUSTER_CHUNK,
+                                                       match_backend=backend)
+    expected_json = json.dumps(expected.to_json_obj(), sort_keys=True)
+    by_pair = _pair_proofs(expected)
+    verify_want = _blake2b_set([expected])
+    idxs = list(range(len(pairs)))
+    runs: dict = {}
+    launches: dict = {}
+
+    def shards_up(n, **cfg):
+        return [LocalShard(f"s{i}", store, pairs, spec,
+                           config=ServiceConfig(device=_service_device(device), **cfg)).start() for i in range(n)]
+
+    with _env("IPC_SCAN_FUSED_MATCH", "0"):
+        for n in CLUSTER_SHARDS:
+            shards = shards_up(n, max_wait_ms=1.0, verify_witness_cids=True)
+            metrics = Metrics()
+            router = ClusterRouter({s.name: s.url for s in shards}, pairs, metrics=metrics,
+                                   steal_threshold=CLUSTER_STEAL_THRESHOLD, scrape_interval_s=60.0)
+            server = RouterHTTPServer(router).start()
+            clients = _Clients(server.port)
+            try:
+                masks = _scatter_masks(router, pairs, CLUSTER_CHUNK)
+                gc.collect()
+                _reset_counts()
+                t0 = time.perf_counter()
+                status, obj = router.generate_range(idxs, chunk_size=CLUSTER_CHUNK)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                scatter = _counts()
+                if status != 200 or json.dumps(obj["bundle"], sort_keys=True) != expected_json:
+                    raise AssertionError(f"cluster ({n} shards): the scatter differs from the driver (HTTP {status})")
+                _require_only(f"cluster ({n} shards)", scatter, event_match_mask_fp=masks)
+
+                _reset_counts()
+                t0 = time.perf_counter()
+                status, hdrs, raw, ttfb_ms, _ = clients.request(
+                    "POST", "/v1/generate_range", {"pair_indexes": idxs, "chunk_size": CLUSTER_CHUNK},
+                    headers={"Accept": STREAM_CONTENT_TYPE})
+                torch.cuda.synchronize()
+                stream_wall = time.perf_counter() - t0
+                stream = _counts()
+                if status != 200 or hdrs.get("Content-Type") != STREAM_CONTENT_TYPE:
+                    raise AssertionError(f"cluster stream ({n} shards): HTTP {status}: {raw[:300]!r}")
+                if json.dumps(decode_bundle_stream(raw)["bundle"], sort_keys=True) != expected_json:
+                    raise AssertionError(f"cluster stream ({n} shards): the folded stream differs from the buffered")
+                if metrics.counter_value("cluster.stream_cut_through") != obj["n_groups"]:
+                    raise AssertionError(f"cluster stream ({n} shards): a group was not relayed cut-through")
+                _require_only(f"cluster stream ({n} shards)", stream, event_match_mask_fp=masks)
+
+                _reset_counts()
+                t0 = time.perf_counter()
+                status, verdict = router.verify({"bundle": obj["bundle"]})
+                torch.cuda.synchronize()
+                verify_ms = (time.perf_counter() - t0) * 1e3
+                verify = _counts()
+                if status != 200 or verdict.get("all_valid") is not True:
+                    raise AssertionError(f"cluster verify ({n} shards): HTTP {status}, {str(verdict)[:300]}")
+                _require_only(f"cluster verify ({n} shards)", verify, **verify_want)
+                for name, counts in (("scatter", scatter), ("stream", stream), ("verify", verify)):
+                    total = launches.setdefault(name, dict.fromkeys(counts, 0))
+                    for kernel, count in counts.items():
+                        total[kernel] += count
+                run = {
+                    "groups": obj["n_groups"],
+                    "masks": masks,
+                    "scatter_ms": wall * 1e3,
+                    "proofs_per_s": len(expected.event_proofs) / wall,
+                    "stream_ms": stream_wall * 1e3,
+                    "stream_ttfb_ms": ttfb_ms,
+                    "stream_proofs_per_s": len(expected.event_proofs) / stream_wall,
+                    "verify_ms": verify_ms,
+                }
+                if n == max(CLUSTER_SHARDS):
+                    _reset_counts()
+                    answers, load_wall = _closed_loop(CLUSTER_LOAD_REQUESTS, CLUSTER_LOAD_CLIENTS,
+                                                      lambda i: router.generate(i % len(pairs)))
+                    torch.cuda.synchronize()
+                    launches["load"] = _counts()
+                    n_proofs = 0
+                    for i, (status, answer) in enumerate(answers):
+                        pair = pairs[i % len(pairs)]
+                        got = answer.get("bundle", {}).get("event_proofs") if status == 200 else None
+                        if got != by_pair.get((pair.parent.height, pair.child.height), []):
+                            raise AssertionError(f"cluster load: pair {i % len(pairs)} answered HTTP {status}")
+                        n_proofs += len(got)
+                    _require_launched("cluster load", launches["load"], ["event_match_mask_fp"])
+                    run.update(load_requests=CLUSTER_LOAD_REQUESTS, load_rps=CLUSTER_LOAD_REQUESTS / load_wall,
+                               load_proofs_per_s=n_proofs / load_wall)
+                counters = metrics.snapshot()["counters"]
+                run["steal_events"] = counters.get("cluster.steals", 0)
+                run["shard_failovers"] = counters.get("cluster.shard_failovers", 0)
+                if run["shard_failovers"] or counters.get("cluster.shard_errors", 0):
+                    raise AssertionError(f"cluster ({n} shards): a live shard was failed over: {counters}")
+                runs[n] = run
+            finally:
+                clients.close()
+                server.shutdown(timeout=120)
+                for s in shards:
+                    s.stop(timeout=120)
+
+        hostkill = _hostkill(device, root)
+
+        # the router's backfill door over two shards
+        n_bf = CLUSTER_BACKFILL_PAIRS
+        bf_expected = generate_event_proofs_for_range_chunked(store, pairs[:n_bf], spec, chunk_size=CLUSTER_CHUNK,
+                                                              match_backend=backend).to_json()
+        shards = shards_up(2)
+        router = ClusterRouter({s.name: s.url for s in shards}, pairs, scrape_interval_s=60.0,
+                               backfill_jobs_dir=os.path.join(root, "cluster-backfill"),
+                               backfill_window_size=BACKFILL_WINDOW, spec=spec)
+        server = RouterHTTPServer(router).start()
+        clients = _Clients(server.port)
+        try:
+            gc.collect()
+            _reset_counts()
+            t0 = time.perf_counter()
+            job = _call_json(clients, "cluster backfill", "POST", "/v1/backfill", {"pair_start": 0, "pair_end": n_bf})
+            folded, chunks, bf_ttfb_ms, polls = _fold_stream(clients, job["job_id"], pairs[:n_bf])
+            bf_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches["backfill"] = _counts()
+        finally:
+            clients.close()
+            server.shutdown(timeout=120)
+            for s in shards:
+                s.stop(timeout=120)
+    windows = n_bf // BACKFILL_WINDOW
+    if folded.to_json() != bf_expected or chunks != windows:
+        raise AssertionError(f"cluster backfill: {chunks} chunks folded into other bytes than the driver's")
+    per_window = -(-BACKFILL_WINDOW // ServiceConfig().range_chunk_size)
+    _require_only("cluster backfill", launches["backfill"], event_match_mask_fp=windows * per_window)
+    return {
+        "pairs": len(pairs),
+        "proofs": len(expected.event_proofs),
+        "chunk_size": CLUSTER_CHUNK,
+        "runs": {str(n): run for n, run in runs.items()},
+        "proofs_per_s": {str(n): run["proofs_per_s"] for n, run in runs.items()},
+        "steal_events": sum(run["steal_events"] for run in runs.values()),
+        "hostkill": {k: v for k, v in hostkill.items() if k != "launches"},
+        "backfill": {"pairs": n_bf, "windows": windows, "ms": bf_s * 1e3, "pairs_per_s": n_bf / bf_s,
+                     "stream_ttfb_ms": bf_ttfb_ms, "polls": polls},
+        "launches": launches["scatter"],
+        "stream_launches": launches["stream"],
+        "verify_launches": launches["verify"],
+        "load_launches": launches["load"],
+        "hostkill_launches": hostkill["launches"],
+        "backfill_launches": launches["backfill"],
+    }
+
+
+def _cli_cluster_run(n_shards: int, device, work: str, by_pair) -> dict:
+    """One ``python -m ipc_proofs_tpu_torch.cli cluster`` child over the CLI
+    world with ``--store-dir`` and ``--queue-dir``, driven by
+    `CLI_CLUSTER_CLIENTS` closed-loop HTTP clients in a child process with
+    `CLI_CLUSTER_REQUESTS` ``/v1/generate`` requests, then SIGTERMed. Each
+    shard's launches are its log's: the difference of its two ``kernel
+    launches:`` lines."""
+    os.makedirs(work, exist_ok=True)
+    port_file = os.path.join(work, "port")
+    n_pairs, receipts, match_rate = CLI_CLUSTER_WORLD
+    argv = [sys.executable, "-m", "ipc_proofs_tpu_torch.cli", "cluster", "--shards", str(n_shards),
+            "--demo-world", str(n_pairs), "--demo-receipts", str(receipts), "--demo-match-rate", str(match_rate),
+            "--store-dir", os.path.join(work, "seg"), "--queue-dir", os.path.join(work, "queue"),
+            "--port", "0", "--port-file", port_file, "--scrape-interval-s", "1"]
+    if torch.device(device).type != "cuda":  # a run of the phase on the CPU
+        argv += ["--backend", "cpu"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=here, env=dict(os.environ, PYTHONPATH=here),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    clients = None
+    failure = None
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(port_file) and proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not os.path.exists(port_file):
+            raise AssertionError(f"cli cluster --shards {n_shards} did not come up: {proc.poll()}")
+        start_ms = (time.perf_counter() - t0) * 1e3
+        with open(port_file) as fh:
+            port = int(fh.read())
+        clients = _Clients(port)
+        health = _call_json(clients, "cli cluster healthz", "GET", "/healthz")
+        if health["status"] != "ok" or health["shards_alive"] != n_shards:
+            raise AssertionError(f"cli cluster --shards {n_shards}: healthz {health}")
+        requests = [("POST", "/v1/generate", {"pair_index": i % n_pairs}) for i in range(CLI_CLUSTER_REQUESTS)]
+        answers, wall = _remote_closed_loop(port, requests, CLI_CLUSTER_CLIENTS)
+        n_proofs = 0
+        bundles = {}
+        for i, (status, _, raw, _, _) in enumerate(answers):
+            result = _ok_json("cli cluster generate", status, raw)["result"]
+            pair = i % n_pairs
+            if result["bundle"]["event_proofs"] != by_pair[pair]:
+                raise AssertionError(f"cli cluster generate: pair {pair}'s proofs differ from the driver's")
+            n_proofs += len(result["bundle"]["event_proofs"])
+            if by_pair[pair]:
+                bundles.setdefault(pair, result["bundle"])
+        # each pair's bundle verified through the router (placed by its
+        # digest on the ring: every shard verifies some)
+        verifies = [("POST", "/v1/verify", {"bundle": bundle}) for _, bundle in sorted(bundles.items())]
+        answers, verify_wall = _remote_closed_loop(port, verifies, CLI_CLUSTER_CLIENTS)
+        for status, _, raw, _, _ in answers:
+            if _ok_json("cli cluster verify", status, raw)["result"]["all_valid"] is not True:
+                raise AssertionError("cli cluster verify: a verdict is false")
+        time.sleep(1.5)  # one federation scrape after the load
+        status_obj = _call_json(clients, "cli cluster status", "GET", "/v1/cluster/status")
+        status, _, prom, _, _ = clients.request("GET", "/metrics.prom")
+        if status != 200 or b'shard="fleet"' not in prom or b'shard="router"' not in prom:
+            raise AssertionError(f"cli cluster metrics.prom: HTTP {status}")
+        router_counters = _call_json(clients, "cli cluster metrics", "GET", "/metrics.json")["counters"]
+        shard_snaps = {}
+        for name, entry in status_obj["ring"].items():
+            shard = _Clients(int(entry["url"].rsplit(":", 1)[1]))
+            try:
+                shard_snaps[name] = _call_json(shard, f"cli cluster shard {name} metrics", "GET", "/metrics.json")
+            finally:
+                shard.close()
+    except BaseException as exc:  # re-raised below with the cluster's stderr
+        failure = exc
+    finally:
+        if clients is not None:
+            clients.close()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    if failure is not None:
+        raise AssertionError(f"cli cluster --shards {n_shards}: {failure}; its stderr: {err[-3000:]}") from failure
+    if proc.returncode != 0:
+        raise AssertionError(f"cli cluster --shards {n_shards} exited {proc.returncode}: {err[-3000:]}")
+    logs = dict(re.findall(r"shard (s\d+) up at http://\S+ \(log (\S+)\)", err))
+    if sorted(logs) != sorted(shard_snaps) or len(logs) != n_shards:
+        raise AssertionError(f"cli cluster --shards {n_shards}: shard logs {logs}, ring {sorted(shard_snaps)}")
+    shards = {}
+    for name, path in sorted(logs.items()):
+        with open(path) as fh:
+            text = fh.read()
+        os.remove(path)
+        logged = [json.loads(line.split("kernel launches: ", 1)[1]) for line in text.splitlines()
+                  if "kernel launches: " in line]
+        if len(logged) != 2:
+            raise AssertionError(f"cli cluster shard {name}: {len(logged)} kernel launch lines: {text[-2000:]}")
+        started, drained = logged
+        served = {kernel: drained[kernel] - started[kernel] for kernel in drained}
+        snap = shard_snaps[name]
+        masks = snap["timers"].get("range_match", {}).get("calls", 0)
+        generates = snap["counters"].get("serve.batches.generate", 0)
+        verify_batches = snap["counters"].get("serve.batches.verify", 0)
+        if torch.device(device).type == "cuda":
+            # one flat mask a generate chunk, one TxMeta blake2b batch a
+            # merged verify batch (the CIDs off, as the cluster's shards run)
+            if not generates or masks < generates or not verify_batches:
+                raise AssertionError(f"cli cluster shard {name}: {masks} masks for {generates} generate batches, "
+                                     f"{verify_batches} verify batches")
+            _require_only(f"cli cluster shard {name}", served, event_match_mask=masks,
+                          blake2b256_single_block=verify_batches)
+        records, _, torn = read_journal(os.path.join(work, "queue", name, QUEUE_JOURNAL_NAME))
+        admitted = {r["key"] for r in records if r["t"] == "admit"}
+        if torn or admitted != {r["key"] for r in records if r["t"] == "done"}:
+            raise AssertionError(f"cli cluster shard {name}: an admit without its done record")
+        shards[name] = {"generate_batches": generates, "verify_batches": verify_batches,
+                        "admitted": len(admitted), "started": started, "launches": served}
+    return {
+        "shards": n_shards,
+        "start_ms": start_ms,
+        "rps": CLI_CLUSTER_REQUESTS / wall,
+        "proofs_per_s": n_proofs / wall,
+        "verify_requests": len(verifies),
+        "verify_rps": len(verifies) / verify_wall,
+        "steal_events": router_counters.get("cluster.steals", 0),
+        "shard_failovers": router_counters.get("cluster.shard_failovers", 0),
+        "per_shard": shards,
+        "exit": proc.returncode,
+    }
+
+
+def cli_cluster_phase(device, root: str) -> dict:
+    """``python -m ipc_proofs_tpu_torch.cli cluster --shards 4 --demo-world
+    256 --demo-receipts 8 --demo-match-rate 0.25`` with ``--store-dir`` and
+    ``--queue-dir``, as a user starts it (4 shard processes on the one
+    card), then the same with ``--shards 1``: 1,024 ``/v1/generate`` from 8
+    closed-loop clients each, every answer's proofs the chunked driver's for
+    its pair, then each pair's bundle (one with events) verified through the
+    router, every verdict true; ``/healthz`` ok with every shard alive,
+    ``/v1/cluster/status`` and the fleet ``/metrics.prom`` read; SIGTERM
+    exits 0 with a done record for every admit of every shard; each shard's
+    launches from its log: one flat event mask a generate chunk (its
+    ``range_match`` timer) and one TxMeta blake2b batch a merged verify
+    batch (``serve.batches.verify``), nothing else. Prints the JAX ``cluster`` leg's
+    ``aggregate_proofs_per_sec`` and ``cluster_linearity_4shard`` (recorded,
+    not gated: 8 CPUs and one card)."""
+    n_pairs, receipts, match_rate = CLI_CLUSTER_WORLD
+    store, pairs, _ = build_range_world(n_pairs, receipts_per_pair=receipts, match_rate=match_rate,
+                                        signature=SIGNATURE, topic1=TOPIC1)
+    spec = EventProofSpec(SIGNATURE, TOPIC1)
+    backend = get_backend("gpu", device=device)
+    by_pair = [generate_event_proofs_for_range_chunked(store, [pair], spec, chunk_size=8, match_backend=backend)
+               .to_json_obj()["event_proofs"] for pair in pairs]
+    if not any(by_pair):
+        raise AssertionError("cli cluster: the world has no matching event")
+    # the kernels exist already (phase 2); the CLI finds them built
+    four = _cli_cluster_run(4, device, os.path.join(root, "cli-cluster-4"), by_pair)
+    one = _cli_cluster_run(1, device, os.path.join(root, "cli-cluster-1"), by_pair)
+    total = {}
+    for shard in four["per_shard"].values():
+        for kernel, count in shard["launches"].items():
+            total[kernel] = total.get(kernel, 0) + count
+    return {
+        "pairs": n_pairs,
+        "requests": CLI_CLUSTER_REQUESTS,
+        "clients": CLI_CLUSTER_CLIENTS,
+        "aggregate_proofs_per_sec": four["proofs_per_s"],
+        "cluster_rps_4shard": four["rps"],
+        "cluster_rps_1shard": one["rps"],
+        "cluster_linearity_4shard": four["rps"] / (4 * one["rps"]),
+        "steal_events": four["steal_events"],
+        "runs": {"4": four, "1": one},
+        "launches": total,
+        "one_shard_launches": one["per_shard"]["s0"]["launches"],
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5404,7 +5936,9 @@ def main(argv=None) -> int:
         run("cli serve", cli_serve_phase, device, root)
         run("standing queries", subs_phase, world, device, root)
         run("backfill", backfill_phase, world, device, root)
+        run("cluster", cluster_phase, world, device, root)
         del world
+        run("cli cluster", cli_cluster_phase, device, root)
     cli_paths = paths.pop("cli generate, vectors, demo")
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
@@ -5433,6 +5967,12 @@ def main(argv=None) -> int:
     launch_counts["subs verify"] = paths["standing queries"]["verify_launches"]
     launch_counts["backfill stream"] = paths["backfill"]["stream_launches"]
     launch_counts["cli backfill"] = paths["backfill"]["cli_launches"]
+    launch_counts["cluster, stream"] = paths["cluster"]["stream_launches"]
+    launch_counts["cluster verify"] = paths["cluster"]["verify_launches"]
+    launch_counts["cluster load"] = paths["cluster"]["load_launches"]
+    launch_counts["cluster hostkill"] = paths["cluster"]["hostkill_launches"]
+    launch_counts["cluster backfill"] = paths["cluster"]["backfill_launches"]
+    launch_counts["cli cluster, 1 shard"] = paths["cli cluster"]["one_shard_launches"]
 
     rows = []
     for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
@@ -5661,6 +6201,24 @@ def main(argv=None) -> int:
         f"{bf['resumed_fresh_pairs_per_s']} pairs/s resumed; http {bf['http_pairs_per_s']} pairs/s, "
         f"stream_ttfb_ms {bf['stream_ttfb_ms']}, {bf['stream_chunks']} chunks in {bf['stream_polls']} polls; "
         f"cli {json.dumps(bf['cli'])}; stage busy ms, calls {json.dumps(bf['stages'])}"
+    )
+    clu, cc = paths["cluster"], paths["cli cluster"]
+    hk = clu["hostkill"]
+    _log(
+        f"cluster on {smi}: {clu['proofs']} proofs over {clu['pairs']} pairs at chunk {clu['chunk_size']}: "
+        f"proofs/s by shards {json.dumps(clu['proofs_per_s'])}, runs {json.dumps(clu['runs'])}; steal_events "
+        f"{clu['steal_events']}; hostkill: kill_recovery_ms {hk['kill_recovery_ms']}, replica_repair_hit_rate "
+        f"{hk['replica_repair_hit_rate']} ({hk['replica_repairs']} repaired of {hk['frames_flipped']} frames "
+        f"flipped), aggregate_proofs_per_sec_2host {hk['aggregate_proofs_per_sec_2host']}, "
+        f"cluster.shard_failovers {hk['shard_failovers']}; backfill {json.dumps(clu['backfill'])}"
+    )
+    _log(
+        f"cli cluster on {smi}: {cc['requests']} generates from {cc['clients']} clients over {cc['pairs']} pairs: "
+        f"aggregate_proofs_per_sec {cc['aggregate_proofs_per_sec']}, rps 4 shards {cc['cluster_rps_4shard']} / "
+        f"1 shard {cc['cluster_rps_1shard']}, cluster_linearity_4shard {cc['cluster_linearity_4shard']}, "
+        f"steal_events {cc['steal_events']}, up in {cc['runs']['4']['start_ms']} / {cc['runs']['1']['start_ms']} ms, "
+        f"routed verify req/s {cc['runs']['4']['verify_rps']} / {cc['runs']['1']['verify_rps']}; "
+        f"per shard {json.dumps({k: [v['generate_batches'], v['launches']] for k, v in cc['runs']['4']['per_shard'].items()})}"
     )
     _log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,4 @@
-"""Command-line interface: generate / verify / range / backfill / vectors / cert / demo / serve.
+"""Command-line interface: generate / verify / range / backfill / vectors / cert / demo / serve / cluster.
 
 The counterpart of ``ipc_proofs_tpu.cli`` for the PyTorch/CUDA port, with
 the reference's flags and exit codes:
@@ -21,6 +21,9 @@ the reference's flags and exit codes:
         --port-file port.txt [--check-cids] [--store-dir D] [--queue-dir Q] \
         [--registry-dir R] [--subs-dir S] [--slo on] \
         [--backfill-jobs-dir B]   # the proof daemon over JSON-HTTP
+    python -m ipc_proofs_tpu_torch.cli cluster --shards 4 --demo-world 256 \
+        --port 0 --port-file port.txt [--queue-dir Q] [--store-dir D] \
+        [--replication-factor 2]   # N serve shards behind one router
 
 ``--backend`` picks where the kernels run: ``gpu`` (the default, the card:
 the event mask, the slot keccaks, the witness CID and TxMeta recomputes;
@@ -81,8 +84,17 @@ the fetch plane (``--batch-rpc``, verifying every wave on the
 shards its masks as ``range``'s does. A fault of the card stops the job
 (``faulted``, not failed; exit 1) with its windows journalled.
 
-Not ported yet: the ``cluster`` subcommand, which comes with the cluster
-router. ``--batch-verify`` has no counterpart: every fetch-plane wave, pool batch
+``cluster`` spawns ``--shards`` ``serve`` children over one ``--demo-world``
+(each with ``--backend``, default the card: N processes on this host's one
+card) behind a `cluster.RouterHTTPServer` that speaks the single daemon's
+wire protocol (steal-aware placement, failover, scatter-gather ranges,
+``--shard-url`` members, ``--replication-factor`` segment replicas, fleet
+``/metrics.prom`` and ``/v1/cluster/status``). Under ``--backend gpu`` it
+builds the kernels once before the first shard starts; each shard's stderr,
+with its ``kernel launches:`` lines, goes to the log file it names at start.
+SIGTERM drains the router, then every shard.
+
+``--batch-verify`` has no counterpart: every fetch-plane wave, pool batch
 read and disk read of the port goes through the verify lane.
 """
 
@@ -1145,6 +1157,236 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _cmd_cluster(args) -> int:
+    """Sharded serve plane: spawn N serve shards + the consistent-hash
+    router, all over one hermetic ``--demo-world``.
+
+    Each shard is a full ``serve`` child process (own GIL, own durable
+    queue under ``--queue-dir/s<k>``, own ``--store-owner`` token in the
+    shared ``--store-dir``) running its kernels on ``--backend`` (the card
+    by default: every shard on the one card this host has); the router
+    front door speaks the exact single-daemon wire protocol, so existing
+    clients work unchanged. The router launches no kernel. Under
+    ``--backend gpu`` the parent builds the kernels once (nvcc needs no
+    CUDA context) before any shard starts, so N children never race N
+    compilers; each shard's stderr, with its ``kernel launches:`` lines,
+    goes to the log file this command names for it.
+    """
+    import os
+    import signal
+
+    from ipc_proofs_tpu_torch.cluster import (
+        ClusterRouter,
+        RemoteShard,
+        RouterHTTPServer,
+        spawn_serve_shard,
+    )
+    from ipc_proofs_tpu_torch.fixtures import build_range_world
+    from ipc_proofs_tpu_torch.obs import tracing_enabled
+    from ipc_proofs_tpu_torch.utils.metrics import Metrics
+
+    shard_urls = list(args.shard_url or ())
+    if args.shards < 1 and not shard_urls:
+        log.error("--shards must be >= 1 (or give at least one --shard-url)")
+        return 2
+    if args.shards < 0:
+        log.error("--shards must be >= 0")
+        return 2
+    if not args.demo_world:
+        log.error("cluster currently requires --demo-world (hermetic mode)")
+        return 2
+    tenant_weights = _parse_tenant_weights(args.tenant_weight)
+    # the card first: a host without CUDA fails here, before any shard
+    _backend(args.backend)
+    if args.backend == "gpu" and args.shards:
+        from ipc_proofs_tpu_torch.ops.build import DeviceFaultError, build_libraries
+
+        try:
+            build_libraries(["blake2b", "keccak"])
+        except DeviceFaultError as exc:
+            log.error("kernel build failed: %s", exc)
+            return 1
+
+    metrics = Metrics()
+    tracing = tracing_enabled()  # a trace flag was given (`_traced`)
+    sig = args.event_sig or "NewTopDownMessage(bytes32,uint256)"
+    topic1 = args.topic1 or "calib-subnet-1"
+    # the router needs the pair table the shards will rebuild — the world
+    # builder is deterministic, so building it here yields the same table
+    _store, pairs, _n = build_range_world(
+        args.demo_world,
+        receipts_per_pair=args.demo_receipts,
+        match_rate=args.demo_match_rate,
+        signature=sig,
+        topic1=topic1,
+    )
+
+    extra: "list[str]" = [
+        "--demo-receipts", str(args.demo_receipts),
+        "--demo-match-rate", str(args.demo_match_rate),
+        "--backend", args.backend,
+    ]
+    if tracing:
+        # the shards must run their span collector too so sampled requests
+        # ship their subtree back for stitching (the router grafts them
+        # under its dispatch spans); the shard-side export goes nowhere
+        extra += [
+            "--trace-out", os.devnull,
+            "--trace-sample", str(args.trace_sample),
+        ]
+    if args.store_cap_bytes is not None:
+        extra += ["--store-cap-bytes", str(args.store_cap_bytes)]
+    if args.store_segment_max_bytes is not None:
+        extra += ["--store-segment-max-bytes", str(args.store_segment_max_bytes)]
+    # witness diet knobs are cluster-wide: every shard must negotiate the
+    # same encodings or the router's scatter-gather sees mixed wire shapes
+    extra += [
+        "--witness-delta", args.witness_delta,
+        "--witness-compress", args.witness_compress,
+        "--witness-agg-max", str(args.witness_agg_max),
+        "--witness-base-cache", str(args.witness_base_cache),
+    ]
+    if tenant_weights:
+        # fair-lane weights apply where the queues live: in each shard's
+        # batcher (the router door throttles, shards order)
+        for name, weight in sorted(tenant_weights.items()):
+            extra += ["--tenant-weight", f"{name}={weight}"]
+    if args.subs_dir:
+        # push/retry knobs are cluster-wide; the registry itself shards
+        # per process (DIR/s<k>) and the router places subscriptions on
+        # their filter-affine arc
+        extra += [
+            "--push-max-inflight", str(args.push_max_inflight),
+            "--delivery-retry-attempts", str(args.delivery_retry_attempts),
+            "--delivery-retry-base-s", str(args.delivery_retry_base_s),
+            "--delivery-retry-max-s", str(args.delivery_retry_max_s),
+            "--subs-log-cap-bytes", str(args.subs_log_cap_bytes),
+        ]
+
+    shards = []
+    try:
+        for k in range(args.shards):
+            name = f"s{k}"
+            shard_extra = list(extra)
+            if args.subs_dir:
+                shard_extra += [
+                    "--subs-dir", os.path.join(args.subs_dir, name)
+                ]
+            if args.registry_dir:
+                # ONE shared provenance/base directory, one single-writer
+                # log per shard (reg-s<k>.log) — this sharing is what lets
+                # any shard answer for a base another shard served
+                shard_extra += [
+                    "--registry-dir", args.registry_dir,
+                    "--registry-owner", name,
+                    "--registry-fsync", args.registry_fsync,
+                    "--subs-fleet", args.subs_fleet,
+                ]
+            shards.append(
+                spawn_serve_shard(
+                    name,
+                    args.demo_world,
+                    sig,
+                    topic1,
+                    store_dir=args.store_dir,
+                    queue_dir=(
+                        os.path.join(args.queue_dir, name)
+                        if args.queue_dir
+                        else None
+                    ),
+                    extra_args=shard_extra,
+                )
+            )
+            log.info(
+                "shard %s up at %s (log %s)",
+                name, shards[-1].url, shards[-1].log_path,
+            )
+    except RuntimeError as exc:
+        log.error("shard spawn failed: %s", exc)
+        for sh in shards:
+            sh.kill()
+        return 1
+
+    # multi-host members: daemons someone else runs, probed before
+    # admission so a typo'd URL fails loudly at boot instead of as a
+    # string of failovers under traffic
+    for url in shard_urls:
+        member = RemoteShard(url)
+        health = member.probe()
+        if health is None:
+            log.error("remote shard %s is unreachable — not admitted", url)
+            for sh in shards:
+                sh.kill()
+            return 1
+        log.info(
+            "remote shard %s up at %s (status=%s)",
+            member.name, member.url, health.get("status"),
+        )
+        shards.append(member)
+
+    slo = None
+    if args.slo == "on":
+        slo = _build_slo_watchdog(args, metrics)
+    router = ClusterRouter(
+        {sh.name: sh.url for sh in shards},
+        pairs,
+        steal_threshold=args.steal_threshold,
+        steal_latency_unit_s=args.steal_latency_unit_s,
+        deadline_floor_ms=args.deadline_floor_ms,
+        replication_factor=args.replication_factor,
+        cut_through=(args.cut_through == "on"),
+        metrics=metrics,
+        scrape_interval_s=args.scrape_interval_s,
+        scrape_timeout_s=args.scrape_timeout_s,
+        slo=slo,
+        tenant_top_k=args.tenant_top_k,
+        # QoS lives at the front door only: a router-admitted request
+        # must never 429 mid-scatter, so shards run unthrottled
+        tenant_rate=args.tenant_rate,
+        tenant_burst=args.tenant_burst,
+    )
+    httpd = RouterHTTPServer(router, host=args.host, port=args.port)
+    httpd.start()
+    if args.port_file:
+        tmp = args.port_file + ".tmp"
+        with open(tmp, "w") as fh:
+            fh.write(str(httpd.port))
+        os.replace(tmp, args.port_file)
+    log.info(
+        "cluster router on %s (%d shards, steal_threshold=%d, pairs=%d, "
+        "shard kernels on --backend %s)",
+        httpd.address, len(shards), args.steal_threshold, len(pairs),
+        args.backend,
+    )
+    if args.replication_factor > 1:
+        # seed the replica tier now — every owner's segments mirror onto
+        # its ring successors before the first corrupt frame needs them
+        summary = router.replicate_now()
+        log.info(
+            "replication pass: R=%d, %d under-replicated arc(s), "
+            "lag=%d segment(s)",
+            args.replication_factor,
+            len(summary.get("under_replicated") or ()),
+            summary.get("lag_segments", 0),
+        )
+
+    def _sigterm(_signum, _frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        log.info("cluster draining (router first, then shards)…")
+    finally:
+        httpd.shutdown()
+        for sh in shards:
+            sh.stop()
+    log.info("cluster down; router metrics:\n%s", json.dumps(metrics.snapshot()))
+    return 0
+
+
 def _kernel_launches() -> dict:
     """Every kernel wrapper's launch count in this process (a wrapper
     counts its launches on the card, never a CPU tensor's plain version)."""
@@ -1843,6 +2085,98 @@ def main(argv=None) -> int:
     add_trace_export_flags(srv)
     add_tenant_admission_flags(srv)
     srv.set_defaults(fn=_cmd_serve)
+
+    clu = sub.add_parser(
+        "cluster",
+        help="sharded serve plane: N serve shard processes behind a "
+        "consistent-hash scatter-gather router (single-daemon wire "
+        "protocol at the front door)",
+    )
+    clu.add_argument("--host", default="127.0.0.1")
+    clu.add_argument("--port", type=int, default=8410)
+    clu.add_argument(
+        "--port-file", default=None, metavar="PATH",
+        help="write the router's bound port to PATH once listening",
+    )
+    clu.add_argument(
+        "--shards", type=int, default=4, metavar="N",
+        help="serve shard processes to spawn (default 4)",
+    )
+    clu.add_argument(
+        "--steal-threshold", type=int, default=4, metavar="D",
+        help="steal a request from its affine shard when that shard's "
+        "EFFECTIVE load (in-flight depth + latency penalty) exceeds the "
+        "least-loaded shard's by D (affinity is a cache hint, never a "
+        "correctness constraint; default 4)",
+    )
+    clu.add_argument(
+        "--steal-latency-unit-s", type=float, default=0.25, metavar="S",
+        help="latency-penalty unit for placement: a shard's observed "
+        "dispatch EWMA counts as ewma/S phantom queue slots, so slow "
+        "(cross-host) members lose steals they'd win on raw queue depth "
+        "(default 0.25)",
+    )
+    clu.add_argument(
+        "--shard-url", action="append", default=None, metavar="URL",
+        help="admit an ALREADY-RUNNING serve daemon on another host as a "
+        "cluster member (repeatable). The member must serve the same "
+        "--demo-world pair table; it is health-probed before admission "
+        "and failed over like a spawned shard if it stops answering",
+    )
+    clu.add_argument(
+        "--replication-factor", type=int, default=1, metavar="R",
+        help="replicate each shard's hot segment files onto the next R-1 "
+        "distinct ring successors (R=1 disables). Arms peer-first "
+        "read-repair of corrupt frames and re-replication after a host "
+        "death. Shards need --store-dir to hold replicas (default 1)",
+    )
+    clu.add_argument(
+        "--cut-through", default="on", choices=["on", "off"],
+        help="relay shard stream chunks through the router as they "
+        "arrive on streamed range responses, instead of buffering each "
+        "shard's JSON sub-response (default on)",
+    )
+    clu.add_argument(
+        "--demo-world", type=int, default=0, metavar="N_PAIRS",
+        help="hermetic synthetic range world served by every shard "
+        "(deterministic build → identical pair table in each; required)",
+    )
+    clu.add_argument(
+        "--demo-receipts", type=int, default=16, metavar="N",
+        help="receipts per pair in the demo world (default 16)",
+    )
+    clu.add_argument(
+        "--demo-match-rate", type=float, default=0.01,
+        help="fraction of demo-world events matching the spec (default 0.01)",
+    )
+    clu.add_argument("--event-sig", default=None)
+    clu.add_argument("--topic1", default=None)
+    add_store_flags(clu)
+    add_subs_flags(clu)
+    add_witness_flags(clu)
+    add_registry_flags(clu)
+    _add_backend_flag(clu)
+    clu.add_argument(
+        "--queue-dir", default=None, metavar="DIR",
+        help="durable admission root: each shard journals under DIR/s<k> "
+        "(crash recovery + idempotency dedup per shard — what makes the "
+        "router's at-least-once failover retries safe)",
+    )
+    add_trace_export_flags(clu)
+    add_slo_flags(clu)
+    add_tenant_admission_flags(clu)
+    clu.add_argument(
+        "--scrape-interval-s", type=float, default=5.0,
+        help="fleet federation: router background-scrape interval for "
+        "each shard's /metrics.json + /healthz (default 5)",
+    )
+    clu.add_argument(
+        "--scrape-timeout-s", type=float, default=2.0,
+        help="per-shard scrape timeout; a slow or dead shard drops out "
+        "of the fleet view for that round instead of stalling it "
+        "(default 2)",
+    )
+    clu.set_defaults(fn=_cmd_cluster)
 
     args = parser.parse_args(argv)
     if getattr(args, "event_sig", None) and not getattr(args, "topic1", None):

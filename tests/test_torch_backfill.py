@@ -20,6 +20,9 @@ throughout:
   standing-query catch-up deliveries;
 - the HTTP door (``POST /v1/backfill``, ``GET /v1/backfill[/<id>[/chunks]]``
   buffered and streamed), its 400s and 404s;
+- the doors of a `LocalShard` built with ``backfill_jobs_dir`` (and its
+  404 without one), and the router's door over two shards: the same job,
+  the same polled chunks, folding to the sealed bundle;
 - a fault of the card: the job is ``faulted`` (never ``failed``, never
   ``backfill.window_failures``), its committed windows stay journalled and
   resume, and over HTTP it is a 500 ``error_type: device`` and a ``device``
@@ -713,3 +716,105 @@ def test_shutdown_stops_slo_then_backfill_then_subs_then_service(both):
                             subs=_Rec("subs", "drain")).start()
     httpd.shutdown(timeout=30)
     assert order == ["slo", "backfill", "subs", "service"]
+
+
+# --- the LocalShard and router doors -----------------------------------------
+
+
+def _shards(both, pkg, n, jobs_root=None):
+    import ipc_proofs_tpu.cluster as ref_cluster
+    import ipc_proofs_tpu_torch.cluster as port_cluster
+    from ipc_proofs_tpu.serve.service import ServiceConfig as RefConfig
+
+    store, pairs, _ = both[0] if pkg == "port" else both[1]
+    cluster = port_cluster if pkg == "port" else ref_cluster
+    spec, config = (_spec(), ServiceConfig(device="cpu")) if pkg == "port" else (_ref_spec(), RefConfig())
+    return [
+        cluster.LocalShard(
+            f"bf{i}", store, pairs, spec, config=config,
+            backfill_jobs_dir=os.path.join(jobs_root, f"bf{i}") if jobs_root else None, backfill_window_size=8,
+        ).start()
+        for i in range(n)
+    ]
+
+
+def _fold_polled(both, chunks):
+    (store, pairs, _), _ = both
+    fold = port_gather.BundleFold(pairs, range(N_PAIRS))
+    for chunk in chunks:
+        fold.fold(UnifiedProofBundle.from_json_obj(chunk["bundle"]))
+    whole = generate_event_proofs_for_range(store, pairs, _spec(), match_backend=CPU)
+    assert fold.seal().to_json() == whole.to_json()
+
+
+def test_local_shard_door_matches_the_reference(both, tmp_path):
+    """The reference's ``TestHTTPDoor`` over `LocalShard` with
+    ``backfill_jobs_dir``: submit, poll to the end, fold, status, listing
+    and an idempotent re-submit, equal in both packages."""
+    shards = [_shards(both, pkg, 1, str(tmp_path / pkg))[0] for pkg in ("port", "ref")]
+    try:
+        ports = [s.httpd.port for s in shards]
+        submitted = [post(p, "/v1/backfill", {"pair_start": 0, "pair_end": N_PAIRS})[2] for p in ports]
+        job_id = submitted[0]["job_id"]
+        assert submitted[1]["job_id"] == job_id and submitted[0]["windows_total"] == N_PAIRS // 8
+        polled = [_poll_to_end(p, job_id) for p in ports]
+        assert polled[0] == polled[1] and len(polled[0][0]) == N_PAIRS // 8
+        assert polled[0][1]["state"] == "complete"
+        _fold_polled(both, polled[0][0])
+        for p in ports:
+            status, _, st = get(p, f"/v1/backfill/{job_id}")
+            assert status == 200 and st["state"] == "complete"
+            status, _, listing = get(p, "/v1/backfill")
+            assert status == 200 and [j["job_id"] for j in listing["jobs"]] == [job_id]
+            status, _, again = post(p, "/v1/backfill", {"pair_start": 0, "pair_end": N_PAIRS})
+            assert status == 200 and again["job_id"] == job_id
+    finally:
+        for s in shards:
+            s.stop(timeout=60)
+
+
+def test_local_shard_without_jobs_dir_answers_the_references_404s(both):
+    shards = [_shards(both, pkg, 1)[0] for pkg in ("port", "ref")]
+    try:
+        answers = []
+        for s in shards:
+            answers.append((get(s.httpd.port, "/v1/backfill")[::2],
+                            post(s.httpd.port, "/v1/backfill", {"pair_start": 0, "pair_end": 2})[::2]))
+        assert answers[0] == answers[1]
+        (status, body), _ = answers[0]
+        assert status == 404 and "disabled" in body["error"]
+    finally:
+        for s in shards:
+            s.stop(timeout=60)
+
+
+def test_router_door_matches_the_reference(both, tmp_path):
+    """``POST /v1/backfill`` through each package's router over two shards:
+    the same job id and windows, chunks folding to the sealed bundle."""
+    import ipc_proofs_tpu.cluster as ref_cluster
+    import ipc_proofs_tpu_torch.cluster as port_cluster
+
+    results = []
+    for pkg, cluster in (("port", port_cluster), ("ref", ref_cluster)):
+        shards = _shards(both, pkg, 2)
+        pairs = (both[0] if pkg == "port" else both[1])[1]
+        router = cluster.ClusterRouter({s.name: s.url for s in shards}, pairs, scrape_interval_s=60.0,
+                                       backfill_jobs_dir=str(tmp_path / pkg), backfill_window_size=8)
+        server = cluster.RouterHTTPServer(router).start()
+        try:
+            status, _, job = post(server.port, "/v1/backfill", {"pair_start": 0, "pair_end": N_PAIRS})
+            assert status == 200
+            chunks, last = _poll_to_end(server.port, job["job_id"])
+            # two windows run at once: their commit order (the cursor) is the host's
+            chunks = sorted(({k: v for k, v in c.items() if k != "cursor"} for c in chunks),
+                            key=lambda c: c["window"]["index"])
+            status, _, listing = get(server.port, "/v1/backfill")
+            results.append((job["job_id"], job["windows_total"], chunks, last["state"],
+                            [j["job_id"] for j in listing["jobs"]]))
+        finally:
+            server.shutdown(timeout=60)
+            for s in shards:
+                s.stop(timeout=60)
+    assert results[0] == results[1]
+    assert results[0][3] == "complete" and len(results[0][2]) == results[0][1] == N_PAIRS // 8
+    _fold_polled(both, results[0][2])

@@ -802,3 +802,127 @@ def test_backfill_demo_world_is_byte_equal(tmp_path):
     ref_rc, ref_out, rc, out = _both(tmp_path, ["backfill", "--demo-world", "12", "--window-size", "5",
                                                 "--backend", "cpu"], "demo.json")
     assert ref_rc == rc == 0 and out == ref_out and json.loads(out)["event_proofs"]
+
+
+# --------------------------------------------------------------------------
+# cluster: the port's router over two serve children
+# --------------------------------------------------------------------------
+
+_CLUSTER_CHILD = """
+import runpy, sys
+sys.argv = ["ipc_proofs_tpu_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("ipc_proofs_tpu_torch.cli", run_name="__main__")
+finally:
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ipc_proofs_tpu"))
+    print("LOADED", bad, flush=True)
+"""
+
+
+def test_cluster_serves_the_single_daemons_bytes_and_drains_on_sigterm(tmp_path):
+    """``cluster --shards 2 --backend cpu --demo-world 8``: the router
+    answers a scatter with the reference's single-daemon bytes, a generate
+    and its verify, a healthy ``/healthz`` with both shards, the cluster
+    status and the fleet exposition; SIGTERM drains the router and both
+    shards (exit 0, a done record for every admit in each shard's queue);
+    each shard's log, named at start, holds its two ``kernel launches:``
+    lines (all zero on the plain versions); the router's trace (the shards
+    trace too, and ship their spans back) holds the scatter grafted from
+    both shards; the router process loads neither ``jax`` nor the
+    reference."""
+    import os
+    import re
+    import signal
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    from ipc_proofs_tpu.fixtures import build_range_world as ref_build_range_world
+    from ipc_proofs_tpu.proofs.generator import EventProofSpec as RefSpec
+    from ipc_proofs_tpu.proofs.range import generate_event_proofs_for_range_chunked as ref_chunked
+    from ipc_proofs_tpu_torch.jobs.journal import read_journal
+
+    sig, topic1 = "NewTopDownMessage(bytes32,uint256)", "calib-subnet-1"
+    repo = Path(__file__).resolve().parent.parent
+    port_file = tmp_path / "port"
+    argv = [sys.executable, "-c", _CLUSTER_CHILD, "cluster", "--shards", "2", "--backend", "cpu",
+            "--demo-world", "8", "--demo-receipts", "8", "--demo-match-rate", "0.25", "--port", "0",
+            "--port-file", str(port_file), "--queue-dir", str(tmp_path / "q"), "--scrape-interval-s", "0.2",
+            "--trace-out", str(tmp_path / "trace.json")]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    proc = subprocess.Popen(argv, cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while not port_file.exists() and proc.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert port_file.exists(), proc.communicate(timeout=30)
+        base = f"http://127.0.0.1:{port_file.read_text()}"
+        status, health = _http(base, "/healthz")
+        assert status == 200 and health["status"] == "ok" and health["shards_alive"] == 2
+        status, obj = _http(base, "/v1/generate_range", {"pair_indexes": list(range(8))})
+        assert status == 200 and obj["n_groups"] == 2
+        store, pairs, _ = ref_build_range_world(8, receipts_per_pair=8, match_rate=0.25, signature=sig, topic1=topic1)
+        direct = ref_chunked(store, pairs, RefSpec(event_signature=sig, topic_1=topic1), chunk_size=8)
+        assert json.dumps(obj["bundle"], sort_keys=True) == json.dumps(direct.to_json_obj(), sort_keys=True)
+        assert direct.event_proofs
+        status, gen = _http(base, "/v1/generate", {"pair_index": 3})
+        assert status == 200
+        status, verdict = _http(base, "/v1/verify", {"bundle": gen["result"]["bundle"]})
+        assert status == 200 and verdict["result"]["all_valid"] is True
+        time.sleep(0.5)  # one federation scrape
+        status, cs = _http(base, "/v1/cluster/status")
+        assert status == 200 and set(cs["ring"]) == {"s0", "s1"} and cs["router"]["requests"] == 3
+        status, prom = _http(base, "/metrics.prom")
+        assert status == 200 and 'shard="fleet"' in prom and 'shard="router"' in prom
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    rc = proc.returncode
+    assert rc == 0, err[-3000:]
+    assert "LOADED []" in out, out
+    events = json.loads((tmp_path / "trace.json").read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    names = {e.get("name") for e in events}
+    assert {"cluster.generate_range", "cluster.dispatch", "http.generate_range"} <= names, sorted(names)[:40]
+    logs = dict(re.findall(r"shard (s\d) up at http://127\.0\.0\.1:\d+ \(log (\S+)\)", err))
+    assert sorted(logs) == ["s0", "s1"], err[-3000:]
+    for name, path in logs.items():
+        text = Path(path).read_text()
+        lines = [json.loads(line.split("kernel launches: ", 1)[1]) for line in text.splitlines()
+                 if "kernel launches: " in line]
+        assert len(lines) == 2 and all(set(c.values()) == {0} for c in lines), text[-2000:]
+        os.remove(path)
+        records, _, torn = read_journal(str(tmp_path / "q" / name / "queue.bin"))
+        admits = {r["key"] for r in records if r["t"] == "admit"}
+        assert not torn and admits == {r["key"] for r in records if r["t"] == "done"}, (name, records)
+    assert sum(len(read_journal(str(tmp_path / "q" / n / "queue.bin"))[0]) for n in logs) == 2 * 4
+
+
+def _subcommand_options(cli, command, monkeypatch) -> dict:
+    """Option string → (dest, default, choices) of ``cli``'s ``command``
+    parser, captured where `main` parses."""
+    import argparse
+
+    captured = {}
+
+    def capture(self, args=None, namespace=None):
+        captured["parser"] = self
+        raise SystemExit(0)
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(SystemExit):
+            cli.main([command])
+    sub = next(a for a in captured["parser"]._actions if isinstance(a, argparse._SubParsersAction))
+    return {opt: (a.dest, a.default, a.choices) for a in sub.choices[command]._actions for opt in a.option_strings}
+
+
+def test_cluster_takes_every_reference_flag_and_backend(monkeypatch):
+    """``cluster --help`` of the port lists every flag of the reference's,
+    with its default and choices, and ``--backend`` (default the card)."""
+    port = _subcommand_options(port_cli, "cluster", monkeypatch)
+    ref = _subcommand_options(ref_cli, "cluster", monkeypatch)
+    assert set(port) - set(ref) == {"--backend"}
+    assert {opt: port[opt] for opt in ref} == ref
+    assert port["--backend"] == ("backend", "gpu", ("gpu", "cpu", "none"))

@@ -816,3 +816,51 @@ def test_backfill_window_on_card_equals_cpu(cuda_device, tmp_path, monkeypatch):
     blake2b.reset_launch_counts()
     result = verify_proof_bundle(sealed, TrustPolicy.accept_all(), verify_witness_cids=True)
     assert result.all_valid() and sum(blake2b.LAUNCHES.values()) >= 1
+
+
+def test_cluster_router_over_card_shards_equals_the_driver(cuda_device, monkeypatch):
+    """Two `LocalShard`s on the card behind a `ClusterRouter`: the scatter
+    is byte-identical to the chunked driver on the CPU, with one mask launch
+    a chunk of each group the router formed (unfused scan; the shards share
+    this process's counters), and a routed verify launches exactly the
+    blake2b set a single daemon launches for the same request."""
+    from ipc_proofs_tpu_torch.cluster import ClusterRouter, LocalShard, pair_ring_key
+    from ipc_proofs_tpu_torch.proofs.bundle import UnifiedProofBundle
+    from ipc_proofs_tpu_torch.serve import ProofService, ServiceConfig
+
+    monkeypatch.setenv("IPC_SCAN_FUSED_MATCH", "0")
+    sig, topic = "NewTopDownMessage(bytes32,uint256)", "calib-subnet-1"
+    store, pairs, _ = build_range_world(16, 6, 3, 0.3, signature=sig, topic1=topic)
+    spec = EventProofSpec(sig, topic)
+    config = ServiceConfig(max_wait_ms=1.0, verify_witness_cids=True)
+    shards = [LocalShard(f"s{i}", store, pairs, spec, config=config).start() for i in range(2)]
+    router = ClusterRouter({s.name: s.url for s in shards}, pairs, scrape_interval_s=60.0)
+    try:
+        match.LAUNCHES.update(dict.fromkeys(match.LAUNCHES, 0))
+        status, obj = router.generate_range(list(range(16)), chunk_size=4)
+        torch.cuda.synchronize()
+        launches = dict(match.LAUNCHES)
+        assert status == 200 and obj["n_groups"] == 2
+        with router._lock:
+            owners = [router._affinity_locked(pair_ring_key(p)) for p in pairs]
+        chunks = sum(-(-owners.count(name) // 4) for name in set(owners))
+        assert launches["event_match_mask_fp"] == chunks
+        want = generate_event_proofs_for_range_chunked(store, pairs, spec, chunk_size=4,
+                                                       match_backend=get_backend("gpu", device="cpu"))
+        assert UnifiedProofBundle.from_json_obj(obj["bundle"]).to_json() == want.to_json()
+
+        body = {"bundle": obj["bundle"]}
+        blake2b.reset_launch_counts()
+        status, routed = router.verify(body)
+        torch.cuda.synchronize()
+        routed_launches = dict(blake2b.LAUNCHES)
+        assert status == 200 and routed["all_valid"] is True
+    finally:
+        router.close()
+        for s in shards:
+            s.stop(timeout=60)
+    with ProofService(config=config) as single:
+        blake2b.reset_launch_counts()
+        assert single.verify(want).all_valid()
+        torch.cuda.synchronize()
+    assert routed_launches == dict(blake2b.LAUNCHES) and sum(routed_launches.values()) >= 2

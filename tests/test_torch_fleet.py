@@ -1,15 +1,19 @@
 """The port's fleet observability (`obs/fleet.py`) against the JAX
 package's.
 
-The reference's ``tests/test_fleet.py`` classes that need no cluster
-router (`TestTenantLedger`, `TestMergeMath`, `TestFleetPrometheus`,
-`TestFleetFederation`, `TestGraftSpans`) run on both packages (``fleet`` =
-the port's module or the reference's) with the same assertions, and the
-outputs are compared: the same snapshots render byte-equal expositions, the
-same flight rings merge equal, the same shipped spans graft the same
-subtree. A federation scrapes live daemons of both packages, and a traced,
-carried request to the port's daemon ships the span subtree the grafting
-expects.
+The reference's ``tests/test_fleet.py`` classes run on both packages
+(``fleet`` = the port's module or the reference's) with the same
+assertions, and the outputs are compared: the same snapshots render
+byte-equal expositions, the same flight rings merge equal, the same shipped
+spans graft the same subtree. A federation scrapes live daemons of both
+packages, and a traced, carried request to the port's daemon ships the span
+subtree the grafting expects. The router's fleet surfaces
+(``TestRouterFleetSurfaces``: tenant accounting at the door and on the
+shards, ``/metrics.json``, ``/metrics.prom``, ``/v1/cluster/status``,
+``/debug/flight``, a dead shard dropping out) run over each package's
+`ClusterRouter` and `LocalShard`s, and ``TestEndToEndStitch`` runs the
+port's router over two ``serve --backend cpu`` children from
+`spawn_serve_shard`: one sampled scatter is one rooted span tree.
 """
 
 import os
@@ -368,3 +372,192 @@ def test_carried_request_ships_its_subtree_for_grafting(_clean_flight_rings):
     finally:
         httpd.shutdown(timeout=30)
         port_obs.disable_tracing()
+
+
+# --------------------------------------------------------------------------
+# TestRouterFleetSurfaces: the router's fleet surfaces over LocalShards
+# --------------------------------------------------------------------------
+
+import ipc_proofs_tpu.cluster as ref_cluster  # noqa: E402
+import ipc_proofs_tpu_torch.cluster as port_cluster  # noqa: E402
+from ipc_proofs_tpu.proofs.generator import EventProofSpec as RefSpec  # noqa: E402
+from ipc_proofs_tpu.serve.service import ServiceConfig as RefServiceConfig  # noqa: E402
+from ipc_proofs_tpu_torch.proofs.generator import EventProofSpec  # noqa: E402
+from ipc_proofs_tpu_torch.serve import ServiceConfig  # noqa: E402
+
+from _torch_http import SIG, SUBNET, get, request  # noqa: E402
+
+CLUSTERS = {
+    "port": (port_cluster, port_fleet, EventProofSpec, lambda: ServiceConfig(device="cpu")),
+    "ref": (ref_cluster, ref_fleet, RefSpec, RefServiceConfig),
+}
+
+
+@pytest.fixture(params=sorted(CLUSTERS))
+def fleet_cluster(request):
+    cluster, fleet, Spec, config = CLUSTERS[request.param]
+    port_world, ref_world = worlds(4, receipts=4, events=2, match_rate=0.3, base_height=61_000)
+    store, pairs, _ = port_world if request.param == "port" else ref_world
+    shards = [
+        cluster.LocalShard(f"s{i}", store, pairs, Spec(event_signature=SIG, topic_1=SUBNET), config=config()).start()
+        for i in range(2)
+    ]
+    router = cluster.ClusterRouter(
+        {s.name: s.url for s in shards}, pairs, scrape_interval_s=60.0, scrape_timeout_s=5.0
+    )
+    server = cluster.RouterHTTPServer(router).start()
+    yield server.port, router, shards, fleet
+    server.shutdown(timeout=10)
+    for s in shards:
+        try:
+            s.stop(timeout=10)
+        except Exception:
+            pass
+
+
+def _shard_json(shard, path):
+    return get(int(shard.url.rsplit(":", 1)[1]), path)[2]
+
+
+def test_tenant_accounting_front_door_and_forwarded(fleet_cluster):
+    port, router, shards, fleet = fleet_cluster
+    assert post(port, "/v1/generate", {"pair_index": 0, "tenant": "acme corp!"})[0] == 200
+    assert post(port, "/v1/generate", {"pair_index": 1}, headers={"X-IPC-Tenant": "beta"})[0] == 200
+    assert post(port, "/v1/generate", {"pair_index": 2})[0] == 200
+    assert router.metrics.counter_value("tenant.requests.acme_corp_") == 1
+    assert router.metrics.counter_value("tenant.requests.beta") == 1
+    assert router.metrics.counter_value("tenant.requests.anonymous") >= 1
+    assert router.metrics.counter_value("tenant.bytes.acme_corp_") > 0
+    shard_counters = fleet.merge_counters(_shard_json(s, "/metrics.json").get("counters", {}) for s in shards)
+    assert shard_counters.get("tenant.requests.acme_corp_", 0) == 1
+    assert shard_counters.get("tenant.requests.beta", 0) == 1
+
+
+def test_metrics_json_and_prom_surfaces(fleet_cluster):
+    port, _router, _shards, _fleet = fleet_cluster
+    assert post(port, "/v1/generate", {"pair_index": 0})[0] == 200
+    status, _, snap = get(port, "/metrics.json")
+    assert status == 200 and snap["counters"]["cluster.requests"] >= 1
+    status, _, snap2 = get(port, "/metrics")
+    assert status == 200 and "counters" in snap2
+    status, hdrs, raw = request(port, "GET", "/metrics.prom")
+    assert status == 200 and hdrs["Content-Type"].startswith("text/plain; version=0.0.4")
+    text = raw.decode()
+    _check_prom_text(text)
+    for label in ('shard="s0"', 'shard="s1"', 'shard="router"', 'shard="fleet"'):
+        assert label in text, label
+    assert 'ipc_serve_accepted_generate_total{shard="fleet"}' in text
+
+
+def test_cluster_status_and_flight_surfaces(fleet_cluster):
+    port, _router, _shards, _fleet = fleet_cluster
+    assert post(port, "/v1/generate", {"pair_index": 0})[0] == 200
+    status, _, obj = get(port, "/v1/cluster/status")
+    assert status == 200
+    assert set(obj["ring"]) == set(obj["shards"]) == {"s0", "s1"}
+    assert all(e["alive"] for e in obj["ring"].values())
+    assert all(e["status"] == "ok" and e["scrape_error"] is None for e in obj["shards"].values())
+    assert obj["router"]["requests"] >= 1
+    assert isinstance(obj["delivery_backlog"], int) and isinstance(obj["store_disk_bytes"], int)
+    assert "last_finalized_epoch" in obj and obj["replication"] == {"factor": 1, "last_pass": None}
+    status, _, obj = get(port, "/debug/flight")
+    assert status == 200 and obj["shards"] == ["s0", "s1"] and obj["failed"] == []
+    assert obj["spans"] and all("shard" in sp for sp in obj["spans"])
+    walls = [sp.get("wall_ts", 0.0) for sp in obj["spans"]]
+    assert walls == sorted(walls, reverse=True)
+
+
+def test_fleet_keeps_serving_when_a_shard_dies(fleet_cluster):
+    port, router, shards, _fleet = fleet_cluster
+    shards[1].kill()
+    result = router.federation.scrape()
+    assert result["shards"]["s1"]["error"] and result["shards"]["s1"]["metrics"] is None
+    assert router.metrics.counter_value("fleet.scrape_errors") >= 1
+    status, _, raw = request(port, "GET", "/metrics.prom")
+    assert status == 200
+    _check_prom_text(raw.decode())
+    assert 'shard="s0"' in raw.decode()
+    status, _, obj = get(port, "/v1/cluster/status")
+    assert status == 200
+    assert obj["shards"]["s1"]["status"] == "unreachable" and obj["shards"]["s1"]["scrape_error"]
+    assert obj["shards"]["s0"]["status"] == "ok"
+
+
+def test_router_skips_same_pid_subtrees(_clean_flight_rings):
+    """A LocalShard lives in the router's process: its spans are already
+    on the spine, so grafting its shipped subtree would record each twice;
+    either way the plumbing fields never reach the client."""
+    port_world, _ = worlds(2, receipts=2, events=2)
+    router = port_cluster.ClusterRouter({"s0": "http://127.0.0.1:9"}, port_world[1], scrape_interval_s=60.0)
+    collector = port_obs.enable_tracing(metrics=port_metrics.Metrics())
+    try:
+        ship = {"name": "http.generate", "trace_id": "t1", "span_id": "4", "parent_id": "", "ts_us": 0,
+                "dur_us": 1, "wall_ts": 1.0, "thread": "srv"}
+        same = {"ok": 1, "spans": [dict(ship)], "spans_pid": os.getpid()}
+        router._graft_shard_spans("s0", same)
+        assert same == {"ok": 1} and collector.snapshot() == []
+        other = {"ok": 1, "spans": [dict(ship)], "spans_pid": os.getpid() + 1}
+        router._graft_shard_spans("s0", other)
+        assert [s.span_id for s in collector.snapshot()] == ["s0:4"]
+    finally:
+        port_obs.disable_tracing()
+        router.close()
+
+
+# --------------------------------------------------------------------------
+# TestEndToEndStitch: subprocess shards → one rooted tree
+# --------------------------------------------------------------------------
+
+
+def test_sampled_scatter_collapses_into_one_rooted_tree(_clean_flight_rings):
+    """A sampled ``generate_range`` through two real ``serve --backend
+    cpu`` children ships each shard's span subtree back in-band, and the
+    port's router grafts every one under its scatter spans: exactly ONE
+    rooted tree, no orphans."""
+    n_pairs, receipts, match_rate = 4, 4, 0.5
+    from ipc_proofs_tpu_torch.fixtures import build_range_world
+
+    # the children's world: `serve --demo-world` builds it with these arguments
+    _, pairs, _ = build_range_world(n_pairs, receipts_per_pair=receipts, match_rate=match_rate,
+                                    signature=SIG, topic1=SUBNET)
+    m = port_metrics.Metrics()
+    collector = port_obs.enable_tracing(metrics=m)
+    shards = []
+    try:
+        shards = [
+            port_cluster.spawn_serve_shard(
+                f"s{k}", n_pairs, SIG, SUBNET,
+                extra_args=["--demo-receipts", str(receipts), "--demo-match-rate", str(match_rate),
+                            "--trace-out", os.devnull, "--trace-sample", "1.0", "--backend", "cpu"],
+            )
+            for k in range(2)
+        ]
+        assert all(os.path.exists(s.log_path) for s in shards)
+        router = port_cluster.ClusterRouter({s.name: s.url for s in shards}, pairs, metrics=m)
+        try:
+            status, obj = router.generate_range(list(range(n_pairs)), chunk_size=2)
+            assert status == 200, obj
+            spans = [s for s in collector.snapshot() if s.trace_id == obj["trace_id"]]
+            ids = {s.span_id for s in spans}
+            roots = [s for s in spans if not s.parent_id or s.parent_id not in ids]
+            assert len(roots) == 1, sorted((s.name, s.span_id, s.parent_id) for s in roots)
+            assert roots[0].name == "cluster.generate_range"
+            grafted = [s for s in spans if ":" in s.span_id]
+            assert grafted and {s.span_id.split(":", 1)[0] for s in grafted} <= {"s0", "s1"}
+            assert {s.attrs.get("shard") for s in grafted} <= {"s0", "s1"}
+            assert any(s.name == "http.generate_range" for s in grafted)
+            assert m.counter_value("fleet.spans_grafted") >= len(grafted)
+        finally:
+            router.close()
+    finally:
+        port_obs.disable_tracing()
+        for s in shards:
+            try:
+                s.stop(timeout_s=20.0)
+            except Exception:
+                s.kill()
+    for s in shards:
+        assert s.proc.returncode == 0
+        with open(s.log_path) as fh:
+            assert "kernel launches:" in fh.read()
+        os.remove(s.log_path)

@@ -1,5 +1,9 @@
 """Boundaries of the PyTorch port: what it may import, where it runs.
 
+- Every module of ``ipc_proofs_tpu`` has its counterpart in the port at
+  the same path, or at the one `MODULE_MAP` names, or is listed in
+  `NOT_PORTED` with its reason.
+
 - No module of ``ipc_proofs_tpu_torch`` (``parallel/``, ``jobs/``,
   ``utils/``, ``ops/verify.py``, ``store/``, ``storex/``, ``witness/``,
   ``registry/`` and ``serve/`` included) and no
@@ -26,9 +30,9 @@
   raise instead of running on the CPU; the
   scalar replay of the ``IPC_PROOFS_NO_NATIVE=1`` universe runs no kernel.
 - The CLI (``python -m ipc_proofs_tpu_torch.cli``) defaults to the card:
-  without CUDA its ``demo``, ``verify``, ``range``, ``backfill`` and
-  ``serve`` exit with the backend's error before any work, and ``--backend
-  cpu`` runs. A ``serve --backend cpu`` daemon (also with standing queries,
+  without CUDA its ``demo``, ``verify``, ``range``, ``backfill``, ``serve``
+  and ``cluster`` exit with the backend's error before any work (before
+  ``cluster`` spawns a shard), and ``--backend cpu`` runs. A ``serve --backend cpu`` daemon (also with standing queries,
   the SLO watchdog and backfill mounted), driven over HTTP and stopped with
   SIGTERM, and a ``backfill --backend cpu`` run load neither ``jax`` nor
   the reference.
@@ -110,9 +114,57 @@ def test_port_files_exist():
         "serve/httpd.py", "serve/durable.py", "storex/replica.py", "obs/fleet.py",
         "obs/slo.py", "cluster/__init__.py", "cluster/hashring.py", "cluster/gather.py",
         "backfill/__init__.py", "backfill/scheduler.py", "backfill/engine.py", "subs/__init__.py",
-        "subs/registry.py", "subs/matcher.py", "subs/delivery.py",
+        "subs/registry.py", "subs/matcher.py", "subs/delivery.py", "cluster/router.py",
+        "cluster/shard.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
+
+
+# The module map ipc_proofs_tpu → port. A reference module whose
+# counterpart keeps its path (ipc_proofs_tpu/<p> → ipc_proofs_tpu_torch/<p>)
+# needs no entry; these are the others, by path under each package (the
+# reference's repo-root entry module by its name).
+MODULE_MAP = {
+    # both backends are one class: GpuBackend on the card, or device="cpu"
+    "backend/cpu.py": ("backend/gpu.py",),
+    "backend/tpu.py": ("backend/gpu.py",),
+    # XLA and Pallas kernels → a PyTorch wrapper (plain version + launch)
+    # over a hand-written CUDA source
+    "ops/blake2b_jax.py": ("ops/blake2b.py", "csrc/blake2b.cu"),
+    "ops/keccak_jax.py": ("ops/keccak.py", "csrc/keccak.cu"),
+    "ops/pallas_kernels.py": ("ops/blake2b.py", "ops/keccak.py", "csrc/blake2b.cu", "csrc/keccak.cu"),
+    "ops/match_jax.py": ("ops/match.py",),
+    "ops/verify_jax.py": ("ops/verify.py",),
+    "__graft_entry__.py": ("entry.py",),
+}
+# reference modules with no counterpart, and why
+NOT_PORTED = {
+    "ops/u64.py": "emulates u64 on u32 pairs for TPU lanes; CUDA has u64 and no module imports it",
+    "utils/platform.py": "the bench's platform probe; waits for the benchmark port with bench.py",
+}
+
+
+def _reference_modules() -> "list[str]":
+    ref = ROOT / "ipc_proofs_tpu"
+    return sorted(p.relative_to(ref).as_posix() for p in ref.rglob("*.py")) + ["__graft_entry__.py"]
+
+
+@pytest.mark.parametrize("module", _reference_modules())
+def test_every_reference_module_has_a_counterpart_or_a_reason(module):
+    port = ROOT / "ipc_proofs_tpu_torch"
+    if module in NOT_PORTED:
+        assert not (port / module).exists(), f"{module} is ported: take it out of NOT_PORTED"
+        return
+    targets = MODULE_MAP.get(module, (module,))
+    missing = [t for t in targets if not (port / t).is_file()]
+    assert not missing, f"reference {module}: no port counterpart {missing} (add it, or map it)"
+
+
+def test_module_map_names_only_reference_modules():
+    modules = set(_reference_modules())
+    assert set(MODULE_MAP) <= modules and set(NOT_PORTED) <= modules
+    assert not set(MODULE_MAP) & set(NOT_PORTED)
+    assert sorted(NOT_PORTED) == ["ops/u64.py", "utils/platform.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -351,7 +403,7 @@ def test_range_drivers_default_to_the_card(monkeypatch, small_range, driver):
         call()
 
 
-@pytest.mark.parametrize("command", ["demo", "verify", "range", "serve", "backfill"])
+@pytest.mark.parametrize("command", ["demo", "verify", "range", "serve", "backfill", "cluster"])
 def test_cli_refuses_the_host_without_cuda(monkeypatch, tmp_path, small_range, command):
     """With CUDA reported absent, the CLI's default ``--backend gpu`` exits
     with the backend's error before any work, and ``--backend cpu`` runs."""
@@ -365,15 +417,16 @@ def test_cli_refuses_the_host_without_cuda(monkeypatch, tmp_path, small_range, c
                   "--to-height", "1", "--event-sig", SPEC.event_signature, "--topic1", "x"],
         "serve": ["serve", "--demo-world", "2", "--port", "0"],
         "backfill": ["backfill", "--demo-world", "2", "-o", str(tmp_path / "bf.json")],
+        "cluster": ["cluster", "--demo-world", "2", "--shards", "1", "--port", "0"],
     }[command]
     from ipc_proofs_tpu_torch import cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         cli.main(argv)
-    # range's host run needs a node, and serve's never returns on its own
-    # (both in tests/test_torch_cli.py)
-    if command not in ("range", "serve"):
+    # range's host run needs a node, and serve's and cluster's never return
+    # on their own (all in tests/test_torch_cli.py)
+    if command not in ("range", "serve", "cluster"):
         assert cli.main(argv + ["--backend", "cpu"]) == 0
 
 

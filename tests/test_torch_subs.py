@@ -25,7 +25,11 @@ throughout:
   ``/v1/subscriptions``, ``/v1/deliveries``) and the ``/healthz`` fields;
 - a fault of the card in a push: it raises out of the matcher before any
   delivery of the tipset is appended (no ``subs.errors``), and the
-  follower stops on it instead of counting ``follow.errors``.
+  follower stops on it instead of counting ``follow.errors``;
+- cluster failover (the reference's ``TestClusterStandingFailover``): each
+  package's router over two `LocalShard`s with standing queries; the dead
+  shard's arc re-registers on the survivor under the original ids and its
+  matcher serves them, with the same deliveries in both packages.
 """
 
 import json
@@ -616,3 +620,91 @@ def test_registry_failures_are_fail_soft(tmp_path):
     assert created and reg.get("mem-only") is sub and reg.degraded
     assert _counters(m)["subs.log_failures"] >= 1
     reg.close()
+
+
+# --- cluster failover -----------------------------------------------------
+
+
+def _cluster_failover(pkg, world, root):
+    """Six subscriptions over two shards of ``pkg``; kill the shard that
+    owns FILTER_A's arc; what the router and the survivor then serve."""
+    import ipc_proofs_tpu.cluster as ref_cluster
+    import ipc_proofs_tpu_torch.cluster as port_cluster
+
+    port = pkg is port_subs
+    cluster = port_cluster if port else ref_cluster
+    store, pairs, _ = world
+    shards, sqs = [], []
+    for i in range(2):
+        kw = dict(match_backend=CPU) if port else {}
+        sq = pkg.StandingQueries(os.path.join(root, f"subs{i}"), store=store, fsync=False, opener=_Opener(),
+                                 sleep=NOSLEEP, rng=random.Random(i), **kw)
+        config = (ServiceConfig(max_batch=4, max_wait_ms=5.0, workers=1, device="cpu") if port
+                  else RefServiceConfig(max_batch=4, max_wait_ms=5.0, workers=1))
+        spec = (EventProofSpec if port else RefSpec)(SIG, SUBNET)
+        shards.append(cluster.LocalShard(f"s{i}", store, pairs, spec, config=config, subs=sq).start())
+        sqs.append(sq)
+    rm = (Metrics if port else RefMetrics)()
+    router = cluster.ClusterRouter({s.name: s.url for s in shards}, pairs, metrics=rm, scrape_interval_s=60.0)
+    out = {}
+    try:
+        sub_ids = [f"sub-{i}" for i in range(6)]
+        filters = {sid: (FILTER_A if i % 2 == 0 else FILTER_B) for i, sid in enumerate(sub_ids)}
+        for sid in sub_ids:
+            status, obj = router.subscribe({"filter": filters[sid], "sub_id": sid})
+            assert status == 200 and obj["sub_id"] == sid
+        status, obj = router.subscriptions()
+        assert status == 200 and obj["count"] == 6
+        out["placed"] = obj["shards"]
+        ring = cluster.HashRing(["s0", "s1"])
+        owner = {sid: ring.node_for(pkg.subscription_ring_key(pkg.normalize_filter(filters[sid]))) for sid in sub_ids}
+        dead_idx = int(owner["sub-0"][1:])
+        surv_idx = 1 - dead_idx
+
+        sqs[dead_idx].matcher.match_pair(pairs[0])
+        status, obj = router.deliveries("sub-0", cursor=0)
+        assert status == 200
+        out["before"] = [(e["tipset"], e["digest"]) for e in obj["deliveries"]]
+        out["before_payload"] = obj["deliveries"][0]["payload"]["bundle"]
+
+        shards[dead_idx].kill()
+
+        def _recovered():
+            status, obj = router.subscriptions()
+            return status == 200 and obj["count"] == 6
+
+        assert _wait_until(_recovered, timeout=30.0)
+        status, obj = router.subscriptions()
+        assert sorted(s["sub_id"] for s in obj["subscriptions"]) == sub_ids
+        assert obj["shards"] == {f"s{surv_idx}": 6}
+        out["moved"] = sum(1 for sid in sub_ids if owner[sid] == owner["sub-0"])
+        out["rearced"] = rm.snapshot()["counters"].get("cluster.subs_rearced", 0)
+
+        sqs[surv_idx].matcher.match_pair(pairs[1])
+        status, obj = router.deliveries("sub-0", cursor=0)
+        assert status == 200
+        out["after"] = sorted((e["tipset"], e["digest"]) for e in obj["deliveries"])
+        out["dead"], out["surv_height"] = owner["sub-0"], pairs[1].child.height
+        return out
+    finally:
+        router.close()
+        for s in shards:
+            try:
+                s.stop(timeout=10)
+            except Exception:
+                pass
+        for sq in sqs:
+            try:
+                sq.drain()
+            except Exception:
+                pass
+
+
+def test_dead_shard_arc_rearcs_under_original_ids(both, tmp_path):
+    port = _cluster_failover(port_subs, both[0], str(tmp_path / "port"))
+    ref = _cluster_failover(ref_subs, both[1], str(tmp_path / "ref"))
+    assert port == ref
+    expect, digest = _expected(both[0], both[0][1][0], port_subs.normalize_filter(FILTER_A))
+    assert [d for _, d in port["before"]] == [digest] and port["before_payload"] == expect
+    assert port["rearced"] == port["moved"] > 0
+    assert port["surv_height"] in [t for t, _ in port["after"]]
