@@ -384,7 +384,27 @@ Phases, none of which may fail:
    SIGTERM exits 0 with every admit done; each shard's launches read from
    its log: exactly one flat mask a generate chunk and one TxMeta blake2b
    batch a merged verify batch; prints
-   ``aggregate_proofs_per_sec`` and ``cluster_linearity_4shard``.
+   ``aggregate_proofs_per_sec`` and ``cluster_linearity_4shard``;
+31. tools — ``ipc_proofs_tpu_torch/tools/`` driving the port on the card:
+   ``chaos.run_grid`` over 256 pairs of BASELINE config 2's shape (16
+   receipts, 4 events, match rate 0.01) through a fetch plane in front of
+   the faulted pool, 4 seeds at fault rates 0.05 and 0.5 with
+   ``IPC_VERIFY_MIN_BYTES=0`` (0 divergent, 0 untyped, 0 device-fault
+   outcomes, at least one identical, blake2b launched, every recorded
+   kernel call equal to the plain versions), and ``run_shard_grid`` at
+   its defaults; ``crashtest.run_grid`` at 4 kill points of both
+   flavours over the same 256 pairs at chunk 16 (4 points at once, so
+   their children start together), beside one point each of the
+   compaction, registry, backfill and SIGTERM-stream grids, children on
+   the card: every point resumes byte-identical (the stream tears typed),
+   every child maps the kernel libraries the parent built, and the
+   resumed bundles verify on the card; ``soak --quick`` over event,
+   storage, shapes, codec and range seeded from ``--seed`` (clean, keccak
+   and blake2b launched, every recorded call equal to the plain versions);
+   ``auditview verify / prove / diff`` over phase 20's registry log and
+   ``traceview`` over phase 5c's Chrome trace exit 0, and ``verify`` of a
+   copy of the log with one byte flipped exits 1; prints each tool's
+   seconds, outcome counts and launches.
 
 Prints per-stage ms of every path with the scanner's thread count and the
 CPUs it may use; then, in order before the last line: one line per kernel,
@@ -409,7 +429,8 @@ the HTTP plane's ``http verify`` (and ``, cids``, ``, blocks_frame``,
 and ``cli backfill``, and ``cluster`` (the buffered scatters at 1, 2 and
 4 shards), ``cluster, stream``, ``cluster verify``, ``cluster load``,
 ``cluster hostkill``, ``cluster backfill``, ``cli cluster`` (the 4
-shards' served launches, from their logs) and ``cli cluster, 1 shard``
+shards' served launches, from their logs), ``cli cluster, 1 shard``,
+``tools chaos``, ``tools crashtest verify`` and ``tools soak``
 included). The
 device match functions (PyTorch ops, not kernels of this repository)
 report their times in their phase's line.
@@ -545,6 +566,11 @@ from ipc_proofs_tpu_torch.store.rpc import IntegrityError, LotusClient, RpcBlock
 from ipc_proofs_tpu_torch.storex import SEGMENT_MAGIC, ChainFollower, SegmentStore, TieredBlockstore
 from ipc_proofs_tpu_torch.storex import follower as follower_mod
 from ipc_proofs_tpu_torch.storex import segments as segments_mod
+from ipc_proofs_tpu_torch.tools import auditview as auditview_tool
+from ipc_proofs_tpu_torch.tools import chaos as chaos_tool
+from ipc_proofs_tpu_torch.tools import crashtest as crashtest_tool
+from ipc_proofs_tpu_torch.tools import soak as soak_tool
+from ipc_proofs_tpu_torch.tools import traceview as traceview_tool
 from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
@@ -2967,12 +2993,13 @@ def _check_exports(label: str, spans, root: str) -> dict:
     return {"spans": len(spans), "chrome_bytes": os.path.getsize(chrome), "otlp_bytes": os.path.getsize(otlp)}
 
 
-def traced_path(world, device) -> dict:
+def traced_path(world, device, root: str) -> dict:
     """The event world through the generate ∥ verify driver with the span
     collector off and on, interleaved, best of 2 each (the JAX ``bench.py``
     observability leg's way): the same bytes and the same kernel launches
     on and off, every recorded kernel call equal to the plain versions;
-    the traced run's spans exported three ways and parsed back."""
+    the traced run's spans exported three ways into ``root`` and parsed
+    back (phase 31's traceview reads the Chrome file)."""
     store, pairs, n_matching = world
     backend = get_backend("gpu")
     budget = resolve_thread_budget()
@@ -3021,8 +3048,7 @@ def traced_path(world, device) -> dict:
         names[sp.name] = names.get(sp.name, 0) + 1
     if not {"range_scan", "range_record", "range_merge", "range_verify"} <= set(names):
         raise AssertionError(f"traced path: stage spans missing from {sorted(names)}")
-    with tempfile.TemporaryDirectory() as root:
-        exports = _check_exports("traced", spans, root)
+    exports = _check_exports("traced", spans, root)
     return {
         "pairs": len(pairs),
         "proofs": on["proofs"],
@@ -3035,6 +3061,7 @@ def traced_path(world, device) -> dict:
         "spans_per_proof": on["recorded"] / on["proofs"],
         "spans_by_name": names,
         "exports": exports,
+        "chrome": os.path.join(root, "traced.trace.json"),
         "checked": on["checked"],
         "launches": on["launches"],
     }
@@ -3939,6 +3966,7 @@ def registry_phase(device, root: str) -> dict:
         "registry_inclusion_proof_ms": inclusion_ms,
         "registry_chain_records": REGISTRY_APPENDS,
         "health": health["registry"],
+        "log": reopened.path,
         "fleet_hits": sum(hits),
         "launches": launches,
     }
@@ -5820,6 +5848,246 @@ def cli_cluster_phase(device, root: str) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# the fault-injection and audit tools (ipc_proofs_tpu_torch/tools/) on the card
+# --------------------------------------------------------------------------
+
+# BASELINE config 2's shape cut to 256 pairs: the faulted pool's cut (phase
+# 12a), the deployment a relayer reads through flaky Lotus nodes
+TOOLS_WORLD = (256, 16, 4, 0.01)  # pairs, receipts a pair, events a receipt, match rate
+CHAOS_RATES = (0.05, 0.5)
+CHAOS_SEEDS = 4
+CRASH_POINTS = 4
+CRASH_CHUNK = 16
+SOAK_PHASES = ("event", "storage", "shapes", "codec", "range")
+VIOLATIONS = ("divergent", "untyped_error", "device_fault")
+
+
+def _tool_main(main, argv) -> "tuple[int, str]":
+    """A tool's ``main`` as ``python -m`` runs it (default ``--device
+    cuda``): (exit code, standard output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def _chaos_tools(seed: int, backend) -> dict:
+    """`tools.chaos.run_grid` over the cut world through the fetch plane in
+    front of the pool, every landed wave on the card's lane; then the shard
+    transport grid at its defaults."""
+    n_pairs, receipts, events, match_rate = TOOLS_WORLD
+    recording = _RecordingBackend(backend)
+    with _env("IPC_VERIFY_MIN_BYTES", "0"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        grid = chaos_tool.run_grid(
+            seed, runs=CHAOS_SEEDS, fault_rates=CHAOS_RATES, n_pairs=n_pairs, receipts_per_pair=receipts,
+            events_per_receipt=events, match_rate=match_rate, backend=recording, fetch_plane=True,
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+    bad = {k: grid["counts"][k] for k in VIOLATIONS if grid["counts"][k]}
+    if not grid["ok"] or bad or not grid["counts"]["identical"]:
+        raise AssertionError(f"tools chaos: {grid['counts']} {json.dumps(grid['violations'])[:2000]}")
+    _require_blake2b("tools chaos", launches)
+    checked = _check_recorded("tools chaos", recording, {})
+    t0 = time.perf_counter()
+    shard_grid = chaos_tool.run_shard_grid(seed, backend=backend)
+    shard_seconds = time.perf_counter() - t0
+    bad = {k: shard_grid["counts"][k] for k in VIOLATIONS if shard_grid["counts"][k]}
+    if not shard_grid["ok"] or bad:
+        raise AssertionError(f"tools shard chaos: {shard_grid['counts']} {json.dumps(shard_grid['violations'])[:2000]}")
+    return {
+        "runs": grid["runs"], "counts": grid["counts"], "faults": grid["total_faults_injected"],
+        "bitflips": grid["bitflips_injected"], "seconds": seconds, "launches": launches, "checked": checked,
+        "shard": {"runs": shard_grid["runs"], "counts": shard_grid["counts"],
+                  "faults": shard_grid["total_faults_injected"], "seconds": shard_seconds},
+    }
+
+
+def _crash_tools(seed: int, backend, built: dict, root: str) -> dict:
+    """`tools.crashtest` with children on the card: the range kill grid (4
+    points, both flavours, 4 points at once, so their children start
+    together and must map the one build the parent made) over the cut world
+    at chunk 16, and beside it one point each of the compaction, registry,
+    backfill and SIGTERM-stream grids; every point must resume
+    byte-identical (or tear typed), and the resumed bundles verify on the
+    card. The parent and every child take the unfused scan
+    (``IPC_SCAN_FUSED_MATCH=0``), so each range walk's fingerprint mask runs
+    on the card; the references the points resume to record their mask
+    calls, which are held against the plain mask, and equal the references
+    that the host's fused C walk computes, byte for byte."""
+    n_pairs, receipts, events, match_rate = TOOLS_WORLD
+    shape = {"pairs": n_pairs, "chunk_size": CRASH_CHUNK, "receipts": receipts, "events": events,
+             "match_rate": match_rate, "record_workers": 1}
+    rng = random.Random(f"{seed}:crash")
+    work = os.path.join(root, "crashtest")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    dev = backend.device.type
+    host_refs = {"range": crashtest_tool.range_reference(shape, "cpu"),
+                 "backfill": crashtest_tool.backfill_reference(shape, "cpu")}
+    n_windows = -(-n_pairs // CRASH_CHUNK)
+    # each single point's draws, made before the points run side by side
+    torn_sidecar, registry_at = rng.choice([13, 64, 200]), rng.randrange(12)
+    backfill_at, backfill_torn = rng.randrange(n_windows - 1), rng.choice([1, 5, 11, 13, 64, 4096])
+    with _env("IPC_SCAN_FUSED_MATCH", "0"):
+        ref_recording = _RecordingBackend(backend)
+        range_ref = crashtest_tool.range_reference(shape, backend=ref_recording)
+        backfill_ref = crashtest_tool.backfill_reference(shape, backend=ref_recording)
+        torch.cuda.synchronize()
+        ref_checked = _check_recorded("tools crashtest references", ref_recording, {})
+        if not ref_checked["event_match_mask_fp"]["calls"]:
+            raise AssertionError(f"tools crashtest: the references made no mask call on the card: {ref_checked}")
+        for label, ref in (("range", range_ref), ("backfill", backfill_ref)):
+            if ref != host_refs[label]:
+                raise AssertionError(f"tools crashtest: the card's {label} reference differs from the host's")
+
+        def stream_point():
+            reference, failure = crashtest_tool.stream_reference_run(shape, work, device=dev)
+            if reference is None:
+                return failure
+            return crashtest_tool.sigterm_stream_run(reference, shape, 3, work, device=dev)
+
+        points = {
+            "compaction": lambda: crashtest_tool.compaction_crash_run(
+                range_ref, shape, "torn_tmp", work, tag="c", torn_bytes=torn_sidecar, device=dev),
+            "registry": lambda: crashtest_tool.registry_crash_run(
+                dict(shape, pairs=12), registry_at, None, work, tag="r", device=dev),
+            "backfill": lambda: crashtest_tool.backfill_crash_run(
+                backfill_ref, shape, backfill_at, backfill_torn, work, tag="b", device=dev),
+            "sigterm stream": stream_point,
+        }
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(points)) as pool:
+            futures = {name: pool.submit(fn) for name, fn in points.items()}
+            grid = crashtest_tool.run_grid(
+                seed, points=CRASH_POINTS, n_pairs=n_pairs, chunk_size=CRASH_CHUNK, receipts=receipts,
+                events=events, match_rate=match_rate, device=dev, workers=CRASH_POINTS, reference=range_ref,
+            )
+            singles = {name: f.result() for name, f in futures.items()}
+    seconds = time.perf_counter() - t0
+    if not grid["ok"]:
+        raise AssertionError(f"tools crashtest: {grid['counts']} {json.dumps(grid['violations'])[:3000]}")
+    want = {"compaction": "identical", "registry": "identical", "backfill": "identical",
+            "sigterm stream": "typed_tear"}
+    wrong = {k: v for k, v in singles.items() if v["outcome"] != want[k]}
+    if wrong:
+        raise AssertionError(f"tools crashtest: {json.dumps(wrong)[:3000]}")
+    # the children started together and mapped the parent's one build
+    mapped = {name: set(paths) for name, paths in grid["libraries"].items()}
+    for name, path in singles["backfill"].get("libraries", {}).items():
+        mapped.setdefault(name, set()).add(path)
+    expected = {name: {str(info["path"])} for name, info in built.items()}
+    if mapped != expected:
+        raise AssertionError(f"tools crashtest: children mapped {mapped}, the parent built {expected}")
+    # every resumed bundle is one of these bytes: verify them on the card
+    recording = _RecordingBackend(backend)
+    _reset_counts()
+    verdicts = []
+    for label, raw in (("range", range_ref), ("backfill", backfill_ref)):
+        bundle = UnifiedProofBundle.from_json(raw)
+        result = verify_proof_bundle(bundle, TrustPolicy.accept_all(), verify_witness_cids=True,
+                                     cid_backend=recording)
+        if not bundle.event_proofs or not result.all_valid():
+            raise AssertionError(f"tools crashtest: the resumed {label} bundle does not verify")
+        verdicts.append(len(bundle.event_proofs))
+    torch.cuda.synchronize()
+    launches = _counts()
+    _require_blake2b("tools crashtest verify", launches)
+    return {
+        "points": grid["points"], "kill_points": grid["kill_points"], "n_chunks": grid["n_chunks"],
+        "counts": grid["counts"], "singles": {k: v["outcome"] for k, v in singles.items()},
+        "children": 2 * grid["points"] + 8, "libraries": {k: sorted(v) for k, v in mapped.items()},
+        "seconds": seconds,
+        "proofs_verified": verdicts, "launches": launches, "references_checked": ref_checked,
+        "checked": _check_recorded("tools crashtest verify", recording, {}),
+    }
+
+
+def _soak_tools(seed: int, backend) -> dict:
+    """`tools.soak --quick` over event, storage, shapes, codec and range,
+    seeded from ``--seed``, with the batched paths on the card."""
+    recording = _RecordingBackend(backend)
+    _reset_counts()
+    t0 = time.perf_counter()
+    phase_seconds = soak_tool.run_phases(seed, SOAK_PHASES, True, recording)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    _require_blake2b("tools soak", launches)
+    if not sum(launches[name] for name in KECCAK_CLASSES):
+        raise AssertionError(f"tools soak launched no keccak kernel: {launches}")
+    return {"phases": list(SOAK_PHASES), "phase_seconds": phase_seconds, "seconds": seconds,
+            "launches": launches, "checked": _check_recorded("tools soak", recording, {})}
+
+
+def _offline_tools(registry_log: str, trace_path: str, n_spans: int, root: str) -> dict:
+    """``auditview verify / prove / diff`` over phase 20's registry log and
+    ``traceview`` over phase 5c's Chrome trace, through their ``main`` as
+    ``python -m`` runs them: each exits 0; a copy of the log with one byte
+    flipped fails ``verify`` (exit 1)."""
+    t0 = time.perf_counter()
+    rc, text = _tool_main(auditview_tool.main, ["verify", registry_log, "--json"])
+    verdict = json.loads(text)
+    if rc != 0 or not verdict["ok"] or not verdict["records"]:
+        raise AssertionError(f"auditview verify: exit {rc}, {text[:500]}")
+    entries, _torn = auditview_tool.load_log(registry_log)
+    serve_seqs = [i for i, (rec, _p, _o) in enumerate(entries) if rec.get("kind") == "serve"]
+    digest = entries[serve_seqs[len(serve_seqs) // 2]][0]["digest"]
+    rc_prove, text_prove = _tool_main(auditview_tool.main, ["prove", registry_log, "--digest", digest,
+                                                            "--root", verdict["root"], "--json"])
+    old = verdict["records"] // 2
+    rc_diff, text_diff = _tool_main(auditview_tool.main, ["diff", registry_log, "--old-size", str(old), "--json"])
+    if (rc_prove, rc_diff) != (0, 0):
+        raise AssertionError(f"auditview: prove exit {rc_prove} ({text_prove[:300]}), diff exit {rc_diff}")
+    flipped = os.path.join(root, "flipped.log")
+    raw = bytearray(open(registry_log, "rb").read())
+    raw[len(raw) // 2] ^= 0x01
+    with open(flipped, "wb") as fh:
+        fh.write(raw)
+    rc_flip, text_flip = _tool_main(auditview_tool.main, ["verify", flipped])
+    if rc_flip != 1 or not text_flip.startswith("FAIL"):
+        raise AssertionError(f"auditview verify of a flipped byte: exit {rc_flip}, {text_flip[:300]}")
+    audit_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc_trace, text_trace = _tool_main(traceview_tool.main, [trace_path, "--json"])
+    summary = json.loads(text_trace)
+    rc_human, _ = _tool_main(traceview_tool.main, [trace_path])
+    if (rc_trace, rc_human) != (0, 0) or summary["n_events"] != n_spans or not summary["traces"]:
+        raise AssertionError(f"traceview: exit {rc_trace} / {rc_human}, {summary.get('n_events')} of {n_spans} spans")
+    widest = summary["traces"][0]
+    return {
+        "audit": {"records": verdict["records"], "kinds": verdict["kinds"], "seconds": audit_seconds,
+                  "flipped_exit": rc_flip, "diff_appended": len(json.loads(text_diff)["appended"])},
+        "trace": {"spans": summary["n_events"], "traces": summary["n_traces"], "root": widest["root"],
+                  "critical_path": [hop["name"] for hop in widest["critical_path"]],
+                  "seconds": time.perf_counter() - t0},
+    }
+
+
+def tools_phase(device, seed: int, built: dict, registry_log: str, trace_path: str, n_spans: int,
+                root: str) -> dict:
+    """Phase 31: the port's fault-injection and audit tools driving the port
+    on the card — chaos, crashtest, the quick soak, auditview and
+    traceview — each failing the run on any violation."""
+    backend = get_backend("gpu", device=device)
+    out = {}
+    for label, run in (
+        ("chaos", lambda: _chaos_tools(seed, backend)),
+        ("crashtest", lambda: _crash_tools(seed, backend, built, root)),
+        ("soak", lambda: _soak_tools(seed, backend)),
+        ("offline", lambda: _offline_tools(registry_log, trace_path, n_spans, root)),
+    ):
+        t0 = time.perf_counter()
+        out[label] = run()
+        out[label]["wall_s"] = time.perf_counter() - t0
+        _log(f"tools {label} ({out[label]['wall_s']:.1f} s)")
+    out["launches"] = out["chaos"]["launches"]
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5893,10 +6161,11 @@ def main(argv=None) -> int:
     world = event_world(args.pairs)
     run("event path", event_path, world, device)
     run("overlapped event path", overlapped_path, world, device, paths["event path"]["proofs_per_s"])
-    run("traced", traced_path, world, device)
+    root_dir = tempfile.TemporaryDirectory()  # phase 5c's trace stays for phase 31
+    run("traced", traced_path, world, device, root_dir.name)
     run("mesh range", mesh_range, world, device)
     run("multihost", multihost_phase, device)
-    with tempfile.TemporaryDirectory() as root:
+    with root_dir as root:
         cold_world = (world[0], world[1][:COLD_PAIRS], None)
         run("cold read", cold_read_path, cold_world, device, root)
         run("warm restart", warm_restart, cold_world, root)
@@ -5939,6 +6208,8 @@ def main(argv=None) -> int:
         run("cluster", cluster_phase, world, device, root)
         del world
         run("cli cluster", cli_cluster_phase, device, root)
+        run("tools", tools_phase, device, args.seed, built, paths["registry"]["log"], paths["traced"]["chrome"],
+            paths["traced"]["trace.spans_recorded"], root)
     cli_paths = paths.pop("cli generate, vectors, demo")
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
@@ -5973,6 +6244,9 @@ def main(argv=None) -> int:
     launch_counts["cluster hostkill"] = paths["cluster"]["hostkill_launches"]
     launch_counts["cluster backfill"] = paths["cluster"]["backfill_launches"]
     launch_counts["cli cluster, 1 shard"] = paths["cli cluster"]["one_shard_launches"]
+    launch_counts["tools chaos"] = launch_counts.pop("tools")
+    launch_counts["tools crashtest verify"] = paths["tools"]["crashtest"]["launches"]
+    launch_counts["tools soak"] = paths["tools"]["soak"]["launches"]
 
     rows = []
     for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
@@ -6219,6 +6493,29 @@ def main(argv=None) -> int:
         f"steal_events {cc['steal_events']}, up in {cc['runs']['4']['start_ms']} / {cc['runs']['1']['start_ms']} ms, "
         f"routed verify req/s {cc['runs']['4']['verify_rps']} / {cc['runs']['1']['verify_rps']}; "
         f"per shard {json.dumps({k: [v['generate_batches'], v['launches']] for k, v in cc['runs']['4']['per_shard'].items()})}"
+    )
+    tl = paths["tools"]
+    ch, ct, sk, off = tl["chaos"], tl["crashtest"], tl["soak"], tl["offline"]
+    _log(
+        f"tools chaos on {smi}: {ch['runs']} runs over {TOOLS_WORLD[0]} pairs at rates {list(CHAOS_RATES)} in "
+        f"{ch['seconds']:.1f} s, outcomes {json.dumps(ch['counts'])}, {ch['faults']} faults ({ch['bitflips']} "
+        f"bit flips), launches {json.dumps(ch['launches'])}; shard grid {ch['shard']['runs']} runs in "
+        f"{ch['shard']['seconds']:.1f} s, outcomes {json.dumps(ch['shard']['counts'])}"
+    )
+    _log(
+        f"tools crashtest on {smi}: {ct['points']} range kill points {ct['kill_points']} over {ct['n_chunks']} "
+        f"chunks, outcomes {json.dumps(ct['counts'])}; single points {json.dumps(ct['singles'])}; "
+        f"{ct['children']} children in {ct['seconds']:.1f} s, mapped {json.dumps(ct['libraries'])}; resumed "
+        f"bundles verified ({ct['proofs_verified']} proofs), launches {json.dumps(ct['launches'])}"
+    )
+    _log(
+        f"tools soak on {smi}: --quick {sk['phases']} in {sk['seconds']:.1f} s "
+        f"({json.dumps({k: round(v, 1) for k, v in sk['phase_seconds'].items()})}), clean, launches "
+        f"{json.dumps(sk['launches'])}"
+    )
+    _log(
+        f"tools auditview / traceview on {smi}: {json.dumps(off['audit'])}; {json.dumps(off['trace'])}; "
+        f"tool seconds {json.dumps({k: round(v['wall_s'], 1) for k, v in tl.items() if isinstance(v, dict) and 'wall_s' in v})}"
     )
     _log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": rows}))

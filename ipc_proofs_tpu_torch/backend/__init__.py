@@ -12,7 +12,7 @@ import torch
 
 from ipc_proofs_tpu_torch.state.events import StampedEvent
 
-__all__ = ["BatchHashBackend", "get_backend"]
+__all__ = ["BatchHashBackend", "available_backends", "get_backend"]
 
 
 class BatchHashBackend(Protocol):
@@ -87,3 +87,10 @@ def get_backend(name: str = "gpu", device=None, mesh_devices: Optional[int] = No
             mesh = make_mesh(mesh_devices or None)  # 0 = every card
         _BACKENDS.setdefault(key, GpuBackend(device, mesh=mesh))
     return _BACKENDS[key]
+
+
+def available_backends() -> list[str]:
+    """The backend names `get_backend` can build here: ``gpu`` where CUDA
+    is present, none otherwise (the plain versions on the host are
+    ``get_backend("gpu", device="cpu")``, not a backend of their own)."""
+    return ["gpu"] if torch.cuda.is_available() else []

@@ -52,6 +52,7 @@ __all__ = [
     "launch",
     "load_libraries",
     "load_library",
+    "loaded_libraries",
     "reset_counts",
     "runs_plain",
 ]
@@ -170,6 +171,12 @@ def load_libraries(names) -> "list[ctypes.CDLL]":
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``csrc/<name>.cu`` library, built first if needed."""
     return load_libraries([name])[0]
+
+
+def loaded_libraries() -> "dict[str, str]":
+    """The libraries this process has mapped: name -> the file it mapped."""
+    with _lock:
+        return {name: lib._name for name, lib in sorted(_loaded.items())}
 
 
 def _entry(library: str, name: str, argtypes: list):

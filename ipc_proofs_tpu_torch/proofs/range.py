@@ -803,6 +803,11 @@ class _MergeFold:
         with self._lock:
             return len(self.event_proofs)
 
+    @property
+    def n_storage_proofs(self) -> int:
+        with self._lock:
+            return len(self.storage_proofs)
+
 
 def generate_event_proofs_for_range_pipelined(
     store: Blockstore,

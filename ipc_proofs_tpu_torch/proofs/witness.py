@@ -35,6 +35,9 @@ class WitnessCollector:
     def add_cid(self, cid: CID) -> None:
         self._needed.add(cid)
 
+    def add_cids(self, cids: Iterable[CID]) -> None:
+        self._needed.update(cids)
+
     def collect_from_recording(self, recorder: RecordingBlockstore) -> None:
         self._needed.update(recorder.take_seen())
 

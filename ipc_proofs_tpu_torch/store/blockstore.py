@@ -178,6 +178,11 @@ class RecordingBlockstore:
             seen, self._seen = self._seen, set()
         return seen
 
+    def peek_seen(self) -> frozenset[CID]:
+        """The recorded CIDs so far, without draining them."""
+        with self._lock:
+            return frozenset(self._seen)
+
 
 class CachedBlockstore:
     """Memoizing wrapper over any blockstore. Several wrappers may share one

@@ -33,20 +33,40 @@ from dataclasses import dataclass
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
 
 __all__ = [
+    "ADMIT_COUNTERS",
+    "ADMIT_GAUGES",
+    "ASYNCFETCH_COUNTERS",
     "BACKFILL_COUNTERS",
     "BACKFILL_GAUGES",
+    "CLUSTER_COUNTERS",
+    "CLUSTER_GAUGES",
+    "DEADLINE_COUNTERS",
     "DEGRADED_COUNTERS",
+    "DURABILITY_COUNTERS",
+    "DURABILITY_GAUGES",
+    "FLEET_COUNTERS",
     "FOLLOW_COUNTERS",
     "FOLLOW_GAUGES",
     "Histogram",
     "Metrics",
     "OBSERVABILITY_COUNTERS",
+    "PIPELINE_STAGES",
+    "RANGE_COUNTERS",
+    "REGISTRY_COUNTERS",
     "RESILIENCE_COUNTERS",
+    "SERVE_COUNTERS",
+    "SERVE_GAUGES",
+    "SERVE_HISTOGRAMS",
     "SLO_COUNTERS",
+    "STOREX_COUNTERS",
+    "STOREX_GAUGES",
     "SUBS_COUNTERS",
     "SUBS_GAUGES",
     "SUBS_HISTOGRAMS",
     "StageTimer",
+    "TENANT_COUNTERS",
+    "VERIFY_COUNTERS",
+    "WITNESS_COUNTERS",
     "get_metrics",
 ]
 
@@ -248,6 +268,501 @@ SLO_COUNTERS = (
     "slo.anomalies",
 )
 
+# The reference's remaining vocabularies, name for name (the port's
+# code counts each name where the reference does; tests/test_torch_port.py
+# holds every tuple to the reference's).
+
+# Counter vocabulary of the async fetch plane (store/fetchplane.py and the
+# batch framing in store/rpc.py / store/failover.py):
+#   rpc.batch_calls         — JSON-RPC batch-array round-trips issued (each
+#                             also ticks rpc.calls once: a batch IS one
+#                             round-trip, which is the whole point)
+#   rpc.batched_reads       — individual ChainReadObj reads shipped inside
+#                             batch calls (batched_reads / batch_calls =
+#                             achieved batching factor)
+#   rpc.batch_unsupported   — endpoints that rejected batch framing at the
+#                             capability probe (client fell back to
+#                             sequential calls, once, permanently)
+#   rpc.batch_item_retries  — per-id errors demuxed out of a batch response
+#                             and refetched through the sequential path
+#   fetch.wants             — block wants enqueued on the plane (all
+#                             priorities)
+#   fetch.coalesced         — wants that attached to an already-in-flight
+#                             or already-landed fetch instead of enqueueing
+#   fetch.tier_hits         — wants short-circuited by the local tiers
+#                             (RAM/disk) without touching the want-queue
+#   fetch.batches           — dispatcher round-trips (batch or sequential
+#                             fallback waves)
+#   fetch.batched_blocks    — blocks fetched across those round-trips
+#   fetch.speculative_wants — low-priority wants entered by HAMT/AMT
+#                             interior-node speculation
+#   fetch.speculative_used  — speculative blocks a demand get later consumed
+#   fetch.speculative_wasted— speculative blocks fetched but never demanded
+#                             (counted when the plane closes; mis-speculation
+#                             is a cost, never an error)
+#   fetch.speculative_dropped — speculative wants dropped at queue capacity
+#   fetch.speculative_integrity_drops — speculative blocks that failed
+#                             multihash verification and were discarded
+#                             before use (demand path refetches + raises)
+#   fetch.speculate_depth_downshifts — adaptive-depth backoffs: windows
+#                             whose counted waste ratio crossed the
+#                             threshold and lowered speculate_depth by one
+#                             (--speculate-depth auto)
+#   fetch.schedule_primed   — CIDs entered through `FetchPlane.prime`:
+#                             schedule-driven speculation from the backfill
+#                             work-ahead feeder, exempt from the adaptive
+#                             depth gate (the scheduler KNOWS these blocks
+#                             will be demanded)
+ASYNCFETCH_COUNTERS = (
+    "rpc.batch_calls",
+    "rpc.batched_reads",
+    "rpc.batch_unsupported",
+    "rpc.batch_item_retries",
+    "fetch.wants",
+    "fetch.coalesced",
+    "fetch.tier_hits",
+    "fetch.batches",
+    "fetch.batched_blocks",
+    "fetch.speculative_wants",
+    "fetch.speculative_used",
+    "fetch.speculative_wasted",
+    "fetch.speculative_dropped",
+    "fetch.speculative_integrity_drops",
+    "fetch.speculate_depth_downshifts",
+    "fetch.schedule_primed",
+)
+
+# Counter vocabulary of the durability layer (jobs/journal.py, jobs/job.py,
+# proofs/range.py job wiring, serve/durable.py):
+#   jobs.chunks_replayed    — journal records re-admitted on job resume
+#   jobs.resume_ms          — milliseconds spent replaying the journal
+#   jobs.commit_us          — thread-CPU microseconds spent inside commit
+#                             records (serialize + checksum + write +
+#                             fsync): the journal's attributable cost,
+#                             measured where it happens. CPU time, not
+#                             wall: in the pipelined record stage, wall
+#                             time would also count GIL/IO waits that
+#                             overlap the next chunk's scan
+#   jobs.chunk_journal_us   — wall-clock microseconds spent journalling
+#                             per chunk/verdict commit (serialize +
+#                             write + fsync). Unlike jobs.commit_us this
+#                             is wall time: it is what a waiting request
+#                             actually experiences, so it is the number
+#                             surfaced as `journal_ms` in Server-Timing
+#   jobs.journal_failures   — records lost to fail-soft journal I/O degrade
+#   jobs.compactions        — journal committed-prefix snapshots swapped in
+#                             (each one re-bounds replay time)
+#   serve.requests_replayed — admitted-but-unfinished serve requests
+#                             re-executed on daemon restart
+DURABILITY_COUNTERS = (
+    "jobs.chunks_replayed",
+    "jobs.resume_ms",
+    "jobs.commit_us",
+    "jobs.chunk_journal_us",
+    "jobs.journal_failures",
+    "jobs.compactions",
+    "serve.requests_replayed",
+)
+
+# Counter vocabulary of the proof engines (proofs/range.py,
+# proofs/storage_batch.py): work-item counts the bench legs and the
+# `--metrics` CLI flag report.
+#   range_events            — event claims matched across the range
+#   range_chunks_generated  — chunks proven fresh this run
+#   range_chunks_resumed    — chunks satisfied from the journal on resume
+#   range_proofs            — event-claim proofs emitted
+#   range_storage_proofs    — storage-slot proofs emitted
+#   range_match_coalesced   — device match calls saved by the coalescer
+#                             (requests folded into another chunk's batch)
+#   range_match_retraces    — first-seen coalesced dispatch shapes: each
+#                             tick is a (bucketed) batch shape the match
+#                             kernel had not compiled before, so the
+#                             counter growing like O(log n) — not one per
+#                             batch — is the no-unbounded-retracing pin
+#                             (the port's coalescer never pads, so it
+#                             never counts this one; kept for the names)
+#   batch_contracts         — distinct contracts in a storage batch
+#   batch_slots             — storage slots read in a storage batch
+RANGE_COUNTERS = (
+    "range_events",
+    "range_chunks_generated",
+    "range_chunks_resumed",
+    "range_proofs",
+    "range_storage_proofs",
+    "range_match_coalesced",
+    "range_match_retraces",
+    "batch_contracts",
+    "batch_slots",
+)
+
+# Counter vocabulary of the batched integrity plane
+# (ops/verify.py::verify_blocks_batch — wired into the fetch plane's
+# landed waves, the follower's prefetch batches, and SegmentStore.get_many):
+#   verify.batch_calls    — verify_blocks_batch invocations (≤ 1 per
+#                           read-path chunk by construction)
+#   verify.batch_blocks   — blocks those calls verified (all lanes)
+#   verify.device_calls   — fused kernel dispatches (one per size-class
+#                           chunk; the bench's ≤-1-device-call-per-chunk
+#                           assertion reads this)
+#   verify.device_blocks  — blocks hashed on the device lane
+#   verify.scalar_blocks  — blocks verified on the scalar lane (odd codes,
+#                           sub-crossover batches, device fail-soft)
+VERIFY_COUNTERS = (
+    "verify.batch_calls",
+    "verify.batch_blocks",
+    "verify.device_calls",
+    "verify.device_blocks",
+    "verify.scalar_blocks",
+)
+
+# Counter vocabulary of the serve plane (serve/batcher.py,
+# serve/service.py, serve/durable.py). `<family>.*` entries are
+# per-batcher families — the batcher interpolates its queue name
+# (`generate`/`verify`) into the counter, e.g. `serve.accepted.generate`.
+SERVE_COUNTERS = (
+    "serve.accepted.*",
+    "serve.accepted_low.*",  # low-priority lane admissions (backfill windows)
+    "serve.accepted_push.*",  # push-lane admissions (standing-query windows)
+    "serve.rejected_closed.*",
+    "serve.rejected_full.*",
+    "serve.deadline_exceeded.*",
+    "serve.batches.generate",
+    "serve.batches.verify",
+    "serve.idempotent_hits",
+    "serve.result_cache_evictions",
+    # Streaming wire (witness/stream.py + the serve/router front ends):
+    #   responses       — streamed responses completed (terminator sent)
+    #   zero_copy_bytes — block payload bytes sent as memoryview slices of
+    #                     disk-tier segment frames (never copied through
+    #                     Python) — the tentpole meter
+    #   copied_bytes    — block payload bytes that DID copy (cache-warm
+    #                     blocks, eviction fallback, compressed frames)
+    #   aborts          — streams ended by an in-band typed error chunk
+    "serve.stream.responses",
+    "serve.stream.zero_copy_bytes",
+    "serve.stream.copied_bytes",
+    "serve.stream.aborts",
+)
+
+# Counter vocabulary of the tiered block store + chain follower
+# (storex/segments.py, storex/tiered.py, storex/follower.py):
+#   storex.disk_hits           — verified reads served from the disk tier
+#   storex.disk_misses         — disk-tier lookups that fell through to the
+#                                inner store (includes integrity evictions)
+#   storex.evictions           — whole segments LRU-evicted over the byte cap
+#   storex.integrity_evictions — disk frames that failed CRC or multihash
+#                                re-verification: evicted + refetched, the
+#                                corruption-is-an-availability-event counter
+#   storex.write_failures      — blocks the disk tier could not spill
+#                                (ENOSPC/EROFS fail-soft read-only degrade)
+#   storex.shared_evictions    — segments removed under the cross-process
+#                                eviction lock of a SHARED store dir (one
+#                                --store-dir serving N shard daemons); a
+#                                subset of storex.evictions, counted by
+#                                the shard that ran the eviction pass
+#   follow.tipsets             — finalized tipsets the chain follower warmed
+#   follow.blocks_prefetched   — spine blocks the follower stored locally
+#   follow.errors              — follower errors absorbed fail-soft (head
+#                                polls, fetches, verification skips,
+#                                raising finalized hooks)
+#   follow.leader_elections    — times a daemon won the follow-leader lock
+#                                (cluster mode runs ONE ChainFollower per
+#                                shared --store-dir, not one per shard)
+#   follow.polls               — head polls attempted (jittered cadence;
+#                                polls × poll_s sanity-checks herd spread)
+#   storex.replica_repairs     — corrupt local frames whose bytes were
+#                                refetched + re-verified from a replica
+#                                peer shard (read-repair hits — each one
+#                                is a Lotus fetch that never happened)
+#   storex.replica_repair_misses — corrupt frames NO replica could supply
+#                                verified bytes for (falls through to the
+#                                inner store like a plain miss)
+#   storex.replica_segments_pulled — whole segment files ingested from a
+#                                peer by a replication sync pass
+#   storex.replica_bytes_pulled — bytes of those pulled segment files
+#   storex.rebalance_segments_pushed — segment files handed off to a new
+#                                arc owner under the rebalance journal
+#   storex.rebalance_resumes   — rebalance runs that replayed a partial
+#                                journal (crash/SIGKILL mid-handoff)
+STOREX_COUNTERS = (
+    "storex.disk_hits",
+    "storex.disk_misses",
+    "storex.slice_hits",  # zero-copy frame slices handed out (mmap-backed)
+    "storex.slice_misses",  # slice lookups that fell back to a copied read
+
+    "storex.evictions",
+    "storex.integrity_evictions",
+    "storex.shared_evictions",
+    "storex.write_failures",
+    "storex.replica_repairs",
+    "storex.replica_repair_misses",
+    "storex.replica_segments_pulled",
+    "storex.replica_bytes_pulled",
+    "storex.rebalance_segments_pushed",
+    "storex.rebalance_resumes",
+    "follow.tipsets",
+    "follow.blocks_prefetched",
+    "follow.errors",
+    "follow.leader_elections",
+    "follow.polls",
+)
+
+# Counter vocabulary of the witness plane (witness/,
+# cluster/gather.py, subs delta delivery): cross-request aggregation,
+# delta witnesses, and compressed framing over the canonical bundle.
+#   witness.aggregated_requests — aggregated bundles emitted (one witness
+#                             shared by K claims)
+#   witness.aggregated_claims — claims folded into those aggregates (the
+#                             amortization numerator)
+#   witness.merge_sorts      — seal-time canonical CID sorts in the
+#                             incremental scatter fold (BundleFold.seal);
+#                             one per scatter, never one per arrival
+#   witness.delta_hits       — responses/deliveries shipped as deltas
+#                             against a known base
+#   witness.delta_fallbacks  — delta requested or eligible but the base
+#                             was unknown/stale/vanished → full bundle
+#                             (the sound degradation, never an error)
+#   witness.delta_blocks_dropped — witness blocks omitted from deltas
+#                             because the base already holds them (the
+#                             bytes-saved numerator)
+#   witness.compressed_frames — compressed witness frames emitted
+#   witness.encoding_rejects — requests naming an unknown/disabled
+#                             encoding, rejected with a typed 4xx
+#   witness.fleet_base_hits  — base digests unknown to the local
+#                             WitnessBaseCache but recovered from the
+#                             fleet-wide registry directory (another
+#                             shard's serve record) — the post-failover
+#                             delta save
+#   witness.fleet_base_misses — local miss AND directory miss → the
+#                             delta falls back to full (sound)
+WITNESS_COUNTERS = (
+    "witness.aggregated_requests",
+    "witness.aggregated_claims",
+    "witness.merge_sorts",
+    "witness.delta_hits",
+    "witness.delta_fallbacks",
+    "witness.delta_blocks_dropped",
+    "witness.compressed_frames",
+    "witness.encoding_rejects",
+    "witness.fleet_base_hits",
+    "witness.fleet_base_misses",
+)
+
+# Counter vocabulary of the provenance registry (registry/):
+# the hash-linked audit log every served bundle seals a frame into, which
+# doubles as the fleet-wide delta base directory.
+#   registry.appends         — records committed to this process's chain
+#                             (serve seals + fleet base acks)
+#   registry.append_failures — appends that failed (write error or an
+#                             already-degraded writer): serving continued
+#                             bit-identical, the record was dropped — the
+#                             fail-soft contract, and the SLO watchdog's
+#                             registry_divergence anomaly signal
+#   registry.torn_tails      — torn tails truncated on open (crash
+#                             residue, recovered exactly like the jobs
+#                             journal — never an error)
+#   registry.proofs          — inclusion/consistency proofs generated
+#   registry.fleet_refresh_errors — sibling-shard log scans that failed
+#                             (missing/corrupt/torn sibling): fail-soft,
+#                             the directory just misses
+REGISTRY_COUNTERS = (
+    "registry.appends",
+    "registry.append_failures",
+    "registry.torn_tails",
+    "registry.proofs",
+    "registry.fleet_refresh_errors",
+)
+
+# Counter vocabulary of the cluster plane (cluster/router.py,
+# cluster/gather.py): the consistent-hash front end over N shard serve
+# daemons.
+#   cluster.requests         — single-key requests routed (verify/generate)
+#   cluster.scatter_requests — multi-pair range requests scatter-gathered
+#   cluster.sub_requests     — per-shard sub-requests a scatter produced
+#   cluster.steals           — requests routed AWAY from their hash-affine
+#                              shard because queue-depth imbalance crossed
+#                              --steal-threshold (affinity is a cache hint,
+#                              never a correctness constraint)
+#   cluster.shard_errors     — transport-level shard failures observed
+#                              (connection refused/reset/timeout)
+#   cluster.shard_failovers  — re-dispatches of in-flight requests to a
+#                              surviving shard after a shard death; the
+#                              retry reuses the same idempotency key, so
+#                              at-least-once + dedup absorbs the repeat
+#   cluster.subscribe_requests — standing-query registrations routed to
+#                              their filter-affine shard
+#   cluster.subs_rearced     — subscriptions re-registered on a surviving
+#                              shard after their home shard died (original
+#                              sub ids; registry dedup absorbs replays)
+#   cluster.stream_blocks_deduped — witness blocks a streamed scatter did
+#                              NOT re-send because an earlier shard's
+#                              sub-bundle already carried them (the fold's
+#                              first-sight filter saves the wire bytes)
+#   cluster.stream_cut_through — shard sub-responses relayed chunk-by-chunk
+#                              on the streaming wire (Block chunks forwarded
+#                              as they arrive) instead of store-and-forward
+#                              of the whole shard response
+#   cluster.replications_triggered — replication sync passes the router
+#                              kicked off (cluster start, membership change,
+#                              shard death re-replication to restore R)
+#   cluster.slow_quarantines — placements routed away from their affine
+#                              shard because its latency EWMA (not queue
+#                              depth) dominated the effective-load gap: the
+#                              gray-failure quarantine of a slow-not-dead
+#                              shard
+CLUSTER_COUNTERS = (
+    "cluster.requests",
+    "cluster.scatter_requests",
+    "cluster.sub_requests",
+    "cluster.steals",
+    "cluster.shard_errors",
+    "cluster.shard_failovers",
+    "cluster.subscribe_requests",
+    "cluster.subs_rearced",
+    "cluster.stream_blocks_deduped",
+    "cluster.stream_cut_through",
+    "cluster.replications_triggered",
+    "cluster.slow_quarantines",
+)
+
+# Stage-timer vocabulary (`Metrics.stage(...)`): every `with
+# metrics.stage("name")` site in the tree must use one of these names —
+# a typo'd stage silently forks a new timer that no bench leg reads.
+PIPELINE_STAGES = (
+    "fetch_tipsets",
+    "resolve_address",
+    "actor_walks",
+    "slot_hash",
+    "slot_reads",
+    "materialize",
+    "generate",
+    "range_scan",
+    "range_match",
+    "range_record",
+    "range_merge",
+    "range_verify",
+    "range_storage",
+    "serve.generate_batch",
+    "serve.verify_batch",
+    "serve.backfill_window",
+)
+
+# Gauge vocabulary: instantaneous state, overwritten not accumulated.
+SERVE_GAUGES = (
+    "serve.queue_depth.*",  # per-batcher queue depth (generate/verify)
+    "serve.queue_depth_low.*",  # per-batcher LOW-priority lane depth
+    "serve.queue_depth_push.*",  # per-batcher PUSH-priority lane depth
+    "serve.result_cache_bytes",  # hot bytes in the spilled result cache
+    "qos.tenant_queues",  # live per-tenant sub-queues in the fair queue
+)
+
+ADMIT_GAUGES = (
+    "admit.limit",  # current AIMD concurrency limit
+    "admit.inflight",  # requests holding an admission slot right now
+)
+
+DURABILITY_GAUGES = (
+    "jobs.journal_bytes",  # bytes in the active job's write-ahead journal
+)
+
+STOREX_GAUGES = (
+    "storex.disk_bytes",  # bytes across all disk-tier segment files
+    "storex.replica_pending_segments",  # peer segments a sync pass still owes
+    "follow.last_finalized_epoch",  # last height the follower warmed (healthz)
+)
+
+CLUSTER_GAUGES = (
+    "cluster.shards_alive",  # shards currently routable (ring members)
+    "cluster.inflight.*",  # per-shard outstanding requests (steal signal)
+    "cluster.under_replicated_arcs",  # ring arcs whose replica set is not yet synced to R
+    "cluster.replication_lag_segments",  # segment files replicas still owe (fleet sum)
+)
+
+# Histogram vocabulary: bounded-reservoir distributions (p50/p90/p99).
+SERVE_HISTOGRAMS = (
+    "serve.latency_ms.generate",
+    "serve.latency_ms.verify",
+    "serve.batch_size.*",  # per-batcher flushed-batch sizes
+)
+
+# Fleet observability plane (obs/fleet.py): the router's federation loop
+# scraping every shard's /metrics.json and grafting shard span subtrees.
+#   fleet.scrapes        — per-shard scrape attempts by the federation loop
+#   fleet.scrape_errors  — scrapes that failed (shard dead/slow); the fleet
+#                          view keeps serving degraded and counts the gap
+#   fleet.spans_grafted  — shard-shipped spans re-rooted under the router's
+#                          scatter-gather spans (trace stitching)
+FLEET_COUNTERS = (
+    "fleet.scrapes",
+    "fleet.scrape_errors",
+    "fleet.spans_grafted",
+)
+
+# Per-tenant accounting substrate and the QoS meters on top of it
+# (serve/qos.py). Bounded cardinality: the first `top_k` tenants seen get
+# their own label; everyone else accumulates into the `other` overflow
+# bucket.
+#   tenant.requests.<slot>  — admitted requests attributed to the slot
+#   tenant.bytes.<slot>     — request + response bytes attributed to the
+#                             slot (response bytes account at SEND time,
+#                             streamed chunks included)
+#   tenant.throttled.<slot> — admissions refused by the slot's token
+#                             bucket (typed 429 + Retry-After)
+#   qos.throttled           — all token-bucket refusals (slot-independent
+#                             aggregate the SLO watchdog can page on)
+TENANT_COUNTERS = (
+    "tenant.requests.*",
+    "tenant.bytes.*",
+    "tenant.throttled.*",
+    "qos.throttled",
+)
+
+# Deadline propagation + cooperative cancellation (utils/deadline.py,
+# threaded through serve/, cluster/, store/, parallel/, proofs/):
+#   serve.deadline_rejects   — requests refused because the remaining budget
+#                              could not cover the admitting hop's floor
+#                              (typed `deadline` error, never a partial
+#                              bundle)
+#   serve.cancelled_inflight — in-flight work units aborted by cooperative
+#                              cancellation (client disconnect or mid-work
+#                              expiry observed at a chunk/stage boundary)
+#   deadline.rejects.<hop>   — per-hop budget refusals (`httpd`/`batcher`/
+#                              `router`/`rpc`), so dashboards see WHERE
+#                              budget dies
+#   deadline.reclaimed_ms    — worker milliseconds freed by cancellation:
+#                              the remaining batch-execution estimate at
+#                              abort time. The overload leg's
+#                              cancel_reclaim_pct numerator.
+DEADLINE_COUNTERS = (
+    "serve.deadline_rejects",
+    "serve.cancelled_inflight",
+    "deadline.rejects.httpd",
+    "deadline.rejects.batcher",
+    "deadline.rejects.router",
+    "deadline.rejects.rpc",
+    "deadline.reclaimed_ms",
+)
+
+# Adaptive admission (serve/qos.py GradientLimiter): AIMD concurrency
+# limit driven by queue delay, replacing the static queue_capacity as the
+# serve plane's first gate.
+#   admit.accepted   — requests admitted under the current limit
+#   admit.rejects    — requests shed at the limit (typed 429, honest
+#                      Retry-After from the drain estimate)
+#   admit.shed_other — rejects absorbed by the `other` tenant pool while
+#                      named top-K tenants still fit their share (the
+#                      tenant-aware shed order)
+#   admit.grows      — additive limit increases (queue delay under budget)
+#   admit.shrinks    — multiplicative limit decreases (p99 queue delay
+#                      crossed the SLO-derived budget)
+ADMIT_COUNTERS = (
+    "admit.accepted",
+    "admit.rejects",
+    "admit.shed_other",
+    "admit.grows",
+    "admit.shrinks",
+)
+
 # `obs.trace.span`, bound at first use: obs imports this module (its
 # collector counts into a `Metrics`), so the import is deferred
 _span_factory = None
@@ -273,6 +788,10 @@ class StageTimer:
     wall_s: float = 0.0
     _active: int = 0  # concurrent (outermost) entries right now
     _wall_start: float = 0.0  # perf_counter when _active went 0 -> 1
+
+    def add(self, seconds: float) -> None:
+        self.total_s += seconds
+        self.calls += 1
 
 
 class Histogram:

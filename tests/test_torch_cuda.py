@@ -864,3 +864,37 @@ def test_cluster_router_over_card_shards_equals_the_driver(cuda_device, monkeypa
         assert single.verify(want).all_valid()
         torch.cuda.synchronize()
     assert routed_launches == dict(blake2b.LAUNCHES) and sum(routed_launches.values()) >= 2
+
+
+def test_chaos_run_on_card_launches_blake2b_through_the_lane(cuda_device, monkeypatch):
+    from ipc_proofs_tpu_torch.tools import chaos
+
+    monkeypatch.setenv("IPC_VERIFY_MIN_BYTES", "0")  # every landed wave on the card's lane
+    backend = get_backend("gpu")
+    store, pairs, spec, reference = chaos.build_world(backend=backend)
+    want = chaos.build_world(backend=get_backend("gpu", device="cpu"))[3]
+    assert reference == want
+    outcomes = []
+    for seed in range(3):
+        blake2b.reset_launch_counts()
+        res = chaos.chaos_run(store, pairs, spec, reference, seed, fault_rate=0.05, backend=backend,
+                              fetch_plane=True)
+        torch.cuda.synchronize()
+        assert res["outcome"] in ("identical", "typed_error"), res
+        assert sum(blake2b.LAUNCHES.values()) > 0
+        assert res["counters"].get("verify.device_blocks", 0) > 0
+        outcomes.append(res["outcome"])
+    assert "identical" in outcomes
+
+
+def test_crash_point_with_a_child_on_card_resumes_identically(cuda_device, tmp_path):
+    from ipc_proofs_tpu_torch.ops.build import build_libraries
+    from ipc_proofs_tpu_torch.tools import crashtest
+
+    shape = {"pairs": 12, "chunk_size": 2, "receipts": 4, "events": 2, "match_rate": 0.2, "record_workers": 1}
+    reference = crashtest.range_reference(shape, "cuda")
+    assert reference == crashtest.range_reference(shape, "cpu")
+    res = crashtest.crash_run(reference, shape, 2, 64, str(tmp_path), device="cuda")
+    assert res["outcome"] == "identical", res
+    built = build_libraries(["blake2b", "keccak"])
+    assert res["libraries"] == {name: str(info["path"]) for name, info in built.items()}

@@ -2,7 +2,12 @@
 
 - Every module of ``ipc_proofs_tpu`` has its counterpart in the port at
   the same path, or at the one `MODULE_MAP` names, or is listed in
-  `NOT_PORTED` with its reason.
+  `NOT_PORTED` with its reason; every reference tool is in `TOOLS_MAP` or
+  `TOOLS_NOT_PORTED`; every public name of both (functions, classes,
+  methods, UPPER_CASE tuples) has its counterpart, under its own name or
+  the one `RENAMED_NAMES` gives, or is in `DROPPED_NAMES` with its reason;
+  and every metric vocabulary holds the reference's names, plus only the
+  port's own names `PORT_ONLY_METRIC_NAMES` lists with their departure.
 
 - No module of ``ipc_proofs_tpu_torch`` (``parallel/``, ``jobs/``,
   ``utils/``, ``ops/verify.py``, ``store/``, ``storex/``, ``witness/``,
@@ -165,6 +170,176 @@ def test_module_map_names_only_reference_modules():
     assert set(MODULE_MAP) <= modules and set(NOT_PORTED) <= modules
     assert not set(MODULE_MAP) & set(NOT_PORTED)
     assert sorted(NOT_PORTED) == ["ops/u64.py", "utils/platform.py"]
+
+
+# The reference's tools (repo-root ``tools/``) → the port's
+# (``ipc_proofs_tpu_torch/tools/``), and those not ported yet with the
+# ROADMAP item that takes each.
+TOOLS_MAP = {
+    "traceview.py": "tools/traceview.py",
+    "auditview.py": "tools/auditview.py",
+    "chaos.py": "tools/chaos.py",
+    "crashtest.py": "tools/crashtest.py",
+    "soak.py": "tools/soak.py",
+}
+TOOLS_NOT_PORTED = {
+    "ipclint/": "ROADMAP Queue 1 item 5 (the static gates)",
+    "check_all.py": "ROADMAP Queue 1 item 5 (the static gates)",
+    "build_native_san.py": "ROADMAP Queue 1 item 5 (the static gates)",
+    "check_bench_schema.py": "ROADMAP Queue 1 item 1 (the benchmark)",
+}
+
+
+def test_tools_map_accounts_for_every_reference_tool():
+    tools = ROOT / "tools"
+    entries = {p.name + ("/" if p.is_dir() else "") for p in tools.iterdir()
+               if p.name != "__init__.py" and not p.name.startswith((".", "__"))}
+    assert entries == set(TOOLS_MAP) | set(TOOLS_NOT_PORTED)
+    assert not set(TOOLS_MAP) & set(TOOLS_NOT_PORTED)
+    for target in TOOLS_MAP.values():
+        assert (ROOT / "ipc_proofs_tpu_torch" / target).is_file(), target
+    assert (ROOT / "ipc_proofs_tpu_torch" / "tools" / "_fuzz.py").is_file()
+    for tool in TOOLS_NOT_PORTED:
+        assert not (ROOT / "ipc_proofs_tpu_torch" / "tools" / tool).exists(), tool
+
+
+def _public_names(path: Path) -> "set[str]":
+    """Top-level functions and classes, ``Class.method`` for their methods,
+    and module-level UPPER_CASE tuples — each whose own name has no leading
+    underscore (``_MergeFold.n_storage_proofs`` counts)."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            if not node.name.startswith("_"):
+                names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                names.update(
+                    f"{node.name}.{sub.name}" for sub in node.body
+                    if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)) and not sub.name.startswith("_")
+                )
+        elif isinstance(node, ast.Assign) and isinstance(node.value, ast.Tuple):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name) and t.id.isupper())
+    return names
+
+
+# reference names whose counterpart has another name or home:
+# "module:Name" → "port module:Name" (a class's entry covers its methods)
+RENAMED_NAMES = {
+    "backend/cpu.py:CpuBackend": "backend/gpu.py:GpuBackend",
+    "backend/tpu.py:TpuBackend": "backend/gpu.py:GpuBackend",
+    "backend/tpu.py:flatten_events": "ops/match.py:flatten_events",
+    "ops/pallas_kernels.py:blake2b256_single_block_pallas": "ops/blake2b.py:blake2b256_single_block",
+    "ops/pallas_kernels.py:blake2b256_two_block_pallas": "ops/blake2b.py:blake2b256_two_block",
+    "ops/pallas_kernels.py:keccak256_single_block_pallas": "ops/keccak.py:keccak256_single_block",
+    "ops/pallas_kernels.py:pack_single_block_blake2b": "ops/pack.py:pack_single_block_blake2b",
+    "ops/pallas_kernels.py:pack_two_block_blake2b": "ops/pack.py:pack_two_block_blake2b",
+    "ops/pallas_kernels.py:pack_single_block_keccak": "ops/pack.py:pack_single_block_keccak",
+}
+# reference public names with no counterpart, and why (a class's entry
+# covers its methods)
+DROPPED_NAMES = {
+    "backend/cpu.py:CpuBackend.has_native": "probes the host C++ hasher; the port has none (NativeHashes)",
+    "backend/native/__init__.py:NativeHashes": "the CPU backend's C++ batch hasher: the port hashes batches "
+    "with the CUDA kernels and single blocks with hashlib",
+    "backend/native/__init__.py:load_native": "builds NativeHashes (above)",
+    "core/_cid_native.py:SAN_FLAGS": "flags of tools/build_native_san.py, not yet ported "
+    "(ROADMAP Queue 1 item 5)",
+    "ops/keccak_jax.py:keccak_f1600_batch": "the XLA permutation on u32 lo/hi planes; the port's runs on "
+    "u64 lanes inside csrc/keccak.cu and its plain twin",
+    "ops/match_jax.py:event_match_mask_jit": "a jax.jit wrapper; PyTorch runs the mask's ops eagerly",
+    "ops/match_jax.py:event_match_mask_fp_jit": "a jax.jit wrapper; PyTorch runs the mask's ops eagerly",
+}
+
+
+def _name_modules() -> "list[str]":
+    return [m for m in _reference_modules() if m not in NOT_PORTED] + [f"tools/{t}" for t in TOOLS_MAP]
+
+
+def _reference_path(module: str) -> Path:
+    if module == "__graft_entry__.py" or module.startswith("tools/"):
+        return ROOT / module
+    return ROOT / "ipc_proofs_tpu" / module
+
+
+def _port_targets(module: str) -> "tuple[str, ...]":
+    if module.startswith("tools/"):
+        return (TOOLS_MAP[module.removeprefix("tools/")],)
+    return tuple(t for t in MODULE_MAP.get(module, (module,)) if t.endswith(".py"))
+
+
+def _counterpart(module: str, name: str) -> "tuple[str, str] | None":
+    """(port module, name) the reference ``module:name`` maps to, or None
+    when it is dropped."""
+    owner, _, member = name.partition(".")
+    for key in (f"{module}:{name}", f"{module}:{owner}"):
+        if key in DROPPED_NAMES:
+            return None
+        if key in RENAMED_NAMES:
+            target, new = RENAMED_NAMES[key].split(":")
+            return target, new + (f".{member}" if key.endswith(f":{owner}") and member else "")
+    return "", name
+
+
+@pytest.mark.parametrize("module", _name_modules())
+def test_every_reference_public_name_has_a_counterpart_or_a_reason(module):
+    port = ROOT / "ipc_proofs_tpu_torch"
+    here = set()
+    for target in _port_targets(module):
+        here |= _public_names(port / target)
+    missing = []
+    for name in sorted(_public_names(_reference_path(module))):
+        found = _counterpart(module, name)
+        if found is None:
+            continue
+        target, new = found
+        have = _public_names(port / target) if target else here
+        if new not in have:
+            missing.append(name)
+    assert not missing, f"reference {module}: {missing} neither ported nor in RENAMED_NAMES / DROPPED_NAMES"
+
+
+def test_dropped_and_renamed_names_are_current():
+    port = ROOT / "ipc_proofs_tpu_torch"
+    for key in list(DROPPED_NAMES) + list(RENAMED_NAMES):
+        module, name = key.split(":")
+        assert name in _public_names(_reference_path(module)), f"{key} is not a reference name"
+    for key in DROPPED_NAMES:
+        module, name = key.split(":")
+        here = set().union(*(_public_names(port / t) for t in _port_targets(module)))
+        assert name not in here, f"{key} is ported: take it out of DROPPED_NAMES"
+    for key, value in RENAMED_NAMES.items():
+        target, new = value.split(":")
+        assert new in _public_names(port / target), f"{key} → {value}: no such port name"
+
+
+# metric names the port counts and the reference does not, with the
+# departure that brought each
+PORT_ONLY_METRIC_NAMES = {
+    "BACKFILL_COUNTERS": {
+        "backfill.device_faults": "a fault of the card stops a backfill job as faulted, never failed "
+        "(ROADMAP Queue 3, departures by design)",
+    },
+}
+
+
+def _literal_tuples(path: Path) -> "dict[str, tuple]":
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Tuple):
+            for t in node.targets:
+                if isinstance(t, ast.Name) and t.id.isupper():
+                    out[t.id] = ast.literal_eval(node.value)
+    return out
+
+
+def test_metric_vocabularies_hold_the_references_names():
+    ref = _literal_tuples(ROOT / "ipc_proofs_tpu" / "utils" / "metrics.py")
+    port = _literal_tuples(ROOT / "ipc_proofs_tpu_torch" / "utils" / "metrics.py")
+    assert set(PORT_ONLY_METRIC_NAMES) <= set(ref)
+    for name, names in ref.items():
+        assert name in port, name
+        assert not set(names) - set(port[name]), (name, sorted(set(names) - set(port[name])))
+        assert set(port[name]) - set(names) == set(PORT_ONLY_METRIC_NAMES.get(name, {})), name
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
