@@ -426,6 +426,17 @@ Phases, none of which may fail:
    none failed or skipped and no ``LockOrderError``; prints each part's
    seconds, the files linted, the launches made in the sanitizer's
    children and the tests that ran.
+33. bench — the repo's bench on the card: ``python bench_torch.py --leg
+   NAME --quick`` for ``e2e`` (its card probe included), ``kernel``,
+   ``cid`` and ``onchip``, each in a child under the leg's own watchdog
+   (its ``--quick`` timeout): each leg's JSON says ``_platform`` ``cuda``
+   and holds exactly the keys the reference leg emits (``BENCH_LEG_KEYS``,
+   held against ``bench.py`` by the CPU tests), and each child's kernel
+   launches (its ``bench: kernel launches`` line) include the kernels its
+   leg drives; then the port's ``check_bench_schema``, in a child, passes
+   the committed artifact ``bench_torch_runs/BENCH_torch_r01.json`` in
+   non-current mode; prints each leg's seconds, headline number and
+   launches.
 
 Prints per-stage ms of every path with the scanner's thread count and the
 CPUs it may use; then, in order before the last line: one line per kernel,
@@ -451,9 +462,9 @@ and ``cli backfill``, and ``cluster`` (the buffered scatters at 1, 2 and
 4 shards), ``cluster, stream``, ``cluster verify``, ``cluster load``,
 ``cluster hostkill``, ``cluster backfill``, ``cli cluster`` (the 4
 shards' served launches, from their logs), ``cli cluster, 1 shard``,
-``tools chaos``, ``tools crashtest verify``, ``tools soak`` and
-``static gates`` — the launches of the sanitizer's child processes —
-included). The
+``tools chaos``, ``tools crashtest verify``, ``tools soak``,
+``static gates`` — the launches of the sanitizer's child processes — and
+``bench``, the bench legs' children's launches, included). The
 device match functions (PyTorch ops, not kernels of this repository)
 report their times in their phase's line.
 """
@@ -6191,6 +6202,92 @@ def static_gates_phase() -> dict:
     return out
 
 
+# -- the repo's bench (slice 15) ---------------------------------------------
+
+BENCH_ARTIFACT = "bench_torch_runs/BENCH_torch_r01.json"
+# phase 33's legs, the reference leg's keys for each (``bench.py``'s
+# return dicts; the CPU tests hold this table against it), and the kernels
+# each leg's child must launch
+BENCH_LEG_KEYS = {
+    "e2e": (
+        "metric", "value", "unit", "platform", "devices", "host_cores", "host_cores_affinity",
+        "scan_threads", "record_workers", "verify_workers", "effective_threads", "native_scan_threads",
+        "pipeline_depth", "pipeline_chunk", "events_per_sec_e2e", "proofs", "stages_ms", "stages_wall_ms",
+        "stages_overlap", "gen_verify_overlap", "overlap_efficiency", "serial_proofs_per_sec",
+        "serial_e2e_reps_s", "pipeline_speedup_vs_serial", "e2e_policy", "e2e_reps_s", "_platform",
+    ),
+    "kernel": ("device_mask_kernel_events_per_sec", "_platform"),
+    "cid": ("witness_cid_kernel_per_sec", "witness_cid_kernel", "_platform"),
+    "onchip": (
+        "device_linearity_Nchip", "batch_verify_speedup", "onchip_devices", "onchip_match_events",
+        "onchip_verify_blocks", "onchip_device_calls", "verify_tuned_speedup", "verify_autotune_scalar_only",
+        "verify_autotuned_min_bytes", "_platform",
+    ),
+}
+BENCH_LEG_LAUNCHES = {  # each group: at least one of its kernels
+    "e2e": (("blake2b256_single_block", "blake2b256_two_block", "blake2b256_blocks"),),
+    "kernel": (("match_pipeline",),),
+    "cid": (("blake2b256_two_block",),),
+    "onchip": (("event_match_mask_fp",), ("event_match_mask_fp_sharded",), ("blake2b256_blocks",)),
+}
+BENCH_HEADLINES = {
+    "e2e": "value", "kernel": "device_mask_kernel_events_per_sec", "cid": "witness_cid_kernel_per_sec",
+    "onchip": "batch_verify_speedup",
+}
+
+
+def bench_phase() -> dict:
+    """Phase 33: four legs of ``bench_torch.py --quick`` on the card, each
+    in a child under its leg's own watchdog (the e2e leg probes the card as
+    ``--platform auto`` does; the others are given ``--platform cuda``, as
+    the orchestrator gives every leg), their keys held against the
+    reference's and their children's launches read; then the port's
+    schema checker over the committed artifact."""
+    import bench_torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    quick = bench_torch._parse_args(["--quick"])
+    out: dict = {"legs": {}, "launches": {name: 0 for name in _counts()}}
+    for leg, keys in BENCH_LEG_KEYS.items():
+        argv = [sys.executable, os.path.join(here, "bench_torch.py"), "--leg", leg, "--quick"]
+        if leg != "e2e":
+            argv += ["--platform", "cuda"]
+        timeout = bench_torch._leg_timeout(leg, quick)
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=timeout,
+                              env=dict(os.environ, PYTHONPATH=here))
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"bench, leg {leg}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        if result.get("_platform") != "cuda" or sorted(result) != sorted(keys):
+            raise AssertionError(f"bench, leg {leg}: platform {result.get('_platform')!r}, keys "
+                                 f"{sorted(set(result) ^ set(keys))} differ from the reference leg's")
+        m = re.search(r"^bench: kernel launches (\{.*\})$", proc.stderr, re.M)
+        if m is None:
+            raise AssertionError(f"bench, leg {leg}: no launch line\n{proc.stderr[-2000:]}")
+        launches = json.loads(m.group(1))
+        idle = [group for group in BENCH_LEG_LAUNCHES[leg] if not any(launches.get(name) for name in group)]
+        if idle:
+            raise AssertionError(f"bench, leg {leg}: did not launch {idle}: {launches}")
+        for name, n in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+        probe = re.search(r"^bench: card probe OK → (.*)$", proc.stderr, re.M)
+        out["legs"][leg] = {
+            "seconds": round(seconds, 1), "timeout_s": timeout, BENCH_HEADLINES[leg]: result[BENCH_HEADLINES[leg]],
+            "launches": {k: v for k, v in launches.items() if v},
+            **({"probe": probe.group(1)} if probe else {}),
+        }
+    if "probe" not in out["legs"]["e2e"]:
+        raise AssertionError("bench, leg e2e: no card probe line")
+    proc = subprocess.run([sys.executable, "-m", "ipc_proofs_tpu_torch.tools.check_bench_schema", BENCH_ARTIFACT],
+                          cwd=here, capture_output=True, text=True, timeout=120, env=dict(os.environ, PYTHONPATH=here))
+    if proc.returncode != 0 or proc.stdout.strip() != f"{BENCH_ARTIFACT}: ok":
+        raise AssertionError(f"bench, check_bench_schema: exit {proc.returncode}\n{proc.stdout[-2000:]}")
+    out["schema"] = proc.stdout.strip()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6314,6 +6411,7 @@ def main(argv=None) -> int:
         run("tools", tools_phase, device, args.seed, built, paths["registry"]["log"], paths["traced"]["chrome"],
             paths["traced"]["trace.spans_recorded"], root)
     run("static gates", static_gates_phase)
+    run("bench", bench_phase)
     cli_paths = paths.pop("cli generate, vectors, demo")
     launch_counts = {label: path["launches"] for label, path in paths.items()}
     launch_counts["event path, unfused"] = paths["event path"]["unfused"]["launches"]
@@ -6629,6 +6727,13 @@ def main(argv=None) -> int:
         f"{json.dumps(gates['sanitizer']['guard'])}), compute-sanitizer {json.dumps(gates['sanitizer']['tools'])}; "
         f"cuda tests under IPC_LOCKDEP=1 {json.dumps(gates['cuda_tests'])}; seconds "
         f"{json.dumps({k: round(v, 1) for k, v in gates['seconds'].items()})}"
+    )
+    bench_legs = paths["bench"]["legs"]
+    _log(
+        f"bench on {smi}: " + "; ".join(
+            f"{leg} {row['seconds']} s (watchdog {row['timeout_s']:.0f} s), {BENCH_HEADLINES[leg]} "
+            f"{row[BENCH_HEADLINES[leg]]}, launches {json.dumps(row['launches'])}" for leg, row in bench_legs.items()
+        ) + f"; probe {bench_legs['e2e'].get('probe')}; {paths['bench']['schema']}"
     )
     _log(f"phase seconds: {json.dumps(seconds)}")
     print(json.dumps({"kernels": rows}))

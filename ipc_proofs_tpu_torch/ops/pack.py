@@ -42,6 +42,19 @@ BLOCK_BYTES = 128  # blake2b block
 RATE_BYTES = 136  # keccak-256 rate
 
 
+def _rows(messages: "list[bytes]", row_bytes: int, n_rows: int) -> np.ndarray:
+    """Each message at the start of its own zeroed row of ``row_bytes``:
+    uint8 ``[n_rows, row_bytes]``, writable. One C-level slice copy a
+    message into a ``bytearray`` (a numpy slice assignment a row cost more
+    than hashing the row on the host, at witness-block sizes)."""
+    buf = bytearray(n_rows * row_bytes)
+    off = 0
+    for msg in messages:
+        buf[off : off + len(msg)] = msg
+        off += row_bytes
+    return np.frombuffer(buf, dtype=np.uint8).reshape(n_rows, row_bytes)
+
+
 def pad_blake2b(messages: "list[bytes]", max_blocks: "int | None" = None):
     """Pack messages into zero-padded 128-byte blake2b blocks.
 
@@ -55,9 +68,7 @@ def pad_blake2b(messages: "list[bytes]", max_blocks: "int | None" = None):
         if counts.size and counts.max() > max_blocks:
             raise ValueError(f"message needs {counts.max()} blocks > cap {max_blocks}")
         b = max_blocks
-    raw = np.zeros((n, b * BLOCK_BYTES), dtype=np.uint8)
-    for i, msg in enumerate(messages):
-        raw[i, : len(msg)] = np.frombuffer(msg, dtype=np.uint8)
+    raw = _rows(messages, b * BLOCK_BYTES, n)
     blocks = raw.reshape(n, b, BLOCK_BYTES).view(np.uint32).reshape(n, b, BLOCK_BYTES // 4)
     return np.ascontiguousarray(blocks), counts, lengths
 
@@ -65,13 +76,11 @@ def pad_blake2b(messages: "list[bytes]", max_blocks: "int | None" = None):
 def _pack_split(messages: "list[bytes]", n_bytes: int, what: str):
     n = len(messages)
     n_pad = ((n + TILE - 1) // TILE) * TILE
-    raw = np.zeros((n_pad, n_bytes), dtype=np.uint8)
     lengths = np.zeros((n_pad, 1), dtype=np.int32)
-    for i, msg in enumerate(messages):
-        if len(msg) > n_bytes:
-            raise ValueError(f"{what} blake2b kernel requires len <= {n_bytes}")
-        raw[i, : len(msg)] = np.frombuffer(msg, dtype=np.uint8)
-        lengths[i, 0] = len(msg)
+    lengths[:n, 0] = [len(m) for m in messages]
+    if n and lengths.max() > n_bytes:
+        raise ValueError(f"{what} blake2b kernel requires len <= {n_bytes}")
+    raw = _rows(messages, n_bytes, n_pad)
     words = raw.view(np.uint32).reshape(n_pad, n_bytes // 4)
     return (
         np.ascontiguousarray(words[:, 0::2]),
@@ -110,11 +119,10 @@ def pad_keccak(messages: "list[bytes]", max_blocks: "int | None" = None):
         if counts.size and counts.max() > max_blocks:
             raise ValueError(f"message needs {counts.max()} blocks > cap {max_blocks}")
         b = max_blocks
-    raw = np.zeros((n, b * RATE_BYTES), dtype=np.uint8)
-    for i, msg in enumerate(messages):
-        raw[i, : len(msg)] = np.frombuffer(msg, dtype=np.uint8)
-        raw[i, len(msg)] ^= 0x01
-        raw[i, counts[i] * RATE_BYTES - 1] ^= 0x80
+    raw = _rows(messages, b * RATE_BYTES, n)
+    rows = np.arange(n)
+    raw[rows, [len(m) for m in messages]] ^= 0x01
+    raw[rows, counts * RATE_BYTES - 1] ^= 0x80
     # u32 words are (lo, hi) interleaved little-endian: word 2i = lane i lo
     blocks = raw.reshape(n, b, RATE_BYTES).view(np.uint32).reshape(n, b, RATE_BYTES // 4)
     return np.ascontiguousarray(blocks), counts
@@ -128,13 +136,12 @@ def pack_single_block_keccak(messages: "list[bytes]"):
     """
     n = len(messages)
     n_pad = ((n + TILE - 1) // TILE) * TILE
-    raw = np.zeros((n_pad, RATE_BYTES), dtype=np.uint8)
-    for i, msg in enumerate(messages):
-        if len(msg) >= RATE_BYTES:
-            raise ValueError("single-block keccak kernel requires len < 136")
-        raw[i, : len(msg)] = np.frombuffer(msg, dtype=np.uint8)
-        raw[i, len(msg)] ^= 0x01
-        raw[i, RATE_BYTES - 1] ^= 0x80
+    lengths = [len(m) for m in messages]
+    if n and max(lengths) >= RATE_BYTES:
+        raise ValueError("single-block keccak kernel requires len < 136")
+    raw = _rows(messages, RATE_BYTES, n_pad)
+    raw[np.arange(n), lengths] ^= 0x01
+    raw[:n, RATE_BYTES - 1] ^= 0x80
     words = raw.view(np.uint32).reshape(n_pad, RATE_BYTES // 4)
     return np.ascontiguousarray(words[:, 0::2]), np.ascontiguousarray(words[:, 1::2]), n
 

@@ -5,11 +5,11 @@ same gates in the same order:
 
 1. **ipclint** — lock discipline, determinism, error taxonomy, metrics
    vocabulary over ``ipc_proofs_tpu_torch`` (AST-level, fast);
-2. **bench schema** — the port's ``BENCH_*.json`` artifacts against the
-   reporting contract. The port has none until its benchmark, so the gate
-   prints the reference's "skipped" line (the JAX package's
+2. **bench schema** — the port's artifacts (``bench_torch_runs/BENCH_*.json``,
+   printed by ``bench_torch.py`` on the card) against the reporting
+   contract, through the port's ``check_bench_schema`` (the JAX package's
    ``BENCH_*.json`` at the repo root are not the port's and go through
-   nothing here);
+   nothing here); without any it prints the reference's "skipped" line;
 3. **sanitizer probe** — the ASan/UBSan toolchain is present and a probe
    binary compiles and runs (reported, never fatal). Pass ``--san`` to run
    ``build_native_san`` instead: the sanitized host build with the port's
@@ -104,9 +104,11 @@ def main(argv: "list[str] | None" = None) -> int:
 
     ok = _gate("ipclint", ["-m", "ipc_proofs_tpu_torch.tools.ipclint", "ipc_proofs_tpu_torch"])
 
-    # the port writes no BENCH_*.json yet: its artifacts and their schema
-    # checker come with its benchmark (ROADMAP Queue 1 item 1)
-    print("check_all: [bench-schema] no BENCH_*.json artifacts — skipped")
+    artifacts = sorted(p.relative_to(REPO_ROOT).as_posix() for p in REPO_ROOT.glob("bench_torch_runs/BENCH_*.json"))
+    if artifacts:
+        ok &= _gate("bench-schema", ["-m", "ipc_proofs_tpu_torch.tools.check_bench_schema", *artifacts])
+    else:
+        print("check_all: [bench-schema] no BENCH_*.json artifacts — skipped")
 
     if args.san:
         ok &= _gate("sanitizer", ["-m", "ipc_proofs_tpu_torch.tools.build_native_san"])

@@ -28,14 +28,17 @@ from ipc_proofs_tpu_torch.utils.log import get_logger
 
 __all__ = ["ThreadBudget", "locked", "resolve_thread_budget"]
 
-logger = get_logger(__name__)
-
 
 def locked(fn):
     """Document that a method's CALLER must already hold the instance lock
     guarding the attributes it touches. Pure annotation: no runtime
     behavior."""
     return fn
+
+
+# after `locked`: the first logger configures logging, which imports
+# `obs`, whose `slo` imports `locked` from this module
+logger = get_logger(__name__)
 
 
 _log_lock = named_lock("threads._log_lock")

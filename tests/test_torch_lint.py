@@ -158,7 +158,8 @@ def test_check_all_gate_passes():
         cwd=ROOT, capture_output=True, text=True, timeout=600,
     )
     assert proc.returncode == 0, f"{proc.stdout}\n{proc.stderr}"
-    assert "check_all: [bench-schema] no BENCH_*.json artifacts — skipped" in proc.stdout
+    assert "check_all: [bench-schema] -m ipc_proofs_tpu_torch.tools.check_bench_schema bench_torch_runs/" in proc.stdout
+    assert "check_all: [bench-schema] ok" in proc.stdout
     assert "check_all: all gates passed" in proc.stdout
 
 

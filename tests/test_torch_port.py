@@ -74,8 +74,8 @@ from ipc_proofs_tpu_torch.proofs.trust import MockTrustVerifier, TrustPolicy
 from ipc_proofs_tpu_torch.proofs.verifier import verify_proof_bundle
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "ipc_proofs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "ipc_proofs_tpu", "tools")
+PORT_FILES = sorted((ROOT / "ipc_proofs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+FORBIDDEN = ("jax", "jaxlib", "ipc_proofs_tpu", "tools", "bench")
 
 
 def _imported_modules(path: Path) -> "list[str]":
@@ -95,6 +95,7 @@ def _forbidden(name: str) -> bool:
 def test_port_files_exist():
     rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in rel
+    assert "bench_torch.py" in rel
     assert "ipc_proofs_tpu_torch/ops/blake2b.py" in rel
     assert "ipc_proofs_tpu_torch/ops/keccak.py" in rel
     assert "ipc_proofs_tpu_torch/proofs/storage_batch.py" in rel
@@ -120,7 +121,7 @@ def test_port_files_exist():
         "obs/slo.py", "cluster/__init__.py", "cluster/hashring.py", "cluster/gather.py",
         "backfill/__init__.py", "backfill/scheduler.py", "backfill/engine.py", "subs/__init__.py",
         "subs/registry.py", "subs/matcher.py", "subs/delivery.py", "cluster/router.py",
-        "cluster/shard.py",
+        "cluster/shard.py", "utils/platform.py", "tools/check_bench_schema.py",
     ):
         assert f"ipc_proofs_tpu_torch/{module}" in rel, module
 
@@ -145,7 +146,6 @@ MODULE_MAP = {
 # reference modules with no counterpart, and why
 NOT_PORTED = {
     "ops/u64.py": "emulates u64 on u32 pairs for TPU lanes; CUDA has u64 and no module imports it",
-    "utils/platform.py": "the bench's platform probe; waits for the benchmark port with bench.py",
 }
 
 
@@ -169,7 +169,7 @@ def test_module_map_names_only_reference_modules():
     modules = set(_reference_modules())
     assert set(MODULE_MAP) <= modules and set(NOT_PORTED) <= modules
     assert not set(MODULE_MAP) & set(NOT_PORTED)
-    assert sorted(NOT_PORTED) == ["ops/u64.py", "utils/platform.py"]
+    assert sorted(NOT_PORTED) == ["ops/u64.py"]
 
 
 # The reference's tools (repo-root ``tools/``, each module of a tool that
@@ -183,15 +183,14 @@ TOOLS_MAP = {
     "soak.py": "tools/soak.py",
     "check_all.py": "tools/check_all.py",
     "build_native_san.py": "tools/build_native_san.py",
+    "check_bench_schema.py": "tools/check_bench_schema.py",
     **{
         f"ipclint/{m}.py": f"tools/ipclint/{m}.py"
         for m in ("__init__", "__main__", "engine", "checks_race", "checks_det", "checks_err",
                   "checks_vocab", "checks_lockorder")
     },
 }
-TOOLS_NOT_PORTED = {
-    "check_bench_schema.py": "ROADMAP Queue 1 item 1 (the benchmark)",
-}
+TOOLS_NOT_PORTED: "dict[str, str]" = {}
 
 
 def test_tools_map_accounts_for_every_reference_tool():
@@ -624,6 +623,29 @@ def test_cli_module_exits_nonzero_without_cuda():
     assert "All valid" not in proc.stdout
 
 
+@pytest.mark.parametrize(
+    "argv, names",
+    [
+        (["--platform", "auto"], ("card probe", "no CPU fallback")),
+        (["--leg", "e2e", "--platform", "cuda"], ("the card was asked for",)),
+    ],
+    ids=["orchestrator-auto", "leg-cuda"],
+)
+def test_bench_refuses_the_host_without_cuda(argv, names):
+    """``bench_torch.py`` without a card: the orchestrator's probe fails
+    (one attempt here) and raises, naming the probe; a leg asked for the
+    card fails before any work. Neither prints an artifact line or falls
+    back to the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="", IPC_BENCH_PROBE_ATTEMPTS="1")
+    env.pop("IPC_BENCH_PLATFORM", None)
+    proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"), *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    for name in names:
+        assert name in proc.stderr, proc.stderr[-2000:]
+    assert proc.stdout.strip() == ""
+
+
 def test_gpu_backend_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -924,3 +946,13 @@ def test_cli_backfill_and_serve_engines_load_no_jax_or_reference(tmp_path):
         out, err = proc.communicate(timeout=60)
     assert proc.returncode == 0, err[-2000:]
     assert "LOADED []" in out, out
+
+
+@pytest.mark.parametrize("module", ["utils.threads", "obs.slo", "utils.log", "utils.platform"])
+def test_a_leaf_module_imports_first(module):
+    """A process whose first import of the port is ``module`` starts: the
+    first logger imports ``obs``, whose ``slo`` takes ``locked`` from
+    ``utils.threads`` (which used to raise ImportError, a partly
+    initialized module, when ``utils.threads`` came first)."""
+    subprocess.run([sys.executable, "-c", f"import ipc_proofs_tpu_torch.{module}"], cwd=ROOT, check=True,
+                   timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT)))

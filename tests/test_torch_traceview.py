@@ -24,8 +24,10 @@ pytest.importorskip("jax")
 
 import tools.traceview as ref_tv  # noqa: E402
 from ipc_proofs_tpu import obs as ref_obs  # noqa: E402
+from ipc_proofs_tpu.obs import trace as ref_trace  # noqa: E402
 from ipc_proofs_tpu.utils.metrics import Metrics as RefMetrics  # noqa: E402
 from ipc_proofs_tpu_torch import obs  # noqa: E402
+from ipc_proofs_tpu_torch.obs import trace as port_trace  # noqa: E402
 from ipc_proofs_tpu_torch.tools import traceview  # noqa: E402
 from ipc_proofs_tpu_torch.utils.metrics import Metrics  # noqa: E402
 
@@ -44,33 +46,57 @@ def _both(argv, capsys) -> str:
     return out
 
 
-def _record(pkg, metrics_cls, path: Path) -> None:
+class _StepClock:
+    """The span collectors' clock in `_record`: ``perf_counter_ns`` moves
+    one microsecond a read, and ``sleep`` moves it by the time asked for
+    without waiting, so every span's duration is fixed whatever the load
+    on the host. Every other attribute is the real ``time`` module's."""
+
+    def __init__(self):
+        self.now_ns = 0
+
+    def perf_counter_ns(self) -> int:
+        self.now_ns += 1_000
+        return self.now_ns
+
+    def sleep(self, seconds: float) -> None:
+        self.now_ns += int(seconds * 1e9)
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def _record(pkg, metrics_cls, path: Path, clock: _StepClock) -> None:
     """Two requests through ``pkg``'s span collector, nested three deep with
-    siblings, written as Chrome trace-event JSON."""
+    siblings, written as Chrome trace-event JSON. The spans' durations come
+    from ``clock``: ``stage_b`` takes 2 ms, each ``stage_c`` 0.5 ms."""
     collector = pkg.enable_tracing(metrics=metrics_cls())
     try:
         for req in range(2):
             with pkg.root_span(f"req{req}"):
                 with pkg.span("stage_a"):
                     with pkg.span("stage_b"):
-                        time.sleep(0.002)
+                        clock.sleep(0.002)
                     with pkg.span("stage_b2"):
                         pass
                 for _ in range(6):
                     with pkg.span("stage_c"):
-                        time.sleep(0.0005)
+                        clock.sleep(0.0005)
         pkg.write_chrome_trace(str(path), collector.snapshot())
     finally:
         pkg.disable_tracing()
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])
-def test_summary_matches_the_reference_tool(writer, tmp_path, capsys):
+def test_summary_matches_the_reference_tool(writer, tmp_path, capsys, monkeypatch):
     path = tmp_path / "t.json"
+    clock = _StepClock()
+    for trace_module in (ref_trace, port_trace):
+        monkeypatch.setattr(trace_module, "time", clock)
     if writer == "reference":
-        _record(ref_obs, RefMetrics, path)
+        _record(ref_obs, RefMetrics, path, clock)
     else:
-        _record(obs, Metrics, path)
+        _record(obs, Metrics, path, clock)
     summary = json.loads(_both([str(path), "--json"], capsys))
     assert summary["n_traces"] == 2
     for trace in summary["traces"]:
