@@ -10,11 +10,12 @@ Phases, none of which may fail:
    card's name and power limit as ``nvidia-smi`` reports them;
 2. build — the host C extensions (``backend/native/*.c``) build with gcc
    when the package is imported, raising on failure; then it compiles
-   ``csrc/blake2b.cu`` and ``csrc/keccak.cu`` with nvcc for sm_90a (one
-   nvcc per source, started together) and prints the build
+   ``csrc/blake2b.cu``, ``csrc/keccak.cu`` and ``csrc/match.cu`` with nvcc
+   for sm_90a (one nvcc per source, started together) and prints the build
    seconds, ptxas's register report, and the SASS instructions per pipe of
-   one blake2b compression and one keccak permutation (``cuobjdump``) that
-   the operation bounds are computed from;
+   one blake2b compression and one keccak permutation (``cuobjdump``)
+   beside the algorithm's counts that the operation bounds are computed
+   from;
 3. kernels — each kernel's digests must equal its plain PyTorch version's
    on the card bit for bit (tolerance 0: integer hashing) and the host
    golden model (``hashlib.blake2b``, ``core.hashes.keccak256``) on a
@@ -26,17 +27,25 @@ Phases, none of which may fail:
    - keccak: 1,048,576 single-block messages of 0–135 B, and 262,144
      multi-block messages of 136–543 B (2–4 blocks) with rows whose block
      count is 0 (digest of zeros) or above the layout's 4 (absorbs 4);
-3a. device match pipeline — the kernel leg's world at full width,
+3a. device match — the kernel leg's world at full width,
    ``synthetic_event_batch(4096, 16, 4, match_rate=0.01, seed=42)``
-   (262,144 events, 16.8 MB of topic words), through ``match_pipeline`` on
-   the card and ``sharded_match_pipeline`` on the real mesh
-   ``make_mesh(1)`` and on a virtual (dp=2, sp=2) mesh over
-   ``[cuda:0] * 4``: each bit-equal to the plain run on the CPU, six block
-   evaluations counted; ``receipts_with_match`` over the flat mask equal
-   to the hits; each timed by ``measure_pass_seconds`` (µs a pass, events/s,
-   from replays of one CUDA graph) and by CUDA events beside its byte bound, and the fingerprint mask over
-   the same events (single device and the virtual mesh) against the plain
-   mask;
+   (262,144 events, 16.8 MB of topic words), through the four kernels of
+   ``csrc/match.cu``, counts from 0: ``match_pipeline`` on the card and
+   ``sharded_match_pipeline`` on the real mesh ``make_mesh(1)`` and on a
+   virtual (dp=2, sp=2) mesh over ``[cuda:0] * 4`` (six launches),
+   ``receipts_with_match`` over the flat mask (one), and the same events'
+   full-word and fingerprint masks through the backend on one device and
+   on the virtual mesh (one and four launches each): each bit-equal to the
+   plain run on the CPU; then each kernel against its plain version on the
+   card's inputs and on a CPU copy (max abs err 0, bool bytes 0 or 1) at
+   full width and at the edge worlds (E = 1, 3, 33 and 300, receipts and
+   rows not a multiple of a block's, an empty world, the actor filter off
+   and on, receipt ids over [-2·num, 2·num) in int32 and int64); then
+   ``match_pipeline`` timed by ``measure_pass_seconds`` (µs a pass,
+   events/s, from replays of one CUDA graph) and every kernel by CUDA
+   events beside its plain version, its byte bound and, for the receipt
+   reduce, one PyTorch call (``mask.view(-1, E).any(-1)``), and the
+   fingerprint mask's whole call with its host copies;
 3b. CID bench — ``blake2b_cid_bench_setup`` over 1,048,576 nodes of 200 B
    from the seed (BASELINE config 4; the two-block kernel): every first
    digest equal to hashlib; CIDs/s by the slope of k passes, and the kernel
@@ -380,9 +389,9 @@ Phases, none of which may fail:
    256 pairs through the router, folded into the driver's bytes; prints
    proofs/s by shard count and ``steal_events``;
 30. cli cluster — ``python -m ipc_proofs_tpu_torch.cli cluster --shards 4
-   --demo-world 128`` (4 shard processes on the one card, the kernels
+   --demo-world 64`` (4 shard processes on the one card, the kernels
    already built) with ``--store-dir`` and ``--queue-dir``, then
-   ``--shards 1``: 512 ``/v1/generate`` from 8 closed-loop clients in a
+   ``--shards 1``: 256 ``/v1/generate`` from 8 closed-loop clients in a
    child process, each answer's proofs the driver's for its pair, then
    each pair's bundle verified through the router (all true);
    ``/healthz``, ``/v1/cluster/status`` and the fleet ``/metrics.prom``;
@@ -415,9 +424,10 @@ Phases, none of which may fail:
    clean; ``build_native_san --strict``: its host half builds the C
    extensions with ASan+UBSan and ``-Werror`` (``*.san.so``) and runs the
    soak's native phases under the ASan runtime, clean; its CUDA half
-   launches all five kernel entries at edge sizes
+   launches all nine kernel entries at edge sizes
    (block-edge lengths, multi-block rows up to the padded maximum, odd
-   block counts, 1 to 4,097 rows) between guard bands, twice with other
+   block counts, match worlds of E = 1, 3, 4, 5 and 33, receipt ids
+   outside [0, num), 1 to 4,097 rows) between guard bands, twice with other
    fills: no redzone or input changed and every result equal to the plain
    version; then under ``compute-sanitizer`` memcheck and initcheck,
    which must report 0 errors wherever the tool supports the device (a
@@ -445,7 +455,9 @@ line; and as the last line ``{"ok": true, "device": {...}}``. Each path's
 launch counts are set to 0 just before it runs and read just after. A
 kernel's ``launches`` is the count on the first path that runs it (the
 event path for blake2b, the storage path for the single-block keccak, the
-mixed-multihash sweep for the multi-block keccak); ``launches_by_path``
+mixed-multihash sweep for the multi-block keccak, the device match phase
+for the four match kernels, whose counts add a mask's single-device and
+mesh-block launches); ``launches_by_path``
 holds its count on each path (the unfused event run, the overlapped runs,
 the resumable range's two runs, the two pure-Python paths, the cold
 read path's phases, the CLI's runs, the mesh phases, slice 8's
@@ -464,9 +476,11 @@ and ``cli backfill``, and ``cluster`` (the buffered scatters at 1, 2 and
 shards' served launches, from their logs), ``cli cluster, 1 shard``,
 ``tools chaos``, ``tools crashtest verify``, ``tools soak``,
 ``static gates`` — the launches of the sanitizer's child processes — and
-``bench``, the bench legs' children's launches, included). The
-device match functions (PyTorch ops, not kernels of this repository)
-report their times in their phase's line.
+``bench``, the bench legs' children's launches, included). A hash
+kernel's ``bound_ms`` counts the operations its algorithm needs
+(`BLAKE2B_OPS`, `KECCAK_OPS`); its line also gives the bound on the
+build's own SASS ("issued"). A match kernel's ``library_ms`` is the one
+PyTorch call that computes the same function, where there is one.
 """
 
 from __future__ import annotations
@@ -481,6 +495,7 @@ import hashlib
 import http.client
 import http.server
 import io
+import itertools
 import json
 import multiprocessing
 import os
@@ -536,6 +551,7 @@ from ipc_proofs_tpu_torch.parallel.pipeline import (
     EventBatch,
     batch_args,
     match_pipeline,
+    match_pipeline_plain,
     sharded_match_pipeline,
     synthetic_event_batch,
 )
@@ -548,7 +564,7 @@ from ipc_proofs_tpu_torch.obs import (
     write_chrome_trace,
     write_otlp_trace,
 )
-from ipc_proofs_tpu_torch.ops.build import build_libraries, cuda_tool
+from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, build_libraries, cuda_tool
 from ipc_proofs_tpu_torch.ops.pack import (
     RATE_BYTES,
     pack_single_block_blake2b,
@@ -641,6 +657,21 @@ PIPES = {  # pipe: (SASS opcodes it runs, None = every one; results per SM clock
 }
 # one compression rotates 288 64-bit words by 24, 16 and 63: 576 funnel shifts
 SHF_PER_COMPRESSION = 576
+# What the hash algorithms need, per pipe (the bound counts these; the
+# SASS counts of the build are printed beside them as "issued"). A
+# 64-bit value is two 32-bit halves.
+# blake2b, per compression: a G mix is 4 xors (8 LOP3), 3 rotations by
+# 24, 16 and 63 (6 SHF; the rotation by 32 is a swap of halves) and 4
+# three- or two-operand adds (8 IADD3, which can issue on the FMA pipe as
+# IMAD). 96 G (12 rounds x 8) x 14 ALU-only + 16 LOP3 folding v into h =
+# 1,360 ALU operations; plus 96 x 8 adds and the 4 xors that set the
+# counter and the final flag = 2,132 issued.
+# keccak-f[1600], per absorbed block: a round's theta is 20 LOP3 (five
+# column parities) + 10 SHF (rotl1 of each) + 50 LOP3 (a ^ C[x-1] ^
+# rotl1(C[x+1]) as one LOP3 a half), rho-pi 48 SHF, chi 50 LOP3 and iota
+# 2: 180; 24 rounds + 34 absorbing xors = 4,354 ALU operations.
+BLAKE2B_OPS = {"alu": 1360, "issue": 2132}
+KECCAK_OPS = {"alu": 4354}
 
 SOURCE = "ipc_proofs_tpu_torch/csrc/blake2b.cu"
 KERNELS = (
@@ -651,7 +682,6 @@ KERNELS = (
     ("blake2b256_blocks", "ipc_proofs_tpu/ops/blake2b_jax.py:140", (256, 520), "PaddedBlocks"),
 )
 KECCAK_SOURCE = "ipc_proofs_tpu_torch/csrc/keccak.cu"
-# the path whose launch count is a kernel's ``launches`` (its slice's path)
 # the path whose launches a kernel's row reports: the first path that runs it
 OWN_PATH = {
     "blake2b256_single_block": "event path",
@@ -659,11 +689,25 @@ OWN_PATH = {
     "blake2b256_blocks": "event path",
     "keccak256_single_block": "storage path",
     "keccak256_blocks": "mixed-multihash sweep",
+    "match_pipeline": "device match pipeline",
+    "event_match_mask": "device match pipeline",
+    "event_match_mask_fp": "device match pipeline",
+    "receipts_with_match": "device match pipeline",
 }
 KECCAK_KERNELS = (
     # name, TPU function it replaces, loader of its kernel instantiation
     ("keccak256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:305", "SplitPlanes17"),
     ("keccak256_blocks", "ipc_proofs_tpu/ops/keccak_jax.py:123", "PaddedBlocks34"),
+)
+MATCH_SOURCE = "ipc_proofs_tpu_torch/csrc/match.cu"
+MATCH_KERNELS = (
+    # name (its C entry), TPU function it replaces, the LAUNCHES keys that
+    # count its launches (single device, mesh blocks)
+    ("match_pipeline", "ipc_proofs_tpu/parallel/pipeline.py:105", ("match_pipeline",)),
+    ("event_match_mask", "ipc_proofs_tpu/ops/match_jax.py:36", ("event_match_mask", "event_match_mask_sharded")),
+    ("event_match_mask_fp", "ipc_proofs_tpu/ops/match_jax.py:76",
+     ("event_match_mask_fp", "event_match_mask_fp_sharded")),
+    ("receipts_with_match", "ipc_proofs_tpu/ops/match_jax.py:137", ("receipts_with_match",)),
 )
 KECCAK_ROUNDS = 24
 KECCAK_MAX_BLOCKS = 4  # the multi-block case's layout: messages of 136–543 B
@@ -698,6 +742,51 @@ def _cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+L2_BYTES = 50 << 20  # the H100's L2 cache
+
+
+def _copies(args: tuple) -> "list[tuple]":
+    """``args`` and copies of its tensors, over twice the L2 in all: calls
+    rotating over them read inputs that the calls between evicted. For
+    inputs that fit in the L2, whose repeats on one copy would read them
+    from there and not from HBM."""
+    nbytes = sum(a.nbytes for a in args if isinstance(a, torch.Tensor))
+    return [args] + [
+        tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        for _ in range(-(-2 * L2_BYTES // max(nbytes, 1)))
+    ]
+
+
+def _cold_cuda_ms(fn, copies: "list[tuple]", reps: int = 20) -> float:
+    """`_cuda_ms` of ``fn`` with its inputs out of the L2: the calls rotate
+    over ``copies`` (`_copies`)."""
+    turn = itertools.cycle(copies)
+    return _cuda_ms(lambda: fn(*next(turn)), reps=max(reps, len(copies)))
+
+
+def _device_us(fn, copies: "list[tuple]", reps: int = 20) -> "dict[str, float] | None":
+    """Device microseconds a call of ``fn`` spends in each CUDA kernel and
+    memset it runs, by name, from torch.profiler over calls rotating over
+    ``copies`` (`_copies`): the card's own time, without the launch gaps
+    and host work that CUDA events around back-to-back calls include. None
+    when the profiler saw no device time (then not measured)."""
+    calls = max(reps, len(copies))
+    turn = itertools.cycle(copies)
+    for _ in range(3):
+        fn(*next(turn))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*next(turn))
+        torch.cuda.synchronize()
+    per_call = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            per_call[e.key] = per_call.get(e.key, 0.0) + us / calls
+    return per_call or None
 
 
 def _to(array: np.ndarray, device) -> torch.Tensor:
@@ -789,9 +878,10 @@ def sass_per_permutation(library) -> "dict[str, dict[str, int]]":
 
 
 def _ops_ms(per_unit: "dict[str, int]", units: int) -> float:
-    """The busiest pipe's time for ``units`` compressions or permutations."""
+    """The busiest pipe's time for ``units`` compressions or permutations
+    (``per_unit``: operations a unit on some of `PIPES`)."""
     return 1e3 * units * max(
-        per_unit[pipe] / (rate * SM_CLOCKS_PER_S) for pipe, (_, rate) in PIPES.items()
+        count / (PIPES[pipe][1] * SM_CLOCKS_PER_S) for pipe, count in per_unit.items()
     )
 
 
@@ -907,11 +997,14 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def kernel_phase(
-    cases: "list[KernelCase]", module, per_unit: "dict[str, dict[str, int]]"
+    cases: "list[KernelCase]", module, ops: "dict[str, int]", issued: "dict[str, dict[str, int]]"
 ) -> "dict[str, dict]":
     """Each case's kernel (``module.<name>``) against its plain version on
     the card and against the host golden sample, then its time, its plain
-    version's and its bound."""
+    version's and its bound: the larger of its bytes over HBM and the
+    algorithm's operations ``ops`` a unit over the busiest pipe; the same
+    over the build's own SASS counts (``issued``, per loader) is kept
+    beside it."""
     results = {}
     for case in cases:
         kernel = getattr(module, case.name)
@@ -928,7 +1021,7 @@ def kernel_phase(
         ms = _cuda_ms(lambda: kernel(*case.args), reps=20)
         plain_ms = _cuda_ms(lambda: case.plain(*case.args), reps=3, warmup=1)
         bytes_ms = case.bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = _ops_ms(per_unit[case.loader], case.units)
+        ops_ms = _ops_ms(ops, case.units)
         results[case.name] = {
             "rows": case.args[0].shape[0],
             "max_abs_err": err,
@@ -936,6 +1029,7 @@ def kernel_phase(
             "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "issued_bound_ms": max(bytes_ms, _ops_ms(issued[case.loader], case.units)),
         }
         _log(
             f"kernel {case.name}: rows={results[case.name]['rows']} equal to plain "
@@ -1002,9 +1096,8 @@ def _reject_changed_value(bundle) -> None:
 def _reset_counts() -> None:
     blake2b.reset_launch_counts()
     keccak.reset_launch_counts()
-    for counts in (match.LAUNCHES, pipeline.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    match.reset_launch_counts()
+    pipeline.reset_launch_counts()
 
 
 def _counts() -> "dict[str, int]":
@@ -2634,17 +2727,65 @@ def cli_rest(world, root: str) -> dict:
 # --- slice 7: the device mesh and the batch match pipeline ------------------------
 
 MATCH_WORLD = (4096, 16, 4)  # bench.py's kernel leg world: T, R, E (262,144 events)
+# the match kernels' edge worlds (T, R, E): E = 1, 3 and 33 with receipts
+# not a multiple of a block's, one receipt of 300 events, no tipsets
+MATCH_EDGES = ((3, 77, 1), (5, 41, 3), (2, 9, 33), (1, 1, 300), (0, 4, 4))
 CID_MESSAGES = 1 << 20  # BASELINE config 4: 1,048,576 nodes of 200 B
 CID_NODE_BYTES = 200
 MESH_CLI_PAIRS = 512  # the CLI's mesh run: a prefix of the chained world
 
 
-def _match_bytes(batch: EventBatch) -> int:
-    """What `match_pipeline` must move: each input read once (topics 64 B,
-    n_topics 4 B, emitters 4 B, valid 1 B an event), each output written
-    once (the mask 1 B an event, the hits 1 B a receipt, the count)."""
+SECTOR_BYTES = 32  # the least a load moves between HBM and the L2
+
+
+def _sector_bytes(need: np.ndarray, itemsize: int) -> int:
+    """Bytes of the 32-B sectors of an array of ``itemsize``-byte elements,
+    one an event, that hold an element of an event where ``need`` is set."""
+    need = np.asarray(need, dtype=bool).reshape(-1)
+    if itemsize >= SECTOR_BYTES:
+        return int(need.sum()) * itemsize
+    per = SECTOR_BYTES // itemsize
+    return int(np.pad(need, (0, (-need.size) % per)).reshape(-1, per).any(axis=1).sum()) * SECTOR_BYTES
+
+
+def _least_bytes(columns, written: int) -> int:
+    """The bytes a match function must move on these inputs: ``written``
+    output bytes, and the fewest input bytes that an evaluation stopping
+    at an event's first failed test reads. ``columns`` lists each input's
+    (bytes an event, where its test passes); an input is read, in 32-B
+    sectors, only for the events whose inputs read before it all passed,
+    in the order of the inputs that reads least. An input with no test of
+    its own (a receipt id) passes everywhere."""
+    least = None
+    for order in itertools.permutations(columns):
+        alive = np.ones(len(columns[0][1]), dtype=bool)
+        total = 0
+        for itemsize, passes in order:
+            total += _sector_bytes(alive, itemsize)
+            alive = alive & np.asarray(passes, dtype=bool).reshape(-1)
+        least = total if least is None else min(least, total)
+    return least + written
+
+
+def _topic_columns(batch: EventBatch, t0: bytes, t1: bytes) -> list:
+    """`_least_bytes` columns of the full-word mask: each topic's 32 B
+    (equal to its spec), n_topics (at least 2) and valid."""
+    topics = batch.topics.reshape(-1, 2, 8)
+    return [
+        (32, (topics[:, 0] == np.frombuffer(t0, "<u4")).all(axis=-1)),
+        (32, (topics[:, 1] == np.frombuffer(t1, "<u4")).all(axis=-1)),
+        (4, batch.n_topics.reshape(-1) >= 2),
+        (1, batch.valid.reshape(-1)),
+    ]
+
+
+def _match_bytes(batch: EventBatch, t0: bytes, t1: bytes, actor: int) -> int:
+    """What `match_pipeline` must move on the batch (`_least_bytes`): the
+    full-word mask's inputs and the emitter (4 B, equal to the actor), the
+    mask 1 B an event, the hits 1 B a receipt and the count."""
     t, r, e = batch.shape
-    return t * r * e * (64 + 4 + 4 + 1 + 1) + t * r + 4
+    columns = _topic_columns(batch, t0, t1) + [(4, batch.emitters.reshape(-1) == actor)]
+    return _least_bytes(columns, t * r * e + t * r + 4)
 
 
 def _pass_body(fn):
@@ -2676,44 +2817,170 @@ def _same_match(label: str, got, want) -> None:
         raise AssertionError(f"{label}: differs from the plain run on the CPU")
 
 
+def _edge_world(shape, seed: int):
+    """A small match world with every predicate exercised: planted matches,
+    near misses (one topic word flipped), ``n_topics`` below 2, invalid
+    rows and another emitter."""
+    t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
+    batch = synthetic_event_batch(*shape, t0, t1, emitter=ACTOR_ID, match_rate=0.6, seed=seed)
+    rng = np.random.default_rng(seed)
+    batch.valid[rng.random(shape) < 0.1] = False
+    batch.n_topics[rng.random(shape) < 0.1] = 1
+    batch.emitters[rng.random(shape) < 0.15] = ACTOR_ID + 1
+    near = rng.random(shape) < 0.1
+    batch.topics[near, 0] = np.frombuffer(t0, "<u4")
+    batch.topics[near, 1] = np.frombuffer(t1, "<u4")
+    batch.topics[near, 1, 3] ^= 1
+    return batch
+
+
+def _flat_args(batch: EventBatch, device):
+    """`match.topic_mask`'s five tensors for the batch's events as flat rows."""
+    t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
+    return (
+        _to(batch.topics.reshape(-1, 2, 8), device),
+        _to(batch.n_topics.reshape(-1), device),
+        torch.from_numpy(np.ascontiguousarray(batch.valid.reshape(-1))).to(device),
+        _to(np.frombuffer(t0, "<u4"), device),
+        _to(np.frombuffer(t1, "<u4"), device),
+    )
+
+
+def _kernel_err(label: str, device, kernel, plain, args) -> int:
+    """The kernel and its plain version on the same inputs on the card, and
+    the plain version on a CPU copy: every output equal (max abs err 0)."""
+    got, want = kernel(*args), plain(*args)
+    on_cpu = plain(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    torch.cuda.synchronize()
+    got, want, on_cpu = (x if isinstance(x, tuple) else (x,) for x in (got, want, on_cpu))
+    err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+    if err or not all(g.dtype == w.dtype and torch.equal(g.cpu(), c) for g, w, c in zip(got, want, on_cpu)):
+        raise AssertionError(f"{label}: the kernel differs from its plain version (max abs err {err})")
+    if any(g.dtype == torch.bool and g.numel() and int(g.view(torch.uint8).max()) > 1 for g in got):
+        raise AssertionError(f"{label}: a bool output holds a byte other than 0 or 1")
+    return err
+
+
+def _match_edges(device) -> "list[str]":
+    """Each match kernel against its plain version at the edge shapes:
+    E = 1, 3 and 33 (receipts not a multiple of a block's), one receipt
+    of 300 events, an empty world, the actor filter off (-1) and on, flat
+    rows not a multiple of the block and none, receipt ids over
+    [-2·num, 2·num) in both widths."""
+    cases = []
+    for k, shape in enumerate(MATCH_EDGES):
+        batch = _edge_world(shape, seed=k)
+        t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
+        for actor in (None, ACTOR_ID):
+            args = batch_args(batch, t0, t1, actor, device)
+            _kernel_err(f"match_pipeline {shape} actor {actor}", device, match_pipeline, match_pipeline_plain, args)
+        flat = _flat_args(batch, device)
+        n = flat[0].shape[0]
+        _kernel_err(f"event_match_mask {n} rows", device, match.topic_mask, match.topic_mask_plain, flat)
+        rng = np.random.default_rng(k)
+        fp = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64))
+        fp[::3] = -7
+        _kernel_err(f"event_match_mask_fp {n} rows", device, match.fp_mask, match.fp_mask_plain,
+                    (fp.to(device), flat[2], -7))
+        num = max(1, n // 3)
+        for dtype in (torch.int32, torch.int64):
+            ids = torch.from_numpy(rng.integers(-2 * num, 2 * num, n)).to(dtype).to(device)
+            _kernel_err(f"receipts_with_match {n} rows, {num} receipts, {dtype}", device,
+                        match.receipts_with_match, match.receipts_with_match_plain, (flat[2], ids, num))
+        cases.append(f"{shape}")
+    return cases
+
+
 def device_match_phase(device, smi: str) -> dict:
     """The kernel leg's world at full width (``synthetic_event_batch(4096,
     16, 4, match_rate=0.01, seed=42)``: 262,144 events, 16.8 MB of topic
-    words) through `match_pipeline` on the card, `sharded_match_pipeline`
-    on the real mesh ``make_mesh(1)`` and on a virtual (dp=2, sp=2) mesh
-    over ``[cuda:0] * 4``: each bit-equal to the plain run on the CPU, and
-    `receipts_with_match` over the flat mask equal to the hits. Then each
-    is timed: per-pass µs by `measure_pass_seconds` (the slope of k
-    replays of the pass captured as one CUDA graph, host clock, one sync)
-    and by CUDA events over 20 back-to-back calls,
-    beside the byte bound; the fingerprint mask on the same events too."""
+    words) through the four kernels of ``csrc/match.cu``, counts from 0:
+    `match_pipeline` on the card, `sharded_match_pipeline` on the real
+    mesh ``make_mesh(1)`` and on a virtual (dp=2, sp=2) mesh over
+    ``[cuda:0] * 4``, `receipts_with_match` over the flat mask, and the
+    same events' full-word and fingerprint masks through the backend
+    (single device and the virtual mesh): each equal to the plain run on
+    the CPU, each kernel launched as many times as it has blocks. Then
+    each kernel against its plain version on the card's inputs, at full
+    width and at the edge shapes, and each timed: `match_pipeline` per
+    pass by `measure_pass_seconds` (the slope of k replays of the pass
+    captured as one CUDA graph, host clock, one sync) and every kernel by
+    CUDA events over 20 back-to-back calls, beside its plain version, its
+    byte bound and, for the receipt reduce, ``mask.view(-1, E).any(-1)``."""
     t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
     batch = synthetic_event_batch(*MATCH_WORLD, t0, t1, emitter=ACTOR_ID, match_rate=0.01, seed=42)
     t, r, e = batch.shape
-    plain = match_pipeline(*batch_args(batch, t0, t1, ACTOR_ID, "cpu"))
+    n = t * r * e
+    plain = match_pipeline_plain(*batch_args(batch, t0, t1, ACTOR_ID, "cpu"))
     single_args = batch_args(batch, t0, t1, ACTOR_ID, device)
     meshes = {"mesh of 1": make_mesh(1), "virtual mesh (dp=2, sp=2)": make_mesh(4, sp=2, devices=[device] * 4)}
     sharded = {label: sharded_match_pipeline(mesh) for label, mesh in meshes.items()}
     sharded_args = {label: shard(batch, t0, t1, ACTOR_ID) for label, (_, shard) in sharded.items()}
+    ids = torch.arange(t * r, dtype=torch.int32, device=device).repeat_interleave(e)
+    # the same events as flat rows (the Python walk's full-word mask), and
+    # one u64 fingerprint and a valid bit an event (the unfused scan's mask)
+    flat_rows = (batch.topics.reshape(-1, 2, 8), batch.n_topics.reshape(-1),
+                 batch.emitters.reshape(-1).astype(np.int64), batch.valid.reshape(-1))
+    fp = np.random.default_rng(42).integers(0, 1 << 63, size=n, dtype=np.uint64)
+    fp[::100] = np.uint64(topic_fingerprint(t0, t1))
+    fp_rows = (fp, np.full(n, 2, dtype=np.int32), np.full(n, ACTOR_ID, dtype=np.int64), np.ones(n, dtype=bool))
+    backends = {"single device": get_backend("gpu"),
+                "virtual mesh of 4": GpuBackend(device, mesh=meshes["virtual mesh (dp=2, sp=2)"])}
     torch.cuda.synchronize()
 
     _reset_counts()
     outs = {"single device": match_pipeline(*single_args)}
     for label, (fn, _) in sharded.items():
         outs[label] = fn(*sharded_args[label])
+    flat = outs["single device"][1].reshape(-1)
+    receipts = match.receipts_with_match(flat, ids, t * r)
+    flat_masks = {label: b.event_match_mask_flat(*flat_rows, t0, t1, ACTOR_ID) for label, b in backends.items()}
+    fp_masks = {label: b.event_match_mask_fp(*fp_rows, t0, t1, ACTOR_ID) for label, b in backends.items()}
     torch.cuda.synchronize()
     launches = _counts()
-    if launches["match_pipeline"] != 1 + 1 + 4:
-        raise AssertionError(f"device match: launches {launches}")
+    want = {"match_pipeline": 1 + 1 + 4, "receipts_with_match": 1, "event_match_mask": 1,
+            "event_match_mask_sharded": 4, "event_match_mask_fp": 1, "event_match_mask_fp_sharded": 4}
+    if {name: launches[name] for name in want} != want:
+        raise AssertionError(f"device match: launches {launches}, expected {want}")
     for label, out in outs.items():
         _same_match(f"device match ({label})", out, plain)
-    flat = outs["single device"][1].reshape(-1)
-    ids = torch.arange(t * r, dtype=torch.int32, device=device).repeat_interleave(e)
-    receipts = match.receipts_with_match(flat, ids, t * r)
     if not torch.equal(receipts.cpu(), plain[0].reshape(-1)):
         raise AssertionError("receipts_with_match differs from the plain hits")
+    cpu_backend = get_backend("gpu", device="cpu")
+    flat_want = cpu_backend.event_match_mask_flat(*flat_rows, t0, t1, ACTOR_ID)
+    fp_want = cpu_backend.event_match_mask_fp(*fp_rows, t0, t1, ACTOR_ID)
+    for label in backends:
+        if not np.array_equal(flat_masks[label], flat_want) or not np.array_equal(flat_want, plain[1].reshape(-1)):
+            raise AssertionError(f"full-word mask ({label}) differs from the plain mask")
+        if not np.array_equal(fp_masks[label][:n], fp_want) or fp_masks[label][n:].any():
+            raise AssertionError(f"fingerprint mask ({label}) differs from the plain mask")
 
-    bound_ms = _match_bytes(batch) / HBM_BYTES_PER_S * 1e3
+    # each kernel against its plain version on the card's inputs, full width
+    flat_args = _flat_args(batch, device)
+    target = int.from_bytes(topic_fingerprint(t0, t1).to_bytes(8, "little"), "little", signed=True)
+    fp_args = (torch.from_numpy(fp.view(np.int64)).to(device), torch.from_numpy(fp_rows[3]).to(device), target)
+    full = {
+        "match_pipeline": (match_pipeline, match_pipeline_plain, single_args),
+        "event_match_mask": (match.topic_mask, match.topic_mask_plain, flat_args),
+        "event_match_mask_fp": (match.fp_mask, match.fp_mask_plain, fp_args),
+        "receipts_with_match": (match.receipts_with_match, match.receipts_with_match_plain, (flat, ids, t * r)),
+    }
+    errs = {name: _kernel_err(f"{name} ({n:,} events)", device, *case) for name, case in full.items()}
+    edges = _match_edges(device)
+
+    # each bound counts the bytes these inputs need (`_least_bytes`): of
+    # 262,144 events ~1 % match, so past the first test only those events'
+    # sectors count, and the receipt reduce reads an id only under a set
+    # mask byte
+    mask_np = plain[1].numpy().reshape(-1)
+    moved = {
+        "match_pipeline": _match_bytes(batch, t0, t1, ACTOR_ID),
+        "event_match_mask": _least_bytes(_topic_columns(batch, t0, t1), n),
+        "event_match_mask_fp": _least_bytes([(8, fp.view(np.int64) == target), (1, fp_rows[3])], n),
+        "receipts_with_match": _least_bytes([(1, mask_np), (ids.element_size(), np.ones(n, dtype=bool))], t * r),
+    }
+    bound_ms = {name: nbytes / HBM_BYTES_PER_S * 1e3 for name, nbytes in moved.items()}
+    _log(f"device match: bytes these inputs need {json.dumps(moved)}")
     timings = {}
     for label, fn, args, body in (
         ("single device", match_pipeline, single_args, _pass_body(match_pipeline)),
@@ -2725,53 +2992,56 @@ def device_match_phase(device, smi: str) -> dict:
         ms = _cuda_ms(lambda: fn(*args), reps=20)
         timings[label] = {
             "pass_us": pt.seconds * 1e6, "k": [pt.k_small, pt.k_large],
-            "events_per_s": t * r * e / pt.seconds, "ms": ms, "bound_ms": bound_ms,
+            "events_per_s": n / pt.seconds, "ms": ms, "bound_ms": bound_ms["match_pipeline"],
         }
         _log(f"device match ({label}) on {smi}: {pt.seconds * 1e6:.1f} us/pass (slope k={pt.k_small}/"
-             f"{pt.k_large}, graph replays), {t * r * e / pt.seconds:,.0f} events/s; CUDA events {ms * 1e3:.1f} us a call; "
-             f"bound {bound_ms * 1e3:.2f} us (bytes)")
-
-    receipt_ms = _cuda_ms(lambda: match.receipts_with_match(flat, ids, t * r), reps=20)
-    receipt_bound = (t * r * e * (1 + 4) + t * r) / HBM_BYTES_PER_S * 1e3
-    library_ms = _cuda_ms(lambda: outs["single device"][1].any(dim=-1), reps=20)
-
-    # the fingerprint mask over the same events: one u64 and a valid bit an event
-    fp = np.random.default_rng(42).integers(0, 1 << 63, size=t * r * e, dtype=np.uint64)
-    fp[::100] = np.uint64(topic_fingerprint(t0, t1))
-    n_topics = np.full(t * r * e, 2, dtype=np.int32)
-    emitters = np.full(t * r * e, ACTOR_ID, dtype=np.int64)
-    valid = np.ones(t * r * e, dtype=bool)
-    target = int.from_bytes(topic_fingerprint(t0, t1).to_bytes(8, "little"), "little", signed=True)
-    f_dev = torch.from_numpy(fp.view(np.int64)).to(device)
-    v_dev = torch.from_numpy(valid).to(device)
-    fp_ms = _cuda_ms(lambda: v_dev & (f_dev == target), reps=20)
-    fp_bound = t * r * e * (8 + 1 + 1) / HBM_BYTES_PER_S * 1e3
-    cpu_backend = get_backend("gpu", device="cpu")
-    want = cpu_backend.event_match_mask_fp(fp, n_topics, emitters, valid, t0, t1, ACTOR_ID)
+             f"{pt.k_large}, graph replays), {n / pt.seconds:,.0f} events/s; CUDA events {ms * 1e3:.1f} us a call; "
+             f"bound {bound_ms['match_pipeline'] * 1e3:.2f} us (bytes)")
+    # the inputs (1.3-19.4 MB) fit in the 50 MB L2: the row's times are
+    # taken cold (calls rotating over copies of the inputs), the warm ones
+    # (one copy, read from the L2) logged beside
+    # the device time of a call's kernels (and memset) from the profiler
+    # beside it: CUDA events over back-to-back calls also hold the gaps
+    # between launches
+    library = {"receipts_with_match": lambda mask, ids, num: mask.view(-1, e).any(-1)}
+    kernels = {}
+    for name, (kernel, plain_fn, args) in full.items():
+        copies = _copies(args)
+        lib = library.get(name)
+        device_us = _device_us(kernel, copies)
+        library_us = _device_us(lib, copies) if lib else None
+        kernels[name] = {
+            "rows": n, "max_abs_err": errs[name],
+            "ms": _cold_cuda_ms(kernel, copies),
+            "plain_ms": _cold_cuda_ms(plain_fn, copies),
+            "bound_ms": bound_ms[name], "bound_by": "bytes",
+            "library_ms": _cold_cuda_ms(lib, copies) if lib else None,
+            "warm_ms": _cuda_ms(lambda: kernel(*args), reps=20),
+            "warm_library_ms": _cuda_ms(lambda: lib(*args), reps=20) if lib else None,
+            "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
+            "library_device_ms": sum(library_us.values()) / 1e3 if library_us else None,
+        }
+        k = kernels[name]
+        _log(f"{name} on {smi}: kernel {k['ms'] * 1e3:.2f} us cold, {k['warm_ms'] * 1e3:.2f} us warm (CUDA events "
+             f"a call), device {json.dumps(device_us)} us a call (profiler, cold); plain "
+             f"{k['plain_ms'] * 1e3:.2f} us; bound {k['bound_ms'] * 1e3:.3f} us (bytes)"
+             + (f"; one PyTorch call {k['library_ms'] * 1e3:.2f} us cold, {k['warm_library_ms'] * 1e3:.2f} us warm, "
+                f"device {json.dumps(library_us)} us a call" if lib else ""))
     fp_calls = {}
-    for label, backend in (("single device", get_backend("gpu")),
-                           ("virtual mesh of 4", GpuBackend(device, mesh=meshes["virtual mesh (dp=2, sp=2)"]))):
-        got = backend.event_match_mask_fp(fp, n_topics, emitters, valid, t0, t1, ACTOR_ID)
-        if not np.array_equal(got[: len(fp)], want):
-            raise AssertionError(f"fingerprint mask ({label}) differs from the plain mask")
+    for label, backend in backends.items():
         start = time.perf_counter()
         for _ in range(10):
-            backend.event_match_mask_fp(fp, n_topics, emitters, valid, t0, t1, ACTOR_ID)
+            backend.event_match_mask_fp(*fp_rows, t0, t1, ACTOR_ID)
         fp_calls[label] = (time.perf_counter() - start) * 1e2  # ms a call, copies included
-    _log(f"fingerprint mask on {smi}: compare {fp_ms * 1e3:.1f} us on the card (bound {fp_bound * 1e3:.2f} us); "
-         f"a whole call with its copies {json.dumps(fp_calls)} ms")
-    _log(f"receipts_with_match on {smi}: {receipt_ms * 1e3:.1f} us (bound {receipt_bound * 1e3:.2f} us; "
-         f"mask.any(dim=-1) {library_ms * 1e3:.1f} us)")
+    _log(f"fingerprint mask on {smi}: a whole call with its copies {json.dumps(fp_calls)} ms")
     return {
-        "events": t * r * e, "topic_bytes": batch.topics.nbytes, "matches": int(plain[2]),
-        "timings": timings,
-        "receipts_with_match": {"ms": receipt_ms, "bound_ms": receipt_bound, "library_ms": library_ms},
-        "fp_mask": {"ms": fp_ms, "bound_ms": fp_bound, "call_ms": fp_calls},
-        "launches": launches,
+        "events": n, "topic_bytes": batch.topics.nbytes, "matches": int(plain[2]),
+        "timings": timings, "kernels": kernels, "edge_worlds": edges,
+        "fp_mask_call_ms": fp_calls, "launches": launches,
     }
 
 
-def cid_bench_phase(seed: int, smi: str, per_compression: "dict[str, dict[str, int]]") -> dict:
+def cid_bench_phase(seed: int, smi: str) -> dict:
     """BASELINE config 4: `blake2b_cid_bench_setup` over 1,048,576 nodes of
     200 B from the seed (the two-block kernel); every first digest equal to
     hashlib; CIDs/s from `measure_pass_seconds` (each pass XORs ``i`` into
@@ -2798,7 +3068,7 @@ def cid_bench_phase(seed: int, smi: str, per_compression: "dict[str, dict[str, i
     kernel_ms = _cuda_ms(lambda: kernel(*args), reps=20)
     rate = CID_MESSAGES / pt.seconds
     bytes_ms = CID_MESSAGES * (256 + 4 + 32) / HBM_BYTES_PER_S * 1e3
-    ops_ms = _ops_ms(per_compression["SplitPlanes"], 2 * CID_MESSAGES)
+    ops_ms = _ops_ms(BLAKE2B_OPS, 2 * CID_MESSAGES)
     _log(f"cid bench on {smi}: {name}, {rate:,.0f} CIDs/s (slope k={pt.k_small}/{pt.k_large}, "
          f"{pt.seconds * 1e3:.4f} ms a pass with the XOR); kernel alone {kernel_ms:.4f} ms, "
          f"{CID_MESSAGES / kernel_ms * 1e3:,.0f} CIDs/s, bound {max(bytes_ms, ops_ms):.4f} ms")
@@ -5849,9 +6119,9 @@ def _cli_cluster_run(n_shards: int, device, work: str, by_pair) -> dict:
 
 def cli_cluster_phase(device, root: str) -> dict:
     """``python -m ipc_proofs_tpu_torch.cli cluster --shards 4 --demo-world
-    128 --demo-receipts 8 --demo-match-rate 0.25`` with ``--store-dir`` and
+    64 --demo-receipts 8 --demo-match-rate 0.25`` with ``--store-dir`` and
     ``--queue-dir``, as a user starts it (4 shard processes on the one
-    card), then the same with ``--shards 1``: 512 ``/v1/generate`` from 8
+    card), then the same with ``--shards 1``: 256 ``/v1/generate`` from 8
     closed-loop clients each, every answer's proofs the chunked driver's for
     its pair, then each pair's bundle (one with events) verified through the
     router, every verdict true; ``/healthz`` ok with every shard alive,
@@ -6177,7 +6447,7 @@ def static_gates_phase() -> dict:
         raise AssertionError(f"static gates, cuda half: no summary\n{text[-4000:]}")
     cuda = json.loads(m.group(1))
     guard = cuda["guard"]
-    if sorted(guard) != sorted(k[0] for k in KERNELS + KECCAK_KERNELS):
+    if sorted(guard) != sorted(k[0] for k in KERNELS + KECCAK_KERNELS + MATCH_KERNELS):
         raise AssertionError(f"static gates, cuda half: entries {sorted(guard)}")
     for entry, row in guard.items():
         if row["violations"] or row["mismatches"] or not row["launches"]:
@@ -6326,7 +6596,7 @@ def main(argv=None) -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     _log(f"host: {_host_info()} (native scanner built from {load_scan_ext().__file__})")
 
-    built = build_libraries(["blake2b", "keccak"])
+    built = build_libraries(KERNEL_LIBRARIES)
     for name, info in built.items():
         _log(f"build {name}: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -6334,16 +6604,21 @@ def main(argv=None) -> int:
                 _log(f"  ptxas: {line.strip()}")
     per_compression = sass_per_compression(built["blake2b"]["path"])
     for loader, counts in per_compression.items():
-        _log(f"sass blake2b256_kernel<{loader}>: instructions per compression {counts}")
+        _log(f"sass blake2b256_kernel<{loader}>: instructions issued per compression {counts} "
+             f"(the algorithm's {BLAKE2B_OPS})")
     per_permutation = sass_per_permutation(built["keccak"]["path"])
     for loader, counts in per_permutation.items():
-        _log(f"sass keccak256_kernel<{loader}>: instructions per absorbed block {counts}")
+        _log(f"sass keccak256_kernel<{loader}>: instructions issued per absorbed block {counts} "
+             f"(the algorithm's {KECCAK_OPS})")
 
-    kernels = kernel_phase(_kernel_cases(args.messages, args.seed, device), blake2b, per_compression)
+    kernels = kernel_phase(
+        _kernel_cases(args.messages, args.seed, device), blake2b, BLAKE2B_OPS, per_compression
+    )
     kernels.update(
         kernel_phase(
             _keccak_cases(args.messages, args.messages // 4, args.seed, device),
             keccak,
+            KECCAK_OPS,
             per_permutation,
         )
     )
@@ -6357,7 +6632,7 @@ def main(argv=None) -> int:
         _log(f"{label} ({seconds[label]} s): {json.dumps(paths[label])}")
 
     run("device match pipeline", device_match_phase, device, smi)
-    run("cid bench", cid_bench_phase, args.seed, smi, per_compression)
+    run("cid bench", cid_bench_phase, args.seed, smi)
     world = event_world(args.pairs)
     run("event path", event_path, world, device)
     run("overlapped event path", overlapped_path, world, device, paths["event path"]["proofs_per_s"])
@@ -6450,12 +6725,13 @@ def main(argv=None) -> int:
     launch_counts["tools crashtest verify"] = paths["tools"]["crashtest"]["launches"]
     launch_counts["tools soak"] = paths["tools"]["soak"]["launches"]
 
+    kernels.update(paths["device match pipeline"]["kernels"])
     rows = []
-    for name, replaces, source in [(k[0], k[1], SOURCE) for k in KERNELS] + [
-        (k[0], k[1], KECCAK_SOURCE) for k in KECCAK_KERNELS
-    ]:
+    for name, replaces, source, keys in [(k[0], k[1], SOURCE, (k[0],)) for k in KERNELS] + [
+        (k[0], k[1], KECCAK_SOURCE, (k[0],)) for k in KECCAK_KERNELS
+    ] + [(k[0], k[1], MATCH_SOURCE, k[2]) for k in MATCH_KERNELS]:
         k = kernels[name]
-        per_path = {label: counts.get(name, 0) for label, counts in launch_counts.items()}
+        per_path = {label: sum(counts.get(key, 0) for key in keys) for label, counts in launch_counts.items()}
         row = {
             "name": name,
             "route": "cuda",
@@ -6468,12 +6744,16 @@ def main(argv=None) -> int:
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
-            "library_ms": None,  # no PyTorch call computes blake2b or keccak-256
+            # no PyTorch call computes blake2b or keccak-256
+            "library_ms": k.get("library_ms"),
         }
+        row.update({key: k[key] for key in ("device_ms", "library_device_ms") if key in k})
         rows.append(row)
+        issued = f", on the build's SASS {k['issued_bound_ms']}" if "issued_bound_ms" in k else ""
         _log(
             f"{name}: rows={k['rows']} kernel_ms={k['ms']} plain_ms={k['plain_ms']} "
-            f"bound_ms={k['bound_ms']} ({k['bound_by']}) launches={per_path}"
+            f"bound_ms={k['bound_ms']} ({k['bound_by']}{issued}) library_ms={row['library_ms']} "
+            f"device_ms={k.get('device_ms')} library_device_ms={k.get('library_device_ms')} launches={per_path}"
         )
     _log(f"pure-Python paths: {json.dumps(pure)}")
     event, storage = paths["event path"], paths["storage path"]

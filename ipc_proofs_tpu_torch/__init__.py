@@ -13,8 +13,10 @@ branches instead, as in the JAX package.
   trees and the Filecoin state schema.
 - ``proofs`` — the range event- and storage-proof pipelines (native scan,
   match, record, witness), and the batched offline verifiers.
-- ``ops`` — host packers, the blake2b-256 and keccak-256 CUDA kernels
-  (``csrc/``) with their plain PyTorch versions, and the event-match masks.
+- ``ops`` — host packers, and the CUDA kernels (``csrc/``) with their
+  plain PyTorch versions: blake2b-256, keccak-256 and the event-match
+  masks and receipt reduce (``parallel.pipeline.match_pipeline`` is the
+  fourth match kernel's wrapper).
 - ``backend`` — ``GpuBackend``, the batch seam the drivers call, and the
   loaders of the host C extensions.
 - ``witness``, ``registry``, ``serve`` — the witness wire (deltas,

@@ -1,5 +1,5 @@
-"""GPU batch backend: the blake2b-256 and keccak-256 CUDA kernels and the
-match masks.
+"""GPU batch backend: the blake2b-256, keccak-256 and match-mask CUDA
+kernels.
 
 `blake2b256_batch` splits a batch into three size classes and gives each
 its own kernel — ≤128 B to the single-block kernel, 129–256 B to the
@@ -22,7 +22,8 @@ the fused C scan+match, as the reference does; the unfused branch
 with a device mesh (`parallel.mesh.Mesh`) runs that mask sharded over every
 mesh device (rows padded to a mesh-divisible bucket), and its full-word
 masks too (rows split, exact length): those are what the range scan runs
-over a store without a raw map, such as the CLI's RPC store. Its hash
+over a store without a raw map, such as the CLI's RPC store. Both masks
+are kernels of ``csrc/match.cu`` (one launch a device block). Its hash
 kernels stay on ``device``, as in the reference.
 
 A backend holds nothing but its device, so one instance serves several
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
-from ipc_proofs_tpu_torch.ops.build import load_libraries
+from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, load_libraries
 from ipc_proofs_tpu_torch.ops.pack import (
     RATE_BYTES,
     digests_to_bytes,
@@ -111,11 +112,11 @@ class GpuBackend:
         self.mesh = mesh
 
     def warm(self) -> None:
-        """Build (nvcc) and load the blake2b and keccak kernels now, both
-        sources at once, so no later caller compiles; nothing to do for the
-        plain versions on the CPU."""
+        """Build (nvcc) and load the blake2b, keccak and match kernels now,
+        every source at once, so no later caller compiles; nothing to do for
+        the plain versions on the CPU."""
         if self.device.type == "cuda":
-            load_libraries(["blake2b", "keccak"])
+            load_libraries(KERNEL_LIBRARIES)
 
     def keccak256_batch(self, messages: Sequence[bytes]) -> list[bytes]:
         hashers = {

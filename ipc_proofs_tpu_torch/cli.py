@@ -1199,10 +1199,10 @@ def _cmd_cluster(args) -> int:
     # the card first: a host without CUDA fails here, before any shard
     _backend(args.backend)
     if args.backend == "gpu" and args.shards:
-        from ipc_proofs_tpu_torch.ops.build import DeviceFaultError, build_libraries
+        from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, DeviceFaultError, build_libraries
 
         try:
-            build_libraries(["blake2b", "keccak"])
+            build_libraries(KERNEL_LIBRARIES)
         except DeviceFaultError as exc:
             log.error("kernel build failed: %s", exc)
             return 1

@@ -1,0 +1,210 @@
+// Event-match kernels for Hopper (sm_90a): the batch match pipeline, the two
+// flat event masks and the per-receipt any-reduce.
+//
+// Replaces four TPU device functions of ipc_proofs_tpu, each a jit that XLA
+// fuses into device code outside any Pallas kernel:
+//   parallel/pipeline.py:105 match_pipeline (its sharded jit :141)
+//   ops/match_jax.py:36      _match_mask_topics
+//   ops/match_jax.py:76-81   _match_mask_fp (its sharded jit :85-101)
+//   ops/match_jax.py:137     receipts_with_match
+//
+// What bounds them on an H100: bytes. Each is one compare or one scatter an
+// event, a few integer operations against 10-74 bytes read, far under the
+// ~5 operations a byte at which the ALU pipe and HBM take equal time.
+// match_pipeline reads 64 B of topic words, 4 + 4 B of n_topics and emitter
+// and 1 B of valid an event and writes 1 B of mask; the fingerprint mask
+// reads 8 + 1 B and writes 1 B.
+//
+// What the design does about it: every input byte is read once and every
+// output byte written once, in one pass. A thread owns one event; it reads
+// the event's 64-byte topic row as four 16-byte loads, so a warp's loads
+// cover 2 KB of contiguous rows. The spec words and the actor id are read
+// from device memory (never from the host, so a launch neither syncs nor
+// breaks a CUDA-graph capture) into shared memory once a block. The
+// per-receipt any of match_pipeline stays on chip: a block owns whole
+// receipts (256 / E of them, or one receipt at E > 256, its events walked
+// in strides of the block), ORs its events' bits into a shared flag per
+// receipt and writes each receipt's hit once, for any E. The proof count
+// is a warp reduction, then one integer atomicAdd a block into a zeroed
+// int32, so it is exact. Bool outputs hold only the bytes 0 and 1.
+//
+// C entry points (the caller passes u32 data as int32 bit views):
+//   match_pipeline(topics[R,E,2,8], n_topics[R,E], emitters[R,E], valid[R,E],
+//                  spec0[8], spec1[8], actor[], R, E)
+//       -> hits[R], mask[R,E], count[] (R = tipsets x receipts)
+//   event_match_mask(topics[N,2,8], n_topics[N], valid[N], spec0[8], spec1[8], N)
+//       -> mask[N]
+//   event_match_mask_fp(fp[N], valid[N], N, target) -> mask[N]
+//   receipts_with_match(mask[N], ids[N], N, num, id_bytes) -> hits[num]
+// Each launches on the given stream (match_pipeline and receipts_with_match
+// zero their count or output with one cudaMemsetAsync there first), does
+// not synchronise, and returns cudaGetLastError().
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Loads the 16 spec words (topic0's 8, then topic1's) into shared memory.
+__device__ __forceinline__ void load_spec(uint32_t spec[16], const int32_t* __restrict__ spec0,
+                                          const int32_t* __restrict__ spec1) {
+  const int t = threadIdx.x;
+  if (t < 8) spec[t] = uint32_t(spec0[t]);
+  else if (t < 16) spec[t] = uint32_t(spec1[t - 8]);
+}
+
+// True when the event's two topics equal the spec, it is valid and has at
+// least two topics. All 73 bytes are read whatever the outcome.
+__device__ __forceinline__ bool topics_match(const uint4* __restrict__ topics,
+                                             const int32_t* __restrict__ n_topics,
+                                             const uint8_t* __restrict__ valid,
+                                             const uint32_t spec[16], int64_t ev) {
+  const uint4* row = topics + ev * 4;
+  const uint4 a = row[0], b = row[1], c = row[2], d = row[3];
+  const uint32_t diff = (a.x ^ spec[0]) | (a.y ^ spec[1]) | (a.z ^ spec[2]) | (a.w ^ spec[3]) |
+                        (b.x ^ spec[4]) | (b.y ^ spec[5]) | (b.z ^ spec[6]) | (b.w ^ spec[7]) |
+                        (c.x ^ spec[8]) | (c.y ^ spec[9]) | (c.z ^ spec[10]) | (c.w ^ spec[11]) |
+                        (d.x ^ spec[12]) | (d.y ^ spec[13]) | (d.z ^ spec[14]) | (d.w ^ spec[15]);
+  return (diff == 0) & (valid[ev] != 0) & (n_topics[ev] >= 2);
+}
+
+// A block owns receipts [r0, r0 + per_block); per_block <= kThreads.
+__global__ void __launch_bounds__(kThreads)
+match_pipeline_kernel(const uint4* __restrict__ topics, const int32_t* __restrict__ n_topics,
+                      const int32_t* __restrict__ emitters, const uint8_t* __restrict__ valid,
+                      const int32_t* __restrict__ spec0, const int32_t* __restrict__ spec1,
+                      const int32_t* __restrict__ actor_id, int64_t receipts, int e,
+                      int per_block, uint8_t* __restrict__ hits, uint8_t* __restrict__ mask,
+                      int32_t* __restrict__ count) {
+  __shared__ uint32_t spec[16];
+  __shared__ int flag[kThreads];
+  __shared__ int warp_sum[kWarps];
+  const int t = threadIdx.x;
+  load_spec(spec, spec0, spec1);
+  flag[t] = 0;
+  __syncthreads();
+  const int32_t actor = *actor_id;
+  const int64_t r0 = int64_t(blockIdx.x) * per_block;
+  const int64_t r_end = r0 + per_block < receipts ? r0 + per_block : receipts;
+  const int64_t ev0 = r0 * e;
+  const int64_t ev_end = r_end * e;
+  int found = 0;
+  for (int64_t ev = ev0 + t; ev < ev_end; ev += kThreads) {
+    const bool m = topics_match(topics, n_topics, valid, spec, ev) &
+                   ((actor < 0) | (emitters[ev] == actor));
+    mask[ev] = uint8_t(m);
+    if (m) {
+      flag[(ev - ev0) / e] = 1;
+      ++found;
+    }
+  }
+  found = __reduce_add_sync(0xffffffffu, found);
+  if ((t & 31) == 0) warp_sum[t >> 5] = found;
+  __syncthreads();
+  if (t < per_block && r0 + t < receipts) hits[r0 + t] = uint8_t(flag[t] != 0);
+  if (t == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += warp_sum[w];
+    if (total) atomicAdd(count, total);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+topic_mask_kernel(const uint4* __restrict__ topics, const int32_t* __restrict__ n_topics,
+                  const uint8_t* __restrict__ valid, const int32_t* __restrict__ spec0,
+                  const int32_t* __restrict__ spec1, int64_t n, uint8_t* __restrict__ mask) {
+  __shared__ uint32_t spec[16];
+  load_spec(spec, spec0, spec1);
+  __syncthreads();
+  const int64_t ev = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (ev < n) mask[ev] = uint8_t(topics_match(topics, n_topics, valid, spec, ev));
+}
+
+__global__ void __launch_bounds__(kThreads)
+fp_mask_kernel(const int64_t* __restrict__ fp, const uint8_t* __restrict__ valid, int64_t n,
+               int64_t target, uint8_t* __restrict__ mask) {
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) mask[i] = uint8_t((valid[i] != 0) & (fp[i] == target));
+}
+
+// The reference's `.at[ids].add`: an id in [-num, 0) wraps to id + num, any
+// other id outside [0, num) is dropped. Every write stores 1, so racing
+// writes to one receipt agree.
+template <class Id>
+__global__ void __launch_bounds__(kThreads)
+receipts_kernel(const uint8_t* __restrict__ mask, const Id* __restrict__ ids, int64_t n,
+                int64_t num, uint8_t* __restrict__ hits) {
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n || !mask[i]) return;
+  int64_t id = int64_t(ids[i]);
+  if (id < 0) id += num;
+  if (id >= 0 && id < num) hits[id] = 1;
+}
+
+unsigned blocks_for(int64_t n) { return unsigned((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" int match_pipeline(const void* topics, const void* n_topics, const void* emitters,
+                              const void* valid, const void* spec0, const void* spec1,
+                              const void* actor_id, long long receipts, int e, void* hits,
+                              void* mask, void* count, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaMemsetAsync(count, 0, sizeof(int32_t), s);
+  if (rc != cudaSuccess) return int(rc);
+  if (receipts <= 0 || e < 0) return int(cudaGetLastError());
+  const int per_block = e > 0 && e < kThreads ? kThreads / e : (e == 0 ? kThreads : 1);
+  const long long grid = (receipts + per_block - 1) / per_block;
+  match_pipeline_kernel<<<unsigned(grid), kThreads, 0, s>>>(
+      static_cast<const uint4*>(topics), static_cast<const int32_t*>(n_topics),
+      static_cast<const int32_t*>(emitters), static_cast<const uint8_t*>(valid),
+      static_cast<const int32_t*>(spec0), static_cast<const int32_t*>(spec1),
+      static_cast<const int32_t*>(actor_id), receipts, e, per_block,
+      static_cast<uint8_t*>(hits), static_cast<uint8_t*>(mask), static_cast<int32_t*>(count));
+  return int(cudaGetLastError());
+}
+
+extern "C" int event_match_mask(const void* topics, const void* n_topics, const void* valid,
+                                const void* spec0, const void* spec1, long long n, void* mask,
+                                void* stream) {
+  if (n <= 0) return 0;
+  topic_mask_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(topics), static_cast<const int32_t*>(n_topics),
+      static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(spec0),
+      static_cast<const int32_t*>(spec1), n, static_cast<uint8_t*>(mask));
+  return int(cudaGetLastError());
+}
+
+extern "C" int event_match_mask_fp(const void* fp, const void* valid, long long n,
+                                   long long target, void* mask, void* stream) {
+  if (n <= 0) return 0;
+  fp_mask_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(fp), static_cast<const uint8_t*>(valid), n, target,
+      static_cast<uint8_t*>(mask));
+  return int(cudaGetLastError());
+}
+
+extern "C" int receipts_with_match(const void* mask, const void* ids, long long n, long long num,
+                                   int id_bytes, void* hits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (num <= 0) return 0;
+  cudaError_t rc = cudaMemsetAsync(hits, 0, size_t(num), s);
+  if (rc != cudaSuccess) return int(rc);
+  if (n <= 0) return int(cudaGetLastError());
+  if (id_bytes == 8) {
+    receipts_kernel<int64_t><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(mask), static_cast<const int64_t*>(ids), n, num,
+        static_cast<uint8_t*>(hits));
+  } else if (id_bytes == 4) {
+    receipts_kernel<int32_t><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(ids), n, num,
+        static_cast<uint8_t*>(hits));
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ipc_proofs_tpu_torch.ops.build import check_words, launch, reset_counts, runs_plain
+from ipc_proofs_tpu_torch.ops.build import check_words, launch_digests, reset_counts, runs_plain
 
 __all__ = [
     "LAUNCHES",
@@ -176,7 +176,7 @@ _ARGTYPES = {
 
 
 def _launch(name: str, args: list, n: int, device: torch.device) -> torch.Tensor:
-    return launch("blake2b", name, _ARGTYPES[name], args, n, device, LAUNCHES)
+    return launch_digests("blake2b", name, _ARGTYPES[name], args, n, device, LAUNCHES)
 
 
 def _split_call(name, plain, words, m_lo, m_hi, lengths) -> torch.Tensor:

@@ -6,19 +6,21 @@ built at first use into ``_build/`` beside the sources (git-ignored), named
 by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once. Nothing is built or imported at module import.
 
-The kernel wrappers (``ops/blake2b.py``, ``ops/keccak.py``) share the rest:
-`check_words` on their inputs, `runs_plain` for the device rule (a CPU
-tensor runs the plain version, a CUDA tensor launches the kernel, any
-other device raises) and `launch`, which calls a kernel's C entry on
-PyTorch's current stream and counts it in the wrapper module's
-``LAUNCHES``.
+The kernel wrappers (``ops/blake2b.py``, ``ops/keccak.py``, ``ops/match.py``
+and ``parallel/pipeline.py``'s `match_pipeline`) share the rest:
+`check_words` / `check_tensor` on their inputs, `runs_plain` for the device
+rule (a CPU tensor runs the plain version, a CUDA tensor launches the
+kernel, any other device raises) and `launch`, which calls a kernel's C
+entry with the output tensors its caller allocated on PyTorch's current
+stream and counts it in the wrapper module's ``LAUNCHES``.
 
 Several host threads may launch at once (the pipelined range driver's
 verify workers and its coalescer's leader): libraries load under a lock,
 each C entry is bound once (its ctypes signature set under the same lock,
 never per call), every launch goes to the calling thread's current stream
-and allocates its own output, and counts update under a lock.
-`load_libraries` builds several sources at once, before such threads start.
+into outputs its caller allocated, and counts update under a lock.
+`load_libraries(KERNEL_LIBRARIES)` builds every source at once, before such
+threads start.
 
 A kernel that cannot be built or launched raises `DeviceFaultError`.
 `is_device_fault` names every fault of the card (that error, the verify
@@ -44,18 +46,24 @@ from ipc_proofs_tpu_torch.core._cid_native import publish_build
 
 __all__ = [
     "DeviceFaultError",
+    "KERNEL_LIBRARIES",
     "NVCC_FLAGS",
     "build_libraries",
+    "check_tensor",
     "check_words",
     "cuda_tool",
     "is_device_fault",
     "launch",
+    "launch_digests",
     "load_libraries",
     "load_library",
     "loaded_libraries",
     "reset_counts",
     "runs_plain",
 ]
+
+# every ``csrc/<name>.cu`` of the package
+KERNEL_LIBRARIES = ("blake2b", "keccak", "match")
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -193,17 +201,31 @@ def _entry(library: str, name: str, argtypes: list):
         return fn
 
 
-def check_words(name: str, tensor: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    """A kernel input must be int32 (a u32 bit view) of ``shape`` on
-    ``device``, contiguous and 16-byte aligned."""
-    if tensor.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32 (u32 bit view), got {tensor.dtype}")
-    if tuple(tensor.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(tensor.shape)}")
+def check_tensor(
+    name: str, tensor: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device,
+    align: int = 1,
+) -> None:
+    """A kernel input must be ``dtype`` of ``shape`` on ``device`` and
+    contiguous; on a card its data must also lie on an ``align``-byte
+    boundary (the kernel's widest load)."""
+    if tensor.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {tensor.dtype}")
+    if tuple(tensor.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(tensor.shape)}")
     if tensor.device != device:
         raise ValueError(f"{name}: tensors on {tensor.device} and {device}")
-    if not tensor.is_contiguous() or tensor.data_ptr() % 16:
-        raise ValueError(f"{name}: tensor must be contiguous and 16-byte aligned")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    if tensor.device.type == "cuda" and tensor.data_ptr() % align:
+        raise ValueError(f"{name}: tensor must be {align}-byte aligned")
+
+
+def check_words(name: str, tensor: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    """A kernel input must be int32 (a u32 bit view) of ``shape`` on
+    ``device``, contiguous and 16-byte aligned (on the CPU too)."""
+    check_tensor(name, tensor, torch.int32, shape, device)
+    if tensor.data_ptr() % 16:
+        raise ValueError(f"{name}: tensor must be 16-byte aligned")
 
 
 def runs_plain(name: str, device: torch.device) -> bool:
@@ -225,23 +247,38 @@ def launch(
     name: str,
     argtypes: list,
     args: list,
+    outputs: "list[torch.Tensor]",
+    device: torch.device,
+    launches: "dict[str, int]",
+    count_as: "str | None" = None,
+) -> None:
+    """Call the C entry ``name`` of ``csrc/<library>.cu`` with ``args``, the
+    data pointers of ``outputs`` (tensors the caller allocated on
+    ``device``) and PyTorch's current stream, count the launch in
+    ``launches[count_as or name]``, and raise `DeviceFaultError` if the
+    launch was refused. Does not synchronise."""
+    fn = _entry(library, name, argtypes)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, *(out.data_ptr() for out in outputs), stream)
+    with _count_lock:
+        launches[count_as or name] += 1
+    if rc != 0:
+        raise DeviceFaultError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def launch_digests(
+    library: str,
+    name: str,
+    argtypes: list,
+    args: list,
     n: int,
     device: torch.device,
     launches: "dict[str, int]",
 ) -> torch.Tensor:
-    """Call the C entry ``name`` of ``csrc/<library>.cu`` with ``args`` plus
-    a fresh int32 ``[n, 8]`` digest tensor and PyTorch's current stream,
-    count the launch in ``launches``, and raise if the launch was refused.
-    Does not synchronise."""
+    """`launch` a hash entry into a fresh int32 ``[n, 8]`` digest tensor
+    and return it (no launch for ``n == 0``)."""
     out = torch.empty((n, 8), dtype=torch.int32, device=device)
-    if n == 0:
-        return out
-    fn = _entry(library, name, argtypes)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = fn(*args, out.data_ptr(), stream)
-    with _count_lock:
-        launches[name] += 1
-    if rc != 0:
-        raise DeviceFaultError(f"{name}: CUDA launch failed with error {rc}")
+    if n:
+        launch(library, name, argtypes, args, [out], device, launches)
     return out

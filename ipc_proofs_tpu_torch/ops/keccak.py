@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from ipc_proofs_tpu_torch.ops.build import check_words, launch, reset_counts, runs_plain
+from ipc_proofs_tpu_torch.ops.build import check_words, launch_digests, reset_counts, runs_plain
 
 __all__ = [
     "LAUNCHES",
@@ -142,7 +142,7 @@ _ARGTYPES = {
 
 
 def _launch(name: str, args: list, n: int, device: torch.device) -> torch.Tensor:
-    return launch("keccak", name, _ARGTYPES[name], args, n, device, LAUNCHES)
+    return launch_digests("keccak", name, _ARGTYPES[name], args, n, device, LAUNCHES)
 
 
 def keccak256_single_block(blocks_lo, blocks_hi) -> torch.Tensor:

@@ -11,8 +11,10 @@ The counterpart of ``ipc_proofs_tpu.parallel.pipeline``:
        hits    = any-reduce over the event axis per receipt  (OR over ``sp``)
        count   = global proof count                          (full reduce)
 
-   The JAX package leaves these compares and reductions to XLA outside any
-   Pallas kernel; here they are PyTorch ops. Sharding (tipsets over ``dp``,
+   The JAX package jit-compiles this step (XLA fuses it outside any Pallas
+   kernel); here it is one hand-written kernel of ``csrc/match.cu``
+   (`match_pipeline` launches it for CUDA tensors; `match_pipeline_plain`,
+   the same step in PyTorch ops, runs for CPU tensors). Sharding (tipsets over ``dp``,
    events over ``sp``) places one block on each mesh device; the blocks'
    hits are ORed and their counts summed on the mesh's first device, and
    under a process group the count is all-reduced and the hits all-gathered
@@ -37,6 +39,7 @@ ops; int32 equality is u32 equality).
 
 from __future__ import annotations
 
+import ctypes
 import queue
 import threading
 from dataclasses import dataclass
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from ipc_proofs_tpu_torch.obs.trace import current_context, use_context
+from ipc_proofs_tpu_torch.ops.build import check_tensor, launch, reset_counts, runs_plain
 from ipc_proofs_tpu_torch.ops.pack import to_int32
 from ipc_proofs_tpu_torch.utils.deadline import current_scope, use_scope
 from ipc_proofs_tpu_torch.utils.lockdep import named_lock
@@ -56,6 +60,8 @@ __all__ = [
     "batch_args",
     "synthetic_event_batch",
     "match_pipeline",
+    "match_pipeline_plain",
+    "reset_launch_counts",
     "sharded_match_pipeline",
     "make_specs_u32",
     "PipelineStage",
@@ -63,10 +69,18 @@ __all__ = [
     "MatchCoalescer",
 ]
 
-# match_pipeline evaluations on a CUDA device since the last reset (one per
-# block of a sharded call)
+# match_pipeline kernel launches since the last reset (one per block of a
+# sharded call)
 LAUNCHES = {"match_pipeline": 0}
-_count_lock = threading.Lock()
+
+# the ``csrc/match.cu`` entry's signature
+_ARGTYPES = {
+    "match_pipeline": [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 4,
+}
+
+
+def reset_launch_counts() -> None:
+    reset_counts(LAUNCHES)
 
 
 @dataclass
@@ -142,6 +156,17 @@ def batch_args(
     )
 
 
+def match_pipeline_plain(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
+    """Plain version of `match_pipeline`."""
+    t0_eq = (topics[..., 0, :] == topic0).all(dim=-1)
+    t1_eq = (topics[..., 1, :] == topic1).all(dim=-1)
+    emitter_ok = (emitters == actor_id) | (actor_id < 0)
+    mask = valid & (n_topics >= 2) & t0_eq & t1_eq & emitter_ok
+    receipt_hits = mask.any(dim=-1)  # reduce over the (sp-sharded) event axis
+    n_proofs = mask.sum(dtype=torch.int32)
+    return receipt_hits, mask, n_proofs
+
+
 def match_pipeline(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
     """The device step: per-event mask → per-receipt hits → count.
 
@@ -150,18 +175,32 @@ def match_pipeline(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
     (negative = no filter). All on one device.
 
     Returns (receipt_hits bool [T,R], event_mask bool [T,R,E], n_proofs
-    int32 scalar), on that device.
+    int32 scalar), on that device. On a card one kernel launch (the spec
+    words and the actor are read on the card: no sync, so a CUDA graph
+    captures it).
     """
-    t0_eq = (topics[..., 0, :] == topic0).all(dim=-1)
-    t1_eq = (topics[..., 1, :] == topic1).all(dim=-1)
-    emitter_ok = (emitters == actor_id) | (actor_id < 0)
-    mask = valid & (n_topics >= 2) & t0_eq & t1_eq & emitter_ok
-    receipt_hits = mask.any(dim=-1)  # reduce over the (sp-sharded) event axis
-    n_proofs = mask.sum(dtype=torch.int32)
-    if topics.device.type == "cuda":
-        with _count_lock:
-            LAUNCHES["match_pipeline"] += 1
-    return receipt_hits, mask, n_proofs
+    name = "match_pipeline"
+    device = topics.device
+    if topics.dim() != 5:
+        raise ValueError(f"{name}: expected topics [T, R, E, 2, 8], got {tuple(topics.shape)}")
+    t, r, e = topics.shape[:3]
+    check_tensor(name, topics, torch.int32, (t, r, e, 2, 8), device, align=16)
+    check_tensor(name, n_topics, torch.int32, (t, r, e), device)
+    check_tensor(name, emitters, torch.int32, (t, r, e), device)
+    check_tensor(name, valid, torch.bool, (t, r, e), device)
+    check_tensor(name, topic0, torch.int32, (8,), device)
+    check_tensor(name, topic1, torch.int32, (8,), device)
+    check_tensor(name, actor_id, torch.int32, (), device)
+    if runs_plain(name, device):
+        return match_pipeline_plain(topics, n_topics, emitters, valid, topic0, topic1, actor_id)
+    hits = torch.empty((t, r), dtype=torch.bool, device=device)
+    mask = torch.empty((t, r, e), dtype=torch.bool, device=device)
+    count = torch.empty((), dtype=torch.int32, device=device)
+    if t * r == 0:
+        return hits, mask, count.zero_()
+    args = [x.data_ptr() for x in (topics, n_topics, emitters, valid, topic0, topic1, actor_id)]
+    launch("match", name, _ARGTYPES[name], args + [t * r, e], [hits, mask, count], device, LAUNCHES)
+    return hits, mask, count
 
 
 def sharded_match_pipeline(mesh):

@@ -19,10 +19,12 @@ are ``<module>-<hash>.san.so`` (``IPC_PROOFS_SAN=1``, see
 ``core._cid_native.build_cpython_ext``), so they never land in the fast
 path's cache.
 
-**CUDA half** — the five C entries of ``csrc/blake2b.cu`` and
-``csrc/keccak.cu`` launched at edge sizes (`kernel_cases`: message lengths
-around every block edge, multi-block rows up to the padded maximum, rows
-whose block count is 0, negative or past the padded maximum, and row
+**CUDA half** — the nine C entries of ``csrc/blake2b.cu``,
+``csrc/keccak.cu`` and ``csrc/match.cu`` launched at edge sizes
+(`kernel_cases`: message lengths around every block edge, multi-block rows
+up to the padded maximum, rows whose block count is 0, negative or past
+the padded maximum; match worlds of 1, 3, 4, 5 and 33 events a receipt,
+the actor filter on and off, receipt ids outside ``[0, num)``; and row
 counts around the warp and thread-block edges up to 4,097), each held
 against its plain PyTorch version, in a child process (``--cuda-child``):
 
@@ -37,7 +39,9 @@ against its plain PyTorch version, in a child process (``--cuda-child``):
   caching allocator off (each tensor its own allocation, so memcheck sees
   its bounds). A device the tool refuses ("Device not supported") is
   reported as such, and the guard-band check alone stands for the half.
-  The kernels use no shared memory, so racecheck has nothing to check.
+  Racecheck is not run: the only shared memory written by more than one
+  thread is ``match_pipeline``'s per-receipt flags, set to 1 between two
+  barriers (racing writes of one value).
 
 Exit codes: 0 = clean run *or* graceful skip (no gcc / no libasan, no card
 / no ``compute-sanitizer`` — images without the toolchain shouldn't fail
@@ -87,6 +91,9 @@ BLAKE2B_BLOCK_LENGTHS = (0, 1, 127, 128, 129, 255, 256, 257, 383, 384, 385, 1023
 KECCAK_SINGLE_LENGTHS = (0, 1, 134, 135)
 KECCAK_BLOCK_LENGTHS = (0, 1, 135, 136, 137, 271, 272, 273, 1087)
 PADDED_BLOCKS = 8  # the padded maximum of the multi-block entries
+MATCH_ENTRIES = ("match_pipeline", "event_match_mask", "event_match_mask_fp", "receipts_with_match")
+MATCH_EVENTS = (1, 3, 4, 5, 33)  # events a receipt of the match pipeline's cases, in turn
+MATCH_ACTOR = 1001
 ROW_COUNTS = (1, 31, 32, 33, 127, 128, 129, 4097)
 GUARD_FILLS = 2
 REDZONE_WORDS = 4096  # 16 KiB each side, four padded multi-block rows and more
@@ -265,11 +272,53 @@ def _odd_counts(n_blocks, padded: int) -> None:
         n_blocks[:3] = (0, -1, padded + 2)
 
 
+def _event_rows(rng, rows: int, spec):
+    """Event rows for the match entries: about a third with both topics
+    equal to ``spec`` (int32 [16]), some of those with one word flipped,
+    ``n_topics`` 0..3, about a tenth invalid, two emitters."""
+    import numpy as np
+
+    topics = rng.integers(-(2**31), 2**31, (rows, 2, 8), dtype=np.int64).astype(np.int32)
+    planted = rng.random(rows) < 0.35
+    topics[planted] = spec.reshape(2, 8)
+    near = planted & (rng.random(rows) < 0.2)
+    topics[near, 1, 3] ^= 1
+    n_topics = rng.integers(0, 4, rows).astype(np.int32)
+    valid = rng.random(rows) < 0.9
+    emitters = np.where(rng.random(rows) < 0.8, MATCH_ACTOR, MATCH_ACTOR + 1).astype(np.int32)
+    return topics, n_topics, valid, emitters
+
+
+def _match_cases(rng, k: int, n: int):
+    """The four match entries' cases at ``n`` rows (receipts for
+    `match_pipeline`, one tipset of them)."""
+    import numpy as np
+
+    spec = rng.integers(-(2**31), 2**31, 16, dtype=np.int64).astype(np.int32)
+    e = MATCH_EVENTS[k % len(MATCH_EVENTS)]
+    topics, n_topics, valid, emitters = _event_rows(rng, n * e, spec)
+    actor = np.array(-1 if k % 2 else MATCH_ACTOR, dtype=np.int32)
+    yield "match_pipeline", n, (
+        topics.reshape(1, n, e, 2, 8), n_topics.reshape(1, n, e), emitters.reshape(1, n, e),
+        valid.reshape(1, n, e), spec[:8], spec[8:], actor,
+    ), (e,)
+    topics, n_topics, valid, _ = _event_rows(rng, n, spec)
+    yield "event_match_mask", n, (topics, n_topics, valid, spec[:8], spec[8:]), ()
+    target = int(rng.integers(-(2**63), 2**63 - 1, dtype=np.int64))
+    fp = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    fp[rng.random(n) < 0.4] = target
+    yield "event_match_mask_fp", n, (fp, rng.random(n) < 0.9), (target,)
+    num = max(1, n // 3)
+    ids = rng.integers(-2 * num, 2 * num, n).astype(np.int64 if k % 2 else np.int32)
+    yield "receipts_with_match", n, (rng.random(n) < 0.3, ids), (num, ids.itemsize)
+
+
 def kernel_cases(seed: int = 0):
     """(entry, rows, inputs, extra ints) for every kernel entry and row
-    count: ``inputs`` are numpy u32/i32 arrays in the entry's argument
-    order, ``extra`` the ints after the row count (the padded maximum of
-    the multi-block entries)."""
+    count: ``inputs`` are numpy arrays in the entry's argument order (u32
+    data as u32 or int32 words), ``extra`` the ints after the row count
+    (the padded maximum of the multi-block entries; the match entries'
+    events a receipt, fingerprint target, or receipt count and id width)."""
     import numpy as np
 
     from ipc_proofs_tpu_torch.ops import pack
@@ -292,74 +341,142 @@ def kernel_cases(seed: int = 0):
             _messages(rng, KECCAK_BLOCK_LENGTHS, n, 136 * PADDED_BLOCKS - 1), PADDED_BLOCKS)
         _odd_counts(n_blocks, PADDED_BLOCKS)
         yield "keccak256_blocks", n, (blocks, n_blocks), (PADDED_BLOCKS,)
+        yield from _match_cases(rng, k, n)
+
+
+def outputs_of(entry: str, n: int, inputs, extra) -> "list[tuple[tuple, object]]":
+    """(shape, torch dtype) of each output of ``entry``'s case, in the C
+    entry's order."""
+    import torch
+
+    if entry == "match_pipeline":
+        return [((1, n), torch.bool), ((1, n, extra[0]), torch.bool), ((), torch.int32)]
+    if entry in ("event_match_mask", "event_match_mask_fp"):
+        return [((n,), torch.bool)]
+    if entry == "receipts_with_match":
+        return [((extra[0],), torch.bool)]
+    return [((n, 8), torch.int32)]
 
 
 def _plain(entry: str):
-    from ipc_proofs_tpu_torch.ops import blake2b, keccak
+    """The plain version of ``entry`` as ``fn(input_views, extra)`` →
+    a tuple of its outputs."""
+    from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
+    from ipc_proofs_tpu_torch.parallel import pipeline
 
-    module = blake2b if entry.startswith("blake2b") else keccak
-    return getattr(module, entry + "_plain")
+    if entry == "match_pipeline":
+        return lambda views, extra: tuple(pipeline.match_pipeline_plain(*views))
+    if entry == "event_match_mask":
+        return lambda views, extra: (match.topic_mask_plain(*views),)
+    if entry == "event_match_mask_fp":
+        return lambda views, extra: (match.fp_mask_plain(*views, extra[0]),)
+    if entry == "receipts_with_match":
+        return lambda views, extra: (match.receipts_with_match_plain(*views, extra[0]),)
+    fn = getattr(blake2b if entry.startswith("blake2b") else keccak, entry + "_plain")
+    return lambda views, extra: (fn(*views),)
 
 
-def guarded_run(call, inputs, n: int, device, fill_seed: int, redzone: int = REDZONE_WORDS):
-    """Run ``call(input_views, out_view)`` once on guarded buffers and
-    return (out, violations): ``out`` the int32 ``[n, 8]`` result on the
-    host, ``violations`` a list of what went wrong (an input or the
-    output's redzone changed, an input changed).
+def _host(array):
+    """A numpy input as the tensor the kernels take (u32 as int32 bits)."""
+    import numpy as np
+    import torch
 
-    Every input (numpy u32/i32) and the output lie at a 16-byte-aligned
-    offset inside a buffer ``redzone`` words longer at each end; the
-    redzones and the output are filled from ``fill_seed`` first."""
+    array = np.asarray(array)
+    if array.dtype == np.uint32:
+        array = array.view(np.int32)
+    return torch.from_numpy(np.array(array, copy=True))
+
+
+def guarded_run(call, inputs, outputs, device, fill_seed: int, redzone: int = REDZONE_WORDS):
+    """Run ``call(input_views, *output_views)`` once on guarded buffers and
+    return (outs, violations): ``outs`` the results on the host,
+    ``violations`` a list of what went wrong (an input or an output's
+    redzone changed, an input changed).
+
+    ``outputs`` lists each output's (shape, torch dtype); ``outs`` is a
+    tuple of them. Every input and output lies at a 16-byte-aligned
+    offset inside a byte buffer ``redzone`` words longer at each end; the
+    redzones and the outputs are filled from ``fill_seed`` first."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(fill_seed)
+    pad = 4 * redzone
 
-    def guarded(words: "np.ndarray | None", shape):
-        count = int(np.prod(shape))
-        fill = rng.integers(-(2**31), 2**31, count + 2 * redzone, dtype=np.int64).astype(np.int32)
-        if words is not None:
-            fill[redzone : redzone + count] = words.reshape(-1)
+    def guarded(raw: "np.ndarray | None", nbytes: int, dtype, shape):
+        fill = rng.integers(0, 256, nbytes + 2 * pad, dtype=np.uint8)
+        if raw is not None:
+            fill[pad : pad + nbytes] = raw
         host = torch.from_numpy(fill)
         buf = host.to(device, copy=True)
-        return host, buf, buf[redzone : redzone + count].view(shape)
+        return host, buf, buf[pad : pad + nbytes].view(dtype).view(shape)
 
-    bufs, views = [], []
+    ins, views = [], []
     for array in inputs:
-        words = np.ascontiguousarray(array).view(np.int32)
-        host, buf, view = guarded(words, words.shape)
-        bufs.append((host, buf))
+        tensor = _host(array)
+        raw = tensor.reshape(-1).view(torch.uint8).numpy() if tensor.numel() else np.zeros(0, np.uint8)
+        host, buf, view = guarded(raw, raw.size, tensor.dtype, tuple(tensor.shape))
+        ins.append((host, buf))
         views.append(view)
-    out_host, out_buf, out_view = guarded(None, (n, 8))
-    call(views, out_view)
+    outs = []
+    for shape, dtype in outputs:
+        nbytes = int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
+        outs.append((nbytes, dtype, shape, *guarded(None, nbytes, dtype, shape)))
+    call(views, *(view for *_, view in outs))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     violations = []
-    for i, (host, buf) in enumerate(bufs):
+    for i, (host, buf) in enumerate(ins):
         if not torch.equal(buf.cpu(), host):
             violations.append(f"input {i} or its redzone changed")
-    after = out_buf.cpu()
-    if not (torch.equal(after[:redzone], out_host[:redzone])
-            and torch.equal(after[redzone + 8 * n :], out_host[redzone + 8 * n :])):
-        violations.append("output redzone changed")
-    return after[redzone : redzone + 8 * n].view(n, 8), violations
+    results = []
+    for i, (nbytes, dtype, shape, host, buf, _) in enumerate(outs):
+        after = buf.cpu()
+        if not (torch.equal(after[:pad], host[:pad]) and torch.equal(after[pad + nbytes :], host[pad + nbytes :])):
+            violations.append(f"output {i} redzone changed")
+        results.append(after[pad : pad + nbytes].view(dtype).view(shape))
+    return tuple(results), violations
+
+
+def same_bytes(got, want) -> bool:
+    """Equal shapes and equal bytes (a bool holding another byte than 0 or
+    1 differs)."""
+    import torch
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8) if t.dtype == torch.bool else t
+
+    return got.dtype == want.dtype and got.shape == want.shape and torch.equal(raw(got), raw(want))
+
+
+def _rows(entry: str, views) -> int:
+    """The row count an entry's C call takes (receipts for the pipeline)."""
+    shape = views[0].shape
+    return shape[0] * shape[1] if entry == "match_pipeline" else shape[0]
 
 
 def _kernel_call(entry: str, extra: tuple):
-    """``call(views, out)`` launching the C entry ``entry`` on PyTorch's
+    """``call(views, *outs)`` launching the C entry ``entry`` on PyTorch's
     current stream."""
     import torch
 
-    from ipc_proofs_tpu_torch.ops import blake2b, build, keccak
+    from ipc_proofs_tpu_torch.ops import blake2b, build, keccak, match
+    from ipc_proofs_tpu_torch.parallel import pipeline
 
-    library, module = ("blake2b", blake2b) if entry.startswith("blake2b") else ("keccak", keccak)
+    if entry == "match_pipeline":
+        library, module = "match", pipeline
+    elif entry in MATCH_ENTRIES:
+        library, module = "match", match
+    else:
+        library, module = ("blake2b", blake2b) if entry.startswith("blake2b") else ("keccak", keccak)
     fn = build._entry(library, entry, module._ARGTYPES[entry])
 
-    def call(views, out):
-        n = out.shape[0]
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        with torch.cuda.device(out.device):
-            rc = fn(*(v.data_ptr() for v in views), n, *extra, out.data_ptr(), stream)
+    def call(views, *outs):
+        device = outs[0].device
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            rc = fn(*(v.data_ptr() for v in views), _rows(entry, views), *extra,
+                    *(out.data_ptr() for out in outs), stream)
         if rc != 0:
             raise build.DeviceFaultError(f"{entry}: CUDA launch failed with error {rc}")
 
@@ -371,20 +488,18 @@ def check_kernels(device, call_for=_kernel_call, seed: int = 0) -> dict:
     ``device``: launches made, and the violations and mismatches against
     the plain versions, per entry. ``call_for(entry, extra)`` gives the
     launch (the C entry; a test passes its own)."""
-    import numpy as np
-    import torch
-
     report: "dict[str, dict]" = {}
     for entry, n, inputs, extra in kernel_cases(seed):
         row = report.setdefault(entry, {"launches": 0, "rows": [], "violations": [], "mismatches": 0})
         row["rows"].append(n)
-        want = _plain(entry)(*(torch.from_numpy(np.ascontiguousarray(a).view(np.int32)) for a in inputs))
+        want = _plain(entry)([_host(a) for a in inputs], extra)
+        outputs = outputs_of(entry, n, inputs, extra)
         call = call_for(entry, extra)
         for fill in range(GUARD_FILLS):
-            out, violations = guarded_run(call, inputs, n, device, fill_seed=seed * 1000 + fill)
+            outs, violations = guarded_run(call, inputs, outputs, device, fill_seed=seed * 1000 + fill)
             row["launches"] += 1
             row["violations"] += [f"rows={n} fill={fill}: {v}" for v in violations]
-            row["mismatches"] += int(not torch.equal(out, want))
+            row["mismatches"] += int(not all(same_bytes(o, w) for o, w in zip(outs, want)))
     return report
 
 
@@ -418,14 +533,14 @@ def _run_child(prefix: "list[str]", env: "dict[str, str]") -> "tuple[int, str]":
 def cuda_half(strict: bool) -> int:
     import torch
 
-    from ipc_proofs_tpu_torch.ops.build import DeviceFaultError, cuda_tool, load_libraries
+    from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, DeviceFaultError, cuda_tool, load_libraries
 
     if not torch.cuda.is_available():
         print("build_native_san: SKIP cuda half (no CUDA card)", file=sys.stderr)
         return 1 if strict else 0
     try:
         sanitizer = cuda_tool("compute-sanitizer")
-        load_libraries(["blake2b", "keccak"])  # built here, not under the tool
+        load_libraries(KERNEL_LIBRARIES)  # built here, not under the tool
     except DeviceFaultError as exc:
         print(f"build_native_san: SKIP cuda half ({exc})", file=sys.stderr)
         return 1 if strict else 0

@@ -141,6 +141,7 @@ def test_small_range_path_on_card(cuda_device, monkeypatch):
         "event_match_mask_sharded": 0,
         "event_match_mask_fp": 1,
         "event_match_mask_fp_sharded": 0,
+        "receipts_with_match": 0,
     }
     on_cpu = generate_event_proofs_for_range(
         store, pairs, spec, match_backend=get_backend("gpu", device="cpu")
@@ -470,6 +471,111 @@ def test_dryrun_multichip_on_a_virtual_mesh(cuda_device):
     # leg 2: one multi-block launch per mesh device
     assert blake2b.LAUNCHES["blake2b256_blocks"] >= 4
     assert match.LAUNCHES["event_match_mask_fp_sharded"] > 0
+
+
+# --- csrc/match.cu's four kernels at the edge shapes ---------------------------------
+
+
+def _match_world(t, r, e, seed, actor_rows=0.8):
+    """A [T, R, E] match world: about a third of the events carry the spec
+    topics (some with one word flipped), n_topics 0..3, a tenth invalid,
+    two emitters."""
+    from ipc_proofs_tpu_torch.parallel.pipeline import EventBatch
+
+    rng = np.random.default_rng(seed)
+    spec = rng.integers(0, 1 << 32, 16, dtype=np.uint64).astype(np.uint32)
+    shape = (t, r, e)
+    topics = rng.integers(0, 1 << 32, (*shape, 2, 8), dtype=np.uint64).astype(np.uint32)
+    planted = rng.random(shape) < 0.35
+    topics[planted] = spec.reshape(2, 8)
+    topics[planted & (rng.random(shape) < 0.2), 1, 5] ^= 1
+    batch = EventBatch(
+        topics=topics,
+        n_topics=rng.integers(0, 4, shape).astype(np.int32),
+        emitters=np.where(rng.random(shape) < actor_rows, 1001, 1002).astype(np.int32),
+        valid=rng.random(shape) < 0.9,
+    )
+    return batch, spec[:8].tobytes(), spec[8:].tobytes()
+
+
+@pytest.mark.parametrize("shape", [(3, 77, 1), (5, 41, 3), (2, 9, 33), (7, 3, 300), (1, 1, 4), (0, 4, 4), (2, 3, 0)],
+                         ids=["E1", "E3", "E33", "E300", "one-receipt", "no-tipsets", "no-events"])
+@pytest.mark.parametrize("actor", [None, 1001], ids=["actor-1", "actor"])
+def test_match_pipeline_kernel_equals_plain_at_the_edge_shapes(cuda_device, shape, actor):
+    """One launch a call (none for an empty world), results bit-equal to the
+    plain version on the same inputs, bool outputs holding only 0 and 1."""
+    from ipc_proofs_tpu_torch.parallel import pipeline
+
+    batch, t0, t1 = _match_world(*shape, seed=sum(shape))
+    pipeline.reset_launch_counts()
+    got = pipeline.match_pipeline(*pipeline.batch_args(batch, t0, t1, actor, cuda_device))
+    torch.cuda.synchronize()
+    want = pipeline.match_pipeline_plain(*pipeline.batch_args(batch, t0, t1, actor, "cpu"))
+    assert pipeline.LAUNCHES["match_pipeline"] == (1 if shape[0] * shape[1] else 0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    for g in got[:2]:
+        assert int(g.view(torch.uint8).max()) <= 1 if g.numel() else True
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 100_003])
+def test_flat_mask_kernels_equal_plain(cuda_device, n):
+    batch, t0, t1 = _match_world(n, 1, 1, seed=n)
+    topics, n_topics, valid = batch.topics.reshape(-1, 2, 8), batch.n_topics.reshape(-1), batch.valid.reshape(-1)
+    rng = np.random.default_rng(n)
+    fp = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    target = -12345678901234
+    fp[rng.random(n) < 0.3] = target
+    _reset_match_counts()
+    on_card = (
+        match._topic_mask(topics, n_topics, valid, t0, t1, cuda_device),
+        match._fp_mask(fp, valid, target, cuda_device),
+    )
+    torch.cuda.synchronize()
+    on_cpu = (
+        match._topic_mask(topics, n_topics, valid, t0, t1, torch.device("cpu")),
+        match._fp_mask(fp, valid, target, torch.device("cpu")),
+    )
+    for g, w in zip(on_card, on_cpu):
+        assert g.dtype == torch.bool and torch.equal(g.cpu(), w)
+    assert n < 256 or all(w.any() for w in on_cpu)
+    launched = 1 if n else 0
+    assert match.LAUNCHES["event_match_mask"] == match.LAUNCHES["event_match_mask_fp"] == launched
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("n,num", [(0, 4), (5, 0), (1000, 40), (100_003, 4099)])
+def test_receipts_kernel_wraps_and_drops_as_plain(cuda_device, id_dtype, n, num):
+    rng = np.random.default_rng(n + num)
+    mask = torch.from_numpy(rng.random(n) < 0.3)
+    ids = torch.from_numpy(rng.integers(-2 * max(num, 1), 2 * max(num, 1), n)).to(id_dtype)
+    _reset_match_counts()
+    got = match.receipts_with_match(mask.to(cuda_device), ids.to(cuda_device), num)
+    torch.cuda.synchronize()
+    want = match.receipts_with_match_plain(mask, ids, num)
+    assert got.shape == (num,) and torch.equal(got.cpu(), want)
+    assert match.LAUNCHES["receipts_with_match"] == (1 if n and num else 0)
+    if n > 100:
+        assert want.any() and not want.all()
+
+
+def test_match_pipeline_replays_as_a_cuda_graph(cuda_device):
+    """The kernel reads its spec words and actor on the card, so one pass
+    captures as a CUDA graph and every replay launches it."""
+    from ipc_proofs_tpu_torch.parallel import pipeline
+    from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
+
+    batch, t0, t1 = _match_world(64, 16, 4, seed=3)
+    args = pipeline.batch_args(batch, t0, t1, 1001, cuda_device)
+
+    def body(i, topics, n_topics, emitters, valid, topic0, topic1, actor_id):
+        return pipeline.match_pipeline(topics, n_topics, emitters, valid, topic0 ^ i, topic1, actor_id)[2]
+
+    pipeline.reset_launch_counts()
+    pt = measure_pass_seconds(body, args, k_small=2, k_large=12, repeats=2)
+    assert pt.graph and pt.seconds > 0
+    # captured launches count once each (the replays run inside the graph)
+    assert pipeline.LAUNCHES["match_pipeline"] >= 1
 
 
 def _chain_node(store, pairs):
@@ -888,7 +994,7 @@ def test_chaos_run_on_card_launches_blake2b_through_the_lane(cuda_device, monkey
 
 
 def test_crash_point_with_a_child_on_card_resumes_identically(cuda_device, tmp_path):
-    from ipc_proofs_tpu_torch.ops.build import build_libraries
+    from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, build_libraries
     from ipc_proofs_tpu_torch.tools import crashtest
 
     shape = {"pairs": 12, "chunk_size": 2, "receipts": 4, "events": 2, "match_rate": 0.2, "record_workers": 1}
@@ -896,5 +1002,5 @@ def test_crash_point_with_a_child_on_card_resumes_identically(cuda_device, tmp_p
     assert reference == crashtest.range_reference(shape, "cpu")
     res = crashtest.crash_run(reference, shape, 2, 64, str(tmp_path), device="cuda")
     assert res["outcome"] == "identical", res
-    built = build_libraries(["blake2b", "keccak"])
+    built = build_libraries(KERNEL_LIBRARIES)
     assert res["libraries"] == {name: str(info["path"]) for name, info in built.items()}

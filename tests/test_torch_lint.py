@@ -241,7 +241,12 @@ def _plain_call(entry, extra):
     from ipc_proofs_tpu_torch.tools.build_native_san import _plain
 
     plain = _plain(entry)
-    return lambda views, out: out.copy_(plain(*views))
+
+    def call(views, *outs):
+        for out, result in zip(outs, plain(views, extra)):
+            out.copy_(result)
+
+    return call
 
 
 def test_guard_band_check_passes_the_plain_versions(monkeypatch):
@@ -257,6 +262,7 @@ def test_guard_band_check_passes_the_plain_versions(monkeypatch):
     assert sorted(report) == sorted([
         "blake2b256_single_block", "blake2b256_two_block", "blake2b256_blocks",
         "keccak256_single_block", "keccak256_blocks",
+        "match_pipeline", "event_match_mask", "event_match_mask_fp", "receipts_with_match",
     ])
     for row in report.values():
         assert row == {"launches": 3 * san.GUARD_FILLS, "rows": [1, 33, 129], "violations": [], "mismatches": 0}
@@ -274,12 +280,12 @@ def test_guard_band_check_catches_each_fault(fault):
 
     entry, n, inputs, extra = next(c for c in san.kernel_cases() if c[0] == "blake2b256_blocks" and c[1] == 33)
     plain = san._plain(entry)
-    want = plain(*(torch.from_numpy(a.view("int32")) for a in inputs))
+    want = plain([torch.from_numpy(a.view("int32")) for a in inputs], extra)[0]
 
     def call(views, out):
         if fault == "read past an input":
             views = [torch.as_strided(v, v.shape, v.stride(), v.storage_offset() + 32) for v in views]
-        result = plain(*views)
+        result = plain(views, extra)[0]
         rows = n - 1 if fault == "leave a row unwritten" else n
         out[:rows] = result[:rows]
         if fault == "write past the output":
@@ -287,9 +293,11 @@ def test_guard_band_check_catches_each_fault(fault):
         elif fault == "write an input":
             views[0].view(-1)[5] ^= 1
 
-    runs = [san.guarded_run(call, inputs, n, torch.device("cpu"), fill_seed=fill) for fill in range(san.GUARD_FILLS)]
+    outputs = [((n, 8), torch.int32)]
+    runs = [san.guarded_run(call, inputs, outputs, torch.device("cpu"), fill_seed=fill)
+            for fill in range(san.GUARD_FILLS)]
     flagged = any(violations for _, violations in runs)
-    wrong = any(not torch.equal(out, want) for out, _ in runs)
+    wrong = any(not torch.equal(out, want) for (out,), _ in runs)
     assert flagged if fault.startswith("write") else wrong and not flagged
 
 

@@ -9,7 +9,8 @@ masks, hits, counts, digests, bundle JSON.
 - `make_mesh` shapes and errors; `synthetic_event_batch` arrays;
   `match_pipeline` with and without the actor filter; the sharded pipeline
   at meshes (1,1), (2,2), (4,2), (8,1) against the reference's (4,2) mesh;
-- `receipts_with_match`; the fingerprint mask sharded over port meshes
+- `receipts_with_match`, ids outside [0, num) included; the fingerprint
+  mask sharded over port meshes
   against the reference's mesh branch; the full-word mask sharded (rows
   split, exact length) against the reference's unsharded mask;
 - `MatchCoalescer` under a mesh: the mask layer alone pads (once, to a
@@ -226,17 +227,37 @@ def test_sharded_pipeline_refuses_uneven_blocks(shape):
 # --- receipts_with_match and the sharded fingerprint mask -------------------------
 
 
+@pytest.mark.parametrize("ids_from", ["in-range", "wrapped-and-dropped"])
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64], ids=["int32", "int64"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_receipts_with_match_equals_the_reference(seed):
+def test_receipts_with_match_equals_the_reference(seed, id_dtype, ids_from):
+    """Ids in [0, num), and ids over [-2·num, 2·num): the reference's
+    ``.at[ids].add`` wraps an id in [-num, 0) to id + num and drops any
+    other id outside [0, num)."""
     rng = np.random.default_rng(seed)
     n, num_receipts = 500, 40
-    mask = rng.random(n) < 0.05
-    ids = rng.integers(0, num_receipts, size=n).astype(np.int32)
+    mask = rng.random(n) < (0.05 if ids_from == "in-range" else 0.3)
+    low, high = (0, num_receipts) if ids_from == "in-range" else (-2 * num_receipts, 2 * num_receipts)
+    ids = rng.integers(low, high, size=n).astype(id_dtype)
     ours = match.receipts_with_match(torch.from_numpy(mask), torch.from_numpy(ids), num_receipts)
-    ref = match_jax.receipts_with_match(jnp.asarray(mask), jnp.asarray(ids), num_receipts)
+    ref = match_jax.receipts_with_match(jnp.asarray(mask), jnp.asarray(ids.astype(np.int32)), num_receipts)
     assert ours.dtype == torch.bool and ours.shape == (num_receipts,)
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
     assert ours.any() and not ours.all()
+
+
+@pytest.mark.parametrize("mask,ids,want", [
+    ([1, 1, 1, 0], [5, -1, 1, 0], [0, 1, 0, 1]),
+    ([1, 1, 0, 0], [-5, -4, 1, 0], [1, 0, 0, 0]),
+    ([1, 1], [4, -5], [0, 0, 0, 0]),
+    ([], [], [0, 0, 0, 0]),
+], ids=["past-the-end-and-minus-one", "below-minus-num", "all-dropped", "no-events"])
+def test_receipts_with_match_wraps_and_drops_as_the_reference(mask, ids, want):
+    mask, ids = np.array(mask, dtype=bool), np.array(ids, dtype=np.int32)
+    ours = match.receipts_with_match(torch.from_numpy(mask), torch.from_numpy(ids), 4)
+    ref = match_jax.receipts_with_match(jnp.asarray(mask), jnp.asarray(ids), 4)
+    np.testing.assert_array_equal(np.asarray(ref), np.array(want, dtype=bool))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
 
 
 def test_pad_to_bucket_equals_the_reference():
@@ -339,9 +360,9 @@ def test_mesh_backend_shards_the_full_word_mask(monkeypatch):
     seen: list = []
     real = match._topic_mask
 
-    def spy(topics, n_topics, valid, topic0, topic1, device):
+    def spy(topics, *args):
         seen.append(len(topics))
-        return real(topics, n_topics, valid, topic0, topic1, device)
+        return real(topics, *args)
 
     topics, n_topics, emitters, valid = _topic_arrays(10, seed=4)
     single = get_backend("gpu", device="cpu").event_match_mask_flat(
