@@ -23,7 +23,10 @@ Phases, none of which may fail:
    launches, beside its plain version and its bound:
    - blake2b: 1,048,576 messages (BASELINE config 4's scale) from the seed,
      about a third in each size class (≤128 B, 129–256 B, 257–520 B, the
-     mix of the range witness);
+     mix of the range witness); then the multi-block kernel with one and
+     with four lanes a message over the first 2,048–65,536 rows of its
+     third (`BLOCKS_SWEEP`), the measurement behind its four-lane
+     crossover (``ops.blake2b.QUAD_ROWS_MAX``);
    - keccak: 1,048,576 single-block messages of 0–135 B, and 262,144
      multi-block messages of 136–543 B (2–4 blocks) with rows whose block
      count is 0 (digest of zeros) or above the layout's 4 (absorbs 4);
@@ -61,7 +64,11 @@ Phases, none of which may fail:
    hashlib's on the same messages; a
    second generate with ``IPC_SCAN_FUSED_MATCH=0`` must give the same bundle
    bytes and launch the fingerprint mask on the card once; each kernel is
-   held against its plain version on the witness's own blocks; a flipped
+   held against its plain version on the witness's own blocks, and the
+   multi-block kernel at the witness's own multi-block rows (2,624 at
+   4,096 pairs) with the wrapper's lanes (four a message there) and with
+   one, each equal to hashlib and timed by CUDA events and torch.profiler
+   beside its bound there; a flipped
    byte in a witness block of each size class must be rejected; a repeat
    of the path under ``torch.profiler`` gives the card's busy time;
 5. overlapped event path — the same world through
@@ -567,6 +574,7 @@ from ipc_proofs_tpu_torch.obs import (
 from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, build_libraries, cuda_tool
 from ipc_proofs_tpu_torch.ops.pack import (
     RATE_BYTES,
+    digests_to_bytes,
     pack_single_block_blake2b,
     pack_single_block_keccak,
     pack_two_block_blake2b,
@@ -620,6 +628,7 @@ from ipc_proofs_tpu_torch.tools import chaos as chaos_tool
 from ipc_proofs_tpu_torch.tools import crashtest as crashtest_tool
 from ipc_proofs_tpu_torch.tools import soak as soak_tool
 from ipc_proofs_tpu_torch.tools import traceview as traceview_tool
+from ipc_proofs_tpu_torch.tools.build_native_san import BLAKE2B_BLOCK_CASES
 from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
@@ -655,8 +664,6 @@ PIPES = {  # pipe: (SASS opcodes it runs, None = every one; results per SM clock
     "fma": (("IMAD", "IMUL"), 64),
     "issue": (None, 128),
 }
-# one compression rotates 288 64-bit words by 24, 16 and 63: 576 funnel shifts
-SHF_PER_COMPRESSION = 576
 # What the hash algorithms need, per pipe (the bound counts these; the
 # SASS counts of the build are printed beside them as "issued"). A
 # 64-bit value is two 32-bit halves.
@@ -676,11 +683,17 @@ KECCAK_OPS = {"alu": 4354}
 SOURCE = "ipc_proofs_tpu_torch/csrc/blake2b.cu"
 KERNELS = (
     # name, TPU function it replaces, lengths (lo, hi] of its rows, loader
-    # of its kernel instantiation in the source
+    # of its kernel instantiation in the source (the multi-block kernel's
+    # up to ``blake2b.QUAD_ROWS_MAX`` rows: the four-lane kernel, "quad")
     ("blake2b256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:338", (-1, 128), "SplitPlanes"),
     ("blake2b256_two_block", "ipc_proofs_tpu/ops/pallas_kernels.py:364", (128, 256), "SplitPlanes"),
     ("blake2b256_blocks", "ipc_proofs_tpu/ops/blake2b_jax.py:140", (256, 520), "PaddedBlocks"),
 )
+# lanes a message in each blake2b kernel instantiation
+B2B_LANES = {"SplitPlanes": 1, "PaddedBlocks": 1, "quad": 4}
+# rows at which the kernel phase times blake2b256_blocks with one and with
+# four lanes a message (its four-lane crossover)
+BLOCKS_SWEEP = (2048, 4096, 8192, 8448, 8576, 10240, 16384, 32768, 65536)
 KECCAK_SOURCE = "ipc_proofs_tpu_torch/csrc/keccak.cu"
 # the path whose launches a kernel's row reports: the first path that runs it
 OWN_PATH = {
@@ -796,16 +809,16 @@ def _to(array: np.ndarray, device) -> torch.Tensor:
 _SASS_LINE = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def _sass_functions(library, loaders) -> "dict[str, list[tuple[int, str, str]]]":
-    """The SASS of each kernel instantiation in ``library`` (keyed by the
-    loader its mangled name holds): ``(address, opcode, operands)`` rows."""
+def _sass_functions(library, key) -> "dict[str, list[tuple[int, str, str]]]":
+    """The SASS of each kernel function in ``library``, keyed by
+    ``key(mangled name)``: ``(address, opcode, operands)`` rows."""
     sass = subprocess.run(
         [cuda_tool("cuobjdump"), "-sass", str(library)],
         capture_output=True, text=True, check=True,
     ).stdout
     functions = {}
     for function in sass.split("Function : ")[1:]:
-        loader = next(name for name in loaders if name in function.splitlines()[0])
+        loader = key(function.splitlines()[0])
         functions[loader] = [
             (int(addr, 16), op, rest) for addr, op, rest in _SASS_LINE.findall(function)
         ]
@@ -830,22 +843,47 @@ def _per_pipe(ops) -> "dict[str, int]":
     }
 
 
+def _loop_span(key: str, loops) -> "tuple[int, int]":
+    """The address span of a kernel's one block loop: its backward
+    branches (ptxas may lay a loop out with more than one) must cover one
+    connected range."""
+    loops = sorted(loops)
+    if not loops:
+        raise AssertionError(f"{key}: no block loop in the SASS")
+    lo, hi = loops[0]
+    for target, branch in loops[1:]:
+        if target > hi:
+            raise AssertionError(f"{key}: expected one block loop in the SASS, found {loops}")
+        hi = max(hi, branch)
+    return lo, hi
+
+
+def _b2b_instantiation(mangled: str) -> str:
+    """A blake2b kernel function's key: its loader, or "quad" for the
+    four-lane kernel."""
+    if "quad_kernel" in mangled:
+        return "quad"
+    return next(name for name in ("SplitPlanes", "PaddedBlocks") if name in mangled)
+
+
+def b2b_instantiation(rows: int) -> str:
+    """The instantiation `blake2b256_blocks` runs at ``rows`` rows."""
+    return "quad" if blake2b.lanes_for_rows(rows) == 4 else "PaddedBlocks"
+
+
 def sass_per_compression(library) -> "dict[str, dict[str, int]]":
-    """Instructions per pipe in one compression of each blake2b kernel
-    instantiation (keyed by its loader), counted in the SASS of this build:
-    the body of the kernel's block loop, from the target of its one backward
-    branch to that branch. A body that ptxas unrolled k times holds k times
-    the funnel shifts and is divided by k. The per-row code outside the loop
-    is left out, so the bound stays a lower one."""
+    """Thread-instructions per pipe in one compression of each blake2b
+    kernel instantiation, counted in the SASS of this build: the body of
+    the kernel's block loop (one compression a trip, ``#pragma unroll 1``),
+    from the target of its one backward branch to that branch, times the
+    lanes that share a message (`B2B_LANES`). The per-row code outside the
+    loop is left out, so the bound stays a lower one."""
     counts = {}
-    for loader, code in _sass_functions(library, [k[3] for k in KERNELS]).items():
-        loops = _loops(code)
-        if len(loops) != 1:
-            raise AssertionError(f"{loader}: expected one block loop in the SASS, found {loops}")
-        lo, hi = loops[0]
+    for key, code in _sass_functions(library, _b2b_instantiation).items():
+        lo, hi = _loop_span(key, _loops(code))
         body = [op for addr, op, _ in code if lo <= addr <= hi]
-        unrolled = max(1, round(sum(op.startswith("SHF.L.W") for op in body) / SHF_PER_COMPRESSION))
-        counts[loader] = {pipe: n // unrolled for pipe, n in _per_pipe(body).items()}
+        counts[key] = {pipe: n * B2B_LANES[key] for pipe, n in _per_pipe(body).items()}
+        counts[key]["shfl"] = sum(op.startswith("SHFL") for op in body) * B2B_LANES[key]
     return counts
 
 
@@ -859,7 +897,8 @@ def sass_per_permutation(library) -> "dict[str, dict[str, int]]":
     (the loads and the absorbing xors). The per-row code outside the block
     loop is left out, so the bound stays a lower one."""
     counts = {}
-    for loader, code in _sass_functions(library, [k[2] for k in KECCAK_KERNELS]).items():
+    loaders = [k[2] for k in KECCAK_KERNELS]
+    for loader, code in _sass_functions(library, lambda h: next(n for n in loaders if n in h)).items():
         loops = sorted(_loops(code), key=lambda loop: loop[1] - loop[0])
         if len(loops) != 2 or not loops[1][0] <= loops[0][0] < loops[0][1] <= loops[1][1]:
             raise AssertionError(f"{loader}: expected a round loop inside a block loop, found {loops}")
@@ -881,7 +920,7 @@ def _ops_ms(per_unit: "dict[str, int]", units: int) -> float:
     """The busiest pipe's time for ``units`` compressions or permutations
     (``per_unit``: operations a unit on some of `PIPES`)."""
     return 1e3 * units * max(
-        count / (PIPES[pipe][1] * SM_CLOCKS_PER_S) for pipe, count in per_unit.items()
+        count / (PIPES[pipe][1] * SM_CLOCKS_PER_S) for pipe, count in per_unit.items() if pipe in PIPES
     )
 
 
@@ -923,6 +962,7 @@ def _kernel_cases(n_messages: int, seed: int, device) -> "list[KernelCase]":
             args = (_to(blocks, device), _to(n_blocks, device), _to(lengths, device))
             plain = blake2b.blake2b256_blocks_plain
             bytes_moved = int(n_blocks.sum()) * 128 + rows * (4 + 4 + 32)
+            loader = b2b_instantiation(rows)
         else:
             words = raw.view(np.uint32)
             args = (
@@ -1428,6 +1468,7 @@ def event_path(world, device) -> dict:
 
     verify_cids_s = _verify_cids_s(bundle, backend)
     _check_witness_shapes(bundle.blocks, device)
+    multi_block = witness_multi_block(bundle.blocks, device)
     _reject_flipped_blocks(bundle, backend)
     profiled = _device_busy(_event_generate(store, pairs, backend), backend)
     return {
@@ -1435,6 +1476,7 @@ def event_path(world, device) -> dict:
         "proofs": len(bundle.event_proofs),
         "events": metrics.counters.get("range_events", 0),
         "witness_blocks": {name: len(v) for name, v in _classes(bundle.blocks).items()},
+        "witness_multi_block": multi_block,
         "txmeta_rows": txmeta_rows,
         "stage_ms": dict(stages, verify_cids=verify_cids_s * 1e3),
         "unfused": {
@@ -1447,6 +1489,62 @@ def event_path(world, device) -> dict:
         "launches": launches,
         "host": _host_info(),
     }
+
+
+def witness_multi_block(blocks, device) -> dict:
+    """`blake2b256_blocks` at the event path's own multi-block witness rows,
+    packed as the backend packs them: with the lanes the wrapper picks
+    there and with one lane a message (PR 16's design), each equal to its
+    plain version and to hashlib on every row, then timed by CUDA events
+    over 20 back-to-back calls (warm: the rows, 1.4 MB at 4,096 pairs, sit
+    in the L2 as they do right after the backend's copy) and by its device
+    time from torch.profiler."""
+    data = [blocks[i].data for i in _classes(blocks)["blake2b256_blocks"]]
+    packed, n_blocks, lengths = pad_blake2b(data)
+    args = (_to(packed, device), _to(n_blocks, device), _to(lengths, device))
+    want = blake2b.blake2b256_blocks_plain(*args)
+    rows = len(data)
+    out = {
+        "rows": rows,
+        "compressions": {int(c): int((n_blocks == c).sum()) for c in np.unique(n_blocks)},
+        "units": int(n_blocks.sum()),
+        "bytes": int(n_blocks.sum()) * 128 + rows * (4 + 4 + 32),
+        "instantiation": b2b_instantiation(rows),
+    }
+    for key, lanes in (("", None), ("one_lane_", 1)):
+        def call(*_, lanes=lanes):
+            return blake2b.blake2b256_blocks_on_lanes(*args, lanes)
+
+        got = call()
+        err = _max_abs_err(got, want)
+        torch.cuda.synchronize()
+        if err or digests_to_bytes(got.cpu().numpy()) != [_blake2b(m) for m in data]:
+            raise AssertionError(f"blake2b256_blocks (lanes {lanes}) differs from plain or hashlib at the witness rows")
+        device_us = _device_us(call, [()])
+        out[key + "max_abs_err"] = err
+        out[key + "ms"] = _cuda_ms(call, reps=20)
+        out[key + "device_ms"] = sum(device_us.values()) / 1e3 if device_us else None
+    return out
+
+
+def blocks_crossover(case: "KernelCase") -> "list[dict]":
+    """`blake2b256_blocks` with one and with four lanes a message over the
+    first `BLOCKS_SWEEP` rows of the kernel phase's multi-block case, each
+    equal to the kernel's digests of those rows, timed by CUDA events over
+    20 back-to-back calls."""
+    full = blake2b.blake2b256_blocks(*case.args)
+    sweep = []
+    for n in BLOCKS_SWEEP:
+        args = tuple(a[:n] for a in case.args)
+        row = {"rows": n}
+        for lanes in (1, 4):
+            if not torch.equal(blake2b.blake2b256_blocks_on_lanes(*args, lanes), full[:n]):
+                raise AssertionError(f"blake2b256_blocks at {n} rows, {lanes} lanes: differs from the kernel phase's")
+            row[f"lanes_{lanes}_ms"] = _cuda_ms(
+                lambda args=args, lanes=lanes: blake2b.blake2b256_blocks_on_lanes(*args, lanes), reps=20
+            )
+        sweep.append(row)
+    return sweep
 
 
 def _staged_verify(backend, seen: "list | None" = None):
@@ -6447,7 +6545,8 @@ def static_gates_phase() -> dict:
         raise AssertionError(f"static gates, cuda half: no summary\n{text[-4000:]}")
     cuda = json.loads(m.group(1))
     guard = cuda["guard"]
-    if sorted(guard) != sorted(k[0] for k in KERNELS + KECCAK_KERNELS + MATCH_KERNELS):
+    cases = [k[0] for k in KERNELS + KECCAK_KERNELS + MATCH_KERNELS] + [c[0] for c in BLAKE2B_BLOCK_CASES[1:]]
+    if sorted(guard) != sorted(cases):
         raise AssertionError(f"static gates, cuda half: entries {sorted(guard)}")
     for entry, row in guard.items():
         if row["violations"] or row["mismatches"] or not row["launches"]:
@@ -6457,7 +6556,8 @@ def static_gates_phase() -> dict:
             raise AssertionError(f"static gates, compute-sanitizer {tool}: {row}")
     out["sanitizer"] = cuda
     # the children's launches (this process counts none of them)
-    out["launches"] = {name: guard.get(name, {}).get("launches", 0) for name in _counts()}
+    out["launches"] = {name: sum(row["launches"] for case, row in guard.items() if case.split("[")[0] == name)
+                       for name in _counts()}
 
     seconds, text = _gate_run(
         "cuda tests under lockdep",
@@ -6604,16 +6704,20 @@ def main(argv=None) -> int:
                 _log(f"  ptxas: {line.strip()}")
     per_compression = sass_per_compression(built["blake2b"]["path"])
     for loader, counts in per_compression.items():
-        _log(f"sass blake2b256_kernel<{loader}>: instructions issued per compression {counts} "
+        _log(f"sass blake2b {loader} kernel: thread-instructions issued per compression {counts} "
              f"(the algorithm's {BLAKE2B_OPS})")
     per_permutation = sass_per_permutation(built["keccak"]["path"])
     for loader, counts in per_permutation.items():
         _log(f"sass keccak256_kernel<{loader}>: instructions issued per absorbed block {counts} "
              f"(the algorithm's {KECCAK_OPS})")
 
-    kernels = kernel_phase(
-        _kernel_cases(args.messages, args.seed, device), blake2b, BLAKE2B_OPS, per_compression
-    )
+    b2b_cases = _kernel_cases(args.messages, args.seed, device)
+    kernels = kernel_phase(b2b_cases, blake2b, BLAKE2B_OPS, per_compression)
+    crossover = blocks_crossover(next(c for c in b2b_cases if c.name == "blake2b256_blocks"))
+    kernels["blake2b256_blocks"]["crossover"] = crossover
+    _log(f"blake2b256_blocks, one and four lanes a message, ms by rows on {smi} "
+         f"(the wrapper takes four up to {blake2b.QUAD_ROWS_MAX}): {json.dumps(crossover)}")
+    del b2b_cases
     kernels.update(
         kernel_phase(
             _keccak_cases(args.messages, args.messages // 4, args.seed, device),
@@ -6726,6 +6830,18 @@ def main(argv=None) -> int:
     launch_counts["tools soak"] = paths["tools"]["soak"]["launches"]
 
     kernels.update(paths["device match pipeline"]["kernels"])
+    # blake2b256_blocks at the event path's own multi-block witness rows
+    wmb = paths["event path"]["witness_multi_block"]
+    w_bytes_ms, w_ops_ms = wmb["bytes"] / HBM_BYTES_PER_S * 1e3, _ops_ms(BLAKE2B_OPS, wmb["units"])
+    kernels["blake2b256_blocks"]["witness"] = {
+        "rows": wmb["rows"], "ms": wmb["ms"], "device_ms": wmb["device_ms"],
+        "one_lane_ms": wmb["one_lane_ms"], "one_lane_device_ms": wmb["one_lane_device_ms"],
+        "bound_ms": max(w_bytes_ms, w_ops_ms), "bound_by": "bytes" if w_bytes_ms >= w_ops_ms else "operations",
+        "issued_bound_ms": max(w_bytes_ms, _ops_ms(per_compression[wmb["instantiation"]], wmb["units"])),
+        "instantiation": wmb["instantiation"],
+    }
+    _log(f"blake2b256_blocks at the event path's witness rows on {smi}: "
+         f"{json.dumps(kernels['blake2b256_blocks']['witness'])} (compressions a row: {json.dumps(wmb['compressions'])})")
     rows = []
     for name, replaces, source, keys in [(k[0], k[1], SOURCE, (k[0],)) for k in KERNELS] + [
         (k[0], k[1], KECCAK_SOURCE, (k[0],)) for k in KECCAK_KERNELS
@@ -6747,7 +6863,7 @@ def main(argv=None) -> int:
             # no PyTorch call computes blake2b or keccak-256
             "library_ms": k.get("library_ms"),
         }
-        row.update({key: k[key] for key in ("device_ms", "library_device_ms") if key in k})
+        row.update({key: k[key] for key in ("device_ms", "library_device_ms", "witness", "crossover") if key in k})
         rows.append(row)
         issued = f", on the build's SASS {k['issued_bound_ms']}" if "issued_bound_ms" in k else ""
         _log(

@@ -133,7 +133,11 @@ fp_mask_kernel(const int64_t* __restrict__ fp, const uint8_t* __restrict__ valid
 
 // The reference's `.at[ids].add`: an id in [-num, 0) wraps to id + num, any
 // other id outside [0, num) is dropped. Every write stores 1, so racing
-// writes to one receipt agree.
+// writes to one receipt agree. Designs that zero hits in the same launch
+// (a cooperative grid with a grid-wide barrier, one cluster with its
+// hardware barrier, a last-arriving block that writes every kept id) were
+// all slower on the H100 than this kernel after its memset (PERF.md
+// section 6).
 template <class Id>
 __global__ void __launch_bounds__(kThreads)
 receipts_kernel(const uint8_t* __restrict__ mask, const Id* __restrict__ ids, int64_t n,

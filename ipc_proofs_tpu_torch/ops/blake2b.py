@@ -12,6 +12,10 @@ wrapper                        replaces (TPU device function)             input
 `blake2b256_blocks`            ``ops/blake2b_jax.py:140`` (XLA scan)      blocks [N,B,32]; n_blocks, lengths [N]
 =============================  =========================================  ================================
 
+`blake2b256_blocks` puts a message over four lanes up to
+`QUAD_ROWS_MAX` rows and over one lane above (`lanes_for_rows`); its
+caller does not choose.
+
 A wrapper launches its kernel for CUDA tensors (counting the launch in
 `LAUNCHES`) and runs the plain PyTorch version only for CPU tensors; any
 other device raises. What bounds the kernels on an H100 and how their
@@ -170,7 +174,7 @@ _ARGTYPES = {
     "blake2b256_single_block": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
     "blake2b256_two_block": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
     "blake2b256_blocks": [ctypes.c_void_p] * 3
-    + [ctypes.c_longlong, ctypes.c_int]
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p] * 2,
 }
 
@@ -208,9 +212,32 @@ def blake2b256_two_block(m_lo, m_hi, lengths) -> torch.Tensor:
     )
 
 
+# Up to this many rows `blake2b256_blocks` puts a message over four lanes,
+# above over one: one thread a message cannot fill the card with few rows,
+# and four lanes issue 1.35x the instructions of one. 8,448 rows are two
+# 32-message blocks of the four-lane kernel on each of the H100's 132 SMs;
+# one block more on an SM costs it a third more time. On the H100 (700 W),
+# rows of 257-520 B in random order, four lanes took 13.3 us against one
+# lane's 16.8 up to 8,448 rows and 17.1-18.2 against 16.8 from 8,576 to
+# 10,240 (chip_smoke.py's kernel phase, ``blocks_crossover``; PERF.md
+# section 6).
+QUAD_ROWS_MAX = 8448
+
+
+def lanes_for_rows(rows: int) -> int:
+    """The lanes a message that `blake2b256_blocks` takes at ``rows`` rows."""
+    return 4 if rows <= QUAD_ROWS_MAX else 1
+
+
 def blake2b256_blocks(blocks, n_blocks, lengths) -> torch.Tensor:
     """blake2b-256 over pre-padded blocks: int32 [N, B, 32] (`pad_blake2b`
     layout), per-row block counts and byte lengths int32 [N] → [N, 8]."""
+    return blake2b256_blocks_on_lanes(blocks, n_blocks, lengths, None)
+
+
+def blake2b256_blocks_on_lanes(blocks, n_blocks, lengths, lanes: "int | None") -> torch.Tensor:
+    """`blake2b256_blocks` with its lanes a message given: 1 or 4, or None
+    for `lanes_for_rows`. The digests do not depend on it."""
     name = "blake2b256_blocks"
     if blocks.dim() != 3 or blocks.shape[2] != 32:
         raise ValueError(f"{name}: expected blocks [N, B, 32], got {tuple(blocks.shape)}")
@@ -219,7 +246,10 @@ def blake2b256_blocks(blocks, n_blocks, lengths) -> torch.Tensor:
     check_words(name, blocks, (n, n_max, 32), device)
     check_words(name, n_blocks, (n,), device)
     check_words(name, lengths, (n,), device)
+    lanes = lanes_for_rows(n) if lanes is None else lanes
+    if lanes not in (1, 4):
+        raise ValueError(f"{name}: lanes {lanes}, expected 1 or 4")
     if runs_plain(name, device):
         return blake2b256_blocks_plain(blocks, n_blocks, lengths)
-    args = [blocks.data_ptr(), n_blocks.data_ptr(), lengths.data_ptr(), n, n_max]
+    args = [blocks.data_ptr(), n_blocks.data_ptr(), lengths.data_ptr(), n, n_max, lanes]
     return _launch(name, args, n, device)

@@ -25,7 +25,9 @@ path's cache.
 up to the padded maximum, rows whose block count is 0, negative or past
 the padded maximum; match worlds of 1, 3, 4, 5 and 33 events a receipt,
 the actor filter on and off, receipt ids outside ``[0, num)``; and row
-counts around the warp and thread-block edges up to 4,097), each held
+counts around the warp and thread-block edges up to 4,097;
+``blake2b256_blocks`` also with one and four lanes a message forced, and
+on both sides of its four-lane crossover), each held
 against its plain PyTorch version, in a child process (``--cuda-child``):
 
 - the guard-band check, always: every input and the output sit between
@@ -91,10 +93,21 @@ BLAKE2B_BLOCK_LENGTHS = (0, 1, 127, 128, 129, 255, 256, 257, 383, 384, 385, 1023
 KECCAK_SINGLE_LENGTHS = (0, 1, 134, 135)
 KECCAK_BLOCK_LENGTHS = (0, 1, 135, 136, 137, 271, 272, 273, 1087)
 PADDED_BLOCKS = 8  # the padded maximum of the multi-block entries
+# blake2b256_blocks' cases: (case name, lanes a message: None = by row
+# count, as the wrapper picks them, or 1 or 4)
+BLAKE2B_BLOCK_CASES = (
+    ("blake2b256_blocks", None),
+    ("blake2b256_blocks[1 lane]", 1),
+    ("blake2b256_blocks[4 lanes]", 4),
+)
 MATCH_ENTRIES = ("match_pipeline", "event_match_mask", "event_match_mask_fp", "receipts_with_match")
 MATCH_EVENTS = (1, 3, 4, 5, 33)  # events a receipt of the match pipeline's cases, in turn
 MATCH_ACTOR = 1001
 ROW_COUNTS = (1, 31, 32, 33, 127, 128, 129, 4097)
+# the padded maximum of blake2b256_blocks' case on each side of the row
+# count at which it goes from four lanes a message to one
+# (``ops.blake2b.QUAD_ROWS_MAX``)
+CROSSOVER_BLOCKS = 3
 GUARD_FILLS = 2
 REDZONE_WORDS = 4096  # 16 KiB each side, four padded multi-block rows and more
 
@@ -317,11 +330,12 @@ def kernel_cases(seed: int = 0):
     """(entry, rows, inputs, extra ints) for every kernel entry and row
     count: ``inputs`` are numpy arrays in the entry's argument order (u32
     data as u32 or int32 words), ``extra`` the ints after the row count
-    (the padded maximum of the multi-block entries; the match entries'
+    (the padded maximum of the multi-block entries, then blake2b256_blocks'
+    lanes a message; the match entries'
     events a receipt, fingerprint target, or receipt count and id width)."""
     import numpy as np
 
-    from ipc_proofs_tpu_torch.ops import pack
+    from ipc_proofs_tpu_torch.ops import blake2b, pack
 
     for k, n in enumerate(ROW_COUNTS):
         rng = np.random.default_rng([seed, k])
@@ -331,10 +345,7 @@ def kernel_cases(seed: int = 0):
         m_lo, m_hi, lengths, _ = pack.pack_two_block_blake2b(
             _messages(rng, BLAKE2B_TWO_LENGTHS, n, 256))
         yield "blake2b256_two_block", n, (m_lo[:n], m_hi[:n], lengths[:n]), ()
-        blocks, n_blocks, lengths = pack.pad_blake2b(
-            _messages(rng, BLAKE2B_BLOCK_LENGTHS, n, 128 * PADDED_BLOCKS), PADDED_BLOCKS)
-        _odd_counts(n_blocks, PADDED_BLOCKS)
-        yield "blake2b256_blocks", n, (blocks, n_blocks, lengths), (PADDED_BLOCKS,)
+        yield from _blake2b_block_cases(rng, n, PADDED_BLOCKS, BLAKE2B_BLOCK_CASES)
         blo, bhi, _ = pack.pack_single_block_keccak(_messages(rng, KECCAK_SINGLE_LENGTHS, n, 135))
         yield "keccak256_single_block", n, (blo[:n], bhi[:n]), ()
         blocks, n_blocks = pack.pad_keccak(
@@ -342,6 +353,23 @@ def kernel_cases(seed: int = 0):
         _odd_counts(n_blocks, PADDED_BLOCKS)
         yield "keccak256_blocks", n, (blocks, n_blocks), (PADDED_BLOCKS,)
         yield from _match_cases(rng, k, n)
+    # the wrapper's lanes on each side of the crossover: four, then one
+    most = blake2b.QUAD_ROWS_MAX
+    for k, n in enumerate((most, most + 1)):
+        yield from _blake2b_block_cases(np.random.default_rng([seed, 100 + k]), n, CROSSOVER_BLOCKS,
+                                        BLAKE2B_BLOCK_CASES[:1])
+
+
+def _blake2b_block_cases(rng, n: int, padded: int, cases):
+    """The ``cases`` (of `BLAKE2B_BLOCK_CASES`) at ``n`` rows of up to
+    ``padded`` blocks: extra ints (padded maximum, lanes a message)."""
+    from ipc_proofs_tpu_torch.ops import blake2b, pack
+
+    edges = tuple(length for length in BLAKE2B_BLOCK_LENGTHS if length <= 128 * padded)
+    blocks, n_blocks, lengths = pack.pad_blake2b(_messages(rng, edges, n, 128 * padded), padded)
+    _odd_counts(n_blocks, padded)
+    for name, lanes in cases:
+        yield name, n, (blocks, n_blocks, lengths), (padded, lanes or blake2b.lanes_for_rows(n))
 
 
 def outputs_of(entry: str, n: int, inputs, extra) -> "list[tuple[tuple, object]]":
@@ -358,9 +386,16 @@ def outputs_of(entry: str, n: int, inputs, extra) -> "list[tuple[tuple, object]]
     return [((n, 8), torch.int32)]
 
 
+def _c_entry(entry: str) -> str:
+    """The C entry a case name launches (``blake2b256_blocks[1 lane]`` →
+    ``blake2b256_blocks``)."""
+    return entry.split("[")[0]
+
+
 def _plain(entry: str):
     """The plain version of ``entry`` as ``fn(input_views, extra)`` →
     a tuple of its outputs."""
+    entry = _c_entry(entry)
     from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
     from ipc_proofs_tpu_torch.parallel import pipeline
 
@@ -463,13 +498,14 @@ def _kernel_call(entry: str, extra: tuple):
     from ipc_proofs_tpu_torch.ops import blake2b, build, keccak, match
     from ipc_proofs_tpu_torch.parallel import pipeline
 
-    if entry == "match_pipeline":
+    name = _c_entry(entry)
+    if name == "match_pipeline":
         library, module = "match", pipeline
-    elif entry in MATCH_ENTRIES:
+    elif name in MATCH_ENTRIES:
         library, module = "match", match
     else:
-        library, module = ("blake2b", blake2b) if entry.startswith("blake2b") else ("keccak", keccak)
-    fn = build._entry(library, entry, module._ARGTYPES[entry])
+        library, module = ("blake2b", blake2b) if name.startswith("blake2b") else ("keccak", keccak)
+    fn = build._entry(library, name, module._ARGTYPES[name])
 
     def call(views, *outs):
         device = outs[0].device

@@ -155,6 +155,49 @@ class TestPlainVersusReference:
                 assert pack.digests_to_bytes(_words(out)[:n]) == _golden(msg)
 
 
+class TestLanes:
+    """`blake2b256_blocks` puts a message over four lanes below
+    `QUAD_ROWS_MAX` rows and over one above; the digests do not
+    depend on the lanes: against the XLA kernel and hashlib."""
+
+    @pytest.mark.parametrize("lanes", [1, 4])
+    @pytest.mark.parametrize("case", ["mixed", "odd-counts", "empty"])
+    def test_any_lanes_give_the_reference_digests(self, case, lanes):
+        rng = np.random.default_rng(21)
+        n = 0 if case == "empty" else 97
+        msgs = _messages(rng.integers(0, 5 * 128 + 1, n).tolist(), seed=22)
+        blocks, n_blocks, lengths = ref_pack.pad_blake2b(msgs, 6)
+        if case == "odd-counts":
+            n_blocks[:4] = (0, -1, 8, 6)  # masked, past the layout's 6, and its last
+        ref = np.asarray(ref_blocks(jnp.asarray(blocks), jnp.asarray(n_blocks), jnp.asarray(lengths)))
+        ours = blake2b.blake2b256_blocks_on_lanes(_t(blocks), _t(n_blocks), _t(lengths), lanes)
+        np.testing.assert_array_equal(_words(ours), ref.reshape(n, 8))
+        if case == "mixed":
+            assert pack.digests_to_bytes(_words(ours)) == _golden(msgs)
+
+    def test_lanes_switch_at_the_crossover(self):
+        most = blake2b.QUAD_ROWS_MAX
+        assert [blake2b.lanes_for_rows(n) for n in (0, 1, most, most + 1, 10 * most)] == [4, 4, 4, 1, 1]
+
+    @pytest.mark.parametrize("most,lanes", [(2, 4), (1, 1)])
+    def test_wrapper_passes_the_lanes_of_its_row_count(self, monkeypatch, most, lanes):
+        """The lanes the wrapper gives the C entry, at 2 rows with the
+        crossover moved to 2 (four lanes) and to 1 (one)."""
+        seen = []
+        monkeypatch.setattr(blake2b, "QUAD_ROWS_MAX", most)
+        monkeypatch.setattr(blake2b, "runs_plain", lambda name, device: False)
+        monkeypatch.setattr(blake2b, "_launch", lambda name, args, n, device: seen.append((name, args[3:], n)))
+        blocks, n_blocks, lengths = pack.pad_blake2b(_messages([300, 700], seed=24))
+        blake2b.blake2b256_blocks(_t(blocks), _t(n_blocks), _t(lengths))
+        assert seen == [("blake2b256_blocks", [2, blocks.shape[1], lanes], 2)]
+
+    @pytest.mark.parametrize("lanes", [0, 2, 32])
+    def test_other_lanes_raise(self, lanes):
+        blocks, n_blocks, lengths = pack.pad_blake2b(_messages([300], seed=25))
+        with pytest.raises(ValueError, match="lanes"):
+            blake2b.blake2b256_blocks_on_lanes(_t(blocks), _t(n_blocks), _t(lengths), lanes)
+
+
 class TestWrappers:
     def test_cpu_tensors_run_plain_and_count_nothing(self, tile_messages):
         blake2b.reset_launch_counts()

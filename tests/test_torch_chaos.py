@@ -20,6 +20,7 @@
   `TYPED_ERRORS` would count it typed.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -59,13 +60,35 @@ def worlds():
     return ref, port
 
 
+class _StepClock:
+    """A pool clock that moves 1 ms a read: the breaker's 10 ms reset and
+    the latency EWMA then follow the run's own reads, not the wall clock
+    (a loaded host stretched the wall-clock gaps and changed which endpoint
+    a retry took, so which fault plan drew next)."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        self.now += 0.001
+        return self.now
+
+
+def _stepped_pool(module):
+    pool = module.EndpointPool
+    return lambda *args, **kwargs: pool(*args, clock=_StepClock(), **kwargs)
+
+
 def _per_seed(worlds, rate) -> "list[str]":
     (rs, rp, rspec, rref), (store, pairs, spec, reference) = worlds
     outcomes = []
     for seed in range(8):
-        want = ref_chaos.chaos_run(rs, rp, rspec, rref, seed, fault_rate=rate, chunk_size=len(rp))
-        got = chaos.chaos_run(store, pairs, spec, reference, seed, fault_rate=rate, backend=CPU,
-                              chunk_size=len(pairs))
+        with pytest.MonkeyPatch.context() as mp:
+            for module in (chaos, ref_chaos):
+                mp.setattr(module, "EndpointPool", _stepped_pool(module))
+            want = ref_chaos.chaos_run(rs, rp, rspec, rref, seed, fault_rate=rate, chunk_size=len(rp))
+            got = chaos.chaos_run(store, pairs, spec, reference, seed, fault_rate=rate, backend=CPU,
+                                  chunk_size=len(pairs))
         assert (got["outcome"], got.get("error")) == (want["outcome"], want.get("error")), (seed, rate)
         assert got["faults"] == want["faults"], (seed, rate)
         outcomes.append(got["outcome"])
@@ -97,9 +120,15 @@ def test_fetch_plane_wiring_holds_the_invariant(monkeypatch):
     assert summary["counts"]["identical"] > 0
 
 
-def test_shard_grid_holds_with_the_references_outcomes():
+def test_shard_grid_holds_with_the_references_outcomes(monkeypatch):
     summary = chaos.run_shard_grid(5, runs=2, fault_rates=(0.1, 0.6), backend=CPU)
     assert summary["ok"], summary
+    # per seed, each package's router scatters through one worker: with
+    # concurrent groups, which request to a shard draws its plan's next
+    # fault (and which reads the client's one pending-truncate flag)
+    # follows thread scheduling, in both packages
+    for module in (chaos, ref_chaos):
+        monkeypatch.setattr(module, "ClusterRouter", functools.partial(module.ClusterRouter, max_workers=1))
     shards, pairs, reference = chaos.build_shard_world(backend=CPU)
     rshards, rpairs, rreference = ref_chaos.build_shard_world()
     try:

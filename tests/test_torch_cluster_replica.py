@@ -339,6 +339,9 @@ def test_streamed_scatter_is_byte_identical_and_cut_through(worlds, direct, wiri
         _teardown(router, shards)
 
 
+PEAK_WINDOWS = 5
+
+
 @pytest.mark.parametrize("pkg", sorted(PKGS))
 def test_cut_through_drops_router_peak_memory(pkg):
     """The same streamed scatter, relayed cut-through, peaks below the
@@ -367,7 +370,6 @@ def test_cut_through_drops_router_peak_memory(pkg):
         assert out is None
 
     def peak(router):
-        run(router)  # warm outside the window
         tracemalloc.start()
         run(router)
         _cur, peak_bytes = tracemalloc.get_traced_memory()
@@ -375,9 +377,20 @@ def test_cut_through_drops_router_peak_memory(pkg):
         return peak_bytes
 
     try:
-        peak_buffered = peak(routers[False])
-        peak_cut = peak(routers[True])
-        assert peak_cut < peak_buffered * 0.9, (peak_cut, peak_buffered)
+        for router in routers.values():
+            run(router)  # warm outside the windows
+        # tracemalloc traces the whole process: the in-process shards'
+        # serving threads and socket reads allocate inside every window
+        # too, and how much of that overlaps the router's own peak follows
+        # thread scheduling (it moved single windows by up to ~40 % under
+        # load). That only ever adds, so each router's peak is the least
+        # over interleaved windows.
+        peaks = {False: [], True: []}
+        for _ in range(PEAK_WINDOWS):
+            for on, router in routers.items():
+                peaks[on].append(peak(router))
+        peak_buffered, peak_cut = min(peaks[False]), min(peaks[True])
+        assert peak_cut < peak_buffered * 0.9, peaks
     finally:
         for router in routers.values():
             router.close()

@@ -86,6 +86,26 @@ def test_each_kernel_equals_plain_and_counts_once(cuda_device, seed):
         assert sum(blake2b.LAUNCHES.values()) == 1
 
 
+@pytest.mark.parametrize("lanes", [None, 1, 4], ids=["by-rows", "one-lane", "four-lanes"])
+@pytest.mark.parametrize("rows", ["few", "at-crossover", "past-crossover", "many"])
+def test_blocks_kernel_on_each_lane_count_equals_plain_and_hashlib(cuda_device, rows, lanes):
+    """The multi-block kernel on both sides of its four-lane crossover
+    (``QUAD_ROWS_MAX`` rows), with the wrapper's lanes and each forced:
+    equal to its plain version and to hashlib, one launch a call."""
+    most = blake2b.QUAD_ROWS_MAX
+    n = {"few": 300, "at-crossover": most, "past-crossover": most + 1, "many": 40_000}[rows]
+    rng = np.random.default_rng(n)
+    messages = _messages(rng.integers(257, 700, n).tolist(), seed=n)
+    blocks, n_blocks, lengths = pack.pad_blake2b(messages)
+    args = [_t(blocks), _t(n_blocks), _t(lengths)]
+    blake2b.reset_launch_counts()
+    out = blake2b.blake2b256_blocks_on_lanes(*(a.to(cuda_device) for a in args), lanes)
+    torch.cuda.synchronize()
+    assert blake2b.LAUNCHES["blake2b256_blocks"] == 1
+    assert torch.equal(out.cpu(), blake2b.blake2b256_blocks_plain(*args))
+    assert pack.digests_to_bytes(out.cpu().numpy()) == [hashlib.blake2b(m, digest_size=32).digest() for m in messages]
+
+
 def test_backend_split_on_card(cuda_device):
     messages = _messages(LENGTHS * 5, seed=3)
     assert get_backend("gpu").blake2b256_batch(messages) == [
@@ -544,7 +564,7 @@ def test_flat_mask_kernels_equal_plain(cuda_device, n):
 
 
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
-@pytest.mark.parametrize("n,num", [(0, 4), (5, 0), (1000, 40), (100_003, 4099)])
+@pytest.mark.parametrize("n,num", [(0, 4), (5, 0), (10, 40), (1000, 40), (100_003, 4099)])
 def test_receipts_kernel_wraps_and_drops_as_plain(cuda_device, id_dtype, n, num):
     rng = np.random.default_rng(n + num)
     mask = torch.from_numpy(rng.random(n) < 0.3)

@@ -255,17 +255,23 @@ def test_guard_band_check_passes_the_plain_versions(monkeypatch):
     nothing flagged."""
     import torch
 
+    from ipc_proofs_tpu_torch.ops import blake2b
     from ipc_proofs_tpu_torch.tools import build_native_san as san
 
     monkeypatch.setattr(san, "ROW_COUNTS", (1, 33, 129))
+    monkeypatch.setattr(blake2b, "QUAD_ROWS_MAX", 40)
     report = san.check_kernels(torch.device("cpu"), _plain_call)
     assert sorted(report) == sorted([
         "blake2b256_single_block", "blake2b256_two_block", "blake2b256_blocks",
+        "blake2b256_blocks[1 lane]", "blake2b256_blocks[4 lanes]",
         "keccak256_single_block", "keccak256_blocks",
         "match_pipeline", "event_match_mask", "event_match_mask_fp", "receipts_with_match",
     ])
-    for row in report.values():
-        assert row == {"launches": 3 * san.GUARD_FILLS, "rows": [1, 33, 129], "violations": [], "mismatches": 0}
+    # the case whose lanes follow the row count also runs on both sides of
+    # the four-lane crossover
+    for entry, row in report.items():
+        rows = [1, 33, 129] + ([40, 41] if entry == "blake2b256_blocks" else [])
+        assert row == {"launches": len(rows) * san.GUARD_FILLS, "rows": rows, "violations": [], "mismatches": 0}
 
 
 @pytest.mark.parametrize("fault", ["write past the output", "write an input", "read past an input",

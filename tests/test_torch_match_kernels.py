@@ -192,6 +192,27 @@ def test_guard_band_cases_of_the_match_entries_equal_the_reference():
     assert seen == set(san.MATCH_ENTRIES)
 
 
+@pytest.mark.parametrize("shape", [(3, 77, 1), (5, 41, 3), (2, 9, 33), (1, 1, 300), (0, 4, 4)],
+                         ids=["E1", "E3", "E33", "E300", "empty"])
+@pytest.mark.parametrize("receipts", ["fewer-than-events", "more-than-events"])
+@pytest.mark.parametrize("id_dtype", [np.int32, np.int64], ids=["int32", "int64"])
+def test_receipts_plain_equals_the_reference_on_the_edge_worlds(shape, receipts, id_dtype):
+    """`receipts_with_match_plain` (what the kernel is held
+    against on the card) over each edge world's match mask, ids over
+    [-2·num, 2·num), num below and above the event count, equals the
+    reference's ``.at[ids].add``."""
+    batch = _world(*shape, seed=sum(shape))
+    mask = np.asarray(pipeline.match_pipeline_plain(
+        *pipeline.batch_args(batch, T0, T1, ACTOR, "cpu"))[1]).reshape(-1)
+    n = mask.size
+    num = max(1, n // 3) if receipts == "fewer-than-events" else n + 5
+    ids = np.random.default_rng(n + num).integers(-2 * num, 2 * num, n).astype(id_dtype)
+    ours = match.receipts_with_match_plain(torch.from_numpy(mask), torch.from_numpy(ids), num)
+    ref = match_jax.receipts_with_match(jnp.asarray(mask), jnp.asarray(ids.astype(np.int32)), num)
+    assert ours.dtype == torch.bool and ours.shape == (num,)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
 def _meta(array) -> torch.Tensor:
     return torch.from_numpy(np.array(array)).to("meta")
 
