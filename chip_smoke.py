@@ -48,7 +48,17 @@ Phases, none of which may fail:
    events/s, from replays of one CUDA graph) and every kernel by CUDA
    events beside its plain version, its byte bound and, for the receipt
    reduce, one PyTorch call (``mask.view(-1, E).any(-1)``), and the
-   fingerprint mask's whole call with its host copies;
+   fingerprint mask's whole call with its host copies; then the two flat
+   masks (`flat_mask_study`), each launched straight through
+   ``ops.build.launch``, the full-word mask beside the same mask with
+   streaming loads (``csrc/match_study.cu``, built with the package's
+   sources) and held equal to the plain version across the topic0 sweep:
+   at 262,144, 65,536 and 2,048 rows (cold and warm CUDA events, device
+   time) with the launch floor (a store-only kernel at the same grid) and
+   the byte bound; both full-word masks over 0, 1, 10, 50 and 100 % of
+   events whose topic0 matches, with the bound in 32-B and 64-B sectors;
+   and each mask's whole call taken apart into host work, copies, launch
+   and copy back;
 3b. CID bench — ``blake2b_cid_bench_setup`` over 1,048,576 nodes of 200 B
    from the seed (BASELINE config 4; the two-block kernel): every first
    digest equal to hashlib; CIDs/s by the slope of k passes, and the kernel
@@ -68,7 +78,8 @@ Phases, none of which may fail:
    multi-block kernel at the witness's own multi-block rows (2,624 at
    4,096 pairs) with the wrapper's lanes (four a message there) and with
    one, each equal to hashlib and timed by CUDA events and torch.profiler
-   beside its bound there; a flipped
+   beside its bound there, and so the single- and two-block kernels at
+   their own witness rows (1,969 and 1,312); a flipped
    byte in a witness block of each size class must be rejected; a repeat
    of the path under ``torch.profiler`` gives the card's busy time;
 5. overlapped event path — the same world through
@@ -494,8 +505,10 @@ from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -571,7 +584,7 @@ from ipc_proofs_tpu_torch.obs import (
     write_chrome_trace,
     write_otlp_trace,
 )
-from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, build_libraries, cuda_tool
+from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, build_libraries, cuda_tool, launch
 from ipc_proofs_tpu_torch.ops.pack import (
     RATE_BYTES,
     digests_to_bytes,
@@ -628,7 +641,7 @@ from ipc_proofs_tpu_torch.tools import chaos as chaos_tool
 from ipc_proofs_tpu_torch.tools import crashtest as crashtest_tool
 from ipc_proofs_tpu_torch.tools import soak as soak_tool
 from ipc_proofs_tpu_torch.tools import traceview as traceview_tool
-from ipc_proofs_tpu_torch.tools.build_native_san import BLAKE2B_BLOCK_CASES
+from ipc_proofs_tpu_torch.tools.build_native_san import BLAKE2B_BLOCK_CASES, FULL_SHARE_CASES
 from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
@@ -1469,6 +1482,7 @@ def event_path(world, device) -> dict:
     verify_cids_s = _verify_cids_s(bundle, backend)
     _check_witness_shapes(bundle.blocks, device)
     multi_block = witness_multi_block(bundle.blocks, device)
+    small_blocks = witness_small_blocks(bundle.blocks, device)
     _reject_flipped_blocks(bundle, backend)
     profiled = _device_busy(_event_generate(store, pairs, backend), backend)
     return {
@@ -1477,6 +1491,7 @@ def event_path(world, device) -> dict:
         "events": metrics.counters.get("range_events", 0),
         "witness_blocks": {name: len(v) for name, v in _classes(bundle.blocks).items()},
         "witness_multi_block": multi_block,
+        "witness_small_blocks": small_blocks,
         "txmeta_rows": txmeta_rows,
         "stage_ms": dict(stages, verify_cids=verify_cids_s * 1e3),
         "unfused": {
@@ -1524,6 +1539,37 @@ def witness_multi_block(blocks, device) -> dict:
         out[key + "max_abs_err"] = err
         out[key + "ms"] = _cuda_ms(call, reps=20)
         out[key + "device_ms"] = sum(device_us.values()) / 1e3 if device_us else None
+    return out
+
+
+def witness_small_blocks(blocks, device) -> dict:
+    """`blake2b256_single_block` and `blake2b256_two_block` at the event
+    path's own witness rows of their size classes, packed as the backend
+    packs them (rows padded to a multiple of 256): each equal to its plain
+    version and to hashlib on every row, then timed as
+    `witness_multi_block` times the multi-block kernel (warm CUDA events,
+    device time), with what its bound is made of: the real rows' bytes and
+    compressions."""
+    out = {}
+    for name, pack_rows, cap in (("blake2b256_single_block", pack_single_block_blake2b, 128),
+                                 ("blake2b256_two_block", pack_two_block_blake2b, 256)):
+        data = [blocks[i].data for i in _classes(blocks)[name]]
+        m_lo, m_hi, lengths, rows = pack_rows(data)
+        args = (_to(m_lo, device), _to(m_hi, device), _to(lengths, device))
+        kernel = getattr(blake2b, name)
+        got = kernel(*args)
+        err = _max_abs_err(got, getattr(blake2b, name + "_plain")(*args))
+        torch.cuda.synchronize()
+        if err or digests_to_bytes(got[:rows].cpu().numpy()) != [_blake2b(m) for m in data]:
+            raise AssertionError(f"{name} differs from plain or hashlib at the witness rows")
+        device_us = _device_us(lambda *_, args=args, kernel=kernel: kernel(*args), [()])
+        out[name] = {
+            "rows": rows, "padded_rows": int(m_lo.shape[0]),
+            "units": sum(max(-(-len(m) // 128), 1) for m in data),
+            "bytes": rows * (cap + 4 + 32), "max_abs_err": err,
+            "ms": _cuda_ms(lambda args=args, kernel=kernel: kernel(*args), reps=20),
+            "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
+        }
     return out
 
 
@@ -2836,30 +2882,31 @@ MESH_CLI_PAIRS = 512  # the CLI's mesh run: a prefix of the chained world
 SECTOR_BYTES = 32  # the least a load moves between HBM and the L2
 
 
-def _sector_bytes(need: np.ndarray, itemsize: int) -> int:
-    """Bytes of the 32-B sectors of an array of ``itemsize``-byte elements,
-    one an event, that hold an element of an event where ``need`` is set."""
+def _sector_bytes(need: np.ndarray, itemsize: int, sector: int = SECTOR_BYTES) -> int:
+    """Bytes of the ``sector``-byte sectors of an array of ``itemsize``-byte
+    elements, one an event, that hold an element of an event where
+    ``need`` is set."""
     need = np.asarray(need, dtype=bool).reshape(-1)
-    if itemsize >= SECTOR_BYTES:
+    if itemsize >= sector:
         return int(need.sum()) * itemsize
-    per = SECTOR_BYTES // itemsize
-    return int(np.pad(need, (0, (-need.size) % per)).reshape(-1, per).any(axis=1).sum()) * SECTOR_BYTES
+    per = sector // itemsize
+    return int(np.pad(need, (0, (-need.size) % per)).reshape(-1, per).any(axis=1).sum()) * sector
 
 
-def _least_bytes(columns, written: int) -> int:
+def _least_bytes(columns, written: int, sector: int = SECTOR_BYTES) -> int:
     """The bytes a match function must move on these inputs: ``written``
     output bytes, and the fewest input bytes that an evaluation stopping
     at an event's first failed test reads. ``columns`` lists each input's
-    (bytes an event, where its test passes); an input is read, in 32-B
-    sectors, only for the events whose inputs read before it all passed,
-    in the order of the inputs that reads least. An input with no test of
-    its own (a receipt id) passes everywhere."""
+    (bytes an event, where its test passes); an input is read, in
+    ``sector``-byte sectors, only for the events whose inputs read before
+    it all passed, in the order of the inputs that reads least. An input
+    with no test of its own (a receipt id) passes everywhere."""
     least = None
     for order in itertools.permutations(columns):
         alive = np.ones(len(columns[0][1]), dtype=bool)
         total = 0
         for itemsize, passes in order:
-            total += _sector_bytes(alive, itemsize)
+            total += _sector_bytes(alive, itemsize, sector)
             alive = alive & np.asarray(passes, dtype=bool).reshape(-1)
         least = total if least is None else min(least, total)
     return least + written
@@ -2980,6 +3027,9 @@ def _match_edges(device) -> "list[str]":
         fp[::3] = -7
         _kernel_err(f"event_match_mask_fp {n} rows", device, match.fp_mask, match.fp_mask_plain,
                     (fp.to(device), flat[2], -7))
+        if n > 1:  # f[1:]: an int64 view that is 8-byte aligned only
+            _kernel_err(f"event_match_mask_fp {n - 1} rows, offset view", device, match.fp_mask,
+                        match.fp_mask_plain, (fp.to(device)[1:], flat[2][1:], -7))
         num = max(1, n // 3)
         for dtype in (torch.int32, torch.int64):
             ids = torch.from_numpy(rng.integers(-2 * num, 2 * num, n)).to(dtype).to(device)
@@ -2987,6 +3037,297 @@ def _match_edges(device) -> "list[str]":
                         match.receipts_with_match, match.receipts_with_match_plain, (flat[2], ids, num))
         cases.append(f"{shape}")
     return cases
+
+
+# the two flat masks beside the full-word mask with streaming loads and a
+# store-only kernel (``csrc/match_study.cu``)
+
+MATCH_STUDY = "match_study"  # built and launched by this script only, never by the package
+# rows of a flat mask call: phase 3a's world, an overlapped-unfused call
+# (the event path's 262,144 events in four), a cold-read call (16,384 in
+# eight)
+MASK_ROWS = (262_144, 65_536, 2_048)
+TOPIC0_SHARES = (0.0, 0.01, 0.10, 0.50, 1.0)  # events whose topic0 equals the spec, swept
+# the C entries this script launches straight through `ops.build.launch`:
+# the package's two flat masks and the study's kernels
+_RAW_ARGTYPES = {
+    "event_match_mask": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
+    "event_match_mask_streaming": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
+    "event_match_mask_fp": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2,
+    "store_floor": [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
+}
+_raw_launches: "collections.Counter[str]" = collections.Counter()  # apart from the package's counts
+
+
+def _raw_mask(library: str, name: str, args: list, n: int, device) -> torch.Tensor:
+    mask = torch.empty(n, dtype=torch.bool, device=device)
+    if n:
+        launch(library, name, _RAW_ARGTYPES[name], args, [mask], device, _raw_launches)
+    return mask
+
+
+def raw_topic_mask(library: str, name: str):
+    """`match.topic_mask`'s signature over the C entry ``name`` of
+    ``csrc/<library>.cu``, launched without the wrapper's checks, so that
+    two designs are timed through the same host path."""
+    def call(topics, n_topics, valid, topic0, topic1):
+        n = topics.shape[0]
+        args = [t.data_ptr() for t in (topics, n_topics, valid, topic0, topic1)] + [n]
+        return _raw_mask(library, name, args, n, topics.device)
+
+    return call
+
+
+def raw_fp_mask(f, valid, target):
+    """`match.fp_mask` launched as `raw_topic_mask` launches a full-word mask."""
+    return _raw_mask("match", "event_match_mask_fp", [f.data_ptr(), valid.data_ptr(), f.shape[0], target],
+                     f.shape[0], f.device)
+
+
+def store_floor(first, *_):
+    """A kernel that stores one zero mask byte a thread and loads nothing,
+    at a flat mask's grid over ``first``'s rows: the launch floor."""
+    return _raw_mask(MATCH_STUDY, "store_floor", [first.shape[0]], first.shape[0], first.device)
+
+
+def topic0_share(topics: np.ndarray, t0: bytes, share: float, seed: int) -> np.ndarray:
+    """Flat topic rows ``topics`` [N, 2, 8] (u32) with topic0 equal to the
+    spec on round(share * N) rows: the rows where it already is (the
+    world's full matches) stay, down to that count; rows added to reach it
+    keep their topic1, which is not the spec's."""
+    topics = topics.copy()
+    spec0 = np.frombuffer(t0, "<u4")
+    hit = np.flatnonzero((topics[:, 0] == spec0).all(axis=-1))
+    want = round(share * len(topics))
+    rng = np.random.default_rng(seed)
+    if want < hit.size:
+        topics[rng.choice(hit, hit.size - want, replace=False), 0, 0] ^= 1
+    else:
+        miss = np.setdiff1d(np.arange(len(topics)), hit)
+        topics[rng.choice(miss, want - hit.size, replace=False), 0] = spec0
+    return topics
+
+
+def _flat_topic_columns(topics, n_topics, valid, t0: bytes, t1: bytes, row_bytes: int) -> list:
+    """`_least_bytes` columns of the full-word mask over flat rows: at
+    ``row_bytes`` 32 each topic is a column of its own, read in 32-B
+    sectors; at 64 the row is one column (a read of topic0 brings the
+    whole 64-B row)."""
+    eq0 = (topics[:, 0] == np.frombuffer(t0, "<u4")).all(axis=-1)
+    eq1 = (topics[:, 1] == np.frombuffer(t1, "<u4")).all(axis=-1)
+    rows = [(32, eq0), (32, eq1)] if row_bytes == 32 else [(64, eq0 & eq1)]
+    return rows + [(4, n_topics >= 2), (1, valid)]
+
+
+def _topic_bounds(topics, n_topics, valid, t0: bytes, t1: bytes) -> dict:
+    """The full-word mask's byte bound on these rows, in 32-B sectors and
+    recounted in 64-B ones: bytes and ms."""
+    n = len(topics)
+    out = {}
+    for sector in (32, 64):
+        moved = _least_bytes(_flat_topic_columns(topics, n_topics, valid, t0, t1, sector), n, sector)
+        out[f"bytes_{sector}"], out[f"bound_ms_{sector}"] = moved, moved / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def _device_us_each(cases: dict, reps: int = 20) -> dict:
+    """Device µs a call of each case's kernel from one torch.profiler
+    session: ``cases`` maps a label to (fn, copies, kernel name); the
+    cases' calls take turns, each case rotating over its own copies
+    (`_copies`), so no case runs first or last in the session; a case's
+    device time is that of the profiler rows whose key holds its kernel's
+    name, which no other case's kernel may hold. None where the profiler
+    saw none (then not measured)."""
+    turns = {label: itertools.cycle(copies) for label, (_, copies, _) in cases.items()}
+    calls = max([reps] + [len(copies) for _, copies, _ in cases.values()])
+    for label, (fn, _, _) in cases.items():
+        for _ in range(3):
+            fn(*next(turns[label]))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            for label, (fn, _, _) in cases.items():
+                fn(*next(turns[label]))
+        torch.cuda.synchronize()
+    rows = [(e.key, getattr(e, "self_device_time_total", 0) or 0) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    out = {}
+    for label, (_, _, kernel_name) in cases.items():
+        us = [t for key, t in rows if kernel_name.replace(" ", "") in key.replace(" ", "")]
+        out[label] = sum(us) / calls if us and sum(us) > 0 else None
+    return out
+
+
+def _timed_rows(cases: dict) -> dict:
+    """Each case (label: (fn, args, kernel name)) timed cold and warm by
+    CUDA events (`_cold_cuda_ms`, `_cuda_ms`), and on the device in two
+    `_device_us_each` sessions for all cases: over clones of its inputs of
+    its own (cold), and right after each call's tensor inputs were copied
+    from host memory, as the wrappers copy them (after a copy): ms each."""
+    copies = {label: _copies(args)[1:] for label, (_, args, _) in cases.items()}
+    device_us = _device_us_each({label: (fn, copies[label], name) for label, (fn, _, name) in cases.items()})
+
+    def after_copy(fn, device):
+        return lambda *host: fn(*(a.to(device) if isinstance(a, torch.Tensor) else a for a in host))
+
+    host = {label: tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+            for label, (_, args, _) in cases.items()}
+    copied_us = _device_us_each({label: (after_copy(fn, args[0].device), [host[label]], name)
+                                 for label, (fn, args, name) in cases.items()})
+    out = {}
+    for label, (fn, args, _) in cases.items():
+        us, copied = device_us[label], copied_us[label]
+        out[label] = {
+            "ms": _cold_cuda_ms(fn, copies[label]),
+            "warm_ms": _cuda_ms(lambda fn=fn, args=args: fn(*args), reps=20),
+            "device_ms": us / 1e3 if us is not None else None,
+            "after_copy_device_ms": copied / 1e3 if copied is not None else None,
+        }
+    return out
+
+
+def _floor_ms(rows: int, device) -> "float | None":
+    """`store_floor`'s device ms at ``rows``."""
+    us = _device_us_each({"floor": (store_floor, [(torch.empty(rows, dtype=torch.bool, device=device),)],
+                                    "store_floor_kernel")})["floor"]
+    return us / 1e3 if us is not None else None
+
+
+def _host_step(fn, sync: bool = True) -> "tuple[object, float]":
+    t0 = time.perf_counter()
+    out = fn()
+    if sync:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def whole_call_split(kind: str, rows: tuple, t0: bytes, t1: bytes, device, reps: int = 10) -> dict:
+    """One whole call of a flat mask on host arrays (``kind`` "flat":
+    `GpuBackend.event_match_mask_flat`; "fp": `event_match_mask_fp`) and
+    the same call taken apart as the wrapper runs it: the host numpy work,
+    each host-to-card copy, the launch and the copy back, each ended by a
+    synchronize; median ms of ``reps`` calls each."""
+    backend = get_backend("gpu")
+    steps: "dict[str, list[float]]" = collections.defaultdict(list)
+    for _ in range(reps):
+        if kind == "flat":
+            _, ms = _host_step(lambda: backend.event_match_mask_flat(*rows, t0, t1, ACTOR_ID))
+            steps["whole"].append(ms)
+            topics, n_topics, emitters, valid = rows
+            (host, ms) = _host_step(lambda: (
+                torch.from_numpy(np.ascontiguousarray(topics).view(np.int32)),
+                torch.from_numpy(np.ascontiguousarray(n_topics, dtype=np.int32)),
+                torch.from_numpy(np.ascontiguousarray(np.asarray(valid, dtype=bool) & (emitters == ACTOR_ID))),
+                torch.from_numpy(np.frombuffer(t0, dtype="<i4").copy()),
+                torch.from_numpy(np.frombuffer(t1, dtype="<i4").copy()),
+            ), sync=False)
+            steps["host"].append(ms)
+            names = ("topics", "n_topics", "valid", "topic0", "topic1")
+            kernel = match.topic_mask
+        else:
+            _, ms = _host_step(lambda: backend.event_match_mask_fp(*rows, t0, t1, ACTOR_ID))
+            steps["whole"].append(ms)
+            fp, n_topics, emitters, valid = rows
+            (host, ms) = _host_step(lambda: (
+                torch.from_numpy(np.array(fp, dtype="<u8").view(np.int64)),
+                torch.from_numpy(np.asarray(valid, dtype=bool) & (np.asarray(n_topics) >= 2) & (emitters == ACTOR_ID)),
+            ), sync=False)
+            steps["host"].append(ms)
+            names = ("fp", "valid")
+            target = int.from_bytes(topic_fingerprint(t0, t1).to_bytes(8, "little"), "little", signed=True)
+            kernel = lambda f, ok: match.fp_mask(f, ok, target)  # noqa: E731
+        on_card = []
+        for name, tensor in zip(names, host):
+            moved, ms = _host_step(lambda tensor=tensor: tensor.to(device))
+            on_card.append(moved)
+            steps[f"copy {name}"].append(ms)
+        mask, ms = _host_step(lambda: kernel(*on_card))
+        steps["launch"].append(ms)
+        _, ms = _host_step(lambda: mask.cpu().numpy(), sync=False)
+        steps["copy back"].append(ms)
+    out = {step: float(np.median(values)) for step, values in steps.items()}
+    out["sum of steps"] = sum(v for step, v in out.items() if step != "whole")
+    return out
+
+
+def flat_mask_study(batch: EventBatch, fp: np.ndarray, target: int, smi: str, device) -> dict:
+    """The two flat masks on phase 3a's events, each launched straight
+    through `ops.build.launch` (`raw_topic_mask`, `raw_fp_mask`): the
+    full-word mask beside the same mask with streaming loads
+    (``csrc/match_study.cu``), and the fingerprint mask, at `MASK_ROWS`
+    (cold and warm CUDA events, device time with the calls taking turns,
+    cold and right after a copy from the host) with the launch floor (`store_floor`) and the byte bound; both
+    full-word masks over `TOPIC0_SHARES` at full width, each share first
+    held equal to the plain version through the package's wrapper, with
+    the bound in 32-B and 64-B sectors; and each mask's whole call taken
+    apart (`whole_call_split`) at the least and the most of `MASK_ROWS`."""
+    start = time.perf_counter()
+    t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
+    n = batch.topics.size // 16
+    flat = _flat_args(batch, device)
+    fp_args = (torch.from_numpy(fp.view(np.int64)).to(device), torch.ones(n, dtype=torch.bool, device=device), target)
+    topics_np = batch.topics.reshape(-1, 2, 8)
+    n_topics_np, valid_np = batch.n_topics.reshape(-1), batch.valid.reshape(-1)
+    topic_mask = raw_topic_mask("match", "event_match_mask")
+    streaming = raw_topic_mask(MATCH_STUDY, "event_match_mask_streaming")
+    _kernel_err(f"event_match_mask, streaming ({n:,} rows)", device, streaming, match.topic_mask_plain, flat)
+
+    by_rows = {}
+    for rows in MASK_ROWS:
+        part = tuple(a[:rows] for a in flat[:3]) + flat[3:]
+        fp_part = (fp_args[0][:rows], fp_args[1][:rows], target)
+        timed = _timed_rows({
+            "event_match_mask": (topic_mask, part, "topic_mask_kernel"),
+            "event_match_mask streaming": (streaming, part, "topic_mask_streaming_kernel"),
+            "event_match_mask_fp": (raw_fp_mask, fp_part, "fp_mask_kernel"),
+        })
+        floor_ms = _floor_ms(rows, device)
+        fp_bytes = _least_bytes([(8, fp[:rows].view(np.int64) == target), (1, np.ones(rows, bool))], rows)
+        bounds = {
+            "event_match_mask": _topic_bounds(topics_np[:rows], n_topics_np[:rows], valid_np[:rows], t0, t1),
+            "event_match_mask_fp": {"bytes_32": fp_bytes, "bound_ms_32": fp_bytes / HBM_BYTES_PER_S * 1e3},
+        }
+        for label, row in timed.items():
+            row["floor_ms"] = floor_ms
+            row.update(bounds[label.split()[0]])
+        by_rows[rows] = timed
+        _log(f"flat masks at {rows:,} rows on {smi}: {json.dumps(timed)}")
+
+    # the full-word mask over the share of events whose topic0 matches
+    shares = {}
+    for share in TOPIC0_SHARES:
+        topics = topic0_share(topics_np, t0, share, seed=int(share * 1000))
+        args = (_to(topics, device), *flat[1:])
+        for label, fn in (("package", match.topic_mask), ("streaming", streaming)):
+            _kernel_err(f"event_match_mask ({label}, topic0 on {share:.0%} of rows)", device, fn,
+                        match.topic_mask_plain, args)
+        timed = _timed_rows({"package": (topic_mask, args, "topic_mask_kernel"),
+                             "streaming": (streaming, args, "topic_mask_streaming_kernel")})
+        shares[share] = {"topic0_rows": int((topics[:, 0] == np.frombuffer(t0, "<u4")).all(axis=-1).sum()),
+                         **timed, **_topic_bounds(topics, n_topics_np, valid_np, t0, t1)}
+        _log(f"event_match_mask, topic0 on {share:.0%} of {n:,} rows on {smi}: {json.dumps(shares[share])}")
+
+    flat_rows = (topics_np, n_topics_np, batch.emitters.reshape(-1).astype(np.int64), valid_np)
+    fp_rows = (fp, np.full(n, 2, dtype=np.int32), np.full(n, ACTOR_ID, dtype=np.int64), np.ones(n, dtype=bool))
+    split = {}
+    for rows in (min(MASK_ROWS), max(MASK_ROWS)):
+        for kind, arrays in (("flat", flat_rows), ("fp", fp_rows)):
+            split[f"{kind} {rows}"] = whole_call_split(kind, tuple(a[:rows] for a in arrays), t0, t1, device)
+    _log(f"flat masks' whole calls taken apart on {smi} (median ms of 10): {json.dumps(split)}")
+    seconds = time.perf_counter() - start
+    _log(f"flat mask study: {seconds:.1f} s")
+    return {"by_rows": by_rows, "topic0_shares": shares, "whole_call_split": split, "seconds": seconds}
+
+
+def _phase3a_world():
+    """Phase 3a's events, and one u64 fingerprint an event (1 % equal to
+    the target) with the target as the int64 of its bits."""
+    t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
+    batch = synthetic_event_batch(*MATCH_WORLD, t0, t1, emitter=ACTOR_ID, match_rate=0.01, seed=42)
+    fp = np.random.default_rng(42).integers(0, 1 << 63, size=batch.topics.size // 16, dtype=np.uint64)
+    fp[::100] = np.uint64(topic_fingerprint(t0, t1))
+    target = int.from_bytes(topic_fingerprint(t0, t1).to_bytes(8, "little"), "little", signed=True)
+    return batch, fp, target
 
 
 def device_match_phase(device, smi: str) -> dict:
@@ -3006,7 +3347,7 @@ def device_match_phase(device, smi: str) -> dict:
     CUDA events over 20 back-to-back calls, beside its plain version, its
     byte bound and, for the receipt reduce, ``mask.view(-1, E).any(-1)``."""
     t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
-    batch = synthetic_event_batch(*MATCH_WORLD, t0, t1, emitter=ACTOR_ID, match_rate=0.01, seed=42)
+    batch, fp, target = _phase3a_world()
     t, r, e = batch.shape
     n = t * r * e
     plain = match_pipeline_plain(*batch_args(batch, t0, t1, ACTOR_ID, "cpu"))
@@ -3019,8 +3360,6 @@ def device_match_phase(device, smi: str) -> dict:
     # one u64 fingerprint and a valid bit an event (the unfused scan's mask)
     flat_rows = (batch.topics.reshape(-1, 2, 8), batch.n_topics.reshape(-1),
                  batch.emitters.reshape(-1).astype(np.int64), batch.valid.reshape(-1))
-    fp = np.random.default_rng(42).integers(0, 1 << 63, size=n, dtype=np.uint64)
-    fp[::100] = np.uint64(topic_fingerprint(t0, t1))
     fp_rows = (fp, np.full(n, 2, dtype=np.int32), np.full(n, ACTOR_ID, dtype=np.int64), np.ones(n, dtype=bool))
     backends = {"single device": get_backend("gpu"),
                 "virtual mesh of 4": GpuBackend(device, mesh=meshes["virtual mesh (dp=2, sp=2)"])}
@@ -3055,7 +3394,6 @@ def device_match_phase(device, smi: str) -> dict:
 
     # each kernel against its plain version on the card's inputs, full width
     flat_args = _flat_args(batch, device)
-    target = int.from_bytes(topic_fingerprint(t0, t1).to_bytes(8, "little"), "little", signed=True)
     fp_args = (torch.from_numpy(fp.view(np.int64)).to(device), torch.from_numpy(fp_rows[3]).to(device), target)
     full = {
         "match_pipeline": (match_pipeline, match_pipeline_plain, single_args),
@@ -3132,10 +3470,15 @@ def device_match_phase(device, smi: str) -> dict:
             backend.event_match_mask_fp(*fp_rows, t0, t1, ACTOR_ID)
         fp_calls[label] = (time.perf_counter() - start) * 1e2  # ms a call, copies included
     _log(f"fingerprint mask on {smi}: a whole call with its copies {json.dumps(fp_calls)} ms")
+    study = flat_mask_study(batch, fp, target, smi, device)
+    full_width = study["by_rows"][n]
+    for name in ("event_match_mask", "event_match_mask_fp"):
+        kernels[name]["floor_ms"] = full_width[name]["floor_ms"]
+    kernels["event_match_mask"]["streaming"] = full_width["event_match_mask streaming"]
     return {
         "events": n, "topic_bytes": batch.topics.nbytes, "matches": int(plain[2]),
         "timings": timings, "kernels": kernels, "edge_worlds": edges,
-        "fp_mask_call_ms": fp_calls, "launches": launches,
+        "fp_mask_call_ms": fp_calls, "flat_mask_study": study, "launches": launches,
     }
 
 
@@ -6545,7 +6888,8 @@ def static_gates_phase() -> dict:
         raise AssertionError(f"static gates, cuda half: no summary\n{text[-4000:]}")
     cuda = json.loads(m.group(1))
     guard = cuda["guard"]
-    cases = [k[0] for k in KERNELS + KECCAK_KERNELS + MATCH_KERNELS] + [c[0] for c in BLAKE2B_BLOCK_CASES[1:]]
+    cases = ([k[0] for k in KERNELS + KECCAK_KERNELS + MATCH_KERNELS] + [c[0] for c in BLAKE2B_BLOCK_CASES[1:]]
+             + list(FULL_SHARE_CASES))
     if sorted(guard) != sorted(cases):
         raise AssertionError(f"static gates, cuda half: entries {sorted(guard)}")
     for entry, row in guard.items():
@@ -6696,7 +7040,7 @@ def main(argv=None) -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     _log(f"host: {_host_info()} (native scanner built from {load_scan_ext().__file__})")
 
-    built = build_libraries(KERNEL_LIBRARIES)
+    built = build_libraries(KERNEL_LIBRARIES + (MATCH_STUDY,))
     for name, info in built.items():
         _log(f"build {name}: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -6787,7 +7131,8 @@ def main(argv=None) -> int:
         run("cluster", cluster_phase, world, device, root)
         del world
         run("cli cluster", cli_cluster_phase, device, root)
-        run("tools", tools_phase, device, args.seed, built, paths["registry"]["log"], paths["traced"]["chrome"],
+        package_built = {name: built[name] for name in KERNEL_LIBRARIES}  # what the children map
+        run("tools", tools_phase, device, args.seed, package_built, paths["registry"]["log"], paths["traced"]["chrome"],
             paths["traced"]["trace.spans_recorded"], root)
     run("static gates", static_gates_phase)
     run("bench", bench_phase)
@@ -6842,6 +7187,15 @@ def main(argv=None) -> int:
     }
     _log(f"blake2b256_blocks at the event path's witness rows on {smi}: "
          f"{json.dumps(kernels['blake2b256_blocks']['witness'])} (compressions a row: {json.dumps(wmb['compressions'])})")
+    # the single- and two-block kernels at the event path's witness rows
+    for name, w in paths["event path"]["witness_small_blocks"].items():
+        w_bytes_ms, w_ops_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3, _ops_ms(BLAKE2B_OPS, w["units"])
+        kernels[name]["witness"] = {
+            "rows": w["rows"], "padded_rows": w["padded_rows"], "ms": w["ms"], "device_ms": w["device_ms"],
+            "bound_ms": max(w_bytes_ms, w_ops_ms), "bound_by": "bytes" if w_bytes_ms >= w_ops_ms else "operations",
+            "issued_bound_ms": max(w_bytes_ms, _ops_ms(per_compression["SplitPlanes"], w["units"])),
+        }
+        _log(f"{name} at the event path's witness rows on {smi}: {json.dumps(kernels[name]['witness'])}")
     rows = []
     for name, replaces, source, keys in [(k[0], k[1], SOURCE, (k[0],)) for k in KERNELS] + [
         (k[0], k[1], KECCAK_SOURCE, (k[0],)) for k in KECCAK_KERNELS
@@ -6863,7 +7217,8 @@ def main(argv=None) -> int:
             # no PyTorch call computes blake2b or keccak-256
             "library_ms": k.get("library_ms"),
         }
-        row.update({key: k[key] for key in ("device_ms", "library_device_ms", "witness", "crossover") if key in k})
+        row.update({key: k[key] for key in ("device_ms", "library_device_ms", "witness", "crossover", "floor_ms",
+                                            "streaming") if key in k})
         rows.append(row)
         issued = f", on the build's SASS {k['issued_bound_ms']}" if "issued_bound_ms" in k else ""
         _log(

@@ -1766,13 +1766,14 @@ class _RouterHandler(BaseHTTPRequestHandler):
         self.wfile.flush()
 
     def _finish_stream(self, writer) -> None:
+        # counted before the terminator, as the single daemon's door does
+        self.router.metrics.count("serve.stream.responses")
+        if getattr(self, "_account_response", False):
+            self.router.tenants.account_bytes(self._tenant, writer.bytes_sent)
         try:
             self.connection.sendall(CHUNKED_TERMINATOR)
         except OSError:
             pass
-        self.router.metrics.count("serve.stream.responses")
-        if getattr(self, "_account_response", False):
-            self.router.tenants.account_bytes(self._tenant, writer.bytes_sent)
         # one stream per connection: don't risk framing drift poisoning a
         # keep-alive successor request
         self.close_connection = True

@@ -8,25 +8,40 @@
 //   ops/match_jax.py:76-81   _match_mask_fp (its sharded jit :85-101)
 //   ops/match_jax.py:137     receipts_with_match
 //
-// What bounds them on an H100: bytes. Each is one compare or one scatter an
-// event, a few integer operations against 10-74 bytes read, far under the
-// ~5 operations a byte at which the ALU pipe and HBM take equal time.
-// match_pipeline reads 64 B of topic words, 4 + 4 B of n_topics and emitter
-// and 1 B of valid an event and writes 1 B of mask; the fingerprint mask
-// reads 8 + 1 B and writes 1 B.
+// What bounds them on an H100: bytes, and at the paths' small calls the
+// launch. Each is one compare or one scatter an event, a few integer
+// operations against 10-74 bytes read, far under the ~5 operations a byte at
+// which the ALU pipe and HBM take equal time. match_pipeline reads 64 B of
+// topic words, 4 + 4 B of n_topics and emitter and 1 B of valid an event
+// and writes 1 B of mask; the fingerprint mask reads 8 + 1 B and writes 1 B.
+// HBM3 moves 64-byte bursts: reading topic0's 32-byte sector of a row costs
+// about what reading the whole row does (PERF.md section 6).
 //
 // What the design does about it: every input byte is read once and every
-// output byte written once, in one pass. A thread owns one event; it reads
-// the event's 64-byte topic row as four 16-byte loads, so a warp's loads
-// cover 2 KB of contiguous rows. The spec words and the actor id are read
-// from device memory (never from the host, so a launch neither syncs nor
-// breaks a CUDA-graph capture) into shared memory once a block. The
-// per-receipt any of match_pipeline stays on chip: a block owns whole
-// receipts (256 / E of them, or one receipt at E > 256, its events walked
-// in strides of the block), ORs its events' bits into a shared flag per
-// receipt and writes each receipt's hit once, for any E. The proof count
-// is a warp reduction, then one integer atomicAdd a block into a zeroed
-// int32, so it is exact. Bool outputs hold only the bytes 0 and 1.
+// output byte written once, in one pass; a thread owns one event.
+// - The full-word mask reads its event's 64-byte row as four 16-byte
+//   loads, then n_topics and valid, and compares once: one trip to memory
+//   an event. Reading topic1, n_topics and valid only under a matching
+//   topic0 saves no HBM bytes (the card moves the whole row) and adds a
+//   second, dependent trip wherever a call holds a match: up to 1.6x
+//   slower at a high topic0 share, and slower at the paths' small calls.
+//   Streaming loads (__ldcs) were ~10 % faster over back-to-back calls on
+//   cold rows, level right after a host copy (the paths' case) and up to
+//   1.5x slower on rows already in the L2 (PERF.md section 6).
+// - match_pipeline reads the event's 64-byte row as four 16-byte loads, so
+//   a warp's loads cover 2 KB of contiguous rows; the fingerprint mask reads
+//   its 8 + 1 bytes in one trip. Designs that read valid only under a
+//   matching fingerprint, or several fingerprints a thread, were slower on
+//   the H100 (PERF.md section 6).
+// The spec words and the actor id are read from device memory (never from
+// the host, so a launch neither syncs nor breaks a CUDA-graph capture) into
+// shared memory once a block. The per-receipt any of match_pipeline stays
+// on chip: a block owns whole receipts (256 / E of them, or one receipt at
+// E > 256, its events walked in strides of the block), ORs its events' bits
+// into a shared flag per receipt and writes each receipt's hit once, for
+// any E. The proof count is a warp reduction, then one integer atomicAdd a
+// block into a zeroed int32, so it is exact. Bool outputs hold only the
+// bytes 0 and 1.
 //
 // C entry points (the caller passes u32 data as int32 bit views):
 //   match_pipeline(topics[R,E,2,8], n_topics[R,E], emitters[R,E], valid[R,E],

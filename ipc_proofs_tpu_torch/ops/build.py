@@ -34,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -62,7 +63,8 @@ __all__ = [
     "runs_plain",
 ]
 
-# every ``csrc/<name>.cu`` of the package
+# every ``csrc/<name>.cu`` the package launches (``csrc/match_study.cu`` is
+# chip_smoke.py's measurement-only source, built there alone)
 KERNEL_LIBRARIES = ("blake2b", "keccak", "match")
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -125,8 +127,15 @@ def cuda_tool(name: str) -> str:
     raise DeviceFaultError(f"{name} not found (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
+
+
 def _library_path(name: str) -> Path:
+    """The library's file, named by a hash of its source, the ``csrc``
+    sources it includes and the flags."""
     source = (_CSRC / f"{name}.cu").read_bytes()
+    for included in _INCLUDE.findall(source):
+        source += (_CSRC / included.decode()).read_bytes()
     key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return _BUILD / f"lib{name}-{key}.so"
 

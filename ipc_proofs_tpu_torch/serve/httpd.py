@@ -246,13 +246,15 @@ class _Handler(BaseHTTPRequestHandler):
             writer.error(str(exc), exc.error_type)
         except Exception as exc:  # fail-soft: headers are already on the wire — the only sound exit is an in-band typed abort chunk, never a half-document
             writer.error(str(exc), "device" if is_device_fault(exc) else "internal")
+        # counted before the terminator: a client that has read the whole
+        # body sees its response counted (the reference counts after it)
+        self.service.metrics.count("serve.stream.responses")
+        if getattr(self, "_account_response", False) and self.tenants is not None:
+            self.tenants.account_bytes(self._tenant, writer.bytes_sent)
         try:
             self.connection.sendall(CHUNKED_TERMINATOR)
         except OSError:
             pass
-        self.service.metrics.count("serve.stream.responses")
-        if getattr(self, "_account_response", False) and self.tenants is not None:
-            self.tenants.account_bytes(self._tenant, writer.bytes_sent)
         # one stream per connection: don't risk framing drift poisoning a
         # keep-alive successor request
         self.close_connection = True

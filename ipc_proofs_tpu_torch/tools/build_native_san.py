@@ -27,7 +27,9 @@ the padded maximum; match worlds of 1, 3, 4, 5 and 33 events a receipt,
 the actor filter on and off, receipt ids outside ``[0, num)``; and row
 counts around the warp and thread-block edges up to 4,097;
 ``blake2b256_blocks`` also with one and four lanes a message forced, and
-on both sides of its four-lane crossover), each held
+on both sides of its four-lane crossover; the two flat masks also with
+topic0 equal to the spec on every row and every fingerprint equal to the
+target, at row counts that are not multiples of 2, 4 or 8), each held
 against its plain PyTorch version, in a child process (``--cuda-child``):
 
 - the guard-band check, always: every input and the output sit between
@@ -104,6 +106,11 @@ MATCH_ENTRIES = ("match_pipeline", "event_match_mask", "event_match_mask_fp", "r
 MATCH_EVENTS = (1, 3, 4, 5, 33)  # events a receipt of the match pipeline's cases, in turn
 MATCH_ACTOR = 1001
 ROW_COUNTS = (1, 31, 32, 33, 127, 128, 129, 4097)
+# the flat masks with topic0 equal to the spec on every row (topic1 as
+# planted: equal, one word off or not) and with every fingerprint equal to
+# the target, at row counts that are not multiples of 2, 4 or 8
+FULL_SHARE_CASES = ("event_match_mask[topic0 on every row]", "event_match_mask_fp[target on every row]")
+FULL_SHARE_ROWS = (3, 5, 7, 129, 1025)
 # the padded maximum of blake2b256_blocks' case on each side of the row
 # count at which it goes from four lanes a message to one
 # (``ops.blake2b.QUAD_ROWS_MAX``)
@@ -326,6 +333,18 @@ def _match_cases(rng, k: int, n: int):
     yield "receipts_with_match", n, (rng.random(n) < 0.3, ids), (num, ids.itemsize)
 
 
+def _full_share_cases(rng, n: int):
+    """`FULL_SHARE_CASES` at ``n`` rows."""
+    import numpy as np
+
+    spec = rng.integers(-(2**31), 2**31, 16, dtype=np.int64).astype(np.int32)
+    topics, n_topics, valid, _ = _event_rows(rng, n, spec)
+    topics[:, 0] = spec[:8]
+    yield FULL_SHARE_CASES[0], n, (topics, n_topics, valid, spec[:8], spec[8:]), ()
+    target = int(rng.integers(-(2**63), 2**63 - 1, dtype=np.int64))
+    yield FULL_SHARE_CASES[1], n, (np.full(n, target, dtype=np.int64), rng.random(n) < 0.9), (target,)
+
+
 def kernel_cases(seed: int = 0):
     """(entry, rows, inputs, extra ints) for every kernel entry and row
     count: ``inputs`` are numpy arrays in the entry's argument order (u32
@@ -353,6 +372,8 @@ def kernel_cases(seed: int = 0):
         _odd_counts(n_blocks, PADDED_BLOCKS)
         yield "keccak256_blocks", n, (blocks, n_blocks), (PADDED_BLOCKS,)
         yield from _match_cases(rng, k, n)
+    for k, n in enumerate(FULL_SHARE_ROWS):
+        yield from _full_share_cases(np.random.default_rng([seed, 200 + k]), n)
     # the wrapper's lanes on each side of the crossover: four, then one
     most = blake2b.QUAD_ROWS_MAX
     for k, n in enumerate((most, most + 1)):
@@ -377,6 +398,7 @@ def outputs_of(entry: str, n: int, inputs, extra) -> "list[tuple[tuple, object]]
     entry's order."""
     import torch
 
+    entry = _c_entry(entry)
     if entry == "match_pipeline":
         return [((1, n), torch.bool), ((1, n, extra[0]), torch.bool), ((), torch.int32)]
     if entry in ("event_match_mask", "event_match_mask_fp"):

@@ -126,3 +126,57 @@ def fixed_clocks(monkeypatch, *modules):
 def shutdown(*servers):
     for httpd in servers:
         httpd.shutdown(timeout=30)
+
+
+class EndHook:
+    """A request handler's socket whose chunked terminator goes to
+    ``on_end(data)`` in place of the wire; everything else passes through."""
+
+    def __init__(self, sock, on_end):
+        self._sock = sock
+        self._on_end = on_end
+
+    def sendall(self, data, *flags):
+        if bytes(data) == b"0\r\n\r\n":  # witness.stream.CHUNKED_TERMINATOR
+            return self._on_end(data)
+        return self._sock.sendall(data, *flags)
+
+    def __getattr__(self, name):
+        return getattr(self._sock, name)
+
+
+def with_end_hook(method, on_end):
+    """``method`` (a handler's stream-ending method) run over an `EndHook`
+    socket: ``on_end(sock, data)`` takes the terminator."""
+
+    def wrapped(self, *args, **kwargs):
+        sock = self.connection
+        self.connection = EndHook(sock, lambda data: on_end(sock, data))
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            self.connection = sock
+
+    return wrapped
+
+
+def count_before_terminator(monkeypatch):
+    """Give the reference daemon's streamed 200 the port's order: its
+    terminator goes out after ``_stream_ok`` has counted
+    ``serve.stream.responses``, not before (the reference counts after, so
+    a client that has read the whole body can snapshot the counters before
+    the count)."""
+    from ipc_proofs_tpu.serve import httpd as ref_httpd
+
+    original = ref_httpd._Handler._stream_ok
+
+    def stream_ok(self, stream_fn, encoding):
+        held = []
+        with_end_hook(original, lambda sock, data: held.append(data))(self, stream_fn, encoding)
+        for data in held:
+            try:
+                self.connection.sendall(data)
+            except OSError:
+                pass
+
+    monkeypatch.setattr(ref_httpd._Handler, "_stream_ok", stream_ok)

@@ -9,6 +9,7 @@ fleet hit rates — are equal.
 """
 
 from _torch_bench import bench_env, run_port_leg, run_reference_leg, same  # noqa: F401
+from _torch_http import count_before_terminator
 
 
 def test_serve_leg(bench_env):
@@ -32,6 +33,10 @@ def test_zerocopy_leg(bench_env, monkeypatch):
     # the plain versions' crossover, which says nothing here
     monkeypatch.setattr(verify, "autotune_crossover", lambda *a, **k: {"min_bytes": 1 << 62, "scalar_only": True})
     out = run_port_leg("zerocopy")
+    # the reference daemon counts a streamed response after its terminator,
+    # so its leg's `responses == reps` could read the counters first; run
+    # it with the port's order (count, then terminator)
+    count_before_terminator(monkeypatch)
     ref = run_reference_leg("zerocopy")
     same(out, ref, ("warm_block_bytes_copied_per_resp", "zerocopy_bytes_per_resp", "zerocopy_responses",
                     "qos_heavy_concurrency", "zerocopy_host_cpus"))

@@ -563,6 +563,78 @@ def test_flat_mask_kernels_equal_plain(cuda_device, n):
     assert match.LAUNCHES["event_match_mask"] == match.LAUNCHES["event_match_mask_fp"] == launched
 
 
+# row counts that are not multiples of 2, 4 or 8, around the thread-block
+# edges
+MASK_ROWS = [1, 3, 5, 255, 257, 1025, 65_537]
+
+
+def _topic0_share(topics, spec0: bytes, share: str):
+    """``topics`` with topic0 equal to the spec on no row ("none"), on every
+    row ("all": topic1 stays as it was, matching or one word off or not) or
+    as planted ("planted")."""
+    topics = topics.copy()
+    words = np.frombuffer(spec0, "<u4")
+    if share == "none":
+        hit = (topics[:, 0] == words).all(axis=-1)
+        topics[hit, 0, 0] ^= 1
+    elif share == "all":
+        topics[:, 0] = words
+    return topics
+
+
+@pytest.mark.parametrize("share", ["none", "planted", "all"])
+@pytest.mark.parametrize("n", MASK_ROWS)
+def test_flat_masks_equal_plain_over_topic0_shares(cuda_device, n, share):
+    """The full-word and fingerprint masks at row counts around the block
+    edges, with topic0 (and the fingerprint) matching on no row, on
+    the planted rows and on every row: bit-equal to their plain versions,
+    one launch each."""
+    batch, t0, t1 = _match_world(n, 1, 1, seed=n)
+    topics = _topic0_share(batch.topics.reshape(-1, 2, 8), t0, share)
+    n_topics, valid = batch.n_topics.reshape(-1), batch.valid.reshape(-1)
+    rng = np.random.default_rng(n)
+    target = -12345678901234
+    fp = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    fp[rng.random(n) < {"none": 0.0, "planted": 0.3, "all": 1.0}[share]] = target
+    _reset_match_counts()
+    on_card = (
+        match._topic_mask(topics, n_topics, valid, t0, t1, cuda_device),
+        match._fp_mask(fp, valid, target, cuda_device),
+    )
+    torch.cuda.synchronize()
+    on_cpu = (
+        match._topic_mask(topics, n_topics, valid, t0, t1, torch.device("cpu")),
+        match._fp_mask(fp, valid, target, torch.device("cpu")),
+    )
+    for g, w in zip(on_card, on_cpu):
+        assert g.dtype == torch.bool and torch.equal(g.cpu(), w)
+        assert int(g.view(torch.uint8).max()) <= 1
+    assert match.LAUNCHES["event_match_mask"] == match.LAUNCHES["event_match_mask_fp"] == 1
+    if share == "none":
+        assert not on_cpu[0].any() and not on_cpu[1].any()
+
+
+@pytest.mark.parametrize("n", [n + 1 for n in MASK_ROWS])
+def test_fp_mask_kernel_on_an_offset_view(cuda_device, n):
+    """``f[1:]`` of an int64 tensor on the card is 8-byte aligned only: the
+    kernel takes it and equals the plain version; so does a view of
+    ``valid`` one byte in."""
+    rng = np.random.default_rng(n)
+    target = 987654321
+    fp = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    fp[rng.random(n) < 0.4] = target
+    valid = rng.random(n) < 0.9
+    f = torch.from_numpy(fp).to(cuda_device)[1:]
+    ok = torch.from_numpy(valid).to(cuda_device)[1:]
+    assert f.data_ptr() % 16 == 8
+    _reset_match_counts()
+    got = match.fp_mask(f, ok, target)
+    torch.cuda.synchronize()
+    want = match.fp_mask_plain(f.cpu(), ok.cpu(), target)
+    assert got.shape == (n - 1,) and torch.equal(got.cpu(), want)
+    assert match.LAUNCHES["event_match_mask_fp"] == 1
+
+
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
 @pytest.mark.parametrize("n,num", [(0, 4), (5, 0), (10, 40), (1000, 40), (100_003, 4099)])
 def test_receipts_kernel_wraps_and_drops_as_plain(cuda_device, id_dtype, n, num):

@@ -266,11 +266,15 @@ def test_guard_band_check_passes_the_plain_versions(monkeypatch):
         "blake2b256_blocks[1 lane]", "blake2b256_blocks[4 lanes]",
         "keccak256_single_block", "keccak256_blocks",
         "match_pipeline", "event_match_mask", "event_match_mask_fp", "receipts_with_match",
+        *san.FULL_SHARE_CASES,
     ])
     # the case whose lanes follow the row count also runs on both sides of
-    # the four-lane crossover
+    # the four-lane crossover; the flat masks' full-share cases run at their
+    # own row counts
     for entry, row in report.items():
         rows = [1, 33, 129] + ([40, 41] if entry == "blake2b256_blocks" else [])
+        if entry in san.FULL_SHARE_CASES:
+            rows = list(san.FULL_SHARE_ROWS)
         assert row == {"launches": len(rows) * san.GUARD_FILLS, "rows": rows, "violations": [], "mismatches": 0}
 
 

@@ -9,9 +9,14 @@ Inputs come from a numpy seed and go to both packages as the same arrays
   and on, rows with ``n_topics < 2`` and ``valid`` False, an empty world;
 - `topic_mask_plain` against ``ops/match_jax.py:36`` ``_match_mask_topics``
   over flat rows, N = 0 and rows padded to `pad_to_bucket` as
-  ``event_match_mask_jit`` pads them;
+  ``event_match_mask_jit`` pads them, and over the topic0 sweep of
+  phase 3a on the card (`chip_smoke.topic0_share`: 0 to 100 % of rows with
+  topic0 equal to the spec, some with topic1 one word off) at row counts
+  that are not multiples of 2, 4 or 8;
 - `fp_mask_plain` against ``ops/match_jax.py:76-81`` ``_match_mask_fp``
-  (the reference's [N, 2] u32 fingerprint layout);
+  (the reference's [N, 2] u32 fingerprint layout), and against
+  ``_match_mask_fp_impl`` over 0 to 100 % of fingerprints equal to the
+  target, also from the second row on (the kernel's offset view);
 - `receipts_with_match` over ids in [-2·num, 2·num) in
   ``tests/test_torch_parallel.py``;
 - `build_native_san`'s guard-band cases of the four entries against the
@@ -155,8 +160,74 @@ def test_fp_mask_plain_equals_the_reference(n):
     assert n < 5 or ours.any()
 
 
+# row counts that are not multiples of 2, 4 or 8
+SWEEP_ROWS = [7, 13, 301, 1027]
+
+
+def _sweep_rows(n: int, share: float):
+    """Flat rows as phase 3a's topic0 sweep builds them
+    (`chip_smoke.topic0_share` over a world with planted full matches),
+    plus rows with topic0 matching and topic1 one word off, ``n_topics``
+    0..3 and a tenth invalid."""
+    import chip_smoke
+
+    rng = np.random.default_rng(n)
+    batch = pipeline.synthetic_event_batch(n, 1, 1, T0, T1, emitter=ACTOR, match_rate=0.2, seed=n)
+    topics = chip_smoke.topic0_share(batch.topics.reshape(-1, 2, 8), T0, share, seed=n)
+    hit0 = (topics[:, 0] == np.frombuffer(T0, "<u4")).all(axis=-1)
+    near = hit0 & (rng.random(n) < 0.3)
+    topics[near, 1] = np.frombuffer(T1, "<u4")
+    topics[near, 1, rng.integers(0, 8)] ^= 1 << int(rng.integers(0, 32))
+    n_topics = rng.integers(0, 4, n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    return topics, n_topics, valid
+
+
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.10, 0.50, 1.0])
+@pytest.mark.parametrize("n", SWEEP_ROWS)
+def test_topic_mask_plain_equals_the_reference_over_the_topic0_sweep(n, share):
+    """`topic_mask_plain` (what the kernel is held against)
+    equals ``_match_mask_topics`` at each share of rows whose topic0 is
+    the spec, rows with topic1 one word off among them."""
+    topics, n_topics, valid = _sweep_rows(n, share)
+    assert int((topics[:, 0] == np.frombuffer(T0, "<u4")).all(axis=-1).sum()) == round(share * n)
+    spec0, spec1 = (np.frombuffer(t, "<u4") for t in (T0, T1))
+    ref = np.asarray(match_jax._match_mask_topics(
+        jnp.asarray(topics), jnp.asarray(n_topics), jnp.asarray(valid), jnp.asarray(spec0), jnp.asarray(spec1)
+    ))
+    ours = match.topic_mask(_i32(topics), _i32(n_topics), torch.from_numpy(valid), _i32(spec0), _i32(spec1))
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    if share == 0.0:
+        assert not ref.any()
+
+
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.10, 0.50, 1.0])
+@pytest.mark.parametrize("n", SWEEP_ROWS)
+def test_fp_mask_plain_equals_the_reference_impl_over_the_share_sweep(n, share):
+    """`fp_mask_plain` equals ``_match_mask_fp_impl`` (the reference's
+    function under its jit) at each share of fingerprints equal to the
+    target, some of the others one high-word bit off; also on the rows
+    after the first (the kernel's offset view ``f[1:]``)."""
+    rng = np.random.default_rng(n)
+    target = int(rng.integers(0, 1 << 63, dtype=np.uint64)) | (1 << 63)
+    fp = rng.integers(0, 1 << 63, size=n, dtype=np.uint64)
+    fp[rng.permutation(n)[: round(share * n)]] = np.uint64(target)
+    off = (fp != np.uint64(target)) & (rng.random(n) < 0.2)
+    fp[off] = np.uint64(target ^ (1 << 40))
+    valid = rng.random(n) < 0.9
+    signed = int.from_bytes(target.to_bytes(8, "little"), "little", signed=True)
+    target2 = jnp.asarray(np.frombuffer(target.to_bytes(8, "little"), "<u4"))
+    for first in (0, 1):
+        f, ok = fp[first:], valid[first:]
+        ref = np.asarray(match_jax._match_mask_fp_impl(
+            jnp.asarray(np.ascontiguousarray(f).view("<u4").reshape(-1, 2)), jnp.asarray(ok), target2))
+        ours = match.fp_mask(torch.from_numpy(fp.view(np.int64))[first:], torch.from_numpy(valid)[first:], signed)
+        np.testing.assert_array_equal(ours.numpy(), ref)
+
+
 def _reference_outputs(entry: str, inputs, extra):
     """The JAX package's result for a guard-band case of ``entry``."""
+    entry = san._c_entry(entry)
     if entry == "match_pipeline":
         topics, n_topics, emitters, valid, spec0, spec1, actor = (jnp.asarray(a) for a in inputs)
         return tuple(np.asarray(x) for x in ref_pipeline.match_pipeline(
@@ -177,11 +248,11 @@ def _reference_outputs(entry: str, inputs, extra):
 
 def test_guard_band_cases_of_the_match_entries_equal_the_reference():
     """`build_native_san`'s cases of the four entries (the shapes phase 32
-    checks on the card) through their plain versions equal the JAX
-    package."""
+    checks on the card), the flat masks' full-share cases among them,
+    through their plain versions equal the JAX package."""
     seen = set()
     for entry, n, inputs, extra in san.kernel_cases():
-        if entry not in san.MATCH_ENTRIES or n > 200:
+        if san._c_entry(entry) not in san.MATCH_ENTRIES or n > 200:
             continue
         seen.add(entry)
         want = _reference_outputs(entry, inputs, extra)
@@ -189,7 +260,7 @@ def test_guard_band_cases_of_the_match_entries_equal_the_reference():
         assert len(got) == len(want)
         for ours, ref in zip(got, want):
             np.testing.assert_array_equal(ours.numpy(), ref)
-    assert seen == set(san.MATCH_ENTRIES)
+    assert seen == set(san.MATCH_ENTRIES) | set(san.FULL_SHARE_CASES)
 
 
 @pytest.mark.parametrize("shape", [(3, 77, 1), (5, 41, 3), (2, 9, 33), (1, 1, 300), (0, 4, 4)],
