@@ -26,7 +26,13 @@ Phases, none of which may fail:
      mix of the range witness); then the multi-block kernel with one and
      with four lanes a message over the first 2,048–65,536 rows of its
      third (`BLOCKS_SWEEP`), the measurement behind its four-lane
-     crossover (``ops.blake2b.QUAD_ROWS_MAX``);
+     crossover (``ops.blake2b.QUAD_ROWS_MAX``); and so the single- and
+     two-block kernels over the first 256–65,536 rows of their thirds
+     (`SPLIT_SWEEP`: every multiple of the packers' 256-row tile up to
+     8,704, where the paths launch them, and the rows about each
+     crossover), each point equal to the kernel's digests and timed by
+     warm CUDA events and device time, the measurement behind their
+     crossovers (``ops.blake2b.quad_rows_max``);
    - keccak: 1,048,576 single-block messages of 0–135 B, and 262,144
      multi-block messages of 136–543 B (2–4 blocks) with rows whose block
      count is 0 (digest of zeros) or above the layout's 4 (absorbs 4);
@@ -79,7 +85,10 @@ Phases, none of which may fail:
    4,096 pairs) with the wrapper's lanes (four a message there) and with
    one, each equal to hashlib and timed by CUDA events and torch.profiler
    beside its bound there, and so the single- and two-block kernels at
-   their own witness rows (1,969 and 1,312); a flipped
+   their own witness rows (1,969 and 1,312) with the wrapper's lanes and
+   with one and four forced, the two lane counts and the store-only floor
+   at each one's launch shape (``csrc/blake2b_study.cu``) taking turns in
+   one profiler session; a flipped
    byte in a witness block of each size class must be rejected; a repeat
    of the path under ``torch.profiler`` gives the card's busy time;
 5. overlapped event path — the same world through
@@ -442,7 +451,8 @@ Phases, none of which may fail:
    clean; ``build_native_san --strict``: its host half builds the C
    extensions with ASan+UBSan and ``-Werror`` (``*.san.so``) and runs the
    soak's native phases under the ASan runtime, clean; its CUDA half
-   launches all nine kernel entries at edge sizes
+   launches all nine kernel entries at edge sizes, the three blake2b
+   entries with the wrapper's lanes and with one and four forced
    (block-edge lengths, multi-block rows up to the padded maximum, odd
    block counts, match worlds of E = 1, 3, 4, 5 and 33, receipt ids
    outside [0, num), 1 to 4,097 rows) between guard bands, twice with other
@@ -465,6 +475,11 @@ Phases, none of which may fail:
    the committed artifact ``bench_torch_runs/BENCH_torch_r01.json`` in
    non-current mode; prints each leg's seconds, headline number and
    launches.
+
+After the paths: the row counts at which the paths launched the single-
+and two-block kernels (each launch this process saw, in power-of-two
+bins; the paths whose launches ran in child processes; and any row count
+up to 65,536 that the kernel phase's sweep did not time).
 
 Prints per-stage ms of every path with the scanner's thread count and the
 CPUs it may use; then, in order before the last line: one line per kernel,
@@ -641,7 +656,7 @@ from ipc_proofs_tpu_torch.tools import chaos as chaos_tool
 from ipc_proofs_tpu_torch.tools import crashtest as crashtest_tool
 from ipc_proofs_tpu_torch.tools import soak as soak_tool
 from ipc_proofs_tpu_torch.tools import traceview as traceview_tool
-from ipc_proofs_tpu_torch.tools.build_native_san import BLAKE2B_BLOCK_CASES, FULL_SHARE_CASES
+from ipc_proofs_tpu_torch.tools.build_native_san import BLAKE2B_BLOCK_CASES, BLAKE2B_SPLIT_CASES, FULL_SHARE_CASES
 from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
@@ -695,18 +710,24 @@ KECCAK_OPS = {"alu": 4354}
 
 SOURCE = "ipc_proofs_tpu_torch/csrc/blake2b.cu"
 KERNELS = (
-    # name, TPU function it replaces, lengths (lo, hi] of its rows, loader
-    # of its kernel instantiation in the source (the multi-block kernel's
-    # up to ``blake2b.QUAD_ROWS_MAX`` rows: the four-lane kernel, "quad")
-    ("blake2b256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:338", (-1, 128), "SplitPlanes"),
-    ("blake2b256_two_block", "ipc_proofs_tpu/ops/pallas_kernels.py:364", (128, 256), "SplitPlanes"),
-    ("blake2b256_blocks", "ipc_proofs_tpu/ops/blake2b_jax.py:140", (256, 520), "PaddedBlocks"),
+    # name, TPU function it replaces, lengths (lo, hi] of its rows
+    ("blake2b256_single_block", "ipc_proofs_tpu/ops/pallas_kernels.py:338", (-1, 128)),
+    ("blake2b256_two_block", "ipc_proofs_tpu/ops/pallas_kernels.py:364", (128, 256)),
+    ("blake2b256_blocks", "ipc_proofs_tpu/ops/blake2b_jax.py:140", (256, 520)),
 )
 # lanes a message in each blake2b kernel instantiation
-B2B_LANES = {"SplitPlanes": 1, "PaddedBlocks": 1, "quad": 4}
+B2B_LANES = {"SplitPlanes": 1, "PaddedBlocks": 1, "quad<SplitPlanes>": 4, "quad<PaddedBlocks>": 4}
 # rows at which the kernel phase times blake2b256_blocks with one and with
 # four lanes a message (its four-lane crossover)
 BLOCKS_SWEEP = (2048, 4096, 8192, 8448, 8576, 10240, 16384, 32768, 65536)
+# rows at which the single- and two-block kernels are timed with one and
+# with four lanes a message (their four-lane crossovers): every multiple
+# of the packers' 256-row tile up to 8,704 (the paths launch them at such
+# multiples, mostly 256), one and two 32-message blocks of the four-lane
+# kernel on each SM (4,224 and 8,448) and 128 rows more (4,352, 8,576),
+# and above
+SPLIT_SWEEP = tuple(sorted(set(range(256, 8705, 256)) | {4224, 8576, 10240, 12288, 16384, 32768, 65536}))
+B2B_STUDY = "blake2b_study"  # built and launched by this script only, never by the package
 KECCAK_SOURCE = "ipc_proofs_tpu_torch/csrc/keccak.cu"
 # the path whose launches a kernel's row reports: the first path that runs it
 OWN_PATH = {
@@ -872,16 +893,16 @@ def _loop_span(key: str, loops) -> "tuple[int, int]":
 
 
 def _b2b_instantiation(mangled: str) -> str:
-    """A blake2b kernel function's key: its loader, or "quad" for the
-    four-lane kernel."""
-    if "quad_kernel" in mangled:
-        return "quad"
-    return next(name for name in ("SplitPlanes", "PaddedBlocks") if name in mangled)
+    """A blake2b kernel function's key: its loader, as "quad<loader>" for
+    the four-lane kernel."""
+    loader = next(name for name in ("SplitPlanes", "PaddedBlocks") if name in mangled)
+    return f"quad<{loader}>" if "quad_kernel" in mangled else loader
 
 
-def b2b_instantiation(rows: int) -> str:
-    """The instantiation `blake2b256_blocks` runs at ``rows`` rows."""
-    return "quad" if blake2b.lanes_for_rows(rows) == 4 else "PaddedBlocks"
+def b2b_instantiation(rows: int, name: str = "blake2b256_blocks") -> str:
+    """The instantiation the blake2b kernel ``name`` runs at ``rows`` rows."""
+    loader = "PaddedBlocks" if name == "blake2b256_blocks" else "SplitPlanes"
+    return f"quad<{loader}>" if blake2b.lanes_for_rows(rows, name) == 4 else loader
 
 
 def sass_per_compression(library) -> "dict[str, dict[str, int]]":
@@ -960,7 +981,7 @@ def _kernel_cases(n_messages: int, seed: int, device) -> "list[KernelCase]":
     rng = np.random.default_rng(seed)
     cases = []
     sizes = (n_messages // 3, n_messages // 3, n_messages - 2 * (n_messages // 3))
-    for (name, _, (lo, hi), loader), rows in zip(KERNELS, sizes):
+    for (name, _, (lo, hi)), rows in zip(KERNELS, sizes):
         if not size_class(lo + 1) == size_class(hi) == name:
             raise AssertionError(f"lengths {lo + 1}..{hi} do not route to {name}")
         cap = max(128, -(-hi // 128) * 128)
@@ -975,7 +996,6 @@ def _kernel_cases(n_messages: int, seed: int, device) -> "list[KernelCase]":
             args = (_to(blocks, device), _to(n_blocks, device), _to(lengths, device))
             plain = blake2b.blake2b256_blocks_plain
             bytes_moved = int(n_blocks.sum()) * 128 + rows * (4 + 4 + 32)
-            loader = b2b_instantiation(rows)
         else:
             words = raw.view(np.uint32)
             args = (
@@ -985,9 +1005,8 @@ def _kernel_cases(n_messages: int, seed: int, device) -> "list[KernelCase]":
             )
             plain = getattr(blake2b, name + "_plain")
             bytes_moved = rows * (cap + 4 + 32)
-        cases.append(
-            KernelCase(name, loader, args, plain, golden, bytes_moved, int(n_blocks.sum()))
-        )
+        loader = b2b_instantiation(rows, name)
+        cases.append(KernelCase(name, loader, args, plain, golden, bytes_moved, int(n_blocks.sum())))
     return cases
 
 
@@ -1146,15 +1165,72 @@ def _reject_changed_value(bundle) -> None:
         raise AssertionError(f"a changed storage value was given the verdict {verdict}")
 
 
+# the row count of each blake2b launch in this process since the last
+# `_reset_counts`, by kernel (`record_launch_rows`), and beside each
+# launch-count dict `_counts` returned, the rows of its launches
+_launch_rows: "dict[str, collections.Counter[int]]" = {}
+_rows_behind: "list[tuple[dict, dict]]" = []
+_rows_lock = threading.Lock()
+
+
+def record_launch_rows() -> None:
+    """Have every blake2b wrapper's launch in this process record its row
+    count (`launch_rows_by_path`); the launch itself is unchanged."""
+    inner = blake2b._launch
+
+    def spy(name, args, n, device):
+        out = inner(name, args, n, device)
+        if n:
+            with _rows_lock:
+                _launch_rows.setdefault(name, collections.Counter())[n] += 1
+        return out
+
+    blake2b._launch = spy
+
+
 def _reset_counts() -> None:
     blake2b.reset_launch_counts()
     keccak.reset_launch_counts()
     match.reset_launch_counts()
     pipeline.reset_launch_counts()
+    with _rows_lock:
+        _launch_rows.clear()
 
 
 def _counts() -> "dict[str, int]":
-    return dict(blake2b.LAUNCHES, **keccak.LAUNCHES, **match.LAUNCHES, **pipeline.LAUNCHES)
+    counts = dict(blake2b.LAUNCHES, **keccak.LAUNCHES, **match.LAUNCHES, **pipeline.LAUNCHES)
+    with _rows_lock:
+        _rows_behind.append((counts, {name: collections.Counter(c) for name, c in _launch_rows.items()}))
+    return counts
+
+
+def launch_rows_by_path(launch_counts: "dict[str, dict]", names) -> dict:
+    """For each blake2b kernel of ``names``, the row counts of its launches
+    over all paths (``launch_counts``: path label -> its launch counts):
+    the launches counted, those whose rows this process recorded (a
+    path's counts that `_counts` returned, its recorded rows adding up to
+    them), the paths whose launches it did not see (launched in child
+    processes, or counts put together otherwise), and the recorded rows
+    exactly and in power-of-two bins [2^k, 2^(k+1))."""
+    out = {}
+    for name in names:
+        rows: "collections.Counter[int]" = collections.Counter()
+        recorded, unseen = 0, {}
+        for label, counts in launch_counts.items():
+            k = counts.get(name, 0)
+            seen = next((r.get(name, collections.Counter()) for c, r in _rows_behind if c is counts), None)
+            if seen is not None and sum(seen.values()) == k:
+                rows.update(seen)
+                recorded += k
+            elif k:
+                unseen[label] = k
+        bins: "collections.Counter[str]" = collections.Counter()
+        for n, k in sorted(rows.items()):
+            low = 1 << (n.bit_length() - 1)
+            bins[f"{low}-{2 * low - 1}"] += k
+        out[name] = {"launches": recorded + sum(unseen.values()), "recorded": recorded, "unseen": unseen,
+                     "bins": dict(bins), "rows": {str(n): k for n, k in sorted(rows.items())}}
+    return out
 
 
 def _require_launched(path: str, launches: "dict[str, int]", names) -> None:
@@ -1545,32 +1621,108 @@ def witness_multi_block(blocks, device) -> dict:
 def witness_small_blocks(blocks, device) -> dict:
     """`blake2b256_single_block` and `blake2b256_two_block` at the event
     path's own witness rows of their size classes, packed as the backend
-    packs them (rows padded to a multiple of 256): each equal to its plain
-    version and to hashlib on every row, then timed as
-    `witness_multi_block` times the multi-block kernel (warm CUDA events,
-    device time), with what its bound is made of: the real rows' bytes and
-    compressions."""
+    packs them (rows padded to a multiple of 256): with the lanes the
+    wrapper picks there and with one and four lanes forced, each equal to
+    its plain version and to hashlib on every row; then each lane count
+    timed by CUDA events over 20 back-to-back calls (warm, as
+    `witness_multi_block` times the multi-block kernel) and by its device
+    time, the two lane counts and the store-only floor at each one's
+    launch shape (`b2b_floor`) taking turns in one torch.profiler session,
+    each over its own copy of the inputs (`_split_lanes_us`); the keys
+    without a lane prefix are the wrapper's pick. With what the bound is
+    made of: the real rows' bytes and compressions."""
     out = {}
     for name, pack_rows, cap in (("blake2b256_single_block", pack_single_block_blake2b, 128),
                                  ("blake2b256_two_block", pack_two_block_blake2b, 256)):
         data = [blocks[i].data for i in _classes(blocks)[name]]
         m_lo, m_hi, lengths, rows = pack_rows(data)
         args = (_to(m_lo, device), _to(m_hi, device), _to(lengths, device))
-        kernel = getattr(blake2b, name)
-        got = kernel(*args)
-        err = _max_abs_err(got, getattr(blake2b, name + "_plain")(*args))
-        torch.cuda.synchronize()
-        if err or digests_to_bytes(got[:rows].cpu().numpy()) != [_blake2b(m) for m in data]:
-            raise AssertionError(f"{name} differs from plain or hashlib at the witness rows")
-        device_us = _device_us(lambda *_, args=args, kernel=kernel: kernel(*args), [()])
-        out[name] = {
-            "rows": rows, "padded_rows": int(m_lo.shape[0]),
-            "units": sum(max(-(-len(m) // 128), 1) for m in data),
-            "bytes": rows * (cap + 4 + 32), "max_abs_err": err,
-            "ms": _cuda_ms(lambda args=args, kernel=kernel: kernel(*args), reps=20),
-            "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
-        }
+        want = getattr(blake2b, name + "_plain")(*args)
+        golden = [_blake2b(m) for m in data]
+        on_lanes = getattr(blake2b, name + "_on_lanes")
+        sent = int(m_lo.shape[0])
+        row = {"rows": rows, "padded_rows": sent, "lanes": blake2b.lanes_for_rows(sent, name),
+               "units": sum(max(-(-len(m) // 128), 1) for m in data), "bytes": rows * (cap + 4 + 32)}
+        for key, lanes in (("", None), ("one_lane_", 1), ("four_lanes_", 4)):
+            got = on_lanes(*args, lanes)
+            err = _max_abs_err(got, want)
+            torch.cuda.synchronize()
+            if err or digests_to_bytes(got[:rows].cpu().numpy()) != golden:
+                raise AssertionError(f"{name} (lanes {lanes}) differs from plain or hashlib at the witness rows")
+            row[key + "max_abs_err"] = err
+        device_us = _split_lanes_us(name, args, floor=True)
+        for key, lanes in (("one_lane_", 1), ("four_lanes_", 4)):
+            row[key + "ms"] = _cuda_ms(lambda lanes=lanes: on_lanes(*args, lanes), reps=20)
+            row[key + "device_ms"] = _us_ms(device_us[lanes])
+            row[key + "floor_ms"] = _us_ms(device_us[f"floor {lanes}"])
+        picked = "four_lanes_" if row["lanes"] == 4 else "one_lane_"
+        for key in ("ms", "device_ms", "floor_ms"):
+            row[key] = row[picked + key]
+        out[name] = row
     return out
+
+
+def _us_ms(us: "float | None") -> "float | None":
+    return us / 1e3 if us is not None else None
+
+
+def b2b_floor(rows: int, lanes: int, device) -> torch.Tensor:
+    """`csrc/blake2b_study.cu`'s store-only kernel at a blake2b kernel's
+    launch shape for ``rows`` rows and ``lanes`` lanes a message: the
+    launch floor."""
+    out = torch.empty((rows, 8), dtype=torch.int32, device=device)
+    if rows:
+        launch(B2B_STUDY, "blake2b_store_floor", [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
+               [rows, lanes], [out], device, _raw_launches)
+    return out
+
+
+def _split_lanes_us(name: str, args: tuple, floor: bool = False) -> dict:
+    """Device µs a call of the split kernel ``name`` over ``args`` with one
+    and with four lanes a message (keys 1 and 4), and with ``floor`` the
+    store-only kernel at each one's launch shape ("floor 1", "floor 4"):
+    the cases take turns in one `_device_us_each` session, each over a
+    copy of the inputs of its own."""
+    on_lanes = getattr(blake2b, name + "_on_lanes")
+    rows, device = args[0].shape[0], args[0].device
+    cases = {
+        lanes: (lambda *a, lanes=lanes: on_lanes(*a, lanes), [tuple(a.clone() for a in args)], kernel)
+        for lanes, kernel in ((1, "blake2b256_kernel"), (4, "blake2b256_quad_kernel"))
+    }
+    if floor:
+        for lanes in (1, 4):
+            cases[f"floor {lanes}"] = (lambda lanes=lanes: b2b_floor(rows, lanes, device), [()],
+                                       "blake2b_store_floor_" + ("lane" if lanes == 1 else "quad"))
+    # a session now and then sees no device time (late in a long run it
+    # saw none for most of 41 sessions); take the first that sees all
+    for _ in range(3):
+        us = _device_us_each(cases)
+        if all(v is not None for v in us.values()):
+            break
+    return us
+
+
+def split_crossover(case: "KernelCase") -> "list[dict]":
+    """The kernel phase's single- or two-block case with one and with four
+    lanes a message over its first `SPLIT_SWEEP` rows: each equal to the
+    kernel's digests of those rows, then timed by CUDA events over 20 warm
+    back-to-back calls and by its device time (`_split_lanes_us`)."""
+    name = case.name
+    on_lanes = getattr(blake2b, name + "_on_lanes")
+    digests = getattr(blake2b, name)(*case.args)
+    sweep = []
+    for n in SPLIT_SWEEP:
+        part = tuple(a[:n] for a in case.args)
+        row = {"rows": n, "picked": blake2b.lanes_for_rows(n, name)}
+        for lanes in (1, 4):
+            if not torch.equal(on_lanes(*part, lanes), digests[:n]):
+                raise AssertionError(f"{name} at {n} rows, {lanes} lanes: differs from the kernel phase's")
+            row[f"lanes_{lanes}_ms"] = _cuda_ms(lambda lanes=lanes: on_lanes(*part, lanes), reps=20)
+        device_us = _split_lanes_us(name, part)
+        for lanes in (1, 4):
+            row[f"lanes_{lanes}_device_ms"] = _us_ms(device_us[lanes])
+        sweep.append(row)
+    return sweep
 
 
 def blocks_crossover(case: "KernelCase") -> "list[dict]":
@@ -6889,7 +7041,7 @@ def static_gates_phase() -> dict:
     cuda = json.loads(m.group(1))
     guard = cuda["guard"]
     cases = ([k[0] for k in KERNELS + KECCAK_KERNELS + MATCH_KERNELS] + [c[0] for c in BLAKE2B_BLOCK_CASES[1:]]
-             + list(FULL_SHARE_CASES))
+             + [c[0] for split in BLAKE2B_SPLIT_CASES.values() for c in split[1:]] + list(FULL_SHARE_CASES))
     if sorted(guard) != sorted(cases):
         raise AssertionError(f"static gates, cuda half: entries {sorted(guard)}")
     for entry, row in guard.items():
@@ -7040,7 +7192,7 @@ def main(argv=None) -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     _log(f"host: {_host_info()} (native scanner built from {load_scan_ext().__file__})")
 
-    built = build_libraries(KERNEL_LIBRARIES + (MATCH_STUDY,))
+    built = build_libraries(KERNEL_LIBRARIES + (MATCH_STUDY, B2B_STUDY))
     for name, info in built.items():
         _log(f"build {name}: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -7055,12 +7207,18 @@ def main(argv=None) -> int:
         _log(f"sass keccak256_kernel<{loader}>: instructions issued per absorbed block {counts} "
              f"(the algorithm's {KECCAK_OPS})")
 
+    record_launch_rows()
     b2b_cases = _kernel_cases(args.messages, args.seed, device)
     kernels = kernel_phase(b2b_cases, blake2b, BLAKE2B_OPS, per_compression)
     crossover = blocks_crossover(next(c for c in b2b_cases if c.name == "blake2b256_blocks"))
     kernels["blake2b256_blocks"]["crossover"] = crossover
     _log(f"blake2b256_blocks, one and four lanes a message, ms by rows on {smi} "
          f"(the wrapper takes four up to {blake2b.QUAD_ROWS_MAX}): {json.dumps(crossover)}")
+    for case in b2b_cases:
+        if case.name != "blake2b256_blocks":
+            kernels[case.name]["crossover"] = split_crossover(case)
+            _log(f"{case.name}, one and four lanes a message, ms by rows on {smi} (the wrapper takes four up to "
+                 f"{blake2b.quad_rows_max(case.name)}): {json.dumps(kernels[case.name]['crossover'])}")
     del b2b_cases
     kernels.update(
         kernel_phase(
@@ -7175,6 +7333,14 @@ def main(argv=None) -> int:
     launch_counts["tools soak"] = paths["tools"]["soak"]["launches"]
 
     kernels.update(paths["device match pipeline"]["kernels"])
+    # the row counts the paths launched the split kernels at, and those of
+    # them up to the crossover sweep's last that it did not time
+    split_names = ("blake2b256_single_block", "blake2b256_two_block")
+    for name, rows_of in launch_rows_by_path(launch_counts, split_names).items():
+        rows_of["unswept"] = [int(n) for n in rows_of["rows"] if int(n) <= max(SPLIT_SWEEP)
+                              and int(n) not in SPLIT_SWEEP]
+        kernels[name]["launch_rows"] = rows_of
+        _log(f"{name} launches over all paths by rows (power-of-two bins): {json.dumps(rows_of)}")
     # blake2b256_blocks at the event path's own multi-block witness rows
     wmb = paths["event path"]["witness_multi_block"]
     w_bytes_ms, w_ops_ms = wmb["bytes"] / HBM_BYTES_PER_S * 1e3, _ops_ms(BLAKE2B_OPS, wmb["units"])
@@ -7190,11 +7356,13 @@ def main(argv=None) -> int:
     # the single- and two-block kernels at the event path's witness rows
     for name, w in paths["event path"]["witness_small_blocks"].items():
         w_bytes_ms, w_ops_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3, _ops_ms(BLAKE2B_OPS, w["units"])
-        kernels[name]["witness"] = {
-            "rows": w["rows"], "padded_rows": w["padded_rows"], "ms": w["ms"], "device_ms": w["device_ms"],
-            "bound_ms": max(w_bytes_ms, w_ops_ms), "bound_by": "bytes" if w_bytes_ms >= w_ops_ms else "operations",
-            "issued_bound_ms": max(w_bytes_ms, _ops_ms(per_compression["SplitPlanes"], w["units"])),
-        }
+        kernels[name]["witness"] = dict(
+            {key: w[key] for key in w if key not in ("units", "bytes") and "max_abs_err" not in key},
+            bound_ms=max(w_bytes_ms, w_ops_ms), bound_by="bytes" if w_bytes_ms >= w_ops_ms else "operations",
+            issued_bound_ms=max(w_bytes_ms, _ops_ms(per_compression[b2b_instantiation(w["padded_rows"], name)],
+                                                    w["units"])),
+            instantiation=b2b_instantiation(w["padded_rows"], name),
+        )
         _log(f"{name} at the event path's witness rows on {smi}: {json.dumps(kernels[name]['witness'])}")
     rows = []
     for name, replaces, source, keys in [(k[0], k[1], SOURCE, (k[0],)) for k in KERNELS] + [
@@ -7218,7 +7386,7 @@ def main(argv=None) -> int:
             "library_ms": k.get("library_ms"),
         }
         row.update({key: k[key] for key in ("device_ms", "library_device_ms", "witness", "crossover", "floor_ms",
-                                            "streaming") if key in k})
+                                            "streaming", "launch_rows") if key in k})
         rows.append(row)
         issued = f", on the build's SASS {k['issued_bound_ms']}" if "issued_bound_ms" in k else ""
         _log(

@@ -16,27 +16,47 @@
 // the ALU pipe and HBM take equal time. chip_smoke.py's bound counts the
 // algorithm's operations (BLAKE2B_OPS) and the bytes needed; it prints the
 // build's own SASS counts per pipe and instantiation beside them. This
-// build issues, per compression, 1,949 ALU and 193 FMA instructions (784
-// LOP3, 576 SHF, 385 IADD3 + 196 IADD3.X, 189 IMAD.X: ptxas puts the high
-// half of most two-operand adds on the FMA pipe); the four-lane kernel
-// issues 2,036 ALU, 200 FMA and 576 SHFL over its four lanes.
+// build issues, per compression (thread-instructions, a message's lanes
+// summed): one lane 1,949 ALU and 193 FMA over PaddedBlocks, 1,953 and 194
+// over SplitPlanes (784 LOP3, 576 SHF, 385 IADD3 + 196 IADD3.X, 189
+// IMAD.X: ptxas puts the high half of most two-operand adds on the FMA
+// pipe); four lanes 2,036 ALU, 200 FMA and 576 SHFL over PaddedBlocks,
+// 2,048, 240 and 576 over SplitPlanes.
+//
+// That bound spreads a batch's work over the whole card. At the row counts
+// the paths send (a witness batch is a few thousand rows), what bounds a
+// launch is one warp's chain of compressions: a warp-wide integer
+// instruction takes two issue slots of a sub-partition's 16-lane ALU pipe,
+// so one lane a message runs ~3,900 clocks a compression (~2 us), and
+// 2,048 rows are 64 warps for the card's 528 schedulers.
 //
 // What the design does about it:
 // - Each message's 16 words, the working vector v and the state h live in
 //   registers; the sigma schedule and the rotation amounts are literals, so
 //   the unrolled rounds index registers, never local memory.
 // - Few rows cannot fill the card with one thread a message, and each lane
-//   then runs the chain of its row's compressions alone. blake2b256_blocks
-//   can put a message over four lanes (a quad; the caller picks the lanes
-//   from the row count, ops/blake2b.py QUAD_ROWS_MAX):
-//   lane q owns column q of v, __shfl_sync moves b, c and d between the
-//   column and the diagonal step, and the quad's block sits in shared
-//   memory, each lane reading the sigma-indexed words at 40 shared
-//   addresses it computes once. The chain a lane runs is then 24 G mixes a
-//   compression instead of 96; b stays in its lane across the diagonal
-//   step, so the shuffles of a, c and d overlap the end of each mix. At
-//   the event path's 2,624 witness rows it takes 9.1 us against one lane's
-//   15.9 on the H100 (PERF.md section 6).
+//   then runs the chain of its row's compressions alone. Every kernel can
+//   put a message over four lanes (a quad; the wrappers pick the lanes
+//   from the row count, ops/blake2b.py quad_rows_max): lane q owns column
+//   q of v, __shfl_sync moves a, c and d between the column and the
+//   diagonal step, and the quad's block sits in shared memory, each lane
+//   reading the sigma-indexed words at 40 shared addresses it computes
+//   once. The chain a lane runs is then 24 G mixes a compression instead
+//   of 96, on four times the warps; b stays in its lane across the
+//   diagonal step, so the shuffles of a, c and d overlap the end of each
+//   mix. Above a kernel's crossover the card is full with one lane a
+//   message, and the four lanes' extra instructions (~1.35x issued) cost
+//   more than the shorter chain gains. On the H100 (700 W) the crossover
+//   is 4,224 rows for the single-block kernel (one 32-message block an
+//   SM) and 8,448 for the two-block and multi-block kernels (two), where
+//   a row's longer chain pays for a second warp a scheduler; the
+//   measurements are beside each constant in ops/blake2b.py. At the event
+//   path's witness rows four lanes took the single-block kernel from 4.06
+//   to 3.07 us on the device (1,969 rows) and the two-block kernel from
+//   6.64 to 4.23 us (1,312 rows), against a store-only floor of ~0.93 us
+//   (PERF.md section 6). What is left is latency: each lane's 24
+//   dependent G mixes and 72 64-bit shuffles a compression, one warp a
+//   scheduler.
 // - Tried and dropped (PERF.md section 6): adds written for the FMA pipe
 //   (IMAD.WIDE.U32 + IMAD with a runtime multiplier 1, and PTX
 //   mad.lo.cc / madc pairs). ptxas turned the freed ALU slots into VIADD
@@ -52,12 +72,13 @@
 // Three C entry points keep the JAX package's layouts at the boundary
 // (the caller passes u32 data as int32 bit views), so a test feeds both
 // packages the same arrays:
-//   blake2b256_single_block(m_lo[N,16], m_hi[N,16], lengths[N,1]) -> out[N,8]
-//   blake2b256_two_block   (m_lo[N,32], m_hi[N,32], lengths[N,1]) -> out[N,8]
+//   blake2b256_single_block(m_lo[N,16], m_hi[N,16], lengths[N,1], lanes 1 or 4) -> out[N,8]
+//   blake2b256_two_block   (m_lo[N,32], m_hi[N,32], lengths[N,1], lanes 1 or 4) -> out[N,8]
 //   blake2b256_blocks      (blocks[N,B,32], n_blocks[N], lengths[N], lanes 1 or 4) -> out[N,8]
 // Digest words are [lo0, hi0, lo1, hi1, ...], the little-endian u32 view of
 // the 32-byte digest. Each entry launches on the given stream, does not
-// synchronise, and returns cudaGetLastError().
+// synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue, with
+// no launch, for lanes other than 1 or 4).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -166,6 +187,15 @@ struct SplitPlanes {
       m[4 * q + 3] = uint64_t(l.w) | (uint64_t(h.w) << 32);
     }
   }
+
+  // words 4q..4q+3 of a block (one lane of a quad): one uint4 from each
+  // plane, interleaved as PaddedBlocks::load_quarter gives them
+  __device__ __forceinline__ void load_quarter(int64_t row, int blk, int q, ulonglong2 w[2]) const {
+    const uint4 l = reinterpret_cast<const uint4*>(lo + row * words + blk * 16)[q];
+    const uint4 h = reinterpret_cast<const uint4*>(hi + row * words + blk * 16)[q];
+    w[0] = make_ulonglong2(uint64_t(l.x) | (uint64_t(h.x) << 32), uint64_t(l.y) | (uint64_t(h.y) << 32));
+    w[1] = make_ulonglong2(uint64_t(l.z) | (uint64_t(h.z) << 32), uint64_t(l.w) | (uint64_t(h.w) << 32));
+  }
 };
 
 // The pad_blake2b layout: [N, B, 32] interleaved u32 words, i.e. each
@@ -243,7 +273,7 @@ __device__ __forceinline__ uint64_t lds64(uint32_t addr) {
   return x;
 }
 
-// Four lanes a message (PaddedBlocks only). Lane q of a quad holds column q
+// Four lanes a message, over either layout. Lane q of a quad holds column q
 // of v (a = v[q], b = v[4+q], c = v[8+q], d = v[12+q]) and the state words
 // h[q], h[4+q]. For the diagonal step lane q runs diagonal mix q-1, the one
 // whose b is its own: b, the last value a mix finishes, never moves, and
@@ -254,9 +284,12 @@ __device__ __forceinline__ uint64_t lds64(uint32_t addr) {
 // and 1). Every lane of a warp runs the warp's longest row count (a quad
 // past its own count or past the rows computes and discards), so each
 // shuffle is a whole-warp one: ptxas emits a plain SHFL, where a quad's
-// own mask made it wrap each in a collective warp sync.
+// own mask made it wrap each in a collective warp sync. In the split
+// layouts a row's count follows from its length, so the two-block
+// kernel's rows of one block and of two share a warp, which runs two.
+template <class Words>
 __global__ void __launch_bounds__(kThreads)
-blake2b256_quad_kernel(PaddedBlocks words, const int32_t* __restrict__ n_blocks,
+blake2b256_quad_kernel(Words words, const int32_t* __restrict__ n_blocks,
                        const int32_t* __restrict__ lengths, int64_t n, int max_blocks,
                        uint64_t* __restrict__ out) {
   __shared__ __align__(16) uint64_t msg[kQuads][16];
@@ -322,43 +355,44 @@ blake2b256_quad_kernel(PaddedBlocks words, const int32_t* __restrict__ n_blocks,
   if (real) out[row * 4 + q] = h0;  // digest words h[0..3], one a lane
 }
 
+// lanes: 1 puts a message on one lane, 4 over four; any other value is
+// refused.
 template <class Words>
 int launch(Words words, const int32_t* n_blocks, const int32_t* lengths, long long n,
-           int max_blocks, void* out, void* stream) {
+           int max_blocks, int lanes, void* out, void* stream) {
+  if (lanes != 1 && lanes != 4) return int(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const long long grid = (n + kThreads - 1) / kThreads;
-  blake2b256_kernel<Words><<<unsigned(grid), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      words, n_blocks, lengths, n, max_blocks, static_cast<uint64_t*>(out));
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<uint64_t*>(out);
+  if (lanes == 1) {
+    const long long grid = (n + kThreads - 1) / kThreads;
+    blake2b256_kernel<Words><<<unsigned(grid), kThreads, 0, s>>>(words, n_blocks, lengths, n, max_blocks, o);
+  } else {
+    const long long grid = (n + kQuads - 1) / kQuads;
+    blake2b256_quad_kernel<Words><<<unsigned(grid), kThreads, 0, s>>>(words, n_blocks, lengths, n, max_blocks, o);
+  }
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int blake2b256_single_block(const void* m_lo, const void* m_hi, const void* lengths,
-                                       long long n, void* out, void* stream) {
+                                       long long n, int lanes, void* out, void* stream) {
   return launch(SplitPlanes{static_cast<const uint32_t*>(m_lo),
                             static_cast<const uint32_t*>(m_hi), 16},
-                nullptr, static_cast<const int32_t*>(lengths), n, 1, out, stream);
+                nullptr, static_cast<const int32_t*>(lengths), n, 1, lanes, out, stream);
 }
 
 extern "C" int blake2b256_two_block(const void* m_lo, const void* m_hi, const void* lengths,
-                                    long long n, void* out, void* stream) {
+                                    long long n, int lanes, void* out, void* stream) {
   return launch(SplitPlanes{static_cast<const uint32_t*>(m_lo),
                             static_cast<const uint32_t*>(m_hi), 32},
-                nullptr, static_cast<const int32_t*>(lengths), n, 2, out, stream);
+                nullptr, static_cast<const int32_t*>(lengths), n, 2, lanes, out, stream);
 }
 
-// lanes: 1 puts a message on one lane, 4 over four.
 extern "C" int blake2b256_blocks(const void* blocks, const void* n_blocks, const void* lengths,
                                  long long n, int max_blocks, int lanes, void* out, void* stream) {
-  const PaddedBlocks words{static_cast<const ulonglong2*>(blocks), max_blocks};
-  const auto* counts = static_cast<const int32_t*>(n_blocks);
-  const auto* lens = static_cast<const int32_t*>(lengths);
-  if (lanes == 1) return launch(words, counts, lens, n, max_blocks, out, stream);
-  if (lanes != 4) return int(cudaErrorInvalidValue);
-  if (n <= 0) return 0;
-  const long long grid = (n + kQuads - 1) / kQuads;
-  blake2b256_quad_kernel<<<unsigned(grid), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      words, counts, lens, n, max_blocks, static_cast<uint64_t*>(out));
-  return int(cudaGetLastError());
+  return launch(PaddedBlocks{static_cast<const ulonglong2*>(blocks), max_blocks},
+                static_cast<const int32_t*>(n_blocks), static_cast<const int32_t*>(lengths), n,
+                max_blocks, lanes, out, stream);
 }

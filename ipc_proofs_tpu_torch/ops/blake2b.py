@@ -12,9 +12,20 @@ wrapper                        replaces (TPU device function)             input
 `blake2b256_blocks`            ``ops/blake2b_jax.py:140`` (XLA scan)      blocks [N,B,32]; n_blocks, lengths [N]
 =============================  =========================================  ================================
 
-`blake2b256_blocks` puts a message over four lanes up to
-`QUAD_ROWS_MAX` rows and over one lane above (`lanes_for_rows`); its
-caller does not choose.
+Each wrapper puts a message over four lanes up to its kernel's crossover
+(`quad_rows_max`: `SINGLE_BLOCK_QUAD_ROWS_MAX`, `TWO_BLOCK_QUAD_ROWS_MAX`,
+`QUAD_ROWS_MAX` rows) and over one lane above (`lanes_for_rows`); its
+caller does not choose. ``<wrapper>_on_lanes`` takes the lanes (1 or 4)
+for the tests and ``chip_smoke.py``'s measurements; the digests do not
+depend on them.
+
+At the row counts the paths send, one lane a message leaves most of the
+H100's 528 warp schedulers without a warp, and each warp issues its
+row's whole chain of compressions alone on a sub-partition's 16-lane ALU
+pipe; four lanes a message run a quarter of that chain on four times the
+warps. Above a crossover the card is full either way and four lanes'
+extra instructions lose. The measurements behind each crossover are
+beside its constant below.
 
 A wrapper launches its kernel for CUDA tensors (counting the launch in
 `LAUNCHES`) and runs the plain PyTorch version only for CPU tensors; any
@@ -39,8 +50,13 @@ __all__ = [
     "LAUNCHES",
     "reset_launch_counts",
     "blake2b256_single_block",
+    "blake2b256_single_block_on_lanes",
     "blake2b256_two_block",
+    "blake2b256_two_block_on_lanes",
     "blake2b256_blocks",
+    "blake2b256_blocks_on_lanes",
+    "lanes_for_rows",
+    "quad_rows_max",
     "blake2b256_single_block_plain",
     "blake2b256_two_block_plain",
     "blake2b256_blocks_plain",
@@ -142,7 +158,7 @@ def _hash_words(words: torch.Tensor, n_blocks: torch.Tensor, lengths: torch.Tens
 def _split_words(m_lo: torch.Tensor, m_hi: torch.Tensor) -> torch.Tensor:
     """lo/hi u32 planes [N, 16k] → int64 message words [N, k, 16]."""
     pairs = torch.stack([m_lo, m_hi], dim=-1).contiguous().view(torch.int64)
-    return pairs.reshape(m_lo.shape[0], -1, 16)
+    return pairs.reshape(m_lo.shape[0], m_lo.shape[1] // 16, 16)
 
 
 def _split_counts(lengths: torch.Tensor, n_max: int) -> torch.Tensor:
@@ -171,8 +187,8 @@ def blake2b256_blocks_plain(blocks, n_blocks, lengths) -> torch.Tensor:
 # --- kernel wrappers --------------------------------------------------------
 
 _ARGTYPES = {
-    "blake2b256_single_block": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
-    "blake2b256_two_block": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2,
+    "blake2b256_single_block": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
+    "blake2b256_two_block": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2,
     "blake2b256_blocks": [ctypes.c_void_p] * 3
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p] * 2,
@@ -181,35 +197,6 @@ _ARGTYPES = {
 
 def _launch(name: str, args: list, n: int, device: torch.device) -> torch.Tensor:
     return launch_digests("blake2b", name, _ARGTYPES[name], args, n, device, LAUNCHES)
-
-
-def _split_call(name, plain, words, m_lo, m_hi, lengths) -> torch.Tensor:
-    n = m_lo.shape[0]
-    device = m_lo.device
-    check_words(name, m_lo, (n, words), device)
-    check_words(name, m_hi, (n, words), device)
-    check_words(name, lengths, (n, 1), device)
-    if runs_plain(name, device):
-        return plain(m_lo, m_hi, lengths)
-    args = [m_lo.data_ptr(), m_hi.data_ptr(), lengths.data_ptr(), n]
-    return _launch(name, args, n, device)
-
-
-def blake2b256_single_block(m_lo, m_hi, lengths) -> torch.Tensor:
-    """blake2b-256 of ≤128-byte messages: one compression, counter = length,
-    final flag set. m_lo/m_hi int32 [N, 16], lengths int32 [N, 1] → [N, 8]."""
-    return _split_call(
-        "blake2b256_single_block", blake2b256_single_block_plain, 16, m_lo, m_hi, lengths
-    )
-
-
-def blake2b256_two_block(m_lo, m_hi, lengths) -> torch.Tensor:
-    """blake2b-256 of ≤256-byte messages: block 0 with counter
-    min(len, 128), final only at len ≤ 128; block 1 (len > 128) with
-    counter len, final. m_lo/m_hi int32 [N, 32], lengths int32 [N, 1]."""
-    return _split_call(
-        "blake2b256_two_block", blake2b256_two_block_plain, 32, m_lo, m_hi, lengths
-    )
 
 
 # Up to this many rows `blake2b256_blocks` puts a message over four lanes,
@@ -222,11 +209,90 @@ def blake2b256_two_block(m_lo, m_hi, lengths) -> torch.Tensor:
 # 10,240 (chip_smoke.py's kernel phase, ``blocks_crossover``; PERF.md
 # section 6).
 QUAD_ROWS_MAX = 8448
+# Up to this many rows `blake2b256_single_block` puts a message over four
+# lanes, above over one: 4,224 rows are one 32-message block of the
+# four-lane kernel on each of the H100's 132 SMs, one warp a scheduler; a
+# second block on an SM gives its schedulers two warps to take turns on.
+# On the H100 (700 W), rows of 0-128 B in random order (chip_smoke.py's
+# kernel phase, ``split_crossover``; PERF.md section 6): from 256 to
+# 4,224 rows four lanes took 3.13-3.34 us on the device against one
+# lane's 3.84-4.64, and 4.28-4.35 against 4.71-5.26 by warm CUDA events;
+# from 4,352 to 8,448 rows the device times were level (4.63-4.73 against
+# 4.46-4.72) and four lanes slower by events (5.59-5.69 against
+# 5.21-5.31).
+SINGLE_BLOCK_QUAD_ROWS_MAX = 4224
+# The same for `blake2b256_two_block`, rows of 129-256 B. A row's two
+# compressions make each lane's chain twice as long, so four lanes still
+# win with two blocks an SM: device 4.21-4.58 us against 6.68-7.73 up to
+# 4,224 rows and 6.59-6.86 against 7.59-7.89 from 4,352 to 8,448 (events
+# 5.45-5.56 against 7.66-8.28, and 7.59-7.75 against 8.25-8.41); from
+# 8,576 rows on, 8.79-8.93 against 7.73-7.80 (events 9.69-9.81 against
+# 8.28-8.42).
+TWO_BLOCK_QUAD_ROWS_MAX = 8448
 
 
-def lanes_for_rows(rows: int) -> int:
-    """The lanes a message that `blake2b256_blocks` takes at ``rows`` rows."""
-    return 4 if rows <= QUAD_ROWS_MAX else 1
+def quad_rows_max(name: str = "blake2b256_blocks") -> int:
+    """The most rows at which the kernel ``name`` puts a message over four
+    lanes."""
+    return {
+        "blake2b256_single_block": SINGLE_BLOCK_QUAD_ROWS_MAX,
+        "blake2b256_two_block": TWO_BLOCK_QUAD_ROWS_MAX,
+        "blake2b256_blocks": QUAD_ROWS_MAX,
+    }[name]
+
+
+def lanes_for_rows(rows: int, name: str = "blake2b256_blocks") -> int:
+    """The lanes a message that the kernel ``name`` takes at ``rows`` rows."""
+    return 4 if rows <= quad_rows_max(name) else 1
+
+
+def _lanes(name: str, rows: int, lanes: "int | None") -> int:
+    lanes = lanes_for_rows(rows, name) if lanes is None else lanes
+    if lanes not in (1, 4):
+        raise ValueError(f"{name}: lanes {lanes}, expected 1 or 4")
+    return lanes
+
+
+def _split_call(name, plain, words, m_lo, m_hi, lengths, lanes) -> torch.Tensor:
+    n = m_lo.shape[0]
+    device = m_lo.device
+    check_words(name, m_lo, (n, words), device)
+    check_words(name, m_hi, (n, words), device)
+    check_words(name, lengths, (n, 1), device)
+    lanes = _lanes(name, n, lanes)
+    if runs_plain(name, device):
+        return plain(m_lo, m_hi, lengths)
+    args = [m_lo.data_ptr(), m_hi.data_ptr(), lengths.data_ptr(), n, lanes]
+    return _launch(name, args, n, device)
+
+
+def blake2b256_single_block(m_lo, m_hi, lengths) -> torch.Tensor:
+    """blake2b-256 of ≤128-byte messages: one compression, counter = length,
+    final flag set. m_lo/m_hi int32 [N, 16], lengths int32 [N, 1] → [N, 8]."""
+    return blake2b256_single_block_on_lanes(m_lo, m_hi, lengths, None)
+
+
+def blake2b256_single_block_on_lanes(m_lo, m_hi, lengths, lanes: "int | None") -> torch.Tensor:
+    """`blake2b256_single_block` with its lanes a message given: 1 or 4, or
+    None for `lanes_for_rows`. The digests do not depend on it."""
+    return _split_call(
+        "blake2b256_single_block", blake2b256_single_block_plain, 16, m_lo, m_hi, lengths, lanes
+    )
+
+
+def blake2b256_two_block(m_lo, m_hi, lengths) -> torch.Tensor:
+    """blake2b-256 of ≤256-byte messages: block 0 with counter
+    min(len, 128), final only at len ≤ 128; block 1 (len > 128) with
+    counter len, final. m_lo/m_hi int32 [N, 32], lengths int32 [N, 1]."""
+    return blake2b256_two_block_on_lanes(m_lo, m_hi, lengths, None)
+
+
+def blake2b256_two_block_on_lanes(m_lo, m_hi, lengths, lanes: "int | None") -> torch.Tensor:
+    """`blake2b256_two_block` with its lanes a message given: 1 or 4, or
+    None for `lanes_for_rows`. The digests do not depend on it."""
+    return _split_call(
+        "blake2b256_two_block", blake2b256_two_block_plain, 32, m_lo, m_hi, lengths, lanes
+    )
 
 
 def blake2b256_blocks(blocks, n_blocks, lengths) -> torch.Tensor:
@@ -246,9 +312,7 @@ def blake2b256_blocks_on_lanes(blocks, n_blocks, lengths, lanes: "int | None") -
     check_words(name, blocks, (n, n_max, 32), device)
     check_words(name, n_blocks, (n,), device)
     check_words(name, lengths, (n,), device)
-    lanes = lanes_for_rows(n) if lanes is None else lanes
-    if lanes not in (1, 4):
-        raise ValueError(f"{name}: lanes {lanes}, expected 1 or 4")
+    lanes = _lanes(name, n, lanes)
     if runs_plain(name, device):
         return blake2b256_blocks_plain(blocks, n_blocks, lengths)
     args = [blocks.data_ptr(), n_blocks.data_ptr(), lengths.data_ptr(), n, n_max, lanes]

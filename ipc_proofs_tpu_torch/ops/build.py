@@ -63,8 +63,9 @@ __all__ = [
     "runs_plain",
 ]
 
-# every ``csrc/<name>.cu`` the package launches (``csrc/match_study.cu`` is
-# chip_smoke.py's measurement-only source, built there alone)
+# every ``csrc/<name>.cu`` the package launches (``csrc/match_study.cu`` and
+# ``csrc/blake2b_study.cu`` are chip_smoke.py's measurement-only sources,
+# built there alone)
 KERNEL_LIBRARIES = ("blake2b", "keccak", "match")
 
 _PKG = Path(__file__).resolve().parent.parent

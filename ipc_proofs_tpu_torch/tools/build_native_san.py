@@ -26,7 +26,7 @@ up to the padded maximum, rows whose block count is 0, negative or past
 the padded maximum; match worlds of 1, 3, 4, 5 and 33 events a receipt,
 the actor filter on and off, receipt ids outside ``[0, num)``; and row
 counts around the warp and thread-block edges up to 4,097;
-``blake2b256_blocks`` also with one and four lanes a message forced, and
+each blake2b entry also with one and four lanes a message forced, and
 on both sides of its four-lane crossover; the two flat masks also with
 topic0 equal to the spec on every row and every fingerprint equal to the
 target, at row counts that are not multiples of 2, 4 or 8), each held
@@ -102,6 +102,11 @@ BLAKE2B_BLOCK_CASES = (
     ("blake2b256_blocks[1 lane]", 1),
     ("blake2b256_blocks[4 lanes]", 4),
 )
+# the same for the single- and two-block entries
+BLAKE2B_SPLIT_CASES = {
+    entry: ((entry, None), (f"{entry}[1 lane]", 1), (f"{entry}[4 lanes]", 4))
+    for entry in ("blake2b256_single_block", "blake2b256_two_block")
+}
 MATCH_ENTRIES = ("match_pipeline", "event_match_mask", "event_match_mask_fp", "receipts_with_match")
 MATCH_EVENTS = (1, 3, 4, 5, 33)  # events a receipt of the match pipeline's cases, in turn
 MATCH_ACTOR = 1001
@@ -349,8 +354,8 @@ def kernel_cases(seed: int = 0):
     """(entry, rows, inputs, extra ints) for every kernel entry and row
     count: ``inputs`` are numpy arrays in the entry's argument order (u32
     data as u32 or int32 words), ``extra`` the ints after the row count
-    (the padded maximum of the multi-block entries, then blake2b256_blocks'
-    lanes a message; the match entries'
+    (the padded maximum of the multi-block entries, then the blake2b
+    entries' lanes a message; the match entries'
     events a receipt, fingerprint target, or receipt count and id width)."""
     import numpy as np
 
@@ -358,12 +363,8 @@ def kernel_cases(seed: int = 0):
 
     for k, n in enumerate(ROW_COUNTS):
         rng = np.random.default_rng([seed, k])
-        m_lo, m_hi, lengths, _ = pack.pack_single_block_blake2b(
-            _messages(rng, BLAKE2B_SINGLE_LENGTHS, n, 128))
-        yield "blake2b256_single_block", n, (m_lo[:n], m_hi[:n], lengths[:n]), ()
-        m_lo, m_hi, lengths, _ = pack.pack_two_block_blake2b(
-            _messages(rng, BLAKE2B_TWO_LENGTHS, n, 256))
-        yield "blake2b256_two_block", n, (m_lo[:n], m_hi[:n], lengths[:n]), ()
+        for entry, cases in BLAKE2B_SPLIT_CASES.items():
+            yield from _blake2b_split_cases(rng, n, entry, cases)
         yield from _blake2b_block_cases(rng, n, PADDED_BLOCKS, BLAKE2B_BLOCK_CASES)
         blo, bhi, _ = pack.pack_single_block_keccak(_messages(rng, KECCAK_SINGLE_LENGTHS, n, 135))
         yield "keccak256_single_block", n, (blo[:n], bhi[:n]), ()
@@ -374,11 +375,30 @@ def kernel_cases(seed: int = 0):
         yield from _match_cases(rng, k, n)
     for k, n in enumerate(FULL_SHARE_ROWS):
         yield from _full_share_cases(np.random.default_rng([seed, 200 + k]), n)
-    # the wrapper's lanes on each side of the crossover: four, then one
+    # the wrappers' lanes on each side of their crossovers: four, then one
     most = blake2b.QUAD_ROWS_MAX
     for k, n in enumerate((most, most + 1)):
         yield from _blake2b_block_cases(np.random.default_rng([seed, 100 + k]), n, CROSSOVER_BLOCKS,
                                         BLAKE2B_BLOCK_CASES[:1])
+    for j, (entry, cases) in enumerate(BLAKE2B_SPLIT_CASES.items()):
+        most = blake2b.quad_rows_max(entry)
+        for k, n in enumerate((most, most + 1)):
+            yield from _blake2b_split_cases(np.random.default_rng([seed, 110 + 2 * j + k]), n, entry, cases[:1])
+
+
+def _blake2b_split_cases(rng, n: int, entry: str, cases):
+    """The ``cases`` (of `BLAKE2B_SPLIT_CASES`) of ``entry`` at ``n`` rows,
+    every message at a block edge of its layout: extra ints (lanes a
+    message)."""
+    from ipc_proofs_tpu_torch.ops import blake2b, pack
+
+    if entry == "blake2b256_single_block":
+        packer, edges, cap = pack.pack_single_block_blake2b, BLAKE2B_SINGLE_LENGTHS, 128
+    else:
+        packer, edges, cap = pack.pack_two_block_blake2b, BLAKE2B_TWO_LENGTHS, 256
+    m_lo, m_hi, lengths, _ = packer(_messages(rng, edges, n, cap))
+    for name, lanes in cases:
+        yield name, n, (m_lo[:n], m_hi[:n], lengths[:n]), (lanes or blake2b.lanes_for_rows(n, entry),)
 
 
 def _blake2b_block_cases(rng, n: int, padded: int, cases):

@@ -155,16 +155,70 @@ class TestPlainVersusReference:
                 assert pack.digests_to_bytes(_words(out)[:n]) == _golden(msg)
 
 
-class TestLanes:
-    """`blake2b256_blocks` puts a message over four lanes below
-    `QUAD_ROWS_MAX` rows and over one above; the digests do not
-    depend on the lanes: against the XLA kernel and hashlib."""
+# the kernels whose wrappers pick their lanes a message from the row count:
+# (short id, packer of the JAX package, its Pallas kernel, byte cap); the
+# multi-block kernel's test ids stay bare
+LANE_KERNELS = {
+    "blake2b256_blocks": None,
+    "blake2b256_single_block": ("single", ref_pack_single, blake2b256_single_block_pallas, 128),
+    "blake2b256_two_block": ("two", ref_pack_two, blake2b256_two_block_pallas, 256),
+}
+CROSSOVERS = {
+    "blake2b256_blocks": "QUAD_ROWS_MAX",
+    "blake2b256_single_block": "SINGLE_BLOCK_QUAD_ROWS_MAX",
+    "blake2b256_two_block": "TWO_BLOCK_QUAD_ROWS_MAX",
+}
 
-    @pytest.mark.parametrize("lanes", [1, 4])
-    @pytest.mark.parametrize("case", ["mixed", "odd-counts", "empty"])
-    def test_any_lanes_give_the_reference_digests(self, case, lanes):
+
+def _by_kernel(params, kernels=tuple(LANE_KERNELS)):
+    """``params`` ((values, id) of a test's other arguments) for each of
+    ``kernels``, the kernel first."""
+    return [
+        pytest.param(kernel, *values, id=pid if LANE_KERNELS[kernel] is None else f"{LANE_KERNELS[kernel][0]}-{pid}")
+        for kernel in kernels
+        for values, pid in params
+    ]
+
+
+def _on_lanes(kernel: str, *args, lanes):
+    return getattr(blake2b, kernel + "_on_lanes")(*args, lanes)
+
+
+def _split_args(kernel: str, lengths, seed: int):
+    """Messages of ``lengths`` packed for ``kernel`` by the JAX package's
+    packer: (messages, u32 arrays, real rows)."""
+    msgs = _messages(lengths, seed=seed)
+    *arrays, n = LANE_KERNELS[kernel][1](msgs)
+    return msgs, arrays, n
+
+
+class TestLanes:
+    """Each blake2b wrapper puts a message over four lanes up to its
+    crossover (`QUAD_ROWS_MAX`, `SINGLE_BLOCK_QUAD_ROWS_MAX`,
+    `TWO_BLOCK_QUAD_ROWS_MAX` rows) and over one above; the digests do not
+    depend on the lanes: against the JAX package's kernels and hashlib."""
+
+    @pytest.mark.parametrize(
+        "kernel,case,lanes",
+        _by_kernel([((case, lanes), f"{case}-{lanes}") for case in ("mixed", "odd-counts", "empty") for lanes in (1, 4)]),
+    )
+    def test_any_lanes_give_the_reference_digests(self, kernel, case, lanes):
         rng = np.random.default_rng(21)
         n = 0 if case == "empty" else 97
+        if LANE_KERNELS[kernel] is not None:
+            # odd counts: every block edge of the layout, so a warp's rows
+            # run one compression and two side by side
+            cap, pallas = LANE_KERNELS[kernel][3], LANE_KERNELS[kernel][2]
+            edges = [length for length in EDGE_LENGTHS if length <= cap]
+            lengths = (edges * 9)[:n] if case == "odd-counts" else rng.integers(0, cap + 1, n).tolist()
+            msgs, arrays, rows = _split_args(kernel, lengths, seed=22)
+            ours = _words(_on_lanes(kernel, *(_t(a) for a in arrays), lanes=lanes))
+            if rows:
+                ref = np.asarray(pallas(*(jnp.asarray(a) for a in arrays), interpret=True))
+                np.testing.assert_array_equal(ours, ref)
+            assert ours.shape == (arrays[0].shape[0], 8)
+            assert pack.digests_to_bytes(ours[:rows]) == _golden(msgs)
+            return
         msgs = _messages(rng.integers(0, 5 * 128 + 1, n).tolist(), seed=22)
         blocks, n_blocks, lengths = ref_pack.pad_blake2b(msgs, 6)
         if case == "odd-counts":
@@ -179,23 +233,40 @@ class TestLanes:
         most = blake2b.QUAD_ROWS_MAX
         assert [blake2b.lanes_for_rows(n) for n in (0, 1, most, most + 1, 10 * most)] == [4, 4, 4, 1, 1]
 
-    @pytest.mark.parametrize("most,lanes", [(2, 4), (1, 1)])
-    def test_wrapper_passes_the_lanes_of_its_row_count(self, monkeypatch, most, lanes):
-        """The lanes the wrapper gives the C entry, at 2 rows with the
+    @pytest.mark.parametrize("kernel", ["blake2b256_single_block", "blake2b256_two_block"], ids=["single", "two"])
+    def test_split_lanes_switch_at_their_crossovers(self, kernel):
+        """The split kernels' crossovers, at their boundaries, and the
+        multi-block kernel's unmoved by them."""
+        most = getattr(blake2b, CROSSOVERS[kernel])
+        assert [blake2b.lanes_for_rows(n, kernel) for n in (0, 1, most, most + 1, 10 * most)] == [4, 4, 4, 1, 1]
+        assert blake2b.lanes_for_rows(blake2b.QUAD_ROWS_MAX) == 4
+        assert blake2b.lanes_for_rows(blake2b.QUAD_ROWS_MAX + 1) == 1
+
+    @pytest.mark.parametrize("kernel,most,lanes", _by_kernel([((2, 4), "2-4"), ((1, 1), "1-1")]))
+    def test_wrapper_passes_the_lanes_of_its_row_count(self, monkeypatch, kernel, most, lanes):
+        """The lanes the wrapper gives the C entry, at 2 rows with its
         crossover moved to 2 (four lanes) and to 1 (one)."""
         seen = []
-        monkeypatch.setattr(blake2b, "QUAD_ROWS_MAX", most)
+        monkeypatch.setattr(blake2b, CROSSOVERS[kernel], most)
         monkeypatch.setattr(blake2b, "runs_plain", lambda name, device: False)
         monkeypatch.setattr(blake2b, "_launch", lambda name, args, n, device: seen.append((name, args[3:], n)))
-        blocks, n_blocks, lengths = pack.pad_blake2b(_messages([300, 700], seed=24))
-        blake2b.blake2b256_blocks(_t(blocks), _t(n_blocks), _t(lengths))
-        assert seen == [("blake2b256_blocks", [2, blocks.shape[1], lanes], 2)]
+        if LANE_KERNELS[kernel] is None:
+            blocks, n_blocks, lengths = pack.pad_blake2b(_messages([300, 700], seed=24))
+            blake2b.blake2b256_blocks(_t(blocks), _t(n_blocks), _t(lengths))
+            assert seen == [("blake2b256_blocks", [2, blocks.shape[1], lanes], 2)]
+            return
+        _, arrays, _ = _split_args(kernel, [100, 0], seed=24)
+        getattr(blake2b, kernel)(*(_t(a[:2]) for a in arrays))
+        assert seen == [(kernel, [2, lanes], 2)]
 
-    @pytest.mark.parametrize("lanes", [0, 2, 32])
-    def test_other_lanes_raise(self, lanes):
-        blocks, n_blocks, lengths = pack.pad_blake2b(_messages([300], seed=25))
+    @pytest.mark.parametrize("kernel,lanes", _by_kernel([((lanes,), str(lanes)) for lanes in (0, 2, 32)]))
+    def test_other_lanes_raise(self, kernel, lanes):
+        if LANE_KERNELS[kernel] is None:
+            args = pack.pad_blake2b(_messages([300], seed=25))
+        else:
+            _, args, _ = _split_args(kernel, [100], seed=25)
         with pytest.raises(ValueError, match="lanes"):
-            blake2b.blake2b256_blocks_on_lanes(_t(blocks), _t(n_blocks), _t(lengths), lanes)
+            _on_lanes(kernel, *(_t(a) for a in args), lanes=lanes)
 
 
 class TestWrappers:
@@ -262,3 +333,66 @@ class TestSizeClassSplit:
             flipped = list(msgs)
             flipped[i] = bytes([msgs[i][0] ^ 1]) + msgs[i][1:]
             assert not backend.verify_block_cids(digests, flipped)
+
+
+class TestSmokeLaneBookkeeping:
+    """What ``chip_smoke.py`` reports beside the lanes: which kernel
+    instantiation a call runs (the SASS counts' keys) and the row counts of
+    the paths' launches."""
+
+    @pytest.mark.parametrize("mangled,key", [
+        ("_ZN12_GLOBAL__N_117blake2b256_kernelINS_11SplitPlanesEEEvT_PKiS4_xiPm", "SplitPlanes"),
+        ("_ZN12_GLOBAL__N_117blake2b256_kernelINS_12PaddedBlocksEEEvT_PKiS4_xiPm", "PaddedBlocks"),
+        ("_ZN12_GLOBAL__N_122blake2b256_quad_kernelINS_11SplitPlanesEEEvT_PKiS4_xiPm", "quad<SplitPlanes>"),
+        ("_ZN12_GLOBAL__N_122blake2b256_quad_kernelINS_12PaddedBlocksEEEvT_PKiS4_xiPm", "quad<PaddedBlocks>"),
+    ], ids=["split", "padded", "quad-split", "quad-padded"])
+    def test_each_instantiation_has_its_own_sass_key(self, mangled, key):
+        import chip_smoke
+
+        assert chip_smoke._b2b_instantiation(mangled) == key
+        assert key in chip_smoke.B2B_LANES
+
+    @pytest.mark.parametrize("kernel", list(LANE_KERNELS), ids=["blocks", "single", "two"])
+    def test_the_instantiation_follows_the_lanes_picked(self, kernel):
+        import chip_smoke
+
+        loader = "PaddedBlocks" if kernel == "blake2b256_blocks" else "SplitPlanes"
+        most = blake2b.quad_rows_max(kernel)
+        assert chip_smoke.b2b_instantiation(most, kernel) == f"quad<{loader}>"
+        assert chip_smoke.b2b_instantiation(most + 1, kernel) == loader
+
+    def test_launch_rows_add_up_by_path(self, monkeypatch):
+        """Rows recorded per path between a reset and a read, binned by
+        powers of two; a path whose counts came from elsewhere (a child
+        process) is named as unseen, not guessed."""
+        import chip_smoke
+
+        def counted(name, args, n, device):
+            blake2b.LAUNCHES[name] += 1
+
+        monkeypatch.setattr(blake2b, "_launch", counted)
+        monkeypatch.setattr(blake2b, "runs_plain", lambda name, device: False)
+        monkeypatch.setattr(chip_smoke, "_rows_behind", [])
+        chip_smoke.record_launch_rows()
+
+        def launch(rows):
+            _, arrays, _ = _split_args("blake2b256_single_block", [5] * rows, seed=rows)
+            blake2b.blake2b256_single_block(*(_t(a[:rows]) for a in arrays))
+
+        chip_smoke._reset_counts()
+        launch(300)
+        launch(256)
+        launch(2048)
+        first = chip_smoke._counts()
+        chip_smoke._reset_counts()
+        launch(1)
+        second = chip_smoke._counts()
+        chip_smoke._reset_counts()
+        paths = {"a": first, "b": second, "child": {"blake2b256_single_block": 4, "blake2b256_two_block": 0}}
+        got = chip_smoke.launch_rows_by_path(paths, ["blake2b256_single_block", "blake2b256_two_block"])
+        assert got["blake2b256_single_block"] == {
+            "launches": 8, "recorded": 4, "unseen": {"child": 4},
+            "bins": {"1-1": 1, "256-511": 2, "2048-4095": 1},
+            "rows": {"1": 1, "256": 1, "300": 1, "2048": 1},
+        }
+        assert got["blake2b256_two_block"] == {"launches": 0, "recorded": 0, "unseen": {}, "bins": {}, "rows": {}}

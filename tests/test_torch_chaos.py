@@ -24,6 +24,7 @@ import functools
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -143,9 +144,33 @@ def test_shard_grid_holds_with_the_references_outcomes(monkeypatch):
             s.stop(timeout=10)
 
 
-def test_slow_shard_is_quarantined_not_failed():
+def test_slow_shard_is_quarantined_not_failed(monkeypatch):
+    """All three verdicts of `run_slow_shard_grid`. The router times each
+    shard call on a clock that moves, on the dispatching thread, only by
+    the slow shard's own delay (which the shard still sleeps): load on the
+    host adds wall-clock time to the fast shard's calls too, and kept the
+    latency EWMA's gap under the steal threshold."""
+    from ipc_proofs_tpu_torch.cluster import router as router_module
+
+    clock = threading.local()
+
+    def monotonic():
+        return getattr(clock, "now", 0.0)
+
+    class ClockedSlowShardClient(chaos.SlowShardClient):
+        def post(self, path, body):
+            clock.now = monotonic() + self.delay_s
+            return super().post(path, body)
+
+        def post_stream(self, path, body):
+            clock.now = monotonic() + self.delay_s
+            return super().post_stream(path, body)
+
+    monkeypatch.setattr(router_module, "time", SimpleNamespace(monotonic=monotonic))
+    monkeypatch.setattr(chaos, "SlowShardClient", ClockedSlowShardClient)
     summary = chaos.run_slow_shard_grid(2, rounds=4, backend=CPU)
     assert summary["ok"], summary
+    assert summary["slow_quarantines"] > 0 and summary["slow_shard_alive"] and not summary["divergent"]
 
 
 class _FaultyBackend:

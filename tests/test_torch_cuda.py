@@ -106,6 +106,36 @@ def test_blocks_kernel_on_each_lane_count_equals_plain_and_hashlib(cuda_device, 
     assert pack.digests_to_bytes(out.cpu().numpy()) == [hashlib.blake2b(m, digest_size=32).digest() for m in messages]
 
 
+SPLIT_KERNELS = {
+    # name: (packer, message lengths at its block edges, crossover constant)
+    "blake2b256_single_block": (pack.pack_single_block_blake2b, (0, 1, 127, 128), "SINGLE_BLOCK_QUAD_ROWS_MAX"),
+    "blake2b256_two_block": (pack.pack_two_block_blake2b, (0, 128, 129, 255, 256), "TWO_BLOCK_QUAD_ROWS_MAX"),
+}
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 4], ids=["by-rows", "one-lane", "four-lanes"])
+@pytest.mark.parametrize("rows", ["1", "31", "33", "2048", "at-crossover", "past-crossover"])
+@pytest.mark.parametrize("name", list(SPLIT_KERNELS), ids=["single", "two"])
+def test_split_kernels_on_each_lane_count_equal_plain_and_hashlib(cuda_device, name, rows, lanes):
+    """The single- and two-block kernels with the wrapper's lanes and each
+    forced, at row counts that are not a multiple of a block's 32 quads
+    and on both sides of the crossover, every row at a block edge (a
+    two-block warp runs rows of one block beside rows of two): equal to
+    the plain version and to hashlib, one launch a call."""
+    packer, edges, crossover = SPLIT_KERNELS[name]
+    most = getattr(blake2b, crossover)
+    n = {"at-crossover": most, "past-crossover": most + 1}.get(rows) or int(rows)
+    messages = _messages([edges[i % len(edges)] for i in range(n)], seed=n)
+    m_lo, m_hi, lengths, _ = packer(messages)
+    args = [_t(m_lo[:n]), _t(m_hi[:n]), _t(lengths[:n])]
+    blake2b.reset_launch_counts()
+    out = getattr(blake2b, name + "_on_lanes")(*(a.to(cuda_device) for a in args), lanes)
+    torch.cuda.synchronize()
+    assert blake2b.LAUNCHES[name] == 1 and sum(blake2b.LAUNCHES.values()) == 1
+    assert torch.equal(out.cpu(), getattr(blake2b, name + "_plain")(*args))
+    assert pack.digests_to_bytes(out.cpu().numpy()) == [hashlib.blake2b(m, digest_size=32).digest() for m in messages]
+
+
 def test_backend_split_on_card(cuda_device):
     messages = _messages(LENGTHS * 5, seed=3)
     assert get_backend("gpu").blake2b256_batch(messages) == [

@@ -657,11 +657,28 @@ def _warm_read(package: str, store_dir: str, depth: int):
     plane.set_local(tier)
     try:
         out = chunked(tier, pairs, spec, chunk_size=3, metrics=m, **match).to_json()
+        _drain(plane)
     finally:
         plane.close()
         disk.close()
     counters = m.snapshot()["counters"]
     return out, node.served, {k: v for k, v in counters.items() if k.startswith(("rpc.", "fetch."))}
+
+
+def _drain(plane, timeout_s: float = 60.0) -> None:
+    """Wait until ``plane`` (either package's) has fetched every want it
+    queued. The walk ends as soon as its own blocks are read; closing the
+    plane then drops the speculative wants its dispatchers have not taken
+    yet, and how many that is follows thread scheduling, in both
+    packages."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with plane._cond:
+            if not plane._demand_q and not plane._spec_q and all(w.done for w in plane._wants.values()):
+                return
+        if time.monotonic() > deadline:
+            raise AssertionError("the fetch plane did not drain its queued wants")
+        time.sleep(0.005)
 
 
 class TestWarmRestartSpeculation:

@@ -19,6 +19,7 @@ port's router over two ``serve --backend cpu`` children from
 import os
 import re
 import time
+from types import SimpleNamespace
 
 import pytest
 
@@ -192,7 +193,12 @@ def test_fleet_exposition_byte_equal(router):
     )
 
 
-def test_merge_flight_snapshots_equal_reference():
+def test_merge_flight_snapshots_equal_reference(monkeypatch):
+    # both packages stamp the merge with round(time.time(), 3): one wall
+    # clock for both calls, or a millisecond boundary between them differs
+    clock = SimpleNamespace(time=lambda now=time.time(): now)
+    for module in (port_fleet, ref_fleet):
+        monkeypatch.setattr(module, "time", clock)
     rings = {
         "s0": {"spans": [{"name": "a", "wall_ts": 3.0}, {"name": "b", "wall_ts": 1.0}],
                "logs": [{"msg": "w", "ts": 2.0, "level": "WARNING"}]},

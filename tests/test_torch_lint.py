@@ -259,20 +259,25 @@ def test_guard_band_check_passes_the_plain_versions(monkeypatch):
     from ipc_proofs_tpu_torch.tools import build_native_san as san
 
     monkeypatch.setattr(san, "ROW_COUNTS", (1, 33, 129))
+    crossovers = {"blake2b256_blocks": 40, "blake2b256_single_block": 50, "blake2b256_two_block": 60}
     monkeypatch.setattr(blake2b, "QUAD_ROWS_MAX", 40)
+    monkeypatch.setattr(blake2b, "SINGLE_BLOCK_QUAD_ROWS_MAX", 50)
+    monkeypatch.setattr(blake2b, "TWO_BLOCK_QUAD_ROWS_MAX", 60)
     report = san.check_kernels(torch.device("cpu"), _plain_call)
     assert sorted(report) == sorted([
-        "blake2b256_single_block", "blake2b256_two_block", "blake2b256_blocks",
-        "blake2b256_blocks[1 lane]", "blake2b256_blocks[4 lanes]",
+        "blake2b256_single_block", "blake2b256_single_block[1 lane]", "blake2b256_single_block[4 lanes]",
+        "blake2b256_two_block", "blake2b256_two_block[1 lane]", "blake2b256_two_block[4 lanes]",
+        "blake2b256_blocks", "blake2b256_blocks[1 lane]", "blake2b256_blocks[4 lanes]",
         "keccak256_single_block", "keccak256_blocks",
         "match_pipeline", "event_match_mask", "event_match_mask_fp", "receipts_with_match",
         *san.FULL_SHARE_CASES,
     ])
-    # the case whose lanes follow the row count also runs on both sides of
-    # the four-lane crossover; the flat masks' full-share cases run at their
+    # each case whose lanes follow the row count also runs on both sides of
+    # its four-lane crossover; the flat masks' full-share cases run at their
     # own row counts
     for entry, row in report.items():
-        rows = [1, 33, 129] + ([40, 41] if entry == "blake2b256_blocks" else [])
+        most = crossovers.get(entry)
+        rows = [1, 33, 129] + ([most, most + 1] if most else [])
         if entry in san.FULL_SHARE_CASES:
             rows = list(san.FULL_SHARE_ROWS)
         assert row == {"launches": len(rows) * san.GUARD_FILLS, "rows": rows, "violations": [], "mismatches": 0}
