@@ -41,8 +41,9 @@ Phases, none of which may fail:
    (262,144 events, 16.8 MB of topic words), through the four kernels of
    ``csrc/match.cu``, counts from 0: ``match_pipeline`` on the card and
    ``sharded_match_pipeline`` on the real mesh ``make_mesh(1)`` and on a
-   virtual (dp=2, sp=2) mesh over ``[cuda:0] * 4`` (six launches),
-   ``receipts_with_match`` over the flat mask (one), and the same events'
+   virtual (dp=2, sp=2) mesh over ``[cuda:0] * 4`` (six launches; a
+   mesh's blocks write into its outputs with no ``torch.cat`` or
+   ``torch.stack``), ``receipts_with_match`` over the flat mask (one), and the same events'
    full-word and fingerprint masks through the backend on one device and
    on the virtual mesh (one and four launches each): each bit-equal to the
    plain run on the CPU; then each kernel against its plain version on the
@@ -51,7 +52,9 @@ Phases, none of which may fail:
    rows not a multiple of a block's, an empty world, the actor filter off
    and on, receipt ids over [-2·num, 2·num) in int32 and int64); then
    ``match_pipeline`` timed by ``measure_pass_seconds`` (µs a pass,
-   events/s, from replays of one CUDA graph) and every kernel by CUDA
+   events/s, from replays of one CUDA graph; the kernels a call runs by
+   the profiler: a mesh's calls run match_pipeline's launches and its
+   count's memset, nothing else) and every kernel by CUDA
    events beside its plain version, its byte bound and, for the receipt
    reduce, one PyTorch call (``mask.view(-1, E).any(-1)``), and the
    fingerprint mask's whole call with its host copies; then the two flat
@@ -64,7 +67,11 @@ Phases, none of which may fail:
    the byte bound; both full-word masks over 0, 1, 10, 50 and 100 % of
    events whose topic0 matches, with the bound in 32-B and 64-B sectors;
    and each mask's whole call taken apart into host work, copies, launch
-   and copy back;
+   and copy back; and ``match_pipeline``'s designs (`pipeline_study`:
+   the package's, PR 16's, the count in one launch, a persistent grid, a
+   TMA ring, two events a thread; ``csrc/match_study.cu``) held equal to
+   the plain version and timed at 262,144, 65,536 and 64 events, with
+   each kernel's registers, blocks an SM and waves;
 3b. CID bench — ``blake2b_cid_bench_setup`` over 1,048,576 nodes of 200 B
    from the seed (BASELINE config 4; the two-block kernel): every first
    digest equal to hashlib; CIDs/s by the slope of k passes, and the kernel
@@ -656,7 +663,12 @@ from ipc_proofs_tpu_torch.tools import chaos as chaos_tool
 from ipc_proofs_tpu_torch.tools import crashtest as crashtest_tool
 from ipc_proofs_tpu_torch.tools import soak as soak_tool
 from ipc_proofs_tpu_torch.tools import traceview as traceview_tool
-from ipc_proofs_tpu_torch.tools.build_native_san import BLAKE2B_BLOCK_CASES, BLAKE2B_SPLIT_CASES, FULL_SHARE_CASES
+from ipc_proofs_tpu_torch.tools.build_native_san import (
+    BLAKE2B_BLOCK_CASES,
+    BLAKE2B_SPLIT_CASES,
+    FULL_SHARE_CASES,
+    SLICE_CASES,
+)
 from ipc_proofs_tpu_torch.utils.metrics import Metrics, get_metrics
 from ipc_proofs_tpu_torch.utils.threads import resolve_thread_budget
 from ipc_proofs_tpu_torch.utils.timing import measure_pass_seconds
@@ -3076,13 +3088,19 @@ def _topic_columns(batch: EventBatch, t0: bytes, t1: bytes) -> list:
     ]
 
 
-def _match_bytes(batch: EventBatch, t0: bytes, t1: bytes, actor: int) -> int:
+def _match_bytes(batch: EventBatch, t0: bytes, t1: bytes, actor: int, sector: int = SECTOR_BYTES) -> int:
     """What `match_pipeline` must move on the batch (`_least_bytes`): the
     full-word mask's inputs and the emitter (4 B, equal to the actor), the
-    mask 1 B an event, the hits 1 B a receipt and the count."""
+    mask 1 B an event, the hits 1 B a receipt and the count; in 32-B
+    sectors (each topic a column of its own), or recounted in the 64-B
+    bursts HBM3 moves (an event's topic row one column: a read of topic0
+    brings the whole row)."""
     t, r, e = batch.shape
-    columns = _topic_columns(batch, t0, t1) + [(4, batch.emitters.reshape(-1) == actor)]
-    return _least_bytes(columns, t * r * e + t * r + 4)
+    columns = _topic_columns(batch, t0, t1)
+    if sector == 64:
+        columns = [(64, columns[0][1] & columns[1][1])] + columns[2:]
+    columns += [(4, batch.emitters.reshape(-1) == actor)]
+    return _least_bytes(columns, t * r * e + t * r + 4, sector)
 
 
 def _pass_body(fn):
@@ -3284,12 +3302,14 @@ def _topic_bounds(topics, n_topics, valid, t0: bytes, t1: bytes) -> dict:
 
 def _device_us_each(cases: dict, reps: int = 20) -> dict:
     """Device µs a call of each case's kernel from one torch.profiler
-    session: ``cases`` maps a label to (fn, copies, kernel name); the
+    session: ``cases`` maps a label to (fn, copies, kernel name, or a
+    tuple of names: a kernel and the memset before it); the
     cases' calls take turns, each case rotating over its own copies
     (`_copies`), so no case runs first or last in the session; a case's
-    device time is that of the profiler rows whose key holds its kernel's
-    name, which no other case's kernel may hold. None where the profiler
-    saw none (then not measured)."""
+    device time is that of the profiler rows whose key holds one of its
+    names; a row that several cases' names match (the memset before each
+    of several designs' kernels) is split equally among them. None where
+    the profiler saw none (then not measured)."""
     turns = {label: itertools.cycle(copies) for label, (_, copies, _) in cases.items()}
     calls = max([reps] + [len(copies) for _, copies, _ in cases.values()])
     for label, (fn, _, _) in cases.items():
@@ -3303,37 +3323,46 @@ def _device_us_each(cases: dict, reps: int = 20) -> dict:
         torch.cuda.synchronize()
     rows = [(e.key, getattr(e, "self_device_time_total", 0) or 0) for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def matches(names, key):
+        names = (names,) if isinstance(names, str) else names
+        return any(name.replace(" ", "") in key.replace(" ", "") for name in names)
+
+    shares = [(key, t, sum(matches(names, key) for _, _, names in cases.values())) for key, t in rows]
     out = {}
-    for label, (_, _, kernel_name) in cases.items():
-        us = [t for key, t in rows if kernel_name.replace(" ", "") in key.replace(" ", "")]
+    for label, (_, _, names) in cases.items():
+        us = [t / n for key, t, n in shares if matches(names, key)]
         out[label] = sum(us) / calls if us and sum(us) > 0 else None
     return out
 
 
-def _timed_rows(cases: dict) -> dict:
+def _timed_rows(cases: dict, max_copies: "int | None" = None, after_copy: bool = True) -> dict:
     """Each case (label: (fn, args, kernel name)) timed cold and warm by
     CUDA events (`_cold_cuda_ms`, `_cuda_ms`), and on the device in two
     `_device_us_each` sessions for all cases: over clones of its inputs of
-    its own (cold), and right after each call's tensor inputs were copied
-    from host memory, as the wrappers copy them (after a copy): ms each."""
-    copies = {label: _copies(args)[1:] for label, (_, args, _) in cases.items()}
+    its own (cold; at most ``max_copies`` of them, where inputs of a few
+    kilobytes would otherwise take tens of thousands), and right after
+    each call's tensor inputs were copied from host memory, as the
+    wrappers copy them (after a copy; not without ``after_copy``): ms each."""
+    copies = {label: _copies(args)[1:][:max_copies] for label, (_, args, _) in cases.items()}
     device_us = _device_us_each({label: (fn, copies[label], name) for label, (fn, _, name) in cases.items()})
 
-    def after_copy(fn, device):
+    def copied(fn, device):
         return lambda *host: fn(*(a.to(device) if isinstance(a, torch.Tensor) else a for a in host))
 
-    host = {label: tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
-            for label, (_, args, _) in cases.items()}
-    copied_us = _device_us_each({label: (after_copy(fn, args[0].device), [host[label]], name)
-                                 for label, (fn, args, name) in cases.items()})
+    def on_host(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+    copied_us = _device_us_each({label: (copied(fn, args[0].device), [on_host(args)], name)
+                                 for label, (fn, args, name) in cases.items()}) if after_copy else {}
     out = {}
     for label, (fn, args, _) in cases.items():
-        us, copied = device_us[label], copied_us[label]
+        us, copied_at = device_us[label], copied_us.get(label)
         out[label] = {
             "ms": _cold_cuda_ms(fn, copies[label]),
             "warm_ms": _cuda_ms(lambda fn=fn, args=args: fn(*args), reps=20),
             "device_ms": us / 1e3 if us is not None else None,
-            "after_copy_device_ms": copied / 1e3 if copied is not None else None,
+            "after_copy_device_ms": copied_at / 1e3 if copied_at is not None else None,
         }
     return out
 
@@ -3471,6 +3500,181 @@ def flat_mask_study(batch: EventBatch, fp: np.ndarray, target: int, smi: str, de
     return {"by_rows": by_rows, "topic0_shares": shares, "whole_call_split": split, "seconds": seconds}
 
 
+# match_pipeline's kernel body against other designs (``csrc/match_study.cu``)
+
+# the rule's shapes (T, R, E): phase 3a's world (262,144 events), one block
+# of the virtual (2, 2) mesh over it (65,536 events at E = 2), `entry.py`'s
+# world (64 events)
+PIPELINE_SHAPES = ((4096, 16, 4), (2048, 16, 2), (4, 4, 4))
+# design: (library, C entry, the profiler rows of a call (a memset before the
+# kernel counts: the count's zeroing), `match_kernel_info`'s index)
+_MEMSET = ("Memset",)
+PIPELINE_DESIGNS = {
+    "package": ("match", "match_pipeline", ("match_pipeline_kernel",) + _MEMSET, 0),
+    "PR 16": (MATCH_STUDY, "match_pipeline_memset", ("match_memset_kernel",) + _MEMSET, 1),
+    "ticket": (MATCH_STUDY, "match_pipeline_ticket", ("match_ticket_kernel",), 2),
+    "persistent": (MATCH_STUDY, "match_pipeline_persistent", ("match_persistent_kernel",) + _MEMSET, 3),
+    "tma": (MATCH_STUDY, "match_pipeline_tma", ("match_tma_kernel",) + _MEMSET, 4),
+    "pair": (MATCH_STUDY, "match_pipeline_pair", ("match_pair_kernel",) + _MEMSET, 5),
+}
+PIPELINE_SLOWDOWN_AT_FLOOR = 1.03  # the rule: at 64 events a body may be up to 3 % slower
+# clones a design's "cold" calls rotate over: at 64 events (5 KB) they stay
+# in the L2 all the same
+PIPELINE_COPIES = 32
+
+
+def raw_pipeline(library: str, name: str):
+    """`match_pipeline`'s seven arguments over the C entry ``name`` of
+    ``csrc/<library>.cu``, launched into fresh outputs without the
+    wrapper's checks, so that every design is timed through the same host
+    path."""
+    def call(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
+        t, r, e = n_topics.shape
+        device = topics.device
+        out = [torch.empty((t, r), dtype=torch.bool, device=device),
+               torch.empty((t, r, e), dtype=torch.bool, device=device),
+               torch.empty((), dtype=torch.int32, device=device)]
+        args = [x.data_ptr() for x in (topics, n_topics, emitters, valid, topic0, topic1, actor_id)]
+        launch(library, name, pipeline._ARGTYPES["match_pipeline"], args + [t * r, e, 0, 0, e, 0], out, device,
+               _raw_launches)
+        return tuple(out)
+
+    return call
+
+
+def kernel_info(which: int) -> dict:
+    """`match_kernel_info` of ``csrc/match_study.cu``: registers a thread,
+    static shared bytes, blocks an SM holds, SMs."""
+    from ipc_proofs_tpu_torch.ops.build import load_library
+
+    fn = load_library(MATCH_STUDY).match_kernel_info
+    fn.argtypes, fn.restype = [ctypes.c_int] + [ctypes.c_void_p] * 4, ctypes.c_int
+    values = [ctypes.c_int(0) for _ in range(4)]
+    rc = fn(which, *(ctypes.addressof(v) for v in values))
+    if rc:
+        raise RuntimeError(f"match_kernel_info({which}): CUDA error {rc}")
+    return dict(zip(("registers", "shared_bytes", "blocks_per_sm", "sms"), (v.value for v in values)))
+
+
+def _receipts_per_block(e: int, events: int = 256) -> int:
+    """``csrc/match.cu`` receipts_per_block (``csrc/match_study.cu``
+    pair_receipts_per_block at ``events`` 512)."""
+    return events // e if 0 < e < events else (events if e == 0 else 1)
+
+
+def pipeline_study(batch: EventBatch, smi: str, device) -> dict:
+    """`match_pipeline`'s designs (`PIPELINE_DESIGNS`: the package's, PR
+    16's, the package's body with the count in the same launch, and the
+    persistent, tma and two-events-a-thread bodies) at `PIPELINE_SHAPES`,
+    cut from phase 3a's world: each design first held equal to the plain
+    version (three calls in a row, so a count or ticket left behind shows)
+    here and at the edge worlds, then timed cold and warm by CUDA events
+    and on the device with the calls taking turns (`_timed_rows`), beside
+    the byte bound in 32-B sectors and in 64-B bursts; each kernel's
+    registers, blocks an SM and the waves of its grid; and the rule
+    applied: a design wins at a shape where it beats the package's by
+    device time and by cold CUDA events (at 64 events it may be up to 3 %
+    slower)."""
+    start = time.perf_counter()
+    t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
+    info = {label: kernel_info(which) for label, (_, _, _, which) in PIPELINE_DESIGNS.items()}
+    calls = {label: raw_pipeline(library, name) for label, (library, name, _, _) in PIPELINE_DESIGNS.items()}
+
+    def args_of(part: EventBatch) -> tuple:
+        return batch_args(part, t0, t1, ACTOR_ID, device)
+
+    def held(label: str, args: tuple, want: tuple, calls_in_a_row: int) -> None:
+        outs = [calls[label](*args) for _ in range(calls_in_a_row)]
+        torch.cuda.synchronize()
+        for got in outs:
+            if not all(g.dtype == w.dtype and torch.equal(g.cpu(), w) for g, w in zip(got, want)) or any(
+                    g.dtype == torch.bool and g.numel() and int(g.view(torch.uint8).max()) > 1 for g in got):
+                raise AssertionError(f"match_pipeline ({label}) differs from its plain version")
+
+    for k, shape in enumerate(MATCH_EDGES):
+        edge = _edge_world(shape, seed=k)
+        want = match_pipeline_plain(*batch_args(edge, t0, t1, ACTOR_ID, "cpu"))
+        for label in calls:
+            held(label, args_of(edge), want, 1)
+    by_shape = {}
+    for t, r, e in PIPELINE_SHAPES:
+        part = EventBatch(topics=batch.topics[:t, :r, :e], n_topics=batch.n_topics[:t, :r, :e],
+                          emitters=batch.emitters[:t, :r, :e], valid=batch.valid[:t, :r, :e])
+        args = args_of(part)
+        want = match_pipeline_plain(*batch_args(part, t0, t1, ACTOR_ID, "cpu"))
+        for label in calls:
+            held(label, args, want, 3)
+        timed = _timed_rows({label: (calls[label], args, names)
+                             for label, (_, _, names, _) in PIPELINE_DESIGNS.items()},
+                            max_copies=PIPELINE_COPIES, after_copy=False)
+        bounds = {f"bound_ms_{sector}": _match_bytes(part, t0, t1, ACTOR_ID, sector) / HBM_BYTES_PER_S * 1e3
+                  for sector in (32, 64)}
+        for label, row in timed.items():
+            tiles = -(-t * r // _receipts_per_block(e, 512 if label.startswith("pair") else 256))
+            resident = info[label]["blocks_per_sm"] * info[label]["sms"]
+            rounds = -(-tiles // max(resident, 1))
+            grid = -(-tiles // rounds) if label in ("persistent", "tma") else tiles
+            row.update(bounds, grid=grid, waves=-(-grid // max(resident, 1)))
+        package = timed["package"]
+        for label, row in timed.items():
+            if label != "package" and None not in (row["device_ms"], package["device_ms"]):
+                allowed = PIPELINE_SLOWDOWN_AT_FLOOR if t * r * e <= 64 else 1.0
+                row["beats_package"] = bool(row["device_ms"] < package["device_ms"] * allowed
+                                            and row["ms"] < package["ms"] * allowed)
+        by_shape[f"{t * r * e}"] = {"shape": [t, r, e], **timed}
+        _log(f"match_pipeline designs at {t * r * e:,} events ({t}, {r}, {e}) on {smi}: {json.dumps(timed)}")
+    wins = {label: all(by_shape[key][label].get("beats_package", False) for key in by_shape)
+            for label in PIPELINE_DESIGNS if label != "package"}
+    seconds = time.perf_counter() - start
+    _log(f"match_pipeline kernels on {smi}: {json.dumps(info)}; wins at every shape of the rule "
+         f"(device and cold events): {json.dumps(wins)}; {seconds:.1f} s")
+    return {"kernels": info, "by_events": by_shape, "wins": wins, "seconds": seconds}
+
+
+def _ops_a_call(fn, args, calls: int = 20) -> "dict[str, list[float]] | None":
+    """The device operations one call of ``fn(*args)`` runs, from
+    torch.profiler over ``calls`` calls: each kernel or memset's launches
+    and device µs a call, by name; None where the profiler saw none."""
+    for _ in range(3):
+        fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    ops = {e.key: [e.count / calls, (getattr(e, "self_device_time_total", 0) or 0) / calls]
+           for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")
+           and (getattr(e, "self_device_time_total", 0) or 0) > 0}
+    return ops or None
+
+
+def _only_match_ops(ops: "dict[str, list[float]]", blocks: int) -> bool:
+    """A call ran match_pipeline's launches (at most ``blocks``), at most
+    one memset (its count's) and nothing else. The profiler may miss a
+    call's events (0.95 a call seen), so the counts are bounds; the
+    launches themselves are the wrappers' counts."""
+    kernels = sum(n for key, (n, _) in ops.items() if "match_pipeline_kernel" in key)
+    memsets = sum(n for key, (n, _) in ops.items() if "Memset" in key)
+    others = [key for key in ops if "match_pipeline_kernel" not in key and "Memset" not in key]
+    return 0 < kernels <= blocks and memsets <= 1 and not others
+
+
+@contextlib.contextmanager
+def _no_concatenation():
+    """``torch.cat`` and ``torch.stack`` raise inside: a mesh's combine on
+    one card must not run them."""
+    real = torch.cat, torch.stack
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the match combine ran torch.cat or torch.stack")
+
+    torch.cat = torch.stack = refuse
+    try:
+        yield
+    finally:
+        torch.cat, torch.stack = real
+
+
 def _phase3a_world():
     """Phase 3a's events, and one u64 fingerprint an event (1 % equal to
     the target) with the target as the int64 of its bits."""
@@ -3491,13 +3695,18 @@ def device_match_phase(device, smi: str) -> dict:
     ``[cuda:0] * 4``, `receipts_with_match` over the flat mask, and the
     same events' full-word and fingerprint masks through the backend
     (single device and the virtual mesh): each equal to the plain run on
-    the CPU, each kernel launched as many times as it has blocks. Then
+    the CPU, each kernel launched as many times as it has blocks, the
+    meshes' blocks writing into the mesh's outputs with no ``torch.cat``
+    or ``torch.stack`` (`_no_concatenation`). Then
     each kernel against its plain version on the card's inputs, at full
     width and at the edge shapes, and each timed: `match_pipeline` per
     pass by `measure_pass_seconds` (the slope of k replays of the pass
-    captured as one CUDA graph, host clock, one sync) and every kernel by
+    captured as one CUDA graph, host clock, one sync), with the kernels a
+    call runs by the profiler (a mesh's calls may run match_pipeline's
+    alone), and every kernel by
     CUDA events over 20 back-to-back calls, beside its plain version, its
-    byte bound and, for the receipt reduce, ``mask.view(-1, E).any(-1)``."""
+    byte bound and, for the receipt reduce, ``mask.view(-1, E).any(-1)``;
+    `match_pipeline`'s designs compared (`pipeline_study`)."""
     t0, t1 = hash_event_signature(SIGNATURE), ascii_to_bytes32(TOPIC1)
     batch, fp, target = _phase3a_world()
     t, r, e = batch.shape
@@ -3519,8 +3728,9 @@ def device_match_phase(device, smi: str) -> dict:
 
     _reset_counts()
     outs = {"single device": match_pipeline(*single_args)}
-    for label, (fn, _) in sharded.items():
-        outs[label] = fn(*sharded_args[label])
+    with _no_concatenation():  # the blocks write into the mesh's outputs themselves
+        for label, (fn, _) in sharded.items():
+            outs[label] = fn(*sharded_args[label])
     flat = outs["single device"][1].reshape(-1)
     receipts = match.receipts_with_match(flat, ids, t * r)
     flat_masks = {label: b.event_match_mask_flat(*flat_rows, t0, t1, ACTOR_ID) for label, b in backends.items()}
@@ -3585,6 +3795,15 @@ def device_match_phase(device, smi: str) -> dict:
         _log(f"device match ({label}) on {smi}: {pt.seconds * 1e6:.1f} us/pass (slope k={pt.k_small}/"
              f"{pt.k_large}, graph replays), {n / pt.seconds:,.0f} events/s; CUDA events {ms * 1e3:.1f} us a call; "
              f"bound {bound_ms['match_pipeline'] * 1e3:.2f} us (bytes)")
+        # what a call runs on the card (profiler): a mesh on one card runs
+        # its blocks' match_pipeline launches and its count's one memset
+        ran = _ops_a_call(fn, args)
+        timings[label]["device_ops_a_call"] = ran
+        _log(f"device match ({label}) on {smi}: a call's device ops (profiler: launches, us) {json.dumps(ran)}")
+        blocks = len(args[0]) if label != "single device" else 1
+        if ran is not None and not _only_match_ops(ran, blocks):
+            raise AssertionError(f"device match ({label}): a call ran other device work than {blocks} match_pipeline "
+                                 f"launches and one memset: {ran}")
     # the inputs (1.3-19.4 MB) fit in the 50 MB L2: the row's times are
     # taken cold (calls rotating over copies of the inputs), the warm ones
     # (one copy, read from the L2) logged beside
@@ -3622,6 +3841,10 @@ def device_match_phase(device, smi: str) -> dict:
             backend.event_match_mask_fp(*fp_rows, t0, t1, ACTOR_ID)
         fp_calls[label] = (time.perf_counter() - start) * 1e2  # ms a call, copies included
     _log(f"fingerprint mask on {smi}: a whole call with its copies {json.dumps(fp_calls)} ms")
+    designs = pipeline_study(batch, smi, device)
+    kernels["match_pipeline"]["bound_ms_64"] = _match_bytes(batch, t0, t1, ACTOR_ID, 64) / HBM_BYTES_PER_S * 1e3
+    kernels["match_pipeline"]["designs"] = designs
+    kernels["match_pipeline"]["passes"] = {label: row["pass_us"] for label, row in timings.items()}
     study = flat_mask_study(batch, fp, target, smi, device)
     full_width = study["by_rows"][n]
     for name in ("event_match_mask", "event_match_mask_fp"):
@@ -7041,7 +7264,8 @@ def static_gates_phase() -> dict:
     cuda = json.loads(m.group(1))
     guard = cuda["guard"]
     cases = ([k[0] for k in KERNELS + KECCAK_KERNELS + MATCH_KERNELS] + [c[0] for c in BLAKE2B_BLOCK_CASES[1:]]
-             + [c[0] for split in BLAKE2B_SPLIT_CASES.values() for c in split[1:]] + list(FULL_SHARE_CASES))
+             + [c[0] for split in BLAKE2B_SPLIT_CASES.values() for c in split[1:]] + list(FULL_SHARE_CASES)
+             + list(SLICE_CASES))
     if sorted(guard) != sorted(cases):
         raise AssertionError(f"static gates, cuda half: entries {sorted(guard)}")
     for entry, row in guard.items():
@@ -7386,7 +7610,8 @@ def main(argv=None) -> int:
             "library_ms": k.get("library_ms"),
         }
         row.update({key: k[key] for key in ("device_ms", "library_device_ms", "witness", "crossover", "floor_ms",
-                                            "streaming", "launch_rows") if key in k})
+                                            "streaming", "launch_rows", "bound_ms_64", "passes", "designs")
+                    if key in k})
         rows.append(row)
         issued = f", on the build's SASS {k['issued_bound_ms']}" if "issued_bound_ms" in k else ""
         _log(

@@ -15,10 +15,13 @@ The counterpart of ``ipc_proofs_tpu.parallel.pipeline``:
    kernel); here it is one hand-written kernel of ``csrc/match.cu``
    (`match_pipeline` launches it for CUDA tensors; `match_pipeline_plain`,
    the same step in PyTorch ops, runs for CPU tensors). Sharding (tipsets over ``dp``,
-   events over ``sp``) places one block on each mesh device; the blocks'
-   hits are ORed and their counts summed on the mesh's first device, and
-   under a process group the count is all-reduced and the hits all-gathered
-   across processes (`parallel.multihost`).
+   events over ``sp``) places one block on each mesh device. A block on
+   the mesh's first device writes straight into the whole mesh's outputs
+   there (its mask slice, its hits stored or ORed over ``sp``, its count
+   stored or added), so a mesh on one card runs one launch a block and
+   nothing else; a block on another card is copied over and combined.
+   Under a process group the count is all-reduced and the hits
+   all-gathered across processes (`parallel.multihost`).
 2. `PipelineStage` / `run_pipeline`: a bounded-queue, order-preserving,
    multi-worker staged executor for the chunked proof drivers. Stage k+1
    of chunk i runs concurrently with stage k of chunk i+1 (scan ∥ record ∥
@@ -73,10 +76,16 @@ __all__ = [
 # sharded call)
 LAUNCHES = {"match_pipeline": 0}
 
-# the ``csrc/match.cu`` entry's signature
+# the ``csrc/match.cu`` entry's signature: the seven inputs, receipts,
+# events a receipt, the first receipt and event column it writes, the whole
+# mask's events a receipt, the flags; hits, mask, count, stream
 _ARGTYPES = {
-    "match_pipeline": [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 4,
+    "match_pipeline": [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
+    + [ctypes.c_longlong] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4,
 }
+# the entry's flags (``csrc/match.cu`` kOrHits, kAddCount)
+OR_HITS = 1
+ADD_COUNT = 2
 
 
 def reset_launch_counts() -> None:
@@ -156,18 +165,43 @@ def batch_args(
     )
 
 
-def match_pipeline_plain(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
-    """Plain version of `match_pipeline`."""
+def match_pipeline_plain(topics, n_topics, emitters, valid, topic0, topic1, actor_id,
+                         out=None, row0=0, col0=0, or_hits=False, add_count=False):
+    """Plain version of `match_pipeline`, with the same arguments: given
+    ``out``, it writes the block into those tensors in place and returns
+    them."""
     t0_eq = (topics[..., 0, :] == topic0).all(dim=-1)
     t1_eq = (topics[..., 1, :] == topic1).all(dim=-1)
     emitter_ok = (emitters == actor_id) | (actor_id < 0)
     mask = valid & (n_topics >= 2) & t0_eq & t1_eq & emitter_ok
     receipt_hits = mask.any(dim=-1)  # reduce over the (sp-sharded) event axis
     n_proofs = mask.sum(dtype=torch.int32)
-    return receipt_hits, mask, n_proofs
+    if out is None:
+        return receipt_hits, mask, n_proofs
+    return _write_block(out, (receipt_hits, mask, n_proofs), row0, col0, or_hits, add_count)
 
 
-def match_pipeline(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
+def _write_block(out, block, row0, col0, or_hits, add_count):
+    """Write a block's (hits, mask, count) into a mesh's whole outputs
+    ``out`` in place, as the kernel does (its kOrHits: only a hit is
+    written; kAddCount: the count is added), and return ``out``."""
+    hits_out, mask_out, count_out = out
+    hits, mask, count = block
+    t, _, e = mask.shape
+    mask_out[row0 : row0 + t, :, col0 : col0 + e] = mask
+    if or_hits:
+        hits_out[row0 : row0 + t].masked_fill_(hits, True)  # the OR over sp
+    else:
+        hits_out[row0 : row0 + t] = hits
+    if add_count:
+        count_out.add_(count)
+    else:
+        count_out.copy_(count)
+    return out
+
+
+def match_pipeline(topics, n_topics, emitters, valid, topic0, topic1, actor_id,
+                   out=None, row0=0, col0=0, or_hits=False, add_count=False):
     """The device step: per-event mask → per-receipt hits → count.
 
     Shapes: topics int32 [T,R,E,2,8]; n_topics/emitters int32 and valid
@@ -175,9 +209,18 @@ def match_pipeline(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
     (negative = no filter). All on one device.
 
     Returns (receipt_hits bool [T,R], event_mask bool [T,R,E], n_proofs
-    int32 scalar), on that device. On a card one kernel launch (the spec
-    words and the actor are read on the card: no sync, so a CUDA graph
-    captures it).
+    int32 scalar), on that device. On a card one kernel launch, after a
+    memset of the count where the call stores it (the spec words and the
+    actor are read on the card: no sync, so a CUDA graph captures it).
+
+    ``out``: a mesh's whole outputs (hits bool [T',R], mask bool [T',R,E'],
+    count int32 scalar) on the same device, into which the call writes
+    instead, and which it returns: its hits at tipset rows ``row0`` to
+    ``row0 + T``, its mask at those rows and event columns ``col0`` to
+    ``col0 + E``, and its count. ``or_hits`` ORs its hits in (a block of a
+    mesh row after the row's first: only a hit is written), ``add_count``
+    adds its count to the output's (every block after a mesh's first);
+    otherwise each is stored.
     """
     name = "match_pipeline"
     device = topics.device
@@ -191,16 +234,35 @@ def match_pipeline(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
     check_tensor(name, topic0, torch.int32, (8,), device)
     check_tensor(name, topic1, torch.int32, (8,), device)
     check_tensor(name, actor_id, torch.int32, (), device)
+    if out is None:
+        if row0 or col0 or or_hits or add_count:
+            raise ValueError(f"{name}: a block's place and flags need the outputs it writes into")
+        out = (
+            torch.empty((t, r), dtype=torch.bool, device=device),
+            torch.empty((t, r, e), dtype=torch.bool, device=device),
+            torch.empty((), dtype=torch.int32, device=device),
+        )
+    else:
+        hits, mask, count = out
+        check_tensor(name, hits, torch.bool, (*hits.shape[:1], r), device)
+        check_tensor(name, mask, torch.bool, (hits.shape[0], r, *mask.shape[2:3]), device)
+        check_tensor(name, count, torch.int32, (), device)
+        whole_t, whole_e = mask.shape[0], mask.shape[2]
+        if not (0 <= row0 <= whole_t - t and 0 <= col0 <= whole_e - e):
+            raise ValueError(f"{name}: a block of {t} tipsets x {e} events at ({row0}, {col0}) "
+                             f"lies outside outputs of {whole_t} x {whole_e}")
     if runs_plain(name, device):
-        return match_pipeline_plain(topics, n_topics, emitters, valid, topic0, topic1, actor_id)
-    hits = torch.empty((t, r), dtype=torch.bool, device=device)
-    mask = torch.empty((t, r, e), dtype=torch.bool, device=device)
-    count = torch.empty((), dtype=torch.int32, device=device)
+        return match_pipeline_plain(topics, n_topics, emitters, valid, topic0, topic1, actor_id,
+                                    out, row0, col0, or_hits, add_count)
     if t * r == 0:
-        return hits, mask, count.zero_()
+        if not add_count:
+            out[2].zero_()
+        return out
+    flags = (OR_HITS if or_hits else 0) | (ADD_COUNT if add_count else 0)
     args = [x.data_ptr() for x in (topics, n_topics, emitters, valid, topic0, topic1, actor_id)]
-    launch("match", name, _ARGTYPES[name], args + [t * r, e], [hits, mask, count], device, LAUNCHES)
-    return hits, mask, count
+    args += [t * r, e, row0 * r, col0, out[1].shape[2], flags]
+    launch("match", name, _ARGTYPES[name], args, list(out), device, LAUNCHES)
+    return out
 
 
 def sharded_match_pipeline(mesh):
@@ -214,12 +276,16 @@ def sharded_match_pipeline(mesh):
       row-major block order. T must divide by dp and E by sp. Under a
       process group the batch is this process's rows (its share of the
       tipsets, as `parallel.multihost.host_local_pairs` splits them).
-    - ``fn(*shard_batch(...))`` computes each block on its device, ORs the
-      hits over ``sp`` and sums the counts over every block on the mesh's
-      first device, and returns (hits [T,R], mask [T,R,E], count) there.
-      Under a process group the count is all-reduced and the hits
-      all-gathered, so hits and count are the whole mesh's; the mask stays
-      this process's rows.
+    - ``fn(*shard_batch(...))`` computes each block and returns (hits
+      [T,R], mask [T,R,E], count) on the mesh's first device: a block on
+      that device writes into those outputs itself (`match_pipeline`'s
+      ``out``: its mask slice, its hits stored by a row's first block and
+      ORed by the rest, its count stored by the first block and added by
+      the rest), so a mesh on one card runs its blocks' launches and no
+      other kernel; a block on another card computes its own outputs,
+      which are copied over and combined. Under a process group the count
+      is all-reduced and the hits all-gathered, so hits and count are the
+      whole mesh's; the mask stays this process's rows.
     """
     grid = mesh.grid
     dp, sp = mesh.local_dp, len(grid[0])
@@ -244,25 +310,28 @@ def sharded_match_pipeline(mesh):
         return tuple(zip(*blocks))
 
     def fn(topics, n_topics, emitters, valid, topic0, topic1, actor_id):
-        outs = [
-            match_pipeline(*block)
-            for block in zip(topics, n_topics, emitters, valid, topic0, topic1, actor_id)
-        ]
-        hits_rows, mask_rows = [], []
-        for d in range(dp):
-            row = outs[d * sp : (d + 1) * sp]
-            hits = row[0][0].to(out_device)
-            for block_hits, _, _ in row[1:]:
-                hits = hits | block_hits.to(out_device)  # the reference's psum over sp
-            hits_rows.append(hits)
-            mask_rows.append(torch.cat([mask.to(out_device) for _, mask, _ in row], dim=2))
-        count = torch.stack([c.to(out_device) for _, _, c in outs]).sum(dtype=torch.int32)
-        hits = torch.cat(hits_rows)
+        tb, r, eb = n_topics[0].shape
+        out = (
+            torch.empty((dp * tb, r), dtype=torch.bool, device=out_device),
+            torch.empty((dp * tb, r, sp * eb), dtype=torch.bool, device=out_device),
+            torch.empty((), dtype=torch.int32, device=out_device),
+        )
+        stored_rows: "set[int]" = set()
+        blocks = zip(topics, n_topics, emitters, valid, topic0, topic1, actor_id)
+        for k, block in enumerate(blocks):
+            d, s = divmod(k, sp)
+            place = dict(row0=d * tb, col0=s * eb, or_hits=d in stored_rows, add_count=k > 0)
+            if grid[d][s] == out_device:
+                match_pipeline(*block, out=out, **place)
+            else:  # another card: its outputs copied over and combined
+                _write_block(out, [x.to(out_device) for x in match_pipeline(*block)], **place)
+            stored_rows.add(d)
+        hits, mask, count = out
         if mesh.distributed:
             from ipc_proofs_tpu_torch.parallel.multihost import reduce_across_processes
 
             hits, count = reduce_across_processes(hits, count)
-        return hits, torch.cat(mask_rows), count
+        return hits, mask, count
 
     return fn, shard_batch
 

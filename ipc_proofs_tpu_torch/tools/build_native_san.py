@@ -24,7 +24,9 @@ path's cache.
 (`kernel_cases`: message lengths around every block edge, multi-block rows
 up to the padded maximum, rows whose block count is 0, negative or past
 the padded maximum; match worlds of 1, 3, 4, 5 and 33 events a receipt,
-the actor filter on and off, receipt ids outside ``[0, num)``; and row
+the actor filter on and off, receipt ids outside ``[0, num)``;
+`match_pipeline` also writing one block into the interior slice of a mesh's
+whole outputs, its hits and count stored and ORed and added; and row
 counts around the warp and thread-block edges up to 4,097;
 each blake2b entry also with one and four lanes a message forced, and
 on both sides of its four-lane crossover; the two flat masks also with
@@ -37,7 +39,9 @@ against its plain PyTorch version, in a child process (``--cuda-child``):
   other fill patterns in the redzones and in the output. A write past a
   buffer shows as a changed redzone, a write into an input as a changed
   input, and a read past a buffer or of an output row never written as a
-  result that differs from the plain version under one of the fills;
+  result that differs from the plain version under one of the fills. A
+  block written into an interior slice has the rest of the whole outputs
+  as a guard band on both sides, held to their fill;
 - ``compute-sanitizer --tool memcheck`` and then ``--tool initcheck``
   around the same child, with ``--error-exitcode 1`` and PyTorch's
   caching allocator off (each tensor its own allocation, so memcheck sees
@@ -116,6 +120,13 @@ ROW_COUNTS = (1, 31, 32, 33, 127, 128, 129, 4097)
 # the target, at row counts that are not multiples of 2, 4 or 8
 FULL_SHARE_CASES = ("event_match_mask[topic0 on every row]", "event_match_mask_fp[target on every row]")
 FULL_SHARE_ROWS = (3, 5, 7, 129, 1025)
+# `match_pipeline` writing a block of one tipset into the middle of a 3 x 3
+# mesh's whole outputs (tipset row 1, event columns E to 2E): as a row's
+# first block (hits and count stored), and as a later one (hits ORed, count
+# added), at receipt counts around the block edges
+SLICE_CASES = ("match_pipeline[interior slice]", "match_pipeline[interior slice, OR and add]")
+SLICE_ROWS = (1, 33, 129)
+SLICE_MESH = 3
 # the padded maximum of blake2b256_blocks' case on each side of the row
 # count at which it goes from four lanes a message to one
 # (``ops.blake2b.QUAD_ROWS_MAX``)
@@ -323,10 +334,7 @@ def _match_cases(rng, k: int, n: int):
     e = MATCH_EVENTS[k % len(MATCH_EVENTS)]
     topics, n_topics, valid, emitters = _event_rows(rng, n * e, spec)
     actor = np.array(-1 if k % 2 else MATCH_ACTOR, dtype=np.int32)
-    yield "match_pipeline", n, (
-        topics.reshape(1, n, e, 2, 8), n_topics.reshape(1, n, e), emitters.reshape(1, n, e),
-        valid.reshape(1, n, e), spec[:8], spec[8:], actor,
-    ), (e,)
+    yield "match_pipeline", n, _pipeline_inputs(topics, n_topics, emitters, valid, spec, actor, n, e), (e, 0, 0, e, 0)
     topics, n_topics, valid, _ = _event_rows(rng, n, spec)
     yield "event_match_mask", n, (topics, n_topics, valid, spec[:8], spec[8:]), ()
     target = int(rng.integers(-(2**63), 2**63 - 1, dtype=np.int64))
@@ -336,6 +344,32 @@ def _match_cases(rng, k: int, n: int):
     num = max(1, n // 3)
     ids = rng.integers(-2 * num, 2 * num, n).astype(np.int64 if k % 2 else np.int32)
     yield "receipts_with_match", n, (rng.random(n) < 0.3, ids), (num, ids.itemsize)
+
+
+def _pipeline_inputs(topics, n_topics, emitters, valid, spec, actor, n: int, e: int) -> tuple:
+    """`match_pipeline`'s inputs for one tipset of ``n`` receipts of ``e``
+    events."""
+    import numpy as np
+
+    return (
+        topics.reshape(1, n, e, 2, 8), n_topics.reshape(1, n, e), emitters.reshape(1, n, e),
+        valid.reshape(1, n, e), spec[:8], spec[8:], actor,
+    )
+
+
+def _slice_cases(rng, k: int, n: int):
+    """`SLICE_CASES` at ``n`` receipts: extra ints (events a receipt, first
+    receipt, first event column, the whole mask's events a receipt, flags)."""
+    import numpy as np
+
+    from ipc_proofs_tpu_torch.parallel import pipeline
+
+    spec = rng.integers(-(2**31), 2**31, 16, dtype=np.int64).astype(np.int32)
+    e = MATCH_EVENTS[k % len(MATCH_EVENTS)]
+    topics, n_topics, valid, emitters = _event_rows(rng, n * e, spec)
+    inputs = _pipeline_inputs(topics, n_topics, emitters, valid, spec, np.array(MATCH_ACTOR, dtype=np.int32), n, e)
+    for name, flags in zip(SLICE_CASES, (0, pipeline.OR_HITS | pipeline.ADD_COUNT)):
+        yield name, n, inputs, (e, n, e, SLICE_MESH * e, flags)
 
 
 def _full_share_cases(rng, n: int):
@@ -375,6 +409,8 @@ def kernel_cases(seed: int = 0):
         yield from _match_cases(rng, k, n)
     for k, n in enumerate(FULL_SHARE_ROWS):
         yield from _full_share_cases(np.random.default_rng([seed, 200 + k]), n)
+    for k, n in enumerate(SLICE_ROWS):
+        yield from _slice_cases(np.random.default_rng([seed, 300 + k]), k, n)
     # the wrappers' lanes on each side of their crossovers: four, then one
     most = blake2b.QUAD_ROWS_MAX
     for k, n in enumerate((most, most + 1)):
@@ -418,6 +454,9 @@ def outputs_of(entry: str, n: int, inputs, extra) -> "list[tuple[tuple, object]]
     entry's order."""
     import torch
 
+    if entry in SLICE_CASES:
+        return [((SLICE_MESH, n), torch.bool), ((SLICE_MESH, n, SLICE_MESH * extra[0]), torch.bool),
+                ((), torch.int32)]
     entry = _c_entry(entry)
     if entry == "match_pipeline":
         return [((1, n), torch.bool), ((1, n, extra[0]), torch.bool), ((), torch.int32)]
@@ -435,22 +474,33 @@ def _c_entry(entry: str) -> str:
 
 
 def _plain(entry: str):
-    """The plain version of ``entry`` as ``fn(input_views, extra)`` →
-    a tuple of its outputs."""
+    """The plain version of ``entry`` as ``fn(input_views, extra, outs=None)``
+    → a tuple of its outputs. ``outs``: the case's whole outputs as they
+    are before the launch, which `match_pipeline` writes into (its
+    `SLICE_CASES` need them: the rest of the outputs keeps its bytes); the
+    other entries ignore them."""
     entry = _c_entry(entry)
     from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
     from ipc_proofs_tpu_torch.parallel import pipeline
 
     if entry == "match_pipeline":
-        return lambda views, extra: tuple(pipeline.match_pipeline_plain(*views))
+        def pipeline_plain(views, extra, outs=None):
+            if outs is None:
+                return tuple(pipeline.match_pipeline_plain(*views))
+            _, receipt0, col0, _, flags = extra
+            return tuple(pipeline.match_pipeline_plain(
+                *views, out=tuple(outs), row0=receipt0 // max(views[0].shape[1], 1), col0=col0,
+                or_hits=bool(flags & pipeline.OR_HITS), add_count=bool(flags & pipeline.ADD_COUNT)))
+
+        return pipeline_plain
     if entry == "event_match_mask":
-        return lambda views, extra: (match.topic_mask_plain(*views),)
+        return lambda views, extra, outs=None: (match.topic_mask_plain(*views),)
     if entry == "event_match_mask_fp":
-        return lambda views, extra: (match.fp_mask_plain(*views, extra[0]),)
+        return lambda views, extra, outs=None: (match.fp_mask_plain(*views, extra[0]),)
     if entry == "receipts_with_match":
-        return lambda views, extra: (match.receipts_with_match_plain(*views, extra[0]),)
+        return lambda views, extra, outs=None: (match.receipts_with_match_plain(*views, extra[0]),)
     fn = getattr(blake2b if entry.startswith("blake2b") else keccak, entry + "_plain")
-    return lambda views, extra: (fn(*views),)
+    return lambda views, extra, outs=None: (fn(*views),)
 
 
 def _host(array):
@@ -464,7 +514,8 @@ def _host(array):
     return torch.from_numpy(np.array(array, copy=True))
 
 
-def guarded_run(call, inputs, outputs, device, fill_seed: int, redzone: int = REDZONE_WORDS):
+def guarded_run(call, inputs, outputs, device, fill_seed: int, redzone: int = REDZONE_WORDS,
+                initial: "list | None" = None):
     """Run ``call(input_views, *output_views)`` once on guarded buffers and
     return (outs, violations): ``outs`` the results on the host,
     ``violations`` a list of what went wrong (an input or an output's
@@ -473,7 +524,9 @@ def guarded_run(call, inputs, outputs, device, fill_seed: int, redzone: int = RE
     ``outputs`` lists each output's (shape, torch dtype); ``outs`` is a
     tuple of them. Every input and output lies at a 16-byte-aligned
     offset inside a byte buffer ``redzone`` words longer at each end; the
-    redzones and the outputs are filled from ``fill_seed`` first."""
+    redzones and the outputs are filled from ``fill_seed`` first. A list
+    given as ``initial`` receives the outputs as filled, on the host,
+    before the call."""
     import numpy as np
     import torch
 
@@ -499,6 +552,9 @@ def guarded_run(call, inputs, outputs, device, fill_seed: int, redzone: int = RE
     for shape, dtype in outputs:
         nbytes = int(np.prod(shape, dtype=np.int64)) * torch.empty((), dtype=dtype).element_size()
         outs.append((nbytes, dtype, shape, *guarded(None, nbytes, dtype, shape)))
+    if initial is not None:  # the buffers' bytes: a copy of a bool tensor makes every byte 0 or 1
+        initial.extend(buf[pad : pad + nbytes].cpu().clone().view(dtype).view(shape)
+                       for nbytes, dtype, shape, _, buf, _ in outs)
     call(views, *(view for *_, view in outs))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -529,7 +585,7 @@ def same_bytes(got, want) -> bool:
 def _rows(entry: str, views) -> int:
     """The row count an entry's C call takes (receipts for the pipeline)."""
     shape = views[0].shape
-    return shape[0] * shape[1] if entry == "match_pipeline" else shape[0]
+    return shape[0] * shape[1] if _c_entry(entry) == "match_pipeline" else shape[0]
 
 
 def _kernel_call(entry: str, extra: tuple):
@@ -570,11 +626,16 @@ def check_kernels(device, call_for=_kernel_call, seed: int = 0) -> dict:
     for entry, n, inputs, extra in kernel_cases(seed):
         row = report.setdefault(entry, {"launches": 0, "rows": [], "violations": [], "mismatches": 0})
         row["rows"].append(n)
-        want = _plain(entry)([_host(a) for a in inputs], extra)
+        plain = _plain(entry)
+        want = plain([_host(a) for a in inputs], extra)
         outputs = outputs_of(entry, n, inputs, extra)
         call = call_for(entry, extra)
         for fill in range(GUARD_FILLS):
-            outs, violations = guarded_run(call, inputs, outputs, device, fill_seed=seed * 1000 + fill)
+            initial: list = []
+            outs, violations = guarded_run(call, inputs, outputs, device, fill_seed=seed * 1000 + fill,
+                                           initial=initial)
+            if entry in SLICE_CASES:  # the rest of the whole outputs keeps its fill
+                want = plain([_host(a) for a in inputs], extra, initial)
             row["launches"] += 1
             row["violations"] += [f"rows={n} fill={fill}: {v}" for v in violations]
             row["mismatches"] += int(not all(same_bytes(o, w) for o, w in zip(outs, want)))

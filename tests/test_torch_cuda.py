@@ -681,6 +681,107 @@ def test_receipts_kernel_wraps_and_drops_as_plain(cuda_device, id_dtype, n, num)
         assert want.any() and not want.all()
 
 
+def _match_case(batch, t0, t1, actor, cuda_device):
+    from ipc_proofs_tpu_torch.parallel import pipeline
+
+    return (pipeline.batch_args(batch, t0, t1, actor, cuda_device),
+            pipeline.match_pipeline_plain(*pipeline.batch_args(batch, t0, t1, actor, "cpu")))
+
+
+def _same(got, want):
+    return all(g.dtype == w.dtype and torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_match_pipeline_count_is_right_call_after_call(cuda_device):
+    """Back-to-back calls, many matches then none then many again, and
+    grids of one block and of hundreds, with no sync between them: each
+    count is the plain version's (each call's count starts from its own
+    zero)."""
+    from ipc_proofs_tpu_torch.parallel import pipeline
+
+    many, t0, t1 = _match_world(256, 16, 4, seed=21)
+    none = pipeline.EventBatch(topics=many.topics, n_topics=many.n_topics, emitters=many.emitters,
+                               valid=np.zeros_like(many.valid))
+    small, _, _ = _match_world(1, 4, 4, seed=22)
+    small.topics[..., 0, :] = np.frombuffer(t0, "<u4")
+    small.topics[..., 1, :] = np.frombuffer(t1, "<u4")
+    cases = [_match_case(b, t0, t1, 1001, cuda_device) for b in (many, none, small, many, small, none)]
+    outs = [pipeline.match_pipeline(*args) for args, _ in cases]  # no sync in between
+    torch.cuda.synchronize()
+    for got, (_, want) in zip(outs, cases):
+        assert _same(got, want)
+    assert [int(want[2]) > 0 for _, want in cases] == [True, False, True, True, True, False]
+
+
+def test_match_pipeline_on_a_stream_of_its_own(cuda_device):
+    """Calls on a second stream, beside calls on the default one, give
+    the plain version's results: a call's memset and kernel run on the
+    caller's stream."""
+    from ipc_proofs_tpu_torch.parallel import pipeline
+
+    batch, t0, t1 = _match_world(128, 16, 4, seed=23)
+    args, want = _match_case(batch, t0, t1, None, cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        on_side = [pipeline.match_pipeline(*args) for _ in range(3)]
+    on_default = [pipeline.match_pipeline(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for got in on_side + on_default:
+        assert _same(got, want)
+    assert int(want[2]) > 0
+
+
+def test_match_pipeline_count_is_right_over_graph_replays(cuda_device):
+    """One call captured as a CUDA graph: every replay gives the plain
+    version's mask, hits and count, and eager calls after it still do."""
+    from ipc_proofs_tpu_torch.parallel import pipeline
+
+    batch, t0, t1 = _match_world(64, 16, 4, seed=24)
+    args, want = _match_case(batch, t0, t1, 1001, cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        pipeline.match_pipeline(*args)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pipeline.match_pipeline(*args)
+    for _ in range(5):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same(captured, want)
+    assert _same(pipeline.match_pipeline(*args), want)
+
+
+@pytest.mark.parametrize("actor", [None, 1001], ids=["no-filter", "actor"])
+def test_virtual_mesh_blocks_write_into_the_mesh_outputs(cuda_device, monkeypatch, actor):
+    """On the virtual (dp=2, sp=2) mesh each block's kernel writes its
+    slice, hits and count into the mesh's outputs: one launch a block,
+    no ``torch.cat`` or ``torch.stack``, the plain version's results; and
+    repeated calls keep giving them."""
+    from ipc_proofs_tpu_torch.parallel import pipeline
+
+    batch, t0, t1 = _match_world(16, 8, 6, seed=25)
+    want = pipeline.match_pipeline_plain(*pipeline.batch_args(batch, t0, t1, actor, "cpu"))
+    fn, shard_batch = pipeline.sharded_match_pipeline(_virtual_mesh(cuda_device))
+    args = shard_batch(batch, t0, t1, actor)
+
+    def refuse(*a, **k):
+        raise AssertionError("the combine ran torch.cat or torch.stack")
+
+    pipeline.reset_launch_counts()
+    monkeypatch.setattr(torch, "cat", refuse)
+    monkeypatch.setattr(torch, "stack", refuse)
+    outs = [fn(*args) for _ in range(3)]
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert pipeline.LAUNCHES["match_pipeline"] == 12
+    for got in outs:
+        assert _same(got, want)
+    assert int(want[2]) > 0
+
+
 def test_match_pipeline_replays_as_a_cuda_graph(cuda_device):
     """The kernel reads its spec words and actor on the card, so one pass
     captures as a CUDA graph and every replay launches it."""

@@ -237,13 +237,13 @@ def test_sanitized_build_gets_its_own_name(tmp_path):
 
 def _plain_call(entry, extra):
     """A stand-in for a kernel entry on the CPU: its plain version written
-    into the guarded output."""
+    into the guarded output (`match_pipeline` writes into it itself)."""
     from ipc_proofs_tpu_torch.tools.build_native_san import _plain
 
     plain = _plain(entry)
 
     def call(views, *outs):
-        for out, result in zip(outs, plain(views, extra)):
+        for out, result in zip(outs, plain(views, extra, outs)):
             out.copy_(result)
 
     return call
@@ -270,16 +270,18 @@ def test_guard_band_check_passes_the_plain_versions(monkeypatch):
         "blake2b256_blocks", "blake2b256_blocks[1 lane]", "blake2b256_blocks[4 lanes]",
         "keccak256_single_block", "keccak256_blocks",
         "match_pipeline", "event_match_mask", "event_match_mask_fp", "receipts_with_match",
-        *san.FULL_SHARE_CASES,
+        *san.FULL_SHARE_CASES, *san.SLICE_CASES,
     ])
     # each case whose lanes follow the row count also runs on both sides of
-    # its four-lane crossover; the flat masks' full-share cases run at their
-    # own row counts
+    # its four-lane crossover; the flat masks' full-share cases and the
+    # pipeline's interior-slice cases run at their own row counts
     for entry, row in report.items():
         most = crossovers.get(entry)
         rows = [1, 33, 129] + ([most, most + 1] if most else [])
         if entry in san.FULL_SHARE_CASES:
             rows = list(san.FULL_SHARE_ROWS)
+        if entry in san.SLICE_CASES:
+            rows = list(san.SLICE_ROWS)
         assert row == {"launches": len(rows) * san.GUARD_FILLS, "rows": rows, "violations": [], "mismatches": 0}
 
 

@@ -7,6 +7,8 @@ Inputs come from a numpy seed and go to both packages as the same arrays
 - `match_pipeline_plain` against ``parallel/pipeline.py:105``
   ``match_pipeline`` at E in {1, 3, 4, 5, 33}, the actor filter off (-1)
   and on, rows with ``n_topics < 2`` and ``valid`` False, an empty world;
+  and writing one block into the interior of a mesh's whole outputs
+  (stored, or ORed and added; every other byte kept);
 - `topic_mask_plain` against ``ops/match_jax.py:36`` ``_match_mask_topics``
   over flat rows, N = 0 and rows padded to `pad_to_bucket` as
   ``event_match_mask_jit`` pads them, and over the topic0 sweep of
@@ -89,6 +91,61 @@ def test_match_pipeline_plain_equals_the_reference(e, actor):
     for got, want in zip(pipeline.match_pipeline(*args), (hits, mask, count)):
         assert torch.equal(got, want)
     assert pipeline.LAUNCHES == {"match_pipeline": 0}
+
+
+def _ref_pipeline(batch, actor):
+    spec0, spec1 = ref_pipeline.make_specs_u32(T0, T1)
+    return tuple(np.asarray(x) for x in ref_pipeline.match_pipeline(
+        jnp.asarray(batch.topics), jnp.asarray(batch.n_topics), jnp.asarray(batch.emitters),
+        jnp.asarray(batch.valid), jnp.asarray(spec0), jnp.asarray(spec1),
+        jnp.int32(-1 if actor is None else actor),
+    ))
+
+
+@pytest.mark.parametrize("e", [1, 3, 4, 33])
+@pytest.mark.parametrize("mode", ["stored", "ored-and-added"])
+def test_match_pipeline_plain_writes_a_block_into_whole_outputs(e, mode):
+    """`match_pipeline` (the plain version on the CPU, what the kernel is
+    held against) with a block's place: a block of 2 tipsets at tipset row
+    1 and event columns E to 2E of a 4-tipset, 3E-event mesh writes its
+    mask slice, its hits (stored, or only its hits set) and its count
+    (stored, or added to what the output holds), the JAX package's values
+    on the block; every other byte keeps its sentinel."""
+    batch = _world(2, 5, e, seed=e + 40)
+    ref_hits, ref_mask, ref_count = _ref_pipeline(batch, ACTOR)
+    hits = np.full((4, 5), 0xAB, np.uint8)
+    mask = np.full((4, 5, 3 * e), 0xCD, np.uint8)
+    count = np.array(11, np.int32)
+    out = (torch.from_numpy(hits.copy()).view(torch.bool), torch.from_numpy(mask.copy()).view(torch.bool),
+           torch.from_numpy(count.copy()))
+    combine = mode == "ored-and-added"
+    args = pipeline.batch_args(batch, T0, T1, ACTOR, "cpu")
+    got = pipeline.match_pipeline(*args, out=out, row0=1, col0=e, or_hits=combine, add_count=combine)
+    assert all(g is o for g, o in zip(got, out))
+    mask[1:3, :, e : 2 * e] = ref_mask
+    if combine:
+        hits[1:3][ref_hits] = 1
+        count = count + ref_count
+    else:
+        hits[1:3] = ref_hits
+        count = ref_count
+    np.testing.assert_array_equal(out[0].view(torch.uint8).numpy(), hits)
+    np.testing.assert_array_equal(out[1].view(torch.uint8).numpy(), mask)
+    assert int(out[2]) == int(count) and int(ref_count) > 0
+
+
+@pytest.mark.parametrize("case", ["place-without-outputs", "slice-outside"])
+def test_match_pipeline_refuses_a_place_it_cannot_write(case):
+    batch = _world(2, 5, 3, seed=4)
+    args = pipeline.batch_args(batch, T0, T1, ACTOR, "cpu")
+    if case == "place-without-outputs":
+        kwargs = dict(row0=1)
+    else:
+        out = (torch.zeros((3, 5), dtype=torch.bool), torch.zeros((3, 5, 6), dtype=torch.bool),
+               torch.zeros((), dtype=torch.int32))
+        kwargs = dict(out=out, row0=1, col0=4)  # columns 4..7 of 6
+    with pytest.raises(ValueError):
+        pipeline.match_pipeline(*args, **kwargs)
 
 
 @pytest.mark.parametrize("shape", [(0, 4, 4), (3, 0, 4), (3, 4, 0)], ids=["no-tipsets", "no-receipts", "no-events"])
@@ -246,21 +303,50 @@ def _reference_outputs(entry: str, inputs, extra):
     return (np.asarray(match_jax.receipts_with_match(jnp.asarray(mask), jnp.asarray(ids), int(extra[0]))),)
 
 
+def _slice_reference(n: int, extra, block):
+    """A `SLICE_CASES` case's whole outputs before the launch (sentinel
+    bytes everywhere, the count 7) and after it by the JAX package's block
+    result: its mask in the slice, its hits stored or only its hits set,
+    its count stored or added; bytes elsewhere untouched."""
+    e, receipt0, col0, mask_e, flags = extra
+    row = receipt0 // n
+    hits = np.full((san.SLICE_MESH, n), 0xAB, np.uint8)
+    mask = np.full((san.SLICE_MESH, n, mask_e), 0xCD, np.uint8)
+    count = np.array(7, np.int32)
+    before = [torch.from_numpy(hits.copy()).view(torch.bool), torch.from_numpy(mask.copy()).view(torch.bool),
+              torch.from_numpy(count.copy())]
+    block_hits, block_mask, block_count = block
+    mask[row, :, col0 : col0 + e] = block_mask[0]
+    if flags & pipeline.OR_HITS:
+        hits[row][block_hits[0]] = 1
+    else:
+        hits[row] = block_hits[0]
+    count = count + block_count if flags & pipeline.ADD_COUNT else np.array(block_count, np.int32)
+    return before, (hits, mask, count)
+
+
 def test_guard_band_cases_of_the_match_entries_equal_the_reference():
     """`build_native_san`'s cases of the four entries (the shapes phase 32
-    checks on the card), the flat masks' full-share cases among them,
-    through their plain versions equal the JAX package."""
+    checks on the card), the flat masks' full-share cases and the
+    pipeline's interior-slice cases among them, through their plain
+    versions equal the JAX package; an interior slice leaves every other
+    byte of the whole outputs as it was."""
     seen = set()
     for entry, n, inputs, extra in san.kernel_cases():
         if san._c_entry(entry) not in san.MATCH_ENTRIES or n > 200:
             continue
         seen.add(entry)
         want = _reference_outputs(entry, inputs, extra)
-        got = san._plain(entry)([torch.from_numpy(np.ascontiguousarray(a)) for a in inputs], extra)
+        views = [torch.from_numpy(np.ascontiguousarray(a)) for a in inputs]
+        if entry in san.SLICE_CASES:
+            before, want = _slice_reference(n, extra, want)
+            got = [x.view(torch.uint8) if x.dtype == torch.bool else x for x in san._plain(entry)(views, extra, before)]
+        else:
+            got = san._plain(entry)(views, extra)
         assert len(got) == len(want)
         for ours, ref in zip(got, want):
             np.testing.assert_array_equal(ours.numpy(), ref)
-    assert seen == set(san.MATCH_ENTRIES) | set(san.FULL_SHARE_CASES)
+    assert seen == set(san.MATCH_ENTRIES) | set(san.FULL_SHARE_CASES) | set(san.SLICE_CASES)
 
 
 @pytest.mark.parametrize("shape", [(3, 77, 1), (5, 41, 3), (2, 9, 33), (1, 1, 300), (0, 4, 4)],

@@ -9,6 +9,11 @@ masks, hits, counts, digests, bundle JSON.
 - `make_mesh` shapes and errors; `synthetic_event_batch` arrays;
   `match_pipeline` with and without the actor filter; the sharded pipeline
   at meshes (1,1), (2,2), (4,2), (8,1) against the reference's (4,2) mesh;
+  its blocks writing into the whole mesh's outputs at (dp, sp) (1,1),
+  (2,1), (1,2), (2,2) and E 1, 3, 4, 33 a block against the reference's
+  sharded pipeline on the same mesh shape (no ``torch.cat`` or
+  ``torch.stack``), blocks of another device copied and combined, and an
+  empty world;
 - `receipts_with_match`, ids outside [0, num) included; the fingerprint
   mask sharded over port meshes
   against the reference's mesh branch; the full-word mask sharded (rows
@@ -222,6 +227,89 @@ def test_sharded_pipeline_refuses_uneven_blocks(shape):
     _, shard_batch = sharded_match_pipeline(_cpu_mesh(8, 2))
     with pytest.raises(ValueError, match="divide"):
         shard_batch(_batch(*shape), T0, T1, ACTOR)
+
+
+# --- the blocks' writes into the whole mesh's outputs ---------------------------------
+
+# (dp, sp) meshes, and the events a receipt of one block holds
+BLOCK_MESHES = [(1, 1), (2, 1), (1, 2), (2, 2)]
+BLOCK_EVENTS = [1, 3, 4, 33]
+_ref_sharded_fns: dict = {}
+
+
+def _ref_sharded_run(batch, dp: int, sp: int, actor):
+    """The JAX package's sharded pipeline over its (dp, sp) mesh of
+    virtual CPU devices (one jit per mesh, kept)."""
+    if (dp, sp) not in _ref_sharded_fns:
+        _ref_sharded_fns[dp, sp] = ref_pipeline.sharded_match_pipeline(ref_mesh_mod.make_mesh(dp * sp, sp=sp))
+    jitted, shard = _ref_sharded_fns[dp, sp]
+    return jitted(*shard(batch, T0, T1, actor))
+
+
+def _edge_batch(t: int, r: int, e: int, seed: int) -> EventBatch:
+    """Planted matches, and rows failing each other predicate."""
+    batch = _batch(t=t, r=r, e=e, rate=0.5, seed=seed)
+    rng = np.random.default_rng(seed)
+    batch.valid[rng.random(batch.shape) < 0.1] = False
+    batch.n_topics[rng.random(batch.shape) < 0.1] = 1
+    batch.emitters[rng.random(batch.shape) < 0.2] = ACTOR + 1
+    return batch
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("the combine ran a PyTorch concatenation or stack")
+
+
+@pytest.mark.parametrize("dp,sp", BLOCK_MESHES, ids=[f"{dp}x{sp}" for dp, sp in BLOCK_MESHES])
+@pytest.mark.parametrize("e", BLOCK_EVENTS, ids=[f"E{e}" for e in BLOCK_EVENTS])
+@pytest.mark.parametrize("actor", [None, ACTOR], ids=["no-filter", "actor"])
+def test_sharded_pipeline_writes_blocks_into_the_mesh_outputs(monkeypatch, dp, sp, e, actor):
+    """On one device every block writes its mask slice, its hits (stored
+    by a row's first block, ORed by the rest) and its count (stored by the
+    first block, added by the rest) into the whole mesh's outputs: no
+    ``torch.cat`` or ``torch.stack``, and the result equals the JAX
+    package's sharded and single-device pipelines."""
+    batch = _edge_batch(2 * dp, 8, sp * e, seed=10 * dp + sp + e)
+    fn, shard_batch = sharded_match_pipeline(_cpu_mesh(dp * sp, sp))
+    args = shard_batch(batch, T0, T1, actor)
+    monkeypatch.setattr(torch, "cat", _refuse)
+    monkeypatch.setattr(torch, "stack", _refuse)
+    got = fn(*args)
+    monkeypatch.undo()
+    _assert_same(got, _ref_sharded_run(batch, dp, sp, actor))
+    _assert_same(got, ref_pipeline.match_pipeline(*_ref_args(batch, actor)))
+    assert int(got[2]) > 0 and not bool(got[0].all())
+
+
+@pytest.mark.parametrize("dp,sp", BLOCK_MESHES[1:], ids=[f"{dp}x{sp}" for dp, sp in BLOCK_MESHES[1:]])
+@pytest.mark.parametrize("e", [1, 33], ids=["E1", "E33"])
+def test_sharded_pipeline_combines_blocks_of_another_device(dp, sp, e):
+    """Blocks whose mesh device is not the first one's (here
+    ``torch.device("cpu", 0)`` beside ``torch.device("cpu")``) compute
+    their own outputs, which are copied over and combined: the same
+    result as the JAX package."""
+    n = dp * sp
+    devices = [CPU if k % 2 == 0 else torch.device("cpu", 0) for k in range(n)]
+    batch = _edge_batch(2 * dp, 5, sp * e, seed=n + e)
+    fn, shard_batch = sharded_match_pipeline(make_mesh(n, sp=sp, devices=devices))
+    got = fn(*shard_batch(batch, T0, T1, ACTOR))
+    _assert_same(got, _ref_sharded_run(batch, dp, sp, ACTOR))
+
+
+@pytest.mark.parametrize("shape", [(0, 5, 4), (2, 0, 4), (2, 5, 0)], ids=["no-tipsets", "no-receipts", "no-events"])
+def test_sharded_pipeline_on_an_empty_world(shape):
+    """A (2, 2) mesh over an empty world: outputs of the world's shape,
+    no hit and a count of 0, as the JAX package's pipeline gives."""
+    t, r, e = shape
+    batch = EventBatch(
+        topics=np.zeros((t, r, e, 2, 8), np.uint32), n_topics=np.full(shape, 2, np.int32),
+        emitters=np.full(shape, ACTOR, np.int32), valid=np.ones(shape, bool),
+    )
+    fn, shard_batch = sharded_match_pipeline(_cpu_mesh(4, 2))
+    hits, mask, count = fn(*shard_batch(batch, T0, T1, ACTOR))
+    assert tuple(hits.shape) == (t, r) and tuple(mask.shape) == shape
+    _assert_same((hits, mask, count), ref_pipeline.match_pipeline(*_ref_args(batch, ACTOR)))
+    assert int(count) == 0
 
 
 # --- receipts_with_match and the sharded fingerprint mask -------------------------
