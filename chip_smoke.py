@@ -1179,9 +1179,10 @@ def _reject_changed_value(bundle) -> None:
 
 # the row count of each blake2b launch in this process since the last
 # `_reset_counts`, by kernel (`record_launch_rows`), and beside each
-# launch-count dict `_counts` returned, the rows of its launches
+# launch-count dict `_counts` returned, the rows of its launches and the
+# wrappers' own `ROWS` then
 _launch_rows: "dict[str, collections.Counter[int]]" = {}
-_rows_behind: "list[tuple[dict, dict]]" = []
+_rows_behind: "list[tuple[dict, dict, dict]]" = []
 _rows_lock = threading.Lock()
 
 
@@ -1211,8 +1212,9 @@ def _reset_counts() -> None:
 
 def _counts() -> "dict[str, int]":
     counts = dict(blake2b.LAUNCHES, **keccak.LAUNCHES, **match.LAUNCHES, **pipeline.LAUNCHES)
+    rows = dict(blake2b.ROWS, **keccak.ROWS, **match.ROWS)
     with _rows_lock:
-        _rows_behind.append((counts, {name: collections.Counter(c) for name, c in _launch_rows.items()}))
+        _rows_behind.append((counts, {name: collections.Counter(c) for name, c in _launch_rows.items()}, rows))
     return counts
 
 
@@ -1221,17 +1223,21 @@ def launch_rows_by_path(launch_counts: "dict[str, dict]", names) -> dict:
     over all paths (``launch_counts``: path label -> its launch counts):
     the launches counted, those whose rows this process recorded (a
     path's counts that `_counts` returned, its recorded rows adding up to
-    them), the paths whose launches it did not see (launched in child
-    processes, or counts put together otherwise), and the recorded rows
-    exactly and in power-of-two bins [2^k, 2^(k+1))."""
+    them and to the wrapper's ``ROWS`` then), the paths whose launches it
+    did not see (launched in child processes, or counts put together
+    otherwise), and the recorded rows exactly and in power-of-two bins
+    [2^k, 2^(k+1))."""
     out = {}
     for name in names:
         rows: "collections.Counter[int]" = collections.Counter()
         recorded, unseen = 0, {}
         for label, counts in launch_counts.items():
             k = counts.get(name, 0)
-            seen = next((r.get(name, collections.Counter()) for c, r in _rows_behind if c is counts), None)
+            seen, counted = next(((r.get(name, collections.Counter()), t[name]) for c, r, t in _rows_behind
+                                  if c is counts), (None, None))
             if seen is not None and sum(seen.values()) == k:
+                if sum(n * m for n, m in seen.items()) != counted:
+                    raise AssertionError(f"{label}: {name} launched {dict(seen)} rows, ROWS counted {counted}")
                 rows.update(seen)
                 recorded += k
             elif k:
@@ -7557,12 +7563,13 @@ def main(argv=None) -> int:
     launch_counts["tools soak"] = paths["tools"]["soak"]["launches"]
 
     kernels.update(paths["device match pipeline"]["kernels"])
-    # the row counts the paths launched the split kernels at, and those of
-    # them up to the crossover sweep's last that it did not time
-    split_names = ("blake2b256_single_block", "blake2b256_two_block")
-    for name, rows_of in launch_rows_by_path(launch_counts, split_names).items():
-        rows_of["unswept"] = [int(n) for n in rows_of["rows"] if int(n) <= max(SPLIT_SWEEP)
-                              and int(n) not in SPLIT_SWEEP]
+    # the row counts the paths launched each blake2b kernel at, and those of
+    # them up to the crossover sweep's last that it did not time (the split
+    # kernels')
+    for name, rows_of in launch_rows_by_path(launch_counts, SIZE_CLASSES).items():
+        if name != "blake2b256_blocks":
+            rows_of["unswept"] = [int(n) for n in rows_of["rows"] if int(n) <= max(SPLIT_SWEEP)
+                                  and int(n) not in SPLIT_SWEEP]
         kernels[name]["launch_rows"] = rows_of
         _log(f"{name} launches over all paths by rows (power-of-two bins): {json.dumps(rows_of)}")
     # blake2b256_blocks at the event path's own multi-block witness rows

@@ -35,11 +35,13 @@ builds the kernels before such threads start.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ipc_proofs_tpu_torch.obs.trace import phase_span
 from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
 from ipc_proofs_tpu_torch.ops.build import KERNEL_LIBRARIES, load_libraries
 from ipc_proofs_tpu_torch.ops.pack import (
@@ -57,11 +59,6 @@ from ipc_proofs_tpu_torch.state.events import StampedEvent
 
 __all__ = ["GpuBackend", "SIZE_CLASSES", "size_class", "KECCAK_CLASSES", "keccak_class"]
 
-# the blake2b kernel (an `ops.blake2b` function name) of each size class
-SIZE_CLASSES = ("blake2b256_single_block", "blake2b256_two_block", "blake2b256_blocks")
-# the keccak kernel (an `ops.keccak` function name) of each size class
-KECCAK_CLASSES = ("keccak256_single_block", "keccak256_blocks")
-
 
 def size_class(n_bytes: int) -> str:
     """The kernel `GpuBackend.blake2b256_batch` gives an n-byte message."""
@@ -75,18 +72,53 @@ def keccak_class(n_bytes: int) -> str:
     return "keccak256_single_block" if n_bytes < RATE_BYTES else "keccak256_blocks"
 
 
-def _split(messages: Sequence[bytes], classes: "tuple[str, ...]", route, hashers) -> list[bytes]:
-    """Hash each message with its class's hasher, one call per non-empty
-    class, digests back in input order."""
-    rows: "dict[str, list[int]]" = {name: [] for name in classes}
+# each size class's host packing: the arrays its kernel (the `ops.blake2b`
+# or `ops.keccak` function of the class's name) takes, rows padded to whole
+# tiles where the kernel wants them
+_BLAKE2B_PACKS = {
+    "blake2b256_single_block": lambda m: pack_single_block_blake2b(m)[:3],
+    "blake2b256_two_block": lambda m: pack_two_block_blake2b(m)[:3],
+    "blake2b256_blocks": pad_blake2b,
+}
+_KECCAK_PACKS = {
+    "keccak256_single_block": lambda m: pack_single_block_keccak(m)[:2],
+    "keccak256_blocks": pad_keccak,
+}
+# the blake2b kernel (an `ops.blake2b` function name) of each size class
+SIZE_CLASSES = tuple(_BLAKE2B_PACKS)
+# the keccak kernel (an `ops.keccak` function name) of each size class
+KECCAK_CLASSES = tuple(_KECCAK_PACKS)
+
+
+def _split(messages: Sequence[bytes], route, packs, ops, device) -> list[bytes]:
+    """Hash each message with its class's kernel (``ops``'s function of
+    the class's name) on ``device``, one call per non-empty class, digests
+    back in input order. Inside a trace a call is one ``gpu.call`` span
+    (`phase_span`; attributes ``kernel``, ``messages``) whose four phases,
+    in order, are its attributes in us: ``pack_us`` (its messages into
+    host arrays), ``copy_us`` (the arrays to the device), ``wait_us`` (the
+    launch, then the host blocked on the kernel and the copy back) and
+    ``unpack_us`` (the digests to bytes, each to its message's place)."""
+    rows: "dict[str, list[int]]" = {name: [] for name in packs}
     for i, message in enumerate(messages):
         rows[route(len(message))].append(i)
     out: "list[bytes | None]" = [None] * len(messages)
     for name, positions in rows.items():
-        if positions:
-            digests = hashers[name]([messages[i] for i in positions])
-            for i, digest in zip(positions, digests):
+        if not positions:
+            continue
+        with phase_span("gpu.call", {"kernel": name, "messages": len(positions)}) as sp:
+            t0 = time.perf_counter_ns()
+            arrays = packs[name]([messages[i] for i in positions])
+            t1 = time.perf_counter_ns()
+            tensors = [to_int32(a, device) for a in arrays]
+            t2 = time.perf_counter_ns()
+            words = getattr(ops, name)(*tensors)[: len(positions)].cpu().numpy()
+            t3 = time.perf_counter_ns()
+            for i, digest in zip(positions, digests_to_bytes(words)):
                 out[i] = digest
+            t4 = time.perf_counter_ns()
+            sp.attrs.update(pack_us=(t1 - t0) / 1000, copy_us=(t2 - t1) / 1000,
+                            wait_us=(t3 - t2) / 1000, unpack_us=(t4 - t3) / 1000)
     return out
 
 
@@ -119,58 +151,19 @@ class GpuBackend:
             load_libraries(KERNEL_LIBRARIES)
 
     def keccak256_batch(self, messages: Sequence[bytes]) -> list[bytes]:
-        hashers = {
-            "keccak256_single_block": self._keccak_single_block,
-            "keccak256_blocks": self._keccak_multi_block,
-        }
-        return _split(messages, KECCAK_CLASSES, keccak_class, hashers)
-
-    def _keccak_single_block(self, messages: "list[bytes]") -> list[bytes]:
-        lo, hi, n = pack_single_block_keccak(messages)
-        words = keccak.keccak256_single_block(to_int32(lo, self.device), to_int32(hi, self.device))
-        return digests_to_bytes(words[:n].cpu().numpy())
-
-    def _keccak_multi_block(self, messages: "list[bytes]") -> list[bytes]:
-        blocks, n_blocks = pad_keccak(messages)
-        words = keccak.keccak256_blocks(to_int32(blocks, self.device), to_int32(n_blocks, self.device))
-        return digests_to_bytes(words.cpu().numpy())
+        return _split(messages, keccak_class, _KECCAK_PACKS, keccak, self.device)
 
     def blake2b256_batch(self, messages: Sequence[bytes]) -> list[bytes]:
-        hashers = {
-            "blake2b256_single_block": self._single_block,
-            "blake2b256_two_block": self._two_block,
-            "blake2b256_blocks": self._multi_block,
-        }
-        return _split(messages, SIZE_CLASSES, size_class, hashers)
-
-    def _single_block(self, messages: "list[bytes]") -> list[bytes]:
-        m_lo, m_hi, lengths, n = pack_single_block_blake2b(messages)
-        words = blake2b.blake2b256_single_block(
-            to_int32(m_lo, self.device), to_int32(m_hi, self.device), to_int32(lengths, self.device)
-        )
-        return digests_to_bytes(words[:n].cpu().numpy())
-
-    def _two_block(self, messages: "list[bytes]") -> list[bytes]:
-        m_lo, m_hi, lengths, n = pack_two_block_blake2b(messages)
-        words = blake2b.blake2b256_two_block(
-            to_int32(m_lo, self.device), to_int32(m_hi, self.device), to_int32(lengths, self.device)
-        )
-        return digests_to_bytes(words[:n].cpu().numpy())
-
-    def _multi_block(self, messages: "list[bytes]") -> list[bytes]:
-        blocks, n_blocks, lengths = pad_blake2b(messages)
-        words = blake2b.blake2b256_blocks(
-            to_int32(blocks, self.device), to_int32(n_blocks, self.device), to_int32(lengths, self.device)
-        )
-        return digests_to_bytes(words.cpu().numpy())
+        return _split(messages, size_class, _BLAKE2B_PACKS, blake2b, self.device)
 
     def verify_block_cids(
         self, cids_digests: Sequence[bytes], blocks: Sequence[bytes]
     ) -> bool:
         digests = self.blake2b256_batch(blocks)
-        return len(digests) == len(cids_digests) and all(
-            d == e for d, e in zip(digests, cids_digests)
-        )
+        with phase_span("gpu.compare"):
+            return len(digests) == len(cids_digests) and all(
+                d == e for d, e in zip(digests, cids_digests)
+            )
 
     def event_match_mask(
         self,

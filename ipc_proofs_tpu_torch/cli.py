@@ -1133,8 +1133,10 @@ def _cmd_serve(args) -> int:
         backend.device,
     )
     # the launches of start-up (the lane's crossover measurement over a new
-    # --store-dir); the drain's line less this one is what serving launched
+    # --store-dir) and their rows; the drain's lines less these are what
+    # serving launched, and how full its launches were
     log.info("kernel launches: %s", json.dumps(_kernel_launches()))
+    log.info("kernel rows: %s", json.dumps(_kernel_rows()))
 
     def _sigterm(_signum, _frame):
         raise KeyboardInterrupt
@@ -1154,6 +1156,7 @@ def _cmd_serve(args) -> int:
             _close_client(client)
     log.info("drained; final metrics:\n%s", json.dumps(service.metrics_snapshot()))
     log.info("kernel launches: %s", json.dumps(_kernel_launches()))
+    log.info("kernel rows: %s", json.dumps(_kernel_rows()))
     return 0
 
 
@@ -1394,6 +1397,15 @@ def _kernel_launches() -> dict:
     from ipc_proofs_tpu_torch.parallel import pipeline
 
     return {**blake2b.LAUNCHES, **keccak.LAUNCHES, **match.LAUNCHES, **pipeline.LAUNCHES}
+
+
+def _kernel_rows() -> dict:
+    """The rows (messages or events) the hash and match wrappers' launches
+    in this process took, by kernel: over `_kernel_launches`' count, how
+    full a launch was."""
+    from ipc_proofs_tpu_torch.ops import blake2b, keccak, match
+
+    return {**blake2b.ROWS, **keccak.ROWS, **match.ROWS}
 
 
 def speculate_depth_arg(value):

@@ -48,6 +48,7 @@ from ipc_proofs_tpu_torch.ops.build import check_words, launch_digests, reset_co
 
 __all__ = [
     "LAUNCHES",
+    "ROWS",
     "reset_launch_counts",
     "blake2b256_single_block",
     "blake2b256_single_block_on_lanes",
@@ -69,10 +70,13 @@ LAUNCHES = {
     "blake2b256_two_block": 0,
     "blake2b256_blocks": 0,
 }
+# kernel name -> rows (messages, padding included) those launches took
+ROWS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts() -> None:
     reset_counts(LAUNCHES)
+    reset_counts(ROWS)
 
 
 # --- plain PyTorch versions (int64 lanes) ----------------------------------
@@ -196,7 +200,7 @@ _ARGTYPES = {
 
 
 def _launch(name: str, args: list, n: int, device: torch.device) -> torch.Tensor:
-    return launch_digests("blake2b", name, _ARGTYPES[name], args, n, device, LAUNCHES)
+    return launch_digests("blake2b", name, _ARGTYPES[name], args, n, device, LAUNCHES, ROWS)
 
 
 # Up to this many rows `blake2b256_blocks` puts a message over four lanes,

@@ -12,7 +12,8 @@ and ``parallel/pipeline.py``'s `match_pipeline`) share the rest:
 rule (a CPU tensor runs the plain version, a CUDA tensor launches the
 kernel, any other device raises) and `launch`, which calls a kernel's C
 entry with the output tensors its caller allocated on PyTorch's current
-stream and counts it in the wrapper module's ``LAUNCHES``.
+stream and counts it in the wrapper module's ``LAUNCHES``, and its rows
+(messages or events) in the module's ``ROWS``.
 
 Several host threads may launch at once (the pipelined range driver's
 verify workers and its coalescer's leader): libraries load under a lock,
@@ -81,7 +82,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _loaded: "dict[str, ctypes.CDLL]" = {}  # guarded-by: _lock
 _entries: "dict[tuple[str, str], object]" = {}  # guarded-by: _lock; bound C entries
-_count_lock = threading.Lock()  # guards every wrapper module's LAUNCHES
+_count_lock = threading.Lock()  # guards every wrapper module's LAUNCHES and ROWS
 
 
 class DeviceFaultError(RuntimeError):
@@ -261,18 +262,24 @@ def launch(
     device: torch.device,
     launches: "dict[str, int]",
     count_as: "str | None" = None,
+    rows: "dict[str, int] | None" = None,
+    n_rows: int = 0,
 ) -> None:
     """Call the C entry ``name`` of ``csrc/<library>.cu`` with ``args``, the
     data pointers of ``outputs`` (tensors the caller allocated on
     ``device``) and PyTorch's current stream, count the launch in
-    ``launches[count_as or name]``, and raise `DeviceFaultError` if the
-    launch was refused. Does not synchronise."""
+    ``launches[count_as or name]`` and its ``n_rows`` rows in ``rows``
+    under the same key, and raise `DeviceFaultError` if the launch was
+    refused. Does not synchronise."""
     fn = _entry(library, name, argtypes)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = fn(*args, *(out.data_ptr() for out in outputs), stream)
+    key = count_as or name
     with _count_lock:
-        launches[count_as or name] += 1
+        launches[key] += 1
+        if rows is not None:
+            rows[key] += n_rows
     if rc != 0:
         raise DeviceFaultError(f"{name}: CUDA launch failed with error {rc}")
 
@@ -285,10 +292,11 @@ def launch_digests(
     n: int,
     device: torch.device,
     launches: "dict[str, int]",
+    rows: "dict[str, int]",
 ) -> torch.Tensor:
-    """`launch` a hash entry into a fresh int32 ``[n, 8]`` digest tensor
-    and return it (no launch for ``n == 0``)."""
+    """`launch` a hash entry over ``n`` rows into a fresh int32 ``[n, 8]``
+    digest tensor and return it (no launch for ``n == 0``)."""
     out = torch.empty((n, 8), dtype=torch.int32, device=device)
     if n:
-        launch(library, name, argtypes, args, [out], device, launches)
+        launch(library, name, argtypes, args, [out], device, launches, rows=rows, n_rows=n)
     return out

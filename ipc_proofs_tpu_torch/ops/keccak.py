@@ -32,6 +32,7 @@ from ipc_proofs_tpu_torch.ops.build import check_words, launch_digests, reset_co
 
 __all__ = [
     "LAUNCHES",
+    "ROWS",
     "reset_launch_counts",
     "keccak256_single_block",
     "keccak256_blocks",
@@ -42,10 +43,13 @@ __all__ = [
 # kernel name -> launches since the last reset; bumped only where a wrapper
 # launches its kernel
 LAUNCHES = {"keccak256_single_block": 0, "keccak256_blocks": 0}
+# kernel name -> rows (messages, padding included) those launches took
+ROWS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts() -> None:
     reset_counts(LAUNCHES)
+    reset_counts(ROWS)
 
 
 # --- plain PyTorch versions (int64 lanes) ----------------------------------
@@ -142,7 +146,7 @@ _ARGTYPES = {
 
 
 def _launch(name: str, args: list, n: int, device: torch.device) -> torch.Tensor:
-    return launch_digests("keccak", name, _ARGTYPES[name], args, n, device, LAUNCHES)
+    return launch_digests("keccak", name, _ARGTYPES[name], args, n, device, LAUNCHES, ROWS)
 
 
 def keccak256_single_block(blocks_lo, blocks_hi) -> torch.Tensor:

@@ -51,6 +51,7 @@ from ipc_proofs_tpu_torch.state.events import StampedEvent, extract_evm_log
 
 __all__ = [
     "LAUNCHES",
+    "ROWS",
     "reset_launch_counts",
     "flatten_events",
     "event_match_mask_flat",
@@ -75,6 +76,8 @@ LAUNCHES = {
     "event_match_mask_fp_sharded": 0,
     "receipts_with_match": 0,
 }
+# the same keys -> events those launches took
+ROWS = dict.fromkeys(LAUNCHES, 0)
 
 # the C entries' signatures (`parallel.pipeline` keeps `match_pipeline`'s)
 _ARGTYPES = {
@@ -90,13 +93,16 @@ _ARGTYPES = {
 
 def reset_launch_counts() -> None:
     reset_counts(LAUNCHES)
+    reset_counts(ROWS)
 
 
 def _launch(
-    name: str, args: list, outputs: "list[torch.Tensor]", device: torch.device, count_as: str
+    name: str, args: list, outputs: "list[torch.Tensor]", device: torch.device, count_as: str,
+    n: int,
 ) -> None:
-    """`ops.build.launch` of the ``csrc/match.cu`` entry ``name``."""
-    launch("match", name, _ARGTYPES[name], args, outputs, device, LAUNCHES, count_as)
+    """`ops.build.launch` of the ``csrc/match.cu`` entry ``name`` over
+    ``n`` events."""
+    launch("match", name, _ARGTYPES[name], args, outputs, device, LAUNCHES, count_as, ROWS, n)
 
 
 def pad_to_bucket(n: int, minimum: int = 256) -> int:
@@ -144,7 +150,7 @@ def receipts_with_match(mask: torch.Tensor, receipt_ids: torch.Tensor, num_recei
     if n == 0 or num_receipts == 0:
         return hits.zero_()
     args = [mask.data_ptr(), ids.data_ptr(), n, num_receipts, ids.element_size()]
-    _launch(name, args, [hits], device, name)
+    _launch(name, args, [hits], device, name, n)
     return hits
 
 
@@ -204,7 +210,7 @@ def topic_mask(topics, n_topics, valid, topic0, topic1, count_as: str = "event_m
     mask = torch.empty(n, dtype=torch.bool, device=device)
     if n:
         args = [t.data_ptr() for t in (topics, n_topics, valid, topic0, topic1)] + [n]
-        _launch(name, args, [mask], device, count_as)
+        _launch(name, args, [mask], device, count_as, n)
     return mask
 
 
@@ -278,7 +284,7 @@ def fp_mask(f: torch.Tensor, valid: torch.Tensor, target: int, count_as: str = "
         return fp_mask_plain(f, valid, target)
     mask = torch.empty(n, dtype=torch.bool, device=device)
     if n:
-        _launch(name, [f.data_ptr(), valid.data_ptr(), n, target], [mask], device, count_as)
+        _launch(name, [f.data_ptr(), valid.data_ptr(), n, target], [mask], device, count_as, n)
     return mask
 
 

@@ -161,7 +161,7 @@ def generate_event_proofs_for_range(
         witness_bytes = witness_bytes | storage_witness
         fallback_blocks = list(fallback_blocks) + list(storage_blocks)
 
-    with metrics.stage("range_record"):
+    with metrics.stage("range_record"), metrics.stage("range_materialize"):
         blocks = _materialize_witness(cached, witness_bytes, fallback_blocks)
     return UnifiedProofBundle(
         storage_proofs=storage_proofs, event_proofs=event_proofs, blocks=blocks
@@ -769,8 +769,9 @@ class _MergeFold:
     pipeline drains, and the serial fallback folds from the caller thread.
     """
 
-    def __init__(self, cached: Blockstore):
+    def __init__(self, cached: Blockstore, metrics: Metrics):
         self._cached = cached
+        self._metrics = metrics
         self._lock = named_lock("_MergeFold._lock")
         self.event_proofs: list = []  # guarded-by: _lock
         self.storage_proofs: list = []  # guarded-by: _lock
@@ -786,8 +787,9 @@ class _MergeFold:
                 self._by_cid.setdefault(block.cid.to_bytes(), block)
             todo = set(witness_bytes) - self._by_cid.keys()
             if todo:
-                for block in _materialize_witness(self._cached, todo):
-                    self._by_cid.setdefault(block.cid.to_bytes(), block)
+                with self._metrics.stage("range_materialize"):
+                    for block in _materialize_witness(self._cached, todo):
+                        self._by_cid.setdefault(block.cid.to_bytes(), block)
 
     def finish(self) -> UnifiedProofBundle:
         """One final CID-byte sort over the materialized union."""
@@ -937,7 +939,7 @@ def generate_event_proofs_for_range_pipelined(
         with metrics.stage("range_storage"):
             storage_slots = hash_slot_specs(storage_specs, match_backend)
 
-    fold = _MergeFold(cached)
+    fold = _MergeFold(cached, metrics)
     match_call = None
     if not serial_fallback and scan_workers > 1:
         match_call = MatchCoalescer(match_backend, metrics=metrics).match_fp
@@ -1016,7 +1018,8 @@ def generate_event_proofs_for_range_pipelined(
             if not per_chunk_bundles:
                 return "chunk", proofs, chunk_witness, chunk_fallback
             # a self-contained chunk bundle, to verify off-thread or persist
-            blocks = _materialize_witness(cached, chunk_witness, chunk_fallback)
+            with metrics.stage("range_materialize"):
+                blocks = _materialize_witness(cached, chunk_witness, chunk_fallback)
             bundle = UnifiedProofBundle(storage_proofs=[], event_proofs=proofs, blocks=blocks)
             if path is not None:
                 _write_checkpoint(path, bundle)

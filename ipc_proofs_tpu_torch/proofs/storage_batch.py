@@ -23,6 +23,7 @@ from ipc_proofs_tpu_torch.backend import get_backend
 from ipc_proofs_tpu_torch.core.cid import CID
 from ipc_proofs_tpu_torch.core.dagcbor import decode as cbor_decode
 from ipc_proofs_tpu_torch.ipld.hamt import hamt_get_batch_touched
+from ipc_proofs_tpu_torch.obs.trace import phase_span
 from ipc_proofs_tpu_torch.proofs.bundle import StorageProof, UnifiedProofBundle
 from ipc_proofs_tpu_torch.proofs.chain import Tipset
 from ipc_proofs_tpu_torch.proofs.witness import WitnessCollector
@@ -71,8 +72,9 @@ def hash_slot_specs(specs: Sequence[MappingSlotSpec], hash_backend=None) -> "lis
     every pair."""
     if hash_backend is None:
         hash_backend = get_backend("gpu")
-    preimages = [s.key32() + s.slot_index.to_bytes(32, "big") for s in specs]
-    return hash_backend.keccak256_batch(preimages)
+    with phase_span("storage.slot_hash"):
+        preimages = [s.key32() + s.slot_index.to_bytes(32, "big") for s in specs]
+        return hash_backend.keccak256_batch(preimages)
 
 
 def generate_storage_proofs_batch(
@@ -181,165 +183,170 @@ def generate_storage_proofs_for_pairs(
         return None
     witness: set[bytes] = set()
 
-    # Phase A: per pair — child header decode + parent-state-root cross-check.
-    pair_psr: list[CID] = []
-    for pair in pairs:
-        child_cid = pair.child.cids[0]
-        raw = cached.get(child_cid)
-        if raw is None:
-            raise KeyError(f"missing child header {child_cid}")
-        psr = decode_header_lite(raw).parent_state_root
-        if psr != pair.child.blocks[0].parent_state_root:
-            raise ValueError(
-                "ParentStateRoot mismatch between header CBOR and tipset view"
-            )
-        pair_psr.append(psr)
-        witness.add(child_cid.to_bytes())
-        witness.add(psr.to_bytes())
-
-    # Phase B: unique state roots → actors roots (StateRoot block is part
-    # of the witness; missing → the scalar get_actor_state KeyError).
-    actors_root: dict[CID, CID] = {}
-    # dict.fromkeys = dedup in first-seen pair order (set order is salted)
-    for psr in dict.fromkeys(pair_psr):
-        raw = cached.get(psr)
-        if raw is None:
-            raise KeyError(f"missing StateRoot {psr}")
-        actors_root[psr] = StateRoot.decode(raw).actors
-
-    # Phase C: unique (state root, actor) → ActorState via one batched
-    # recorded walk; then EVM state per unique actor-state CID.
-    actor_ids = sorted({s.actor_id for s in specs})
-    walk_roots: list[CID] = []
-    root_pos: dict[CID, int] = {}
-    owners: list[int] = []
-    keys: list[bytes] = []
-    pairs_keys: list[tuple[CID, int]] = []
-    for psr in sorted(set(pair_psr), key=CID.to_bytes):
-        for actor_id in actor_ids:
-            pos = root_pos.setdefault(actors_root[psr], len(walk_roots))
-            if pos == len(walk_roots):
-                walk_roots.append(actors_root[psr])
-            owners.append(pos)
-            keys.append(Address.new_id(actor_id).to_bytes())
-            pairs_keys.append((psr, actor_id))
-    walk = hamt_get_batch_touched(cached, walk_roots, owners, keys)
-    assert walk is not None  # availability probed above
-    values, touched = walk
-    contract_info: dict[tuple[CID, int], tuple[CID, CID]] = {}
-    evm_cache: dict[CID, CID] = {}
-    for (psr, actor_id), value, item_touched in zip(pairs_keys, values, touched):
-        if value is None:
-            raise KeyError(f"actor not found for {Address.new_id(actor_id)}")
-        witness.update(item_touched)
-        actor = ActorState.from_tuple(value)
-        storage_root = evm_cache.get(actor.state)
-        if storage_root is None:
-            evm_state_raw = cached.get(actor.state)
-            if evm_state_raw is None:
-                raise KeyError(f"missing EVM state {actor.state}")
-            storage_root = parse_evm_state(evm_state_raw).contract_state
-            evm_cache[actor.state] = storage_root
-        witness.add(actor.state.to_bytes())
-        witness.add(storage_root.to_bytes())
-        contract_info[(psr, actor_id)] = (actor.state, storage_root)
-
-    # Phase D: classify each unique storage root once; HAMT-encoded roots
-    # batch their slot walks (grouped by bit width), SmallMap roots resolve
-    # host-side against the root block alone. First-match-wins inside a
-    # SmallMap mirrors `_small_map_lookup`'s list scan.
-    unique_roots = sorted(
-        {info[1] for info in contract_info.values()}, key=CID.to_bytes
-    )
-    resolver: dict[CID, tuple] = {}
-    for root in unique_roots:
-        raw = cached.get(root)
-        if raw is None:
-            raise KeyError(f"missing contract_state root {root}")
-        witness.add(root.to_bytes())
-        kind, payload, bw = classify_storage_root(cbor_decode(raw))
-        if kind == "smallmap":
-            first_wins: dict[bytes, bytes] = {}
-            for k, v in payload["v"]:
-                first_wins.setdefault(k, v)
-            resolver[root] = ("map", first_wins)
-        elif payload is None and 1 <= bw <= 8:
-            resolver[root] = ("hamt", root, bw)  # C: direct at the root
-        elif payload is not None and 1 <= bw <= 8:
-            resolver[root] = ("hamt", payload, bw)
-        else:
-            resolver[root] = ("scalar", None)  # odd bit widths: scalar read
-
-    # batched HAMT slot walks, grouped by bit width; distinct (state root,
-    # actor) pairs often share one storage root across a range, so walks
-    # dedup on (storage_root, slot) — slot_values carries the shared result
-    needed: dict[int, tuple[list, dict, list, list, list]] = {}
-    walk_seen: set[tuple[CID, bytes]] = set()
-    for (psr, actor_id), (_, storage_root) in contract_info.items():
-        kind = resolver[storage_root][0]
-        if kind != "hamt":
-            continue
-        _, walk_root, bw = resolver[storage_root]
-        group = needed.setdefault(bw, ([], {}, [], [], []))
-        g_roots, g_pos, g_owner, g_keys, g_ident = group
-        for spec, slot in zip(specs, slots):
-            if spec.actor_id != actor_id:
-                continue
-            ident = (storage_root, slot)
-            if ident in walk_seen:
-                continue
-            walk_seen.add(ident)
-            pos = g_pos.setdefault(walk_root, len(g_roots))
-            if pos == len(g_roots):
-                g_roots.append(walk_root)
-            g_owner.append(pos)
-            g_keys.append(slot)
-            g_ident.append(ident)
-    slot_values: dict[tuple[CID, bytes], bytes] = {}
-    for bw, (g_roots, _, g_owner, g_keys, g_ident) in sorted(needed.items()):
-        walk = hamt_get_batch_touched(cached, g_roots, g_owner, g_keys, bit_width=bw)
-        assert walk is not None
-        for ident, value, item_touched in zip(g_ident, walk[0], walk[1]):
-            witness.update(item_touched)
-            slot_values[ident] = value
-
-    # Phase E: claims in (pair, spec) order — strings cached per CID.
-    str_cache: dict[CID, str] = {}
-
-    def _s(cid: CID) -> str:
-        out = str_cache.get(cid)
-        if out is None:
-            out = str(cid)
-            str_cache[cid] = out
-        return out
-
-    slot_hex = ["0x" + s.hex() for s in slots]
-    proofs: list[StorageProof] = []
-    for pair, psr in zip(pairs, pair_psr):
-        child_cid = pair.child.cids[0]
-        child_str = _s(child_cid)
-        psr_str = _s(psr)
-        for j, spec in enumerate(specs):
-            actor_state_cid, storage_root = contract_info[(psr, spec.actor_id)]
-            kind = resolver[storage_root]
-            if kind[0] == "map":
-                raw_value = kind[1].get(slots[j])
-            elif kind[0] == "hamt":
-                raw_value = slot_values[(storage_root, slots[j])]
-            else:  # odd bit width: the scalar cascade, recorded
-                recorder = RecordingBlockstore(cached)
-                raw_value = read_storage_slot(recorder, storage_root, slots[j])
-                witness.update(c.to_bytes() for c in recorder.take_seen())
-            proofs.append(
-                StorageProof(
-                    child_epoch=pair.child.height,
-                    child_block_cid=child_str,
-                    parent_state_root=psr_str,
-                    actor_id=spec.actor_id,
-                    actor_state_cid=_s(actor_state_cid),
-                    storage_root=_s(storage_root),
-                    slot=slot_hex[j],
-                    value="0x" + left_pad_32(raw_value or b"").hex(),
+    # Phases A-C are the actors' walk, D the slots' walk, E the claims:
+    # one span each
+    with phase_span("storage.actor_walk"):
+        # Phase A: per pair — child header decode + parent-state-root cross-check.
+        pair_psr: list[CID] = []
+        for pair in pairs:
+            child_cid = pair.child.cids[0]
+            raw = cached.get(child_cid)
+            if raw is None:
+                raise KeyError(f"missing child header {child_cid}")
+            psr = decode_header_lite(raw).parent_state_root
+            if psr != pair.child.blocks[0].parent_state_root:
+                raise ValueError(
+                    "ParentStateRoot mismatch between header CBOR and tipset view"
                 )
-            )
+            pair_psr.append(psr)
+            witness.add(child_cid.to_bytes())
+            witness.add(psr.to_bytes())
+
+        # Phase B: unique state roots → actors roots (StateRoot block is part
+        # of the witness; missing → the scalar get_actor_state KeyError).
+        actors_root: dict[CID, CID] = {}
+        # dict.fromkeys = dedup in first-seen pair order (set order is salted)
+        for psr in dict.fromkeys(pair_psr):
+            raw = cached.get(psr)
+            if raw is None:
+                raise KeyError(f"missing StateRoot {psr}")
+            actors_root[psr] = StateRoot.decode(raw).actors
+
+        # Phase C: unique (state root, actor) → ActorState via one batched
+        # recorded walk; then EVM state per unique actor-state CID.
+        actor_ids = sorted({s.actor_id for s in specs})
+        walk_roots: list[CID] = []
+        root_pos: dict[CID, int] = {}
+        owners: list[int] = []
+        keys: list[bytes] = []
+        pairs_keys: list[tuple[CID, int]] = []
+        for psr in sorted(set(pair_psr), key=CID.to_bytes):
+            for actor_id in actor_ids:
+                pos = root_pos.setdefault(actors_root[psr], len(walk_roots))
+                if pos == len(walk_roots):
+                    walk_roots.append(actors_root[psr])
+                owners.append(pos)
+                keys.append(Address.new_id(actor_id).to_bytes())
+                pairs_keys.append((psr, actor_id))
+        walk = hamt_get_batch_touched(cached, walk_roots, owners, keys)
+        assert walk is not None  # availability probed above
+        values, touched = walk
+        contract_info: dict[tuple[CID, int], tuple[CID, CID]] = {}
+        evm_cache: dict[CID, CID] = {}
+        for (psr, actor_id), value, item_touched in zip(pairs_keys, values, touched):
+            if value is None:
+                raise KeyError(f"actor not found for {Address.new_id(actor_id)}")
+            witness.update(item_touched)
+            actor = ActorState.from_tuple(value)
+            storage_root = evm_cache.get(actor.state)
+            if storage_root is None:
+                evm_state_raw = cached.get(actor.state)
+                if evm_state_raw is None:
+                    raise KeyError(f"missing EVM state {actor.state}")
+                storage_root = parse_evm_state(evm_state_raw).contract_state
+                evm_cache[actor.state] = storage_root
+            witness.add(actor.state.to_bytes())
+            witness.add(storage_root.to_bytes())
+            contract_info[(psr, actor_id)] = (actor.state, storage_root)
+
+    with phase_span("storage.slot_walk"):
+        # Phase D: classify each unique storage root once; HAMT-encoded roots
+        # batch their slot walks (grouped by bit width), SmallMap roots resolve
+        # host-side against the root block alone. First-match-wins inside a
+        # SmallMap mirrors `_small_map_lookup`'s list scan.
+        unique_roots = sorted(
+            {info[1] for info in contract_info.values()}, key=CID.to_bytes
+        )
+        resolver: dict[CID, tuple] = {}
+        for root in unique_roots:
+            raw = cached.get(root)
+            if raw is None:
+                raise KeyError(f"missing contract_state root {root}")
+            witness.add(root.to_bytes())
+            kind, payload, bw = classify_storage_root(cbor_decode(raw))
+            if kind == "smallmap":
+                first_wins: dict[bytes, bytes] = {}
+                for k, v in payload["v"]:
+                    first_wins.setdefault(k, v)
+                resolver[root] = ("map", first_wins)
+            elif payload is None and 1 <= bw <= 8:
+                resolver[root] = ("hamt", root, bw)  # C: direct at the root
+            elif payload is not None and 1 <= bw <= 8:
+                resolver[root] = ("hamt", payload, bw)
+            else:
+                resolver[root] = ("scalar", None)  # odd bit widths: scalar read
+
+        # batched HAMT slot walks, grouped by bit width; distinct (state root,
+        # actor) pairs often share one storage root across a range, so walks
+        # dedup on (storage_root, slot) — slot_values carries the shared result
+        needed: dict[int, tuple[list, dict, list, list, list]] = {}
+        walk_seen: set[tuple[CID, bytes]] = set()
+        for (psr, actor_id), (_, storage_root) in contract_info.items():
+            kind = resolver[storage_root][0]
+            if kind != "hamt":
+                continue
+            _, walk_root, bw = resolver[storage_root]
+            group = needed.setdefault(bw, ([], {}, [], [], []))
+            g_roots, g_pos, g_owner, g_keys, g_ident = group
+            for spec, slot in zip(specs, slots):
+                if spec.actor_id != actor_id:
+                    continue
+                ident = (storage_root, slot)
+                if ident in walk_seen:
+                    continue
+                walk_seen.add(ident)
+                pos = g_pos.setdefault(walk_root, len(g_roots))
+                if pos == len(g_roots):
+                    g_roots.append(walk_root)
+                g_owner.append(pos)
+                g_keys.append(slot)
+                g_ident.append(ident)
+        slot_values: dict[tuple[CID, bytes], bytes] = {}
+        for bw, (g_roots, _, g_owner, g_keys, g_ident) in sorted(needed.items()):
+            walk = hamt_get_batch_touched(cached, g_roots, g_owner, g_keys, bit_width=bw)
+            assert walk is not None
+            for ident, value, item_touched in zip(g_ident, walk[0], walk[1]):
+                witness.update(item_touched)
+                slot_values[ident] = value
+
+    with phase_span("storage.claims"):
+        # Phase E: claims in (pair, spec) order — strings cached per CID.
+        str_cache: dict[CID, str] = {}
+
+        def _s(cid: CID) -> str:
+            out = str_cache.get(cid)
+            if out is None:
+                out = str(cid)
+                str_cache[cid] = out
+            return out
+
+        slot_hex = ["0x" + s.hex() for s in slots]
+        proofs: list[StorageProof] = []
+        for pair, psr in zip(pairs, pair_psr):
+            child_cid = pair.child.cids[0]
+            child_str = _s(child_cid)
+            psr_str = _s(psr)
+            for j, spec in enumerate(specs):
+                actor_state_cid, storage_root = contract_info[(psr, spec.actor_id)]
+                kind = resolver[storage_root]
+                if kind[0] == "map":
+                    raw_value = kind[1].get(slots[j])
+                elif kind[0] == "hamt":
+                    raw_value = slot_values[(storage_root, slots[j])]
+                else:  # odd bit width: the scalar cascade, recorded
+                    recorder = RecordingBlockstore(cached)
+                    raw_value = read_storage_slot(recorder, storage_root, slots[j])
+                    witness.update(c.to_bytes() for c in recorder.take_seen())
+                proofs.append(
+                    StorageProof(
+                        child_epoch=pair.child.height,
+                        child_block_cid=child_str,
+                        parent_state_root=psr_str,
+                        actor_id=spec.actor_id,
+                        actor_state_cid=_s(actor_state_cid),
+                        storage_root=_s(storage_root),
+                        slot=slot_hex[j],
+                        value="0x" + left_pad_32(raw_value or b"").hex(),
+                    )
+                )
     return proofs, witness

@@ -5,7 +5,9 @@ the `TrustPolicy` becomes two fail-soft closures; storage proofs replay
 through the batched verifier (one C walk of the actors tree for the
 bundle; the scalar loop in the pure-Python universe), then the events
 through the batched event verifier, whose TxMeta CID recompute runs on the
-card.
+card. Each phase is a span: ``verify.cids`` (the witness-CID recompute),
+``verify.load`` (the shared witness store), ``verify.storage`` and
+``verify.events`` (the two replays).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Callable, Optional
 
 from ipc_proofs_tpu_torch.backend import get_backend
 from ipc_proofs_tpu_torch.core.cid import BLAKE2B_256
+from ipc_proofs_tpu_torch.obs.trace import phase_span
 from ipc_proofs_tpu_torch.proofs.bundle import (
     EventProofBundle,
     UnifiedProofBundle,
@@ -49,11 +52,13 @@ def verify_proof_bundle(
     or not ``verify_witness_cids`` is set.
     """
     if verify_witness_cids:
-        _verify_witness_cids(
-            bundle.blocks, cid_backend if cid_backend is not None else get_backend("gpu")
-        )
+        with phase_span("verify.cids"):
+            _verify_witness_cids(
+                bundle.blocks, cid_backend if cid_backend is not None else get_backend("gpu")
+            )
 
-    shared_store = load_witness_store(bundle.blocks)
+    with phase_span("verify.load"):
+        shared_store = load_witness_store(bundle.blocks)
 
     def child_verifier(epoch, cid):
         try:
@@ -67,25 +72,27 @@ def verify_proof_bundle(
         except Exception:  # fail-soft: a throwing trust policy is a rejection — the proof verdict reports invalid, never crashes verify
             return False
 
-    storage_results = None
-    if bundle.storage_proofs:
-        storage_results = verify_storage_proofs_batch(
-            shared_store, bundle.storage_proofs, child_verifier
+    with phase_span("verify.storage"):
+        storage_results = None
+        if bundle.storage_proofs:
+            storage_results = verify_storage_proofs_batch(
+                shared_store, bundle.storage_proofs, child_verifier
+            )
+        if storage_results is None:
+            storage_results = [
+                verify_storage_proof(proof, bundle.blocks, child_verifier, store=shared_store)
+                for proof in bundle.storage_proofs
+            ]
+    with phase_span("verify.events"):
+        event_bundle = EventProofBundle(proofs=bundle.event_proofs, blocks=bundle.blocks)
+        event_results = verify_event_proof(
+            event_bundle,
+            parent_verifier,
+            child_verifier,
+            check_event=event_filter,
+            store=shared_store,
+            hash_backend=cid_backend,
         )
-    if storage_results is None:
-        storage_results = [
-            verify_storage_proof(proof, bundle.blocks, child_verifier, store=shared_store)
-            for proof in bundle.storage_proofs
-        ]
-    event_bundle = EventProofBundle(proofs=bundle.event_proofs, blocks=bundle.blocks)
-    event_results = verify_event_proof(
-        event_bundle,
-        parent_verifier,
-        child_verifier,
-        check_event=event_filter,
-        store=shared_store,
-        hash_backend=cid_backend,
-    )
     return UnifiedVerificationResult(storage_results=storage_results, event_results=event_results)
 
 

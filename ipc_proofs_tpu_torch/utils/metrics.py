@@ -639,6 +639,7 @@ PIPELINE_STAGES = (
     "range_scan",
     "range_match",
     "range_record",
+    "range_materialize",
     "range_merge",
     "range_verify",
     "range_storage",

@@ -367,8 +367,9 @@ class TestSmokeLaneBookkeeping:
         process) is named as unseen, not guessed."""
         import chip_smoke
 
-        def counted(name, args, n, device):
+        def counted(name, args, n, device):  # the wrapper's counting, no kernel
             blake2b.LAUNCHES[name] += 1
+            blake2b.ROWS[name] += n
 
         monkeypatch.setattr(blake2b, "_launch", counted)
         monkeypatch.setattr(blake2b, "runs_plain", lambda name, device: False)
@@ -396,3 +397,10 @@ class TestSmokeLaneBookkeeping:
             "rows": {"1": 1, "256": 1, "300": 1, "2048": 1},
         }
         assert got["blake2b256_two_block"] == {"launches": 0, "recorded": 0, "unseen": {}, "bins": {}, "rows": {}}
+        # the recorded rows are held to the wrapper's own ROWS
+        launch(7)
+        blake2b.ROWS["blake2b256_single_block"] += 1
+        third = chip_smoke._counts()
+        chip_smoke._reset_counts()
+        with pytest.raises(AssertionError, match="ROWS counted 8"):
+            chip_smoke.launch_rows_by_path({"c": third}, ["blake2b256_single_block"])

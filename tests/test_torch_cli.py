@@ -709,6 +709,13 @@ def test_serve_daemons_answer_alike_and_drain_on_sigterm(tmp_path):
         counts = json.loads(line)
         assert "blake2b256_single_block" in counts and "event_match_mask" in counts
         assert set(counts.values()) == {0}, counts
+    # and beside each, the rows those launches took, by kernel
+    row_lines = [json.loads(line.split("kernel rows: ", 1)[1]) for line in codes["port"][1].splitlines()
+                 if "kernel rows: " in line]
+    assert len(row_lines) == 2, codes["port"][1][-2000:]
+    for rows in row_lines:
+        assert {"blake2b256_blocks", "keccak256_single_block", "event_match_mask"} <= set(rows)
+        assert set(rows.values()) == {0}, rows
     proc, base = _spawn_serve("ipc_proofs_tpu_torch.cli", tmp_path / "p", ["--backend", "cpu"])
     try:
         for i in range(3):

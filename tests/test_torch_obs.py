@@ -40,6 +40,8 @@ from ipc_proofs_tpu_torch.parallel.pipeline import PipelineStage, run_pipeline  
 from ipc_proofs_tpu_torch.utils import log as port_log  # noqa: E402
 from ipc_proofs_tpu_torch.utils.metrics import Histogram, Metrics  # noqa: E402
 
+from _torch_trace import no_collections  # noqa: E402
+
 PACKAGES = {
     "port": (trace, Metrics, PipelineStage, run_pipeline, export, prom),
     "ref": (ref_trace, RefMetrics, RefStage, ref_run_pipeline, ref_export, ref_prom),
@@ -78,6 +80,11 @@ def _call_sequence(pkg: str) -> list:
     """Nested spans, a root span, a context hop to a plain thread, a
     pipeline under a span and stage timers; returns the collected spans."""
     tr, metrics_cls, stage_cls, run, _, _ = PACKAGES[pkg]
+    with no_collections():
+        return _call_sequence_spans(tr, metrics_cls, stage_cls, run)
+
+
+def _call_sequence_spans(tr, metrics_cls, stage_cls, run) -> list:
     collector = tr.enable_tracing()
     m = metrics_cls()
     with tr.root_span("request") as root:
@@ -306,7 +313,7 @@ def _normalize_otlp(obj) -> dict:
 def _exported(pkg: str, tmp_path) -> "tuple[dict, dict, int]":
     tr, _, _, _, exp, _ = PACKAGES[pkg]
     collector = tr.enable_tracing()
-    with tr.root_span("cli.range", {"pairs": 4}):
+    with no_collections(), tr.root_span("cli.range", {"pairs": 4}):
         for i in range(3):
             with tr.span(f"rpc.m{i}", {"endpoint": "http://node"}):
                 pass

@@ -320,6 +320,9 @@ PORT_ONLY_METRIC_NAMES = {
         "backfill.device_faults": "a fault of the card stops a backfill job as faulted, never failed "
         "(ROADMAP Queue 3, departures by design)",
     },
+    "PIPELINE_STAGES": {
+        "range_materialize": "the reference times materialization inside `range_record`",
+    },
 }
 
 

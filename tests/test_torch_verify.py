@@ -26,6 +26,7 @@ from ipc_proofs_tpu.core.cid import CID as RefCID  # noqa: E402
 from ipc_proofs_tpu.ops import verify_jax as ref_verify  # noqa: E402
 from ipc_proofs_tpu.store.rpc import verify_block_bytes as ref_verify_block_bytes  # noqa: E402
 from ipc_proofs_tpu_torch.backend import get_backend  # noqa: E402
+from ipc_proofs_tpu_torch.backend.gpu import KECCAK_CLASSES, SIZE_CLASSES  # noqa: E402
 from ipc_proofs_tpu_torch.core.cid import (  # noqa: E402
     BLAKE2B_256,
     CID,
@@ -35,7 +36,7 @@ from ipc_proofs_tpu_torch.core.cid import (  # noqa: E402
     SHA2_256,
 )
 from ipc_proofs_tpu_torch.core.hashes import keccak256  # noqa: E402
-from ipc_proofs_tpu_torch.ops import verify  # noqa: E402
+from ipc_proofs_tpu_torch.ops import blake2b, keccak, verify  # noqa: E402
 from ipc_proofs_tpu_torch.ops.verify import (  # noqa: E402
     SCALAR_ONLY_MIN_BYTES,
     autotune_crossover,
@@ -165,15 +166,15 @@ class TestDifferentialGrid:
         cids, _, blocks, want = grid
         backend = get_backend("gpu", device="cpu")
         dispatches = []
-        for name in ("_single_block", "_two_block", "_multi_block",
-                     "_keccak_single_block", "_keccak_multi_block"):
-            original = getattr(backend, name)
+        for module, classes in ((blake2b, SIZE_CLASSES), (keccak, KECCAK_CLASSES)):
+            for name in classes:
+                original = getattr(module, name)
 
-            def counted(messages, original=original, name=name):
-                dispatches.append(name)
-                return original(messages)
+                def counted(*tensors, original=original, name=name):
+                    dispatches.append(name)
+                    return original(*tensors)
 
-            monkeypatch.setattr(backend, name, counted)
+                monkeypatch.setattr(module, name, counted)
         m = Metrics()
         assert verify_blocks_batch(cids, blocks, metrics=m, backend=backend) == want
         assert len(dispatches) == len(set(dispatches)) == 5
