@@ -36,7 +36,7 @@ from ipc_proofs_tpu_torch.state.actors import (
 from ipc_proofs_tpu_torch.state.address import Address
 from ipc_proofs_tpu_torch.state.events import ascii_to_bytes32, left_pad_32
 from ipc_proofs_tpu_torch.state.header import decode_header_lite, extract_parent_state_root
-from ipc_proofs_tpu_torch.state.storage import classify_storage_root, read_storage_slot
+from ipc_proofs_tpu_torch.state.storage import read_storage_slot, slot_read_route
 from ipc_proofs_tpu_torch.store.blockstore import Blockstore, CachedBlockstore, RecordingBlockstore
 from ipc_proofs_tpu_torch.utils.metrics import Metrics
 
@@ -171,7 +171,7 @@ def generate_storage_proofs_for_pairs(
     pass — child headers decode once per pair, unique (state root, actor)
     pairs resolve through ONE batched C actors-tree walk (with per-item
     witness recording), storage roots classify once
-    (`classify_storage_root`) and the HAMT-encoded ones walk in one more
+    (`slot_read_route`) and the HAMT-encoded ones walk in one more
     batched C call. Returns ``(proofs, witness_cid_bytes)`` with claims in
     (pair, spec) order — field-identical to looping
     `generate_storage_proofs_batch` per pair (tested differentially) —
@@ -252,8 +252,7 @@ def generate_storage_proofs_for_pairs(
     with phase_span("storage.slot_walk"):
         # Phase D: classify each unique storage root once; HAMT-encoded roots
         # batch their slot walks (grouped by bit width), SmallMap roots resolve
-        # host-side against the root block alone. First-match-wins inside a
-        # SmallMap mirrors `_small_map_lookup`'s list scan.
+        # host-side against the root block alone.
         unique_roots = sorted(
             {info[1] for info in contract_info.values()}, key=CID.to_bytes
         )
@@ -263,18 +262,7 @@ def generate_storage_proofs_for_pairs(
             if raw is None:
                 raise KeyError(f"missing contract_state root {root}")
             witness.add(root.to_bytes())
-            kind, payload, bw = classify_storage_root(cbor_decode(raw))
-            if kind == "smallmap":
-                first_wins: dict[bytes, bytes] = {}
-                for k, v in payload["v"]:
-                    first_wins.setdefault(k, v)
-                resolver[root] = ("map", first_wins)
-            elif payload is None and 1 <= bw <= 8:
-                resolver[root] = ("hamt", root, bw)  # C: direct at the root
-            elif payload is not None and 1 <= bw <= 8:
-                resolver[root] = ("hamt", payload, bw)
-            else:
-                resolver[root] = ("scalar", None)  # odd bit widths: scalar read
+            resolver[root] = slot_read_route(root, cbor_decode(raw))
 
         # batched HAMT slot walks, grouped by bit width; distinct (state root,
         # actor) pairs often share one storage root across a range, so walks
@@ -283,7 +271,7 @@ def generate_storage_proofs_for_pairs(
         walk_seen: set[tuple[CID, bytes]] = set()
         for (psr, actor_id), (_, storage_root) in contract_info.items():
             kind = resolver[storage_root][0]
-            if kind != "hamt":
+            if kind != "walk":
                 continue
             _, walk_root, bw = resolver[storage_root]
             group = needed.setdefault(bw, ([], {}, [], [], []))
@@ -331,7 +319,7 @@ def generate_storage_proofs_for_pairs(
                 kind = resolver[storage_root]
                 if kind[0] == "map":
                     raw_value = kind[1].get(slots[j])
-                elif kind[0] == "hamt":
+                elif kind[0] == "walk":
                     raw_value = slot_values[(storage_root, slots[j])]
                 else:  # odd bit width: the scalar cascade, recorded
                     recorder = RecordingBlockstore(cached)

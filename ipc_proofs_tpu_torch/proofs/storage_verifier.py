@@ -6,9 +6,11 @@ Returns False on any mismatch; raises only on malformed inputs.
 
 `verify_storage_proofs_batch` is the range-scale formulation: proofs
 sharing a child header decode it once, unique (state root, actor) pairs
-resolve through ONE batched C HAMT walk, and EVM states parse once each —
-verdicts identical to the scalar loop, per-proof raise behavior preserved.
-The slot re-read (step 6) stays scalar per proof.
+resolve through ONE batched C HAMT walk, EVM states parse once each, and
+the slot re-reads (step 6) classify each storage root once and walk the
+HAMT-encoded ones in one C call per bit width — verdicts identical to the
+scalar loop, per-proof raise behavior preserved. `SLOT_READS` counts the
+slot re-reads by the route they took.
 
 The counterpart of ``ipc_proofs_tpu.proofs.storage_verifier``, without the
 scalar verifier's host-hash ``verify_witness_cids`` flag (the recompute
@@ -17,10 +19,13 @@ runs on the card in `verify_proof_bundle`).
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Iterable, Optional
 
 from ipc_proofs_tpu_torch.core.cid import CID, cids_from_strings
+from ipc_proofs_tpu_torch.core.dagcbor import decode as cbor_decode
 from ipc_proofs_tpu_torch.ipld.hamt import HAMT_BIT_WIDTH, hamt_get_batch
+from ipc_proofs_tpu_torch.obs.trace import current_context
 from ipc_proofs_tpu_torch.proofs.bundle import ProofBlock, StorageProof
 from ipc_proofs_tpu_torch.proofs.witness import load_witness_store
 from ipc_proofs_tpu_torch.state.actors import (
@@ -32,10 +37,17 @@ from ipc_proofs_tpu_torch.state.actors import (
 from ipc_proofs_tpu_torch.state.address import Address
 from ipc_proofs_tpu_torch.state.events import left_pad_32
 from ipc_proofs_tpu_torch.state.header import decode_header_lite, extract_parent_state_root
-from ipc_proofs_tpu_torch.state.storage import read_storage_slot
+from ipc_proofs_tpu_torch.state.storage import read_storage_slot, slot_read_route
 from ipc_proofs_tpu_torch.store.blockstore import MemoryBlockstore
 
-__all__ = ["verify_storage_proof", "verify_storage_proofs_batch"]
+__all__ = ["SLOT_READS", "verify_storage_proof", "verify_storage_proofs_batch"]
+
+# route -> slot re-reads of `verify_storage_proofs_batch` in this process:
+# "walk" resolved by the batched C walk, "map" against a SmallMap root on
+# the host, "scalar" through the per-proof cascade (odd bit widths and the
+# keys the walk did not find)
+SLOT_READS = {"walk": 0, "map": 0, "scalar": 0}
+_reads_lock = threading.Lock()  # guards SLOT_READS
 
 
 def verify_storage_proof(
@@ -85,19 +97,31 @@ def verify_storage_proof(
     return _verify_slot_value(store, CID.from_string(proof.storage_root), proof)
 
 
-def _verify_slot_value(store, storage_root: CID, proof: StorageProof) -> bool:
-    """Step 6, shared by the scalar and batch paths: re-read the slot from
-    the witness (the full five-encoding cascade) and compare values."""
+def _slot_key(proof: StorageProof) -> bytes:
+    """The proof's 32-byte slot key; malformed hex raises ValueError."""
     slot_hex = proof.slot.removeprefix("0x")
     if len(slot_hex) != 64:
         raise ValueError("slot must be 32 bytes of hex")
     slot = bytes.fromhex(slot_hex)
+    if len(slot) != 32:  # fromhex skips whitespace
+        raise ValueError("slot key must be 32 bytes")
+    return slot
+
+
+def _slot_matches(raw_value: Optional[bytes], proof: StorageProof) -> bool:
+    actual = "0x" + left_pad_32(raw_value or b"").hex()
+    return actual.lower() == proof.value.lower()
+
+
+def _verify_slot_value(store, storage_root: CID, proof: StorageProof) -> bool:
+    """Step 6 of one proof: re-read the slot from the witness (the full
+    five-encoding cascade) and compare values."""
+    slot = _slot_key(proof)
     try:
-        raw_value = read_storage_slot(store, storage_root, slot) or b""
+        raw_value = read_storage_slot(store, storage_root, slot)
     except KeyError:
         return False
-    actual = "0x" + left_pad_32(raw_value).hex()
-    return actual.lower() == proof.value.lower()
+    return _slot_matches(raw_value, proof)
 
 
 def verify_storage_proofs_batch(
@@ -119,10 +143,17 @@ def verify_storage_proofs_batch(
       so a proof whose path is missing is False, like the scalar caught
       KeyError;
     - EVM actor states parse once per CID (step 5);
-    - the slot re-read (step 6) runs the scalar per-proof cascade.
+    - the slot re-reads (step 6): each storage root decodes and classifies
+      once; SmallMap roots resolve on the host, HAMT roots of bit width 1-8
+      walk in one tolerant, validating C call per bit width; odd bit widths,
+      and every key the walk did not find (absent, which reads as zero, or
+      under a node missing from the witness, which is False: only the
+      scalar cascade tells them apart), run the scalar per-proof cascade.
 
-    Returns None in the pure-Python universe (callers run the scalar
-    loop).
+    Adds the step-6 routes to `SLOT_READS`, and sets them as attributes
+    ``slot_walk``, ``slot_map``, ``slot_scalar`` on the innermost open span
+    (``verify.storage`` under `verify_proof_bundle`). Returns None in the
+    pure-Python universe (callers run the scalar loop).
     """
     if hamt_get_batch(store, [], [], []) is None:
         return None
@@ -206,9 +237,10 @@ def verify_storage_proofs_batch(
             # malformed ActorState raises, like the scalar from_tuple
             pair_actor[pos] = ActorState.from_tuple(value)
 
-    # Steps 5-6 per surviving proof, with EVM states parsed once per CID.
+    # Step 5 per surviving proof, with EVM states parsed once per CID; the
+    # proofs that pass it go on to step 6 with their slot keys.
     evm_cache: dict[str, "object"] = {}
-    storage_root_cache: dict[str, CID] = {}
+    reads: list[tuple[int, CID, bytes]] = []  # (proof index, storage root, slot)
     for k in survivors:
         proof = proofs[k]
         actor = pair_actor[pair_index[(proof.parent_state_root, proof.actor_id)]]
@@ -224,9 +256,67 @@ def verify_storage_proofs_batch(
             evm_cache[proof.actor_state_cid] = evm_state
         if str(evm_state.contract_state) != proof.storage_root:
             continue
-        storage_root = storage_root_cache.get(proof.storage_root)
-        if storage_root is None:
-            storage_root = CID.from_string(proof.storage_root)
-            storage_root_cache[proof.storage_root] = storage_root
-        results[k] = _verify_slot_value(store, storage_root, proof)
+        reads.append((k, evm_state.contract_state, _slot_key(proof)))
+    counts = _read_slots(store, proofs, reads, results)
+    with _reads_lock:
+        for route, n in counts.items():
+            SLOT_READS[route] += n
+    ctx = current_context()
+    if ctx is not None and ctx.span is not None:
+        for route, n in counts.items():
+            ctx.span.set_attr(f"slot_{route}", n)
     return results
+
+
+def _read_slots(store, proofs, reads, results) -> "dict[str, int]":
+    """Step 6, batched: settle ``results[k]`` for every (k, storage root,
+    slot) of ``reads``; returns the reads by route. Each storage root
+    decodes once and takes its `slot_read_route`: a missing root block is
+    False (the scalar's caught KeyError), a malformed one raises."""
+    counts = dict.fromkeys(SLOT_READS, 0)
+    routes: dict[CID, tuple] = {}
+    walks: dict[int, tuple[list, dict, list, list, list]] = {}  # by bit width
+    for k, root, slot in reads:
+        route = routes.get(root)
+        if route is None:
+            raw = store.get(root)
+            route = ("missing",) if raw is None else slot_read_route(root, cbor_decode(raw))
+            routes[root] = route
+        if route[0] == "map":
+            counts["map"] += 1
+            results[k] = _slot_matches(route[1].get(slot), proofs[k])
+        elif route[0] == "walk":
+            _, walk_root, bw = route
+            w_roots, w_pos, w_owners, w_keys, w_items = walks.setdefault(
+                bw, ([], {}, [], [], [])
+            )
+            pos = w_pos.setdefault(walk_root, len(w_roots))
+            if pos == len(w_roots):
+                w_roots.append(walk_root)
+            w_owners.append(pos)
+            w_keys.append(slot)
+            w_items.append((k, root))
+        elif route[0] == "scalar":
+            counts["scalar"] += 1
+            results[k] = _verify_slot_value(store, root, proofs[k])
+        # "missing": the proof stays False
+    for bw, (w_roots, _, w_owners, w_keys, w_items) in sorted(walks.items()):
+        # tolerant: a missing node reads as not found, and a not-found key
+        # goes to the scalar cascade, which alone tells an absent key (zero)
+        # from a missing witness node (False). validate_blocks: witness
+        # bytes are adversarial, and a fetched node must fail as the
+        # scalar's full decode of it does.
+        values = hamt_get_batch(
+            store, w_roots, w_owners, w_keys, bit_width=bw,
+            skip_missing=True, validate_blocks=True,
+        )
+        for (k, root), value in zip(w_items, values):
+            if value is None:
+                counts["scalar"] += 1
+                results[k] = _verify_slot_value(store, root, proofs[k])
+                continue
+            if not isinstance(value, bytes):
+                raise ValueError("storage slot value must be bytes")
+            counts["walk"] += 1
+            results[k] = _slot_matches(value, proofs[k])
+    return counts

@@ -30,6 +30,7 @@ from ipc_proofs_tpu_torch.store.blockstore import Blockstore
 __all__ = [
     "read_storage_slot",
     "classify_storage_root",
+    "slot_read_route",
     "compute_mapping_slot",
     "calculate_storage_slot",
 ]
@@ -146,6 +147,27 @@ def classify_storage_root(obj) -> "tuple[str, object, int]":
     if isinstance(obj, dict) and isinstance(obj.get("root"), CID) and "bitwidth" in obj:
         return ("hamt", obj["root"], obj["bitwidth"])
     return ("hamt", None, HAMT_BIT_WIDTH)  # C: direct HAMT at the root itself
+
+
+def slot_read_route(root: CID, obj) -> tuple:
+    """How a batch driver reads the slots under the storage root ``root``
+    whose block decoded to ``obj``, by :func:`classify_storage_root`'s arm:
+
+    - ``("map", {key: value})`` — a SmallMap; the first pair of a key wins,
+      as `_small_map_lookup`'s list scan;
+    - ``("walk", hamt_root, bit_width)`` — a HAMT of bit width 1-8, which
+      the batched C walk takes (``hamt_root`` is ``root`` itself for C);
+    - ``("scalar", None)`` — a HAMT of any other bit width: the cascade.
+    """
+    kind, payload, bw = classify_storage_root(obj)
+    if kind == "smallmap":
+        first_wins: dict[bytes, bytes] = {}
+        for key, value in payload["v"]:
+            first_wins.setdefault(key, value)
+        return ("map", first_wins)
+    if type(bw) is int and 1 <= bw <= 8:
+        return ("walk", root if payload is None else payload, bw)
+    return ("scalar", None)
 
 
 def _small_map_shape(obj) -> bool:

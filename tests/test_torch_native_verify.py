@@ -75,6 +75,15 @@ from ipc_proofs_tpu_torch.state.header import decode_header_lite  # noqa: E402
 from ipc_proofs_tpu_torch.state.storage import calculate_storage_slot  # noqa: E402
 from ipc_proofs_tpu_torch.store.blockstore import MemoryBlockstore  # noqa: E402
 
+from _torch_storage_world import (  # noqa: E402
+    ZERO,
+    damaged_outside,
+    slot_path,
+    storage_bundle,
+    with_value,
+    without,
+)
+
 SIG = "NewTopDownMessage(bytes32,uint256)"
 SUBNET = "batch-subnet"
 ACTOR = 321
@@ -444,7 +453,7 @@ def _mutate_storage_proof(rng: random.Random, proof):
 
 
 def _mutate_storage(rng: random.Random, proofs, blocks):
-    kind = rng.randrange(8)
+    kind = rng.randrange(9)
     if kind == 0:
         drop = rng.randrange(len(blocks))
         return proofs, [b for i, b in enumerate(blocks) if i != drop]
@@ -466,6 +475,12 @@ def _mutate_storage(rng: random.Random, proofs, blocks):
         proofs = list(proofs)
         rng.shuffle(proofs)
         return proofs, blocks
+    if kind == 8:  # a zero claim, the last node on its slot path gone
+        i = rng.randrange(len(proofs))
+        path = slot_path(blocks, proofs[i])
+        proofs = list(proofs)
+        proofs[i] = dataclasses.replace(proofs[i], value=ZERO)
+        return proofs, without(blocks, path[-1]) if path else blocks
     proofs = list(proofs)
     for _ in range(rng.randrange(1, 4)):
         i = rng.randrange(len(proofs))
@@ -491,6 +506,83 @@ def test_storage_verdicts_equal_reference_on_mutants(seed):
             assert ours == ref == scalar, f"seed={seed}: ours={ours} ref={ref} scalar={scalar}"
             kinds.add(ours[0] if ours[0] == "raise" else all(ours[1]))
     assert {"raise", False} <= kinds
+
+
+# --- the slot re-read (step 6) -------------------------------------------------
+
+REPLAY_ENCODINGS = [*STORAGE_ENCODINGS, "wrapper_bw3", "wrapper_bw9"]
+REPLAY_CASES = ["absent", "node_removed", "not_bytes", "damaged", "root_missing"]
+_REPLAY_BASES: dict = {}
+
+
+def _replay_base(encoding):
+    """Contract 100 holds 64 slots in ``encoding`` (child HAMT nodes under
+    many of them at bit widths 5 and 3), contract 101 as many in a direct
+    HAMT; each claims 32 absent slots too."""
+    if encoding not in _REPLAY_BASES:
+        _REPLAY_BASES[encoding] = storage_bundle((encoding, "direct"), 64, 32, BACKEND)
+    return _REPLAY_BASES[encoding]
+
+
+def _claims_by_depth(proofs, blocks, absent: bool):
+    """(index, slot path) of contract 100's claims on absent slots or on
+    held ones, the longest path first."""
+    claims = [
+        (k, slot_path(blocks, p))
+        for k, p in enumerate(proofs)
+        if p.actor_id == 100 and (p.value == ZERO) == absent
+    ]
+    return sorted(claims, key=lambda claim: -len(claim[1]))
+
+
+def _replay_case(case, proofs, blocks):
+    """(proofs, blocks, index of the claim the case aims at, what it reads):
+    True, False or "raise"."""
+    if case in ("absent", "node_removed"):
+        k, path = _claims_by_depth(proofs, blocks, absent=True)[0]
+        if case == "absent":
+            return proofs, blocks, k, True
+        return proofs, without(blocks, path[-1]), k, False
+    held = _claims_by_depth(proofs, blocks, absent=False)
+    k, path = held[0]
+    if case == "root_missing":
+        return proofs, without(blocks, path[0]), k, False
+    if case == "not_bytes":
+        slot = bytes.fromhex(proofs[k].slot[2:])
+        return proofs, with_value(blocks, path[-1], slot, 7), k, "raise"
+    for k, path in held:  # damaged: the deepest node that holds a value the walk skips
+        bad = damaged_outside(blocks, path[-1], bytes.fromhex(proofs[k].slot[2:]))
+        if bad is not None:
+            # only the aimed claim reads the damaged node
+            kept = [p for j, p in enumerate(proofs)
+                    if j == k or path[-1] not in slot_path(blocks, p)]
+            return kept, bad, None, "raise"
+    raise AssertionError("no node holds a value outside the walked bucket")
+
+
+@pytest.mark.parametrize("case", REPLAY_CASES)
+@pytest.mark.parametrize("encoding", REPLAY_ENCODINGS)
+def test_slot_reread_equals_scalar_and_reference(encoding, case):
+    """The batched slot re-read against the port's scalar verifier and the
+    reference's batched one, on a claim the case aims at: a zero claim on
+    an absent slot (true); the same with the last node on its path taken
+    from the witness (false, which only the scalar cascade tells from an
+    absent key); a held slot whose value is an integer (raises); a node on
+    a held slot's path with damaged bytes where the walk does not read
+    (raises, as a full decode of the node does); the storage root's block
+    taken away (false)."""
+    proofs, blocks = _replay_base(encoding)
+    if case == "node_removed" and encoding not in ("inline", "wrapper_bw9"):
+        # the removed node lies below the HAMT's root: the walk prunes there
+        assert len(_claims_by_depth(proofs, blocks, absent=True)[0][1]) >= 3
+    proofs, blocks, k, want = _replay_case(case, proofs, blocks)
+    ours, ref, scalar = _storage_outcomes(proofs, blocks)
+    assert ours == ref == scalar, f"ours={ours} ref={ref} scalar={scalar}"
+    if want == "raise":
+        assert ours == ("raise", "abort")
+    else:
+        assert ours[0] == "ok" and ours[1][k] is want
+        assert all(ours[1]) == (case == "absent")
 
 
 # --- whole bundles -----------------------------------------------------------
